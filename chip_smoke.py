@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the deterministic eval render of the flagship
-model (classical positional encoding, scene branch 8x256 with a skip at 4,
-object branch 4x128 with a skip at 2, codes of 64, 64 coarse + 64
-importance samples, instance branch on), on random weights from a seed:
+Drives the port's two main paths, the deterministic eval render and the
+training step of the flagship model (classical positional encoding, scene
+branch 8x256 with a skip at 4, object branch 4x128 with a skip at 2, codes
+of 64, 64 coarse + 64 importance samples, instance branch on), on random
+weights from a seed:
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
-3. holds each kernel against its plain PyTorch version (bf16 operands, f32
-   sums: the kernels' own rounding points) on identical seeded inputs at
-   the chunk shape of the main path, and times both;
+3. holds each eval kernel against its plain PyTorch version (bf16 operands,
+   f32 sums: the kernels' own rounding points) on identical seeded inputs
+   at the chunk shape of the eval path, and times both;
 4. renders one 640x480 frame of the synthetic scene with `render_image`
-   (chunk 7680) and checks that both kernels ran 40 times, that the frame
-   is finite, and that four of its chunks agree with the f32 plain path;
+   (chunk 7680) and checks that both eval kernels ran 40 times, that the
+   frame is finite, and that four of its chunks agree with the f32 plain
+   path;
 5. times the frame (median of a few, after a warm-up);
-6. prints one JSON line describing every kernel, and, last, one JSON line
+6. holds the training kernels `fused_mlp_eval` and `fused_mlp_bwd` against
+   their plain versions at the training shapes (2048 rays x 64 and x 128
+   samples), the backward on the cotangent of a real loss, and times them;
+7. trains: an `ObjectNeRFSystem` on the synthetic scene (batch 2048, 64 + 64
+   samples, perturbation and density noise on, Adam, poly schedule) takes
+   one step through the kernels and the same step through the plain bf16
+   path from identical weights and draws (loss and gradients compared),
+   then 24 more steps: every loss finite, the loss falling, exactly two
+   forward and two backward launches per step; times the step;
+8. prints one JSON line describing every kernel, and, last, one JSON line
    naming the device.
+
+`--profile` adds a `torch.profiler` table of the device time of three
+training steps by kernel.
 
 Any failed check exits non-zero. Without CUDA, or run from a directory that
 holds this file and nothing else of the repository, it exits non-zero and
@@ -37,7 +51,7 @@ import time
 W, H = 640, 480
 CHUNK = 7680  # 640 x 480 = 40 chunks
 SEED = 0
-FRAMES_TIMED = 5
+FRAMES_TIMED = 3
 TIMED_LAUNCHES = 10
 CHECK_CHUNKS = (0, 13, 26, 39)  # chunks of the frame re-rendered on the f32 plain path
 # kernel vs bf16 plain version, on every weight and map: both round the same
@@ -54,6 +68,28 @@ PSNR_FLOOR_DB = 40.0
 # step, so a last-bit difference flips whole rays; raised densities sit clear
 # of it and make every ray composite over its samples
 DENSITY_BIAS = 1.0
+
+# training path: the shape of config/default_conf.yml
+BATCH, N_SAMPLES, N_IMPORTANCE = 2048, 64, 64
+TRAIN_STEPS = 24  # after the compared first step
+STEPS_TIMED = 10
+# backward kernel vs its bf16 plain version on the cotangent of the real loss,
+# per gradient tensor, relative to the tensor's largest reference entry. Both
+# round the same operands to bf16 and differ in the order of their f32 sums;
+# a rounding that flips early in the 8-layer chain moves every later
+# activation of its row by ~1e-4 and flips more roundings downstream, so the
+# two drift apart by a fraction of the bf16 quantisation noise itself (the
+# distance to f32 autograd printed beside each error, ~2e-2). Measured on an
+# H100: 3.6e-4; a wrong term or layout is off by O(1).
+BWD_TOL = 5e-3
+# gradients of a whole step, kernel path vs plain bf16 path: the two forward
+# passes already differ (KERNEL_TOL), hence the coarse weights, the
+# importance samples and the cotangents that enter the backward; measured
+# 3.6e-3, against ~2e-2 between the bf16 and the f32 gradients
+STEP_GRAD_TOL = 2e-2
+# loss of the kernel-path step vs the plain bf16 step, relative: the forward
+# kernels agree with their plain versions to KERNEL_TOL per output
+LOSS_TOL = 1e-3
 
 # dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
 PEAKS = (  # (name substring, TFLOP/s, TB/s)
@@ -113,6 +149,348 @@ def _macs_per_sample(cfg, coarse: bool) -> int:
         m += branch(cfg.inst_W, cfg.inst_D, cfg.inst_skips,
                     pe + cfg.N_obj_code_length, heads=True)
     return m
+
+
+def _bwd_macs_per_sample(cfg) -> int:
+    """Multiply-adds of one sample row through the backward: the forward
+    recompute, one product per weight for its gradient, and the input
+    gradients that have a consumer (none for the PE and direction inputs;
+    only the code columns of the object branch's input)."""
+
+    def input_grads(width, depth, skips, c_need):
+        m = 0
+        for i in range(depth):
+            if i > 0:
+                m += width * width  # the hidden rows
+            if i == 0 or i in skips:
+                m += c_need * width  # the input rows that need a gradient
+        # sigma head, final, direction layer's hidden part, rgb head
+        return m + width + width * width + width * (width // 2) + (width // 2) * 3
+
+    fwd = _macs_per_sample(cfg, False)
+    return (2 * fwd + input_grads(cfg.W, cfg.D, cfg.skips, 0)
+            + input_grads(cfg.inst_W, cfg.inst_D, cfg.inst_skips, cfg.N_obj_code_length))
+
+
+def _rel(got, want) -> float:
+    return ((got - want).abs().max() / (want.abs().max() + 1e-30)).item()
+
+
+def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
+    """Phases 6 and 7; returns the two training kernels' entries for the
+    `kernels` line and prints everything else."""
+    import copy
+
+    from object_nerf_torch.config import load_config
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.ops.compositing import composite, composite_instance
+    from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
+    from object_nerf_torch.render.renderer import RenderDraws
+    from object_nerf_torch.train.losses import total_loss
+    from object_nerf_torch.train.optim import make_optimizer
+    from object_nerf_torch.train.system import ObjectNeRFSystem, make_train_step
+
+    root = _repo_root()
+    config = load_config(cli_args=[
+        f"dataset_config={os.path.join(root, 'config', 'synthetic.yml')}",
+        f"train.batch_size={BATCH}", f"model.N_samples={N_SAMPLES}",
+        f"model.N_importance={N_IMPORTANCE}", "model.perturb=1", "model.noise_std=1",
+        "train.optimizer=adam", "train.lr_scheduler=poly", f"train.seed={SEED}",
+        "train.num_epochs=5", "train.nan_check_every=1000000"])
+    kw = dict(img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
+    system = ObjectNeRFSystem(config, dataset=dataset_dict["synthetic"]("train", **kw),
+                              val_dataset=dataset_dict["synthetic"]("val", **kw), device=dev)
+    models, settings, cfg = system.models, system.settings, system.settings.mlp
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    rng = system.batch_rng
+    batch = system._device_batch(system.train_dataset.sample_batch(BATCH, rng))
+    draws = RenderDraws.sample(settings, BATCH, dev, system.generator)
+
+    # -- 6. the training kernels against their plain versions -----------------------
+    rays = batch["rays"]
+    with torch.no_grad():
+        codes = models.code_library(batch["instance_ids"]).contiguous()
+        dir_pe = freq_encode(rays[:, 3:6], cfg.N_freq_dir).contiguous()
+        z_c = stratified_sample(rays[:, 6:7], rays[:, 7:8], N_SAMPLES, False, 1.0,
+                                u=draws.perturb)
+        xyz_c = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_c[..., None]).contiguous()
+        sig_c = fv.mlp_eval_plain(models.nerf_coarse, cfg, xyz_c, dir_pe, codes)[0]
+        w_c = composite(sig_c, sig_c.new_zeros(BATCH, N_SAMPLES, 3), z_c, noise_std=1.0,
+                        noise=draws.noise_coarse).weights
+        z_mid = 0.5 * (z_c[:, :-1] + z_c[:, 1:])
+        z_f = merge_z_vals(z_c, sample_pdf(z_mid, w_c[:, 1:-1], N_IMPORTANCE, u=draws.pdf))
+        xyz_f = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_f[..., None]).contiguous()
+    shapes = {  # samples per ray -> (model, xyz, z, scene noise, instance noise)
+        N_SAMPLES: (models.nerf_coarse, "coarse", xyz_c, z_c, draws.noise_coarse,
+                    draws.noise_inst_coarse),
+        N_SAMPLES + N_IMPORTANCE: (models.nerf_fine, "fine", xyz_f, z_f, draws.noise_fine,
+                                   draws.noise_inst_fine),
+    }
+
+    def real_cotangent(model, typ, xyz, z, noise, noise_inst):
+        """g (n*S, 8) of the training loss with respect to one pass's MLP
+        outputs (from the bf16 plain forward)."""
+        with torch.no_grad():
+            outs = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes)
+        outs = [o.detach().requires_grad_() for o in outs]
+        scene = composite(outs[0], outs[1], z, noise_std=1.0, noise=noise)
+        inst = composite_instance(outs[2], outs[3], z, scene.depth, noise_std=1.0,
+                                  frustum_bound_th=settings.frustum_bound_th,
+                                  pass_through_mask=batch["pass_through_mask"], noise=noise_inst)
+        results = {f"rgb_{typ}": scene.rgb, f"depth_{typ}": scene.depth,
+                   f"rgb_instance_{typ}": inst.rgb, f"depth_instance_{typ}": inst.depth,
+                   f"opacity_instance_{typ}": inst.opacity}
+        total_loss(results, batch, dict(config.loss))[0].backward()
+        n, s = z.shape
+        return torch.cat([outs[0].grad.reshape(n * s, 1), outs[1].grad.reshape(n * s, 3),
+                          outs[2].grad.reshape(n * s, 1), outs[3].grad.reshape(n * s, 3)],
+                         dim=-1).contiguous()
+
+    names = ("sigma", "rgb", "inst_sigma", "inst_rgb")
+    ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
+    plain_ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
+    errs = {"fused_mlp_eval": 0.0, "fused_mlp_bwd": 0.0}
+    pack_ms = 0.0
+    for s_, (model, typ, xyz, z, noise, noise_inst) in shapes.items():
+        with torch.no_grad():
+            packed = fused_mlp.pack_kernel_weights(model, cfg, True)
+            got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes)
+            want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes)
+            torch.cuda.synchronize()
+            e = {k: (a - b).abs().max().item() for k, a, b in zip(names, got, want)}
+            print(f"fused_mlp_eval {tuple(xyz.shape)}: max |kernel - plain bf16| "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g})")
+            errs["fused_mlp_eval"] = max(errs["fused_mlp_eval"], *e.values())
+        g = real_cotangent(model, typ, xyz, z, noise, noise_inst)
+        with torch.no_grad():
+            grads, d_codes = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed)
+            want_g, want_c = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g)
+            torch.cuda.synchronize()
+        # f32 autograd of the f32 plain forward, for scale only (not gated)
+        outs32 = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, matmul_dtype=torch.float32)
+        params = dict(model.named_parameters())
+        g4 = g.reshape(BATCH, s_, 8)
+        f32 = dict(zip(params, torch.autograd.grad(
+            outs32, list(params.values()),
+            [g4[..., 0], g4[..., 1:4], g4[..., 4], g4[..., 5:8]])))
+        del outs32
+        e = {k: _rel(grads[k], want_g[k]) for k in want_g}
+        e["d_codes"] = _rel(d_codes, want_c)
+        e32 = max(_rel(want_g[k], f32[k]) for k in want_g)
+        worst = max(e, key=e.get)
+        print(f"fused_mlp_bwd {tuple(xyz.shape)}, g of the real loss (|g| <= "
+              f"{g.abs().max().item():.1e}): max over {len(e)} tensors of |kernel - plain "
+              f"bf16| / max|plain| = {e[worst]:.2e} at {worst} (tol {BWD_TOL:g}); median "
+              f"{statistics.median(e.values()):.2e}; plain bf16 vs f32 autograd {e32:.2e}")
+        errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e[worst])
+        with torch.no_grad():
+            ms["fused_mlp_eval"][s_] = _cuda_ms(
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True),
+                TIMED_LAUNCHES)
+            ms["fused_mlp_bwd"][s_] = _cuda_ms(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
+                TIMED_LAUNCHES)
+            plain_ms["fused_mlp_eval"][s_] = _cuda_ms(
+                lambda: fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes), 3)
+            plain_ms["fused_mlp_bwd"][s_] = _cuda_ms(
+                lambda: fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g), 3)
+            pack_ms = _cuda_ms(lambda: fused_mlp.pack_kernel_weights(model, cfg, True), 10)
+    with torch.no_grad():  # a ragged last tile, and each branch alone
+        model, _, xyz, _, _, _ = shapes[N_SAMPLES]
+        n_small = 37
+        args = (xyz[:n_small].contiguous(), dir_pe[:n_small].contiguous(),
+                codes[:n_small].contiguous())
+        for fi, cs in ((False, True), (True, False)):
+            got = fv.fused_mlp_eval(model, cfg, *args, forward_instance=fi, compute_scene=cs)
+            want = fv.mlp_eval_plain(model, cfg, *args, forward_instance=fi, compute_scene=cs)
+            e = max((a - b).abs().max().item() for a, b in zip(got, want))
+            off = [k for k, a in zip(names, got) if a.abs().max().item() == 0]
+            print(f"fused_mlp_eval ({n_small}, {N_SAMPLES}) forward_instance={fi} "
+                  f"compute_scene={cs}: max err {e:.2e}, all-zero outputs {off}")
+            errs["fused_mlp_eval"] = max(errs["fused_mlp_eval"], e)
+            if off != ([] if fi and cs else list(names[2:] if cs else names[:2])):
+                raise SystemExit(f"a branch that is off must give zeros, got {off}")
+    if not errs["fused_mlp_eval"] <= KERNEL_TOL:
+        raise SystemExit(f"fused_mlp_eval disagrees with its plain version: "
+                         f"{errs['fused_mlp_eval']:.3e}")
+    if not errs["fused_mlp_bwd"] <= BWD_TOL:
+        raise SystemExit(f"fused_mlp_bwd disagrees with its plain version: "
+                         f"{errs['fused_mlp_bwd']:.3e}")
+
+    # bounds: operations at the dense bf16 peak; bytes that must move (inputs
+    # once, outputs once, the packed weights once). The backward design's own
+    # traffic (stash written and read, per-tile read-modify-write of the
+    # block's partial gradients, the partials read by the reduction) is
+    # printed beside it.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stash_row = 2 * ((cfg.D + 1) * cfg.W + cfg.W // 2 + (cfg.inst_D + 1) * cfg.inst_W
+                     + cfg.inst_W // 2)
+    w_bytes = 2 * packed.w.numel() + 4 * packed.b.numel()
+    g_bytes = 4 * (packed.w.numel() + packed.b.numel())
+    entries = []
+    for name, macs in (("fused_mlp_eval", _macs_per_sample(cfg, False)),
+                       ("fused_mlp_bwd", _bwd_macs_per_sample(cfg))):
+        bound, by = {}, {}
+        for s_ in shapes:
+            rows = BATCH * s_
+            per_ray = 4 * BATCH * (cfg.in_channels_dir + cfg.N_obj_code_length)
+            if name == "fused_mlp_eval":
+                nbytes = rows * (12 + 32) + per_ray + w_bytes
+            else:
+                nbytes = (rows * (12 + 32) + per_ray + w_bytes + g_bytes
+                          + 4 * BATCH * cfg.N_obj_code_length)
+            t_ops, t_bytes = 2 * macs * rows / peak_flops * 1e3, nbytes / peak_bytes * 1e3
+            bound[s_], by[s_] = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+            extra = ""
+            if name == "fused_mlp_bwd":
+                tiles = rows // 128
+                design = (rows * (2 * stash_row - cfg.W - cfg.inst_W)  # dir act. not re-read
+                          + 2 * g_bytes * tiles + g_bytes * min(tiles, n_sm))
+                extra = (f"; its own stash and partial-gradient traffic {design / 1e9:.2f} GB "
+                         f"= {design / peak_bytes * 1e3:.3f} ms at the memory rate")
+            print(f"{name} ({BATCH}, {s_}): {ms[name][s_]:.3f} ms/launch, plain "
+                  f"{plain_ms[name][s_]:.3f} ms, bound {bound[s_]:.3f} ms ({by[s_]}: "
+                  f"{2 * macs * rows / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), "
+                  f"{2 * macs * rows / ms[name][s_] / 1e9:.1f} TFLOP/s achieved{extra}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "object_nerf_torch/ops/csrc/fused_mlp_train.cu",
+            "replaces": ("object_nerf_tpu/ops/pallas_mlp.py:287" if name == "fused_mlp_eval"
+                         else "object_nerf_tpu/ops/pallas_mlp_vjp.py:72"),
+            "max_abs_err": errs[name], "tol": KERNEL_TOL if name == "fused_mlp_eval" else BWD_TOL,
+            "err_is": ("max abs" if name == "fused_mlp_eval"
+                       else "max abs / largest reference entry, per gradient tensor"),
+            # one step launches each kernel once per shape: the sum is its cost
+            "ms": sum(ms[name].values()), "plain_ms": sum(plain_ms[name].values()),
+            "bound_ms": sum(bound.values()), "bound_by": by[N_SAMPLES], "library_ms": None,
+            "ms_by_samples": ms[name], "bound_ms_by_samples": bound,
+        })
+    print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
+
+    # -- 7. the training path -----------------------------------------------------------
+    # the same first step through the kernels and through the plain bf16 path
+    twin = copy.deepcopy(models)
+    plain_step = make_train_step(settings, dict(config.loss),
+                                 make_optimizer(config.train, twin.parameters()),
+                                 system.lr_schedule, plain=True)
+    fused_mlp.reset_launch_counts()
+    m_k = system.train_step(models, batch, draws=draws)
+    m_p = plain_step(twin, batch, draws=draws)
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(m_k["train/loss"]), float(m_p["train/loss"])
+    e = {k: _rel(p.grad, q.grad) for (k, p), q in zip(models.named_parameters(),
+                                                      twin.parameters())}
+    worst = max(e, key=e.get)
+    lr = m_k["lr"]
+    moved = torch.cat([(p - q).abs().reshape(-1) for p, q in zip(models.parameters(),
+                                                                 twin.parameters())])
+    print(f"step 1, kernels vs plain bf16 path: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {abs(loss_k - loss_p) / abs(loss_p):.2e}, tol {LOSS_TOL:g}); gradients: worst "
+          f"{e[worst]:.2e} at {worst} (tol {STEP_GRAD_TOL:g}), median "
+          f"{statistics.median(e.values()):.2e}; updated parameters (Adam, lr {lr:g}): "
+          f"mean |difference| {moved.mean().item():.2e}, max {moved.max().item():.2e}, "
+          f"{(moved > 0.1 * lr).float().mean().item() * 100:.2f} % differ by more than lr/10")
+    if not abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p):
+        raise SystemExit("the kernel-path step's loss disagrees with the plain path's")
+    if not e[worst] <= STEP_GRAD_TOL:
+        raise SystemExit(f"the kernel-path step's gradients disagree: {e[worst]:.3e} at {worst}")
+    # the first Adam step moves an entry by lr * g / (|g| + 1e-8), about lr
+    # whatever the gradient's size: two steps differ by up to 2 lr wherever a
+    # gradient within the tolerance of zero changes its sign, and hardly at all
+    # elsewhere. The gradients above are the comparison that binds; this one
+    # only bounds the update.
+    if not moved.max().item() <= 2.001 * lr:
+        raise SystemExit("the kernel-path step's updated parameters disagree")
+    del twin, plain_step
+
+    losses = [m_k["train/loss"]]
+    for _ in range(TRAIN_STEPS):
+        losses.append(system.training_step(system.train_dataset.sample_batch(BATCH, rng))
+                      ["train/loss"])
+    torch.cuda.synchronize()
+    launches = dict(fused_mlp.launch_counts)
+    losses = [float(x) for x in losses]
+    n_steps = len(losses)
+    print(f"{n_steps} steps: launches {launches} (expect {2 * n_steps} of each training "
+          f"kernel); loss " + " ".join(f"{x:.4f}" for x in losses))
+    if launches != {"fused_coarse_weights": 0, "fused_render_tiles": 0,
+                    "fused_mlp_eval": 2 * n_steps, "fused_mlp_bwd": 2 * n_steps}:
+        raise SystemExit(f"expected 2 forward and 2 backward launches per step: {launches}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise SystemExit("a training loss is not finite")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"loss: mean of the first five {first:.4f}, of the last five {last:.4f}")
+    if not last < first:
+        raise SystemExit("the loss did not fall")
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+
+    # step time: host clock around steps that end in a synchronise; the
+    # optimizer alone by CUDA events
+    times, opt_events = [], []
+    optimizer_step = system.optimizer.step
+
+    def timed_optimizer_step(*a, **k):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = optimizer_step(*a, **k)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    system.optimizer.step = timed_optimizer_step
+    for _ in range(STEPS_TIMED):
+        np_batch = system.train_dataset.sample_batch(BATCH, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.training_step(np_batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    system.optimizer.step = optimizer_step
+    opt_ms = statistics.median(a.elapsed_time(b) for a, b in opt_events)
+    step_ms = statistics.median(times) * 1e3
+    k_fwd, k_bwd = sum(ms["fused_mlp_eval"].values()), sum(ms["fused_mlp_bwd"].values())
+    rest = step_ms - k_fwd - k_bwd - 2 * pack_ms - opt_ms
+    print(f"train step: {step_ms:.2f} ms median of {STEPS_TIMED} (all: "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (step_ms / 1e3):.0f} rays/s; "
+          f"forward kernels {k_fwd:.2f} ms, backward kernels with their reduction "
+          f"{k_bwd:.2f} ms, packing {2 * pack_ms:.2f} ms, optimizer {opt_ms:.2f} ms, glue + "
+          f"loss + autograd + batch upload (by subtraction) {rest:.2f} ms; kernel bound "
+          f"{sum(x['bound_ms'] for x in entries):.2f} ms")
+
+    metrics, _ = system.validation(chunk=4800)
+    print(f"validation through the eval render after {system.global_step} steps: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in metrics.items()))
+    if not all(v == v for v in metrics.values()):
+        raise SystemExit("validation metrics are not finite")
+
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        n_prof = 3
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                system.training_step(system.train_dataset.sample_batch(BATCH, rng))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        print(averages.table(sort_by="cuda_time_total", row_limit=25,
+                             max_name_column_width=60))
+        busy_ms = sum(e.self_device_time_total for e in averages  # kernels and copies only
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        print(f"profiled {n_prof} steps: device busy {busy_ms / n_prof:.2f} ms per step of "
+              f"{wall_ms / n_prof:.2f} ms wall (with the profiler's own cost on the host): "
+              f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
+              f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
+    return entries
 
 
 def main() -> int:
@@ -251,10 +629,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(fused_mlp.launch_counts)
     n_chunks = (W * H) // CHUNK
-    print(f"frame {W}x{H}: launches {launches} (expect {n_chunks} each)")
-    for k, n in launches.items():
-        if n != n_chunks:
-            raise SystemExit(f"{k} launched {n} times on the frame, expected {n_chunks}")
+    print(f"frame {W}x{H}: launches {launches} (expect {n_chunks} of each eval kernel)")
+    if launches != {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
+                    "fused_mlp_eval": 0, "fused_mlp_bwd": 0}:
+        raise SystemExit(f"expected {n_chunks} launches of each eval kernel on the frame")
     for k, v in frame.items():
         if v.shape[0] != W * H or not torch.isfinite(torch.from_numpy(v)).all():
             raise SystemExit(f"frame map {k} is not finite or has shape {v.shape}")
@@ -290,7 +668,12 @@ def main() -> int:
           f"{W * H / (frame_ms / 1e3):.0f} rays/s; kernel bound "
           f"{n_chunks * (bound_ms['fused_coarse_weights'] + bound_ms['fused_render_tiles']):.1f} ms")
 
-    # -- 6. the kernels -------------------------------------------------------------
+    # -- 6, 7. the training kernels and the training path ------------------------------
+    torch.cuda.empty_cache()
+    train_entries = _train_phases(torch, dev, peak_flops, peak_bytes,
+                                  profile="--profile" in sys.argv[1:])
+
+    # -- 8. the kernels -------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
@@ -299,10 +682,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": "object_nerf_torch/ops/csrc/fused_mlp.cu",
          "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
-         "tol": KERNEL_TOL, "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound_ms[k],
-         "bound_by": bound_by[k], "library_ms": None}
+         "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None}
         for k in replaces
-    ]}))
+    ] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -82,6 +82,24 @@ class Config(dict):
         node[parts[-1]] = value
 
     # -- (de)serialization --------------------------------------------------
+    def to_dict(self) -> dict:
+        def unwrap(v):
+            if isinstance(v, Config):
+                return {k: unwrap(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [unwrap(x) for x in v]
+            return v
+
+        return unwrap(self)
+
+    def to_yaml(self) -> str:
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    def save(self, path: str | Path) -> None:
+        Path(path).write_text(self.to_yaml())
+
     @classmethod
     def from_yaml(cls, path: str | Path) -> "Config":
         import yaml

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels (`ops/csrc/*.cu`).
 
-`nvcc` compiles every source under `ops/csrc/` for `sm_90a` into one
+`nvcc` compiles every source under `ops/csrc/` for `sm_90a` (one compiler
+process per source, all started together) and links the objects into one
 shared library with a plain C interface, at first use, into
-`object_nerf_torch/_build/`. The file name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. The library is bound with `ctypes`: every pointer and the stream
-pass as `c_void_p`, every launcher returns `cudaGetLastError()`.
+`object_nerf_torch/_build/`. The file name carries a hash of the sources,
+their shared headers and the flags, so an edited source is rebuilt and a
+stale library is never loaded. The library is bound with `ctypes`: every
+pointer and the stream pass as `c_void_p`, every launcher returns
+`cudaGetLastError()`.
 
 Nothing here runs when the module is imported: the CPU tests import it on
 machines with no `nvcc`.
@@ -26,16 +28,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # name: argtypes (see the extern "C" block of csrc/fused_mlp.cu)
+    # name: argtypes (see the extern "C" blocks of csrc/*.cu)
     "onerf_coarse_weights": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -45,7 +51,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libonerf_{h.hexdigest()[:16]}.so"
@@ -69,16 +75,33 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n"
-           f"{proc.stdout}{proc.stderr}")
+    objs, procs = [], []
+    for src in _sources():  # one compiler per source, all at once
+        obj = so.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", False
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        failed |= proc.returncode != 0
+        log += f"$ {' '.join(cmd)}\n{out}"
+    tmp = so.with_name(f"{tag}.tmp.so")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        failed = proc.returncode != 0
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    log += f"# {time.perf_counter() - t0:.1f} s\n"
     so.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
     return so
 
@@ -94,6 +117,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.onerf_error_string.argtypes = [ctypes.c_int]
     lib.onerf_error_string.restype = ctypes.c_char_p
+    lib.onerf_bwd_stash_elems.argtypes = []
+    lib.onerf_bwd_stash_elems.restype = ctypes.c_longlong
     return lib
 
 

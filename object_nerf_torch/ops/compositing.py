@@ -11,6 +11,10 @@ models/rendering.py:140-229):
   the scene, and the instance rgb is always white-backed;
 * instance occlusion suppression (training only): instance alphas beyond
   scene depth + frustum_bound_th are zeroed outside the pass-through mask.
+
+The density noise comes from a `torch.Generator`, or from explicit standard
+normal draws `noise` of the densities' shape, which take precedence. As in
+the JAX package, `noise_std > 0` adds noise only when one of the two is given.
 """
 
 from __future__ import annotations
@@ -41,16 +45,38 @@ def alphas_from_sigmas(
     deltas: torch.Tensor,
     noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if noise_std > 0.0:
-        sigmas = sigmas + torch.randn(sigmas.shape, dtype=sigmas.dtype,
-                                      device=sigmas.device, generator=generator) * noise_std
+    if noise_std > 0.0 and (noise is not None or generator is not None):
+        if noise is None:
+            noise = torch.randn(sigmas.shape, dtype=sigmas.dtype, device=sigmas.device,
+                                generator=generator)
+        sigmas = sigmas + noise * noise_std
     return 1.0 - torch.exp(-deltas * torch.relu(sigmas))
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """`torch.cumprod` along the last axis for inputs that are never zero.
+    Its backward is the formula PyTorch's own takes when no input is zero,
+    `reverse_cumsum(g * out) / x`, without PyTorch's test for zeros, which
+    reads a flag back from the device and so stalls the host once per call."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (g * out).flip(-1).cumsum(-1).flip(-1) / x
+
+
 def weights_from_alphas(alphas: torch.Tensor) -> torch.Tensor:
-    """w_i = a_i * prod_{j<i} (1 - a_j + eps)   (exclusive transmittance)."""
-    trans = torch.cumprod(1.0 - alphas + T_EPS, dim=-1)
+    """w_i = a_i * prod_{j<i} (1 - a_j + eps)   (exclusive transmittance).
+    alphas <= 1, so every factor is at least eps."""
+    trans = _CumprodPositive.apply(1.0 - alphas + T_EPS)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
     return alphas * trans
 
@@ -63,10 +89,11 @@ def composite(
     last_delta_inf: bool = True,
     white_back: bool = False,
     generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> CompositeOut:
     """Scene-branch compositing. sigmas (N,S), rgbs (N,S,3), z_vals (N,S)."""
     deltas = compute_deltas(z_vals, last_delta_inf)
-    alphas = alphas_from_sigmas(sigmas, deltas, noise_std, generator)
+    alphas = alphas_from_sigmas(sigmas, deltas, noise_std, generator, noise)
     weights = weights_from_alphas(alphas)
     opacity = weights.sum(dim=-1)
     rgb = (weights[..., None] * rgbs).sum(dim=-2)
@@ -86,6 +113,7 @@ def composite_instance(
     pass_through_mask: Optional[torch.Tensor] = None,
     apply_occlusion: bool = True,
     generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> CompositeOut:
     """Instance-branch compositing with occlusion-aware alpha suppression.
 
@@ -95,7 +123,7 @@ def composite_instance(
     alphas are never suppressed.
     """
     deltas = compute_deltas(z_vals, last_delta_inf=False)
-    alphas = alphas_from_sigmas(inst_sigmas, deltas, noise_std, generator)
+    alphas = alphas_from_sigmas(inst_sigmas, deltas, noise_std, generator, noise)
 
     if apply_occlusion and frustum_bound_th > 0:
         occluded = (scene_depth[:, None] + frustum_bound_th) < z_vals

@@ -38,368 +38,17 @@
 // cast to bf16 for the next layer; sigmoid, the positional encoding
 // (sinf/cosf, reference channel order) and the compositing run in f32.
 //
+// The tile, the tensor-core products, the trunk, the heads and the scan are
+// in fused_mlp_common.cuh, shared with the training kernels
+// (fused_mlp_train.cu).
+//
 // Built with nvcc for sm_90a by object_nerf_torch/ops/_build.py and bound
 // with ctypes: plain C entry points, every pointer a device pointer, the
 // stream PyTorch's current stream. The kernels allocate nothing.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-#include <string.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "fused_mlp_common.cuh"
 
 namespace {
-
-constexpr int ROWS = 128;     // sample rows per block (R whole rays x S samples)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int KC = 64;        // K rows of a weight matrix staged per step
-constexpr int WS = 256;       // scene width
-constexpr int WO = 128;       // object width
-constexpr int XCOLS = 128;    // input tile columns: [PE | code | 0 pad]
-constexpr int LDX = XCOLS + 8;
-constexpr int LDH = WS + 8;
-constexpr int LDWST = WS + 8;
-constexpr int MAX_R = 4;      // rays per block (S >= 32)
-constexpr float LEAKY = 0.01f;
-constexpr float T_EPS = 1e-10f;
-
-// Offsets of one branch's weights (bf16 buffer) and biases (f32 buffer), in
-// elements. The layout is written by pack_kernel_weights in fused_mlp.py:
-// trunk layer i is a (K, N) row-major matrix ("in, out"); a skip layer
-// holds the input rows [0, K0) and then the hidden rows [K0, K0 + N); the
-// sigma and rgb heads are stored (out, in); the view-direction layer is
-// split into its hidden part (N, N/2) and its direction part
-// (32, N/2), of which the kernel reads the first c_dir rows.
-enum {
-  T_DEPTH = 0, T_SKIPS = 1, T_K0 = 2, T_TW = 3, T_TB = 11,
-  T_SIGW = 19, T_SIGB = 20, T_FINW = 21, T_FINB = 22,
-  T_DIRWH = 23, T_DIRWD = 24, T_DIRB = 25, T_RGBW = 26, T_RGBB = 27,
-  T_LEN = 28  // trunk tables hold up to 8 layers
-};
-struct BranchTab { int v[T_LEN]; };
-
-// dynamic shared memory layout (bytes; every offset a multiple of 128)
-constexpr int SM_X = 0;
-constexpr int SM_H = SM_X + ROWS * LDX * 2;
-constexpr int SM_W = SM_H + ROWS * LDH * 2;
-constexpr int SM_SCR = SM_W + KC * LDWST * 2;
-constexpr int SM_ROW = SM_SCR + (THREADS / 32) * 256 * 4;  // 9 floats per row
-constexpr int SM_DB = SM_ROW + ROWS * 9 * 4;                // dir biases
-constexpr int SMEM_BYTES = SM_DB + MAX_R * (WS / 2 + WO / 2) * 4;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-// A warp's share of a 128 x N layer output: rows [64*wr, 64*wr + 64),
-// columns [N/4*wc, N/4*wc + N/4) with wr = warp / 4, wc = warp % 4.
-template <int N>
-struct Acc {
-  FragC f[4][N / 64];
-};
-
-template <int N>
-__device__ __forceinline__ void acc_zero(Acc<N>& a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) wmma::fill_fragment(a.f[i][j], 0.0f);
-}
-
-// acc += A[0:128, 0:K] @ Wg[0:K, 0:N]. A is bf16 in shared memory (leading
-// dimension lda); Wg is bf16 row-major (K, N) in device memory, staged
-// through `wst` KC rows at a time. K must be a multiple of KC.
-template <int N>
-__device__ __forceinline__ void gemm(Acc<N>& acc, const bf16* A, int lda,
-                                     const bf16* __restrict__ Wg, int K,
-                                     bf16* wst) {
-  constexpr int LDW = N + 8;
-  constexpr int FN = N / 64;
-  constexpr int VPR = N / 8;  // 16-byte vectors per weight row
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the previous chunk (and any earlier reader) is done
-    for (int v = threadIdx.x; v < KC * VPR; v += THREADS) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      *reinterpret_cast<uint4*>(wst + r * LDW + c) =
-          __ldg(reinterpret_cast<const uint4*>(Wg + (size_t)(k0 + r) * N + c));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      FragA a[4];
-      FragB b[FN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], A + (wr * 64 + i * 16) * lda + k0 + kk, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], wst + kk * LDW + wc * (N / 4) + j * 16, LDW);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc.f[i][j], a[i], b[j], acc.f[i][j]);
-    }
-  }
-}
-
-// f(row, col, value) over the warp's accumulators, through a per-warp f32
-// staging tile. Starts with a block barrier, so f may overwrite the A
-// operand of the product that produced `acc`.
-template <int N, typename F>
-__device__ __forceinline__ void epilogue(Acc<N>& acc, float* scratch_all, F f) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  float* scratch = scratch_all + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) {
-      wmma::store_matrix_sync(scratch, acc.f[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        f(wr * 64 + i * 16 + (e >> 4), wc * (N / 4) + j * 16 + (e & 15), scratch[e]);
-      __syncwarp();
-    }
-  }
-}
-
-__device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : LEAKY * x; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The branch trunk: H[0:128, 0:N] = the output of the last trunk layer.
-template <int N>
-__device__ void run_trunk(const BranchTab& t, const bf16* __restrict__ w,
-                          const float* __restrict__ b, const bf16* X, bf16* H,
-                          bf16* wst, float* scratch) {
-  const int k0 = t.v[T_K0];
-  for (int i = 0; i < t.v[T_DEPTH]; ++i) {
-    Acc<N> acc;
-    acc_zero(acc);
-    const bf16* wl = w + t.v[T_TW + i];
-    if (i == 0) {
-      gemm<N>(acc, X, LDX, wl, k0, wst);
-    } else if ((t.v[T_SKIPS] >> i) & 1) {  // [input, h] @ W
-      gemm<N>(acc, X, LDX, wl, k0, wst);
-      gemm<N>(acc, H, LDH, wl + (size_t)k0 * N, N, wst);
-    } else {
-      gemm<N>(acc, H, LDH, wl, N, wst);
-    }
-    const float* bl = b + t.v[T_TB + i];
-    epilogue<N>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(lrelu(v + bl[c]));
-    });
-  }
-}
-
-// out[r] = H[r, 0:K] . wv[0:K] + bias for the 128 rows; one warp per 16 rows.
-__device__ void head_sigma(const bf16* H, int K, const bf16* __restrict__ wv,
-                           float bias, float* out) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32)
-      s += __bfloat162float(H[r * LDH + k]) * __bfloat162float(wv[k]);
-    s = warp_sum(s);
-    if (lane == 0) out[r] = s + bias;
-  }
-}
-
-// out[r, c] = sigmoid(H[r, 0:K] . wr[c, 0:K] + bias[c]) for c < 3.
-__device__ void head_rgb(const bf16* H, int K, const bf16* __restrict__ wr,
-                         const float* __restrict__ bias, float* out) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float h = __bfloat162float(H[r * LDH + k]);
-      s0 += h * __bfloat162float(wr[k]);
-      s1 += h * __bfloat162float(wr[K + k]);
-      s2 += h * __bfloat162float(wr[2 * K + k]);
-    }
-    s0 = warp_sum(s0);
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      out[r * 3 + 0] = 1.f / (1.f + expf(-(s0 + bias[0])));
-      out[r * 3 + 1] = 1.f / (1.f + expf(-(s1 + bias[1])));
-      out[r * 3 + 2] = 1.f / (1.f + expf(-(s2 + bias[2])));
-    }
-  }
-}
-
-// sigma -> rgb head of one branch after its trunk: the sigma head, `final`
-// (no activation), the view-direction layer (its direction part arrives
-// as the per-ray bias `dbias`, shape (R, N/2)) and the sigmoid rgb head.
-template <int N>
-__device__ void run_heads(const BranchTab& t, const bf16* __restrict__ w,
-                          const float* __restrict__ b, bf16* H, bf16* wst,
-                          float* scratch, const float* dbias, int S,
-                          float* sig, float* rgb) {
-  head_sigma(H, N, w + t.v[T_SIGW], b[t.v[T_SIGB]], sig);
-  {
-    Acc<N> acc;
-    acc_zero(acc);
-    gemm<N>(acc, H, LDH, w + t.v[T_FINW], N, wst);
-    const float* bl = b + t.v[T_FINB];
-    epilogue<N>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(v + bl[c]);
-    });
-  }
-  {
-    constexpr int ND = N / 2;
-    Acc<ND> acc;
-    acc_zero(acc);
-    gemm<ND>(acc, H, LDH, w + t.v[T_DIRWH], N, wst);
-    epilogue<ND>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(lrelu(v + dbias[(r / S) * ND + c]));
-    });
-  }
-  head_rgb(H, N / 2, w + t.v[T_RGBW], b + t.v[T_RGBB], rgb);
-}
-
-// Fill the input tile: z values, and X = [PE(xyz) | code | 0] as bf16.
-// Rows of rays past n_rays are zero.
-__device__ void load_inputs(const float* __restrict__ xyz, const float* __restrict__ z,
-                            const float* __restrict__ codes, int n_rays, int S,
-                            int n_freq, int code_len, bf16* X, float* zs,
-                            float* xyz_s) {
-  const int R = ROWS / S;
-  const int ray0 = blockIdx.x * R;
-  for (int e = threadIdx.x; e < ROWS * 3; e += THREADS) {
-    const int r = e / 3;
-    const int ray = ray0 + r / S;
-    xyz_s[e] = ray < n_rays ? xyz[(size_t)ray0 * S * 3 + e] : 0.f;
-  }
-  for (int r = threadIdx.x; r < ROWS; r += THREADS) {
-    const int ray = ray0 + r / S;
-    zs[r] = ray < n_rays ? z[(size_t)ray0 * S + r] : 0.f;
-  }
-  __syncthreads();
-  const int pe = 3 * (2 * n_freq + 1);
-  for (int e = threadIdx.x; e < ROWS * XCOLS; e += THREADS) {
-    const int r = e / XCOLS, c = e % XCOLS;
-    const int ray = ray0 + r / S;
-    float v = 0.f;
-    if (ray < n_rays) {
-      if (c < 3) {
-        v = xyz_s[r * 3 + c];
-      } else if (c < pe) {
-        const int j = c - 3, k = j / 6, q = j % 6;
-        const float x = xyz_s[r * 3 + (q % 3)] * (float)(1 << k);  // exact
-        v = q < 3 ? sinf(x) : cosf(x);
-      } else if (codes != nullptr && c < pe + code_len) {
-        v = codes[(size_t)ray * code_len + (c - pe)];
-      }
-    }
-    X[r * LDX + c] = __float2bfloat16(v);
-  }
-}
-
-// dbias[rho, j] = b_dir[j] + dir_pe[ray, :] . W_dir[:, j] (operands in bf16,
-// f32 sum): the view-direction input is constant along a ray, so its part
-// of the direction layer is a per-ray bias.
-__device__ void dir_bias(const BranchTab& t, const bf16* __restrict__ w,
-                         const float* __restrict__ b, int ND,
-                         const float* __restrict__ dir_pe, int c_dir,
-                         int n_rays, int R, float* dbias) {
-  const bf16* wd = w + t.v[T_DIRWD];
-  const float* bd = b + t.v[T_DIRB];
-  for (int e = threadIdx.x; e < R * ND; e += THREADS) {
-    const int rho = e / ND, j = e % ND;
-    const int ray = blockIdx.x * R + rho;
-    float s = 0.f;
-    if (ray < n_rays)
-      for (int c = 0; c < c_dir; ++c)
-        s += __bfloat162float(__float2bfloat16(dir_pe[(size_t)ray * c_dir + c])) *
-             __bfloat162float(wd[c * ND + j]);
-    dbias[e] = s + bd[j];
-  }
-}
-
-// One warp composites one ray of S samples (S/32 consecutive samples per
-// lane): alpha = 1 - exp(-delta relu(sigma)), exclusive transmittance
-// T_i = prod_{j<i} (1 - alpha_j + 1e-10), w_i = alpha_i T_i. Returns
-// (rgb, depth, opacity) in lane 0; writes w to w_out when it is given.
-__device__ void composite_ray(const float* sig, const float* rgb, const float* zs,
-                              int S, float last_delta, float* w_out, float out[5]) {
-  const int lane = threadIdx.x & 31;
-  const int P = S / 32;
-  float a[4], t[4];
-  float prod = 1.f;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    if (p < P) {
-      const int i = lane * P + p;
-      const float delta = i < S - 1 ? zs[i + 1] - zs[i] : last_delta;
-      a[p] = 1.f - expf(-delta * fmaxf(sig[i], 0.f));
-      t[p] = 1.f - a[p] + T_EPS;
-      prod *= t[p];
-    }
-  }
-  float incl = prod;  // inclusive scan of the lanes' products
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl *= up;
-  }
-  float T = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) T = 1.f;
-  float op = 0.f, dep = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    if (p < P) {
-      const int i = lane * P + p;
-      const float wi = a[p] * T;
-      T *= t[p];
-      op += wi;
-      dep += wi * zs[i];
-      r0 += wi * rgb[i * 3 + 0];
-      r1 += wi * rgb[i * 3 + 1];
-      r2 += wi * rgb[i * 3 + 2];
-      if (w_out != nullptr) w_out[i] = wi;
-    }
-  }
-  out[0] = warp_sum(r0);
-  out[1] = warp_sum(r1);
-  out[2] = warp_sum(r2);
-  out[3] = warp_sum(dep);
-  out[4] = warp_sum(op);
-}
-
-struct Smem {
-  bf16 *X, *H, *wst;
-  float *scratch, *sig, *rgb, *isig, *irgb, *zs, *dbs, *dbo;
-};
-
-__device__ Smem carve(unsigned char* base) {
-  Smem s;
-  s.X = reinterpret_cast<bf16*>(base + SM_X);
-  s.H = reinterpret_cast<bf16*>(base + SM_H);
-  s.wst = reinterpret_cast<bf16*>(base + SM_W);
-  s.scratch = reinterpret_cast<float*>(base + SM_SCR);
-  float* row = reinterpret_cast<float*>(base + SM_ROW);
-  s.sig = row;
-  s.rgb = row + ROWS;
-  s.isig = row + 4 * ROWS;
-  s.irgb = row + 5 * ROWS;
-  s.zs = row + 8 * ROWS;
-  s.dbs = reinterpret_cast<float*>(base + SM_DB);
-  s.dbo = s.dbs + MAX_R * (WS / 2);
-  return s;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 coarse_weights_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
@@ -410,7 +59,7 @@ coarse_weights_kernel(const float* __restrict__ xyz, const float* __restrict__ z
   Smem s = carve(smem);
   const int R = ROWS / S;
   // the xyz staging reuses the scratch tile (384 floats of its 2048)
-  load_inputs(xyz, z, nullptr, n_rays, S, n_freq, 0, s.X, s.zs, s.scratch);
+  load_inputs(blockIdx.x, xyz, z, nullptr, n_rays, S, n_freq, 0, s.X, s.zs, s.scratch);
   run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
   head_sigma(s.H, WS, w + scene.v[T_SIGW], b[scene.v[T_SIGB]], s.sig);
   __syncthreads();
@@ -436,10 +85,11 @@ render_tiles_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
   extern __shared__ __align__(128) unsigned char smem[];
   Smem s = carve(smem);
   const int R = ROWS / S;
-  load_inputs(xyz, z, forward_instance ? codes : nullptr, n_rays, S, n_freq,
+  load_inputs(blockIdx.x, xyz, z, forward_instance ? codes : nullptr, n_rays, S, n_freq,
               code_len, s.X, s.zs, s.scratch);
-  dir_bias(scene, w, b, WS / 2, dir_pe, c_dir, n_rays, R, s.dbs);
-  if (forward_instance) dir_bias(obj, w, b, WO / 2, dir_pe, c_dir, n_rays, R, s.dbo);
+  dir_bias(blockIdx.x, scene, w, b, WS / 2, dir_pe, c_dir, n_rays, R, s.dbs);
+  if (forward_instance)
+    dir_bias(blockIdx.x, obj, w, b, WO / 2, dir_pe, c_dir, n_rays, R, s.dbo);
   run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
   run_heads<WS>(scene, w, b, s.H, s.wst, s.scratch, s.dbs, S, s.sig, s.rgb);
   if (forward_instance) {
@@ -474,13 +124,6 @@ render_tiles_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
       }
     }
   }
-}
-
-BranchTab to_tab(const int* v) {
-  BranchTab t;
-  memset(&t, 0, sizeof(t));
-  if (v != nullptr) memcpy(t.v, v, sizeof(t.v));
-  return t;
 }
 
 }  // namespace

@@ -9,6 +9,9 @@ Replaces the Pallas TPU kernels of `object_nerf_tpu/ops/pallas_mlp.py`:
   branches and the scene + instance compositing -> per-ray maps;
 * `pack_kernel_weights` (`prepare_kernel_weights`, pallas_mlp.py:340-409).
 
+The training path's two kernels (`fused_mlp_eval` and its backward) are in
+`fused_mlp_vjp.py` and share the packing and the checks of this module.
+
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp.cu`, built by
 `_build.py`). Each wrapper checks device, dtype, shape and contiguity; on a
 CUDA tensor it launches its kernel or raises, and on a CPU tensor it runs
@@ -37,8 +40,10 @@ from .compositing import (
     weights_from_alphas,
 )
 
-# kernel launches since the last reset, by wrapper name
-launch_counts: Dict[str, int] = {"fused_coarse_weights": 0, "fused_render_tiles": 0}
+# kernel launches since the last reset, by wrapper name (the last two are the
+# training kernels' wrappers in fused_mlp_vjp.py)
+launch_counts: Dict[str, int] = {"fused_coarse_weights": 0, "fused_render_tiles": 0,
+                                 "fused_mlp_eval": 0, "fused_mlp_bwd": 0}
 
 
 def reset_launch_counts() -> None:

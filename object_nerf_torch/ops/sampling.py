@@ -2,7 +2,10 @@
 
 Counterpart of `object_nerf_tpu/ops/sampling.py:28-114` (reference
 models/rendering.py:11-61, 260-277, 313). Randomness comes from an optional
-`torch.Generator`; the deterministic eval path needs none.
+`torch.Generator`, or from explicit uniform draws `u` in [0, 1), which take
+precedence (torch and JAX generators give different numbers from one seed,
+so a parity test hands both sides the same draws); the deterministic eval
+path needs neither.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ def stratified_sample(
     use_disp: bool = False,
     perturb: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """near/far (N_rays, 1) -> z_vals (N_rays, n_samples)."""
+    """near/far (N_rays, 1) -> z_vals (N_rays, n_samples). `u` (N_rays,
+    n_samples): the jitter's uniform draws, instead of `generator`'s."""
     z_steps = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype, device=near.device)
     if not use_disp:
         z_vals = near * (1.0 - z_steps) + far * z_steps
@@ -32,9 +37,10 @@ def stratified_sample(
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         upper = torch.cat([z_mid, z_vals[:, -1:]], dim=-1)
         lower = torch.cat([z_vals[:, :1], z_mid], dim=-1)
-        u = perturb * torch.rand(z_vals.shape, dtype=z_vals.dtype,
-                                 device=z_vals.device, generator=generator)
-        z_vals = lower + (upper - lower) * u
+        if u is None:
+            u = torch.rand(z_vals.shape, dtype=z_vals.dtype, device=z_vals.device,
+                           generator=generator)
+        z_vals = lower + (upper - lower) * (perturb * u)
     return z_vals.contiguous()
 
 
@@ -45,13 +51,16 @@ def sample_pdf(
     det: bool = False,
     eps: float = 1e-5,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Draw n_importance samples from the piecewise-constant pdf over bins.
 
     bins (N_rays, B+1) bin edges; weights (N_rays, B) unnormalised masses
     (detached, as the reference does). Returns (N_rays, n_importance).
     Right-sided search; `u` beyond the last cdf edge (u == 1) clamps to the
-    top bin; a bin of (numerically) zero mass gets denominator 1.
+    top bin; a bin of (numerically) zero mass gets denominator 1. `u`
+    (N_rays, n_importance): the uniform draws when not `det`, instead of
+    `generator`'s.
     """
     weights = weights.detach() + eps
     n_rays, n_bins = weights.shape
@@ -62,9 +71,11 @@ def sample_pdf(
     if det:
         u = torch.linspace(0.0, 1.0, n_importance, dtype=cdf.dtype, device=cdf.device)
         u = u.expand(n_rays, n_importance).contiguous()
-    else:
+    elif u is None:
         u = torch.rand((n_rays, n_importance), dtype=cdf.dtype, device=cdf.device,
                        generator=generator)
+    else:
+        u = u.contiguous()
 
     inds = torch.searchsorted(cdf, u, right=True)  # >= 1, since cdf[:, 0] == 0 <= u
     below = inds - 1

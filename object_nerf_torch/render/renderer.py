@@ -1,14 +1,23 @@
-"""The deterministic eval render of the hierarchical two-branch model.
+"""Renders of the hierarchical two-branch model.
 
 Counterpart of `object_nerf_tpu/render/renderer.py`: `RenderSettings`
-(:35-77, without the Pallas/TPU knobs) and `render_rays_fused_eval`
-(:218-306). Per chunk of rays: stratified z -> `fused_coarse_weights`
-(scene density -> pdf weights) -> `sample_pdf` + sort-merge ->
-`fused_render_tiles` (both branches + compositing) -> the final pass's
-maps. The glue between the two kernels is plain tensor code.
+(:35-77, without the Pallas/TPU knobs), the deterministic eval render
+`render_rays_fused_eval` (:218-306) and the stochastic, differentiable
+`render_rays` of the training step (:121-215, :458-525).
 
-The stochastic `render_rays` and the `rays_in_bbox` route (instance-weight
-pdf) come with the training slice; this module raises on them.
+Eval, per chunk of rays: stratified z -> `fused_coarse_weights` (scene
+density -> pdf weights) -> `sample_pdf` + sort-merge -> `fused_render_tiles`
+(both branches + compositing) -> the final pass's maps.
+
+Training: perturbed stratified z -> `fused_mlp_eval` (both branches, raw
+per-sample outputs, differentiable through its backward kernel) -> noisy
+compositing of the scene and the instance -> importance samples from the
+detached coarse weights -> the same again for the fine model. Both passes'
+maps are emitted under the reference's key schema. The glue between the
+kernels is plain tensor code under autograd.
+
+The `rays_in_bbox` route (instance-weight pdf) is not ported yet; this
+module raises on it.
 """
 
 from __future__ import annotations
@@ -21,10 +30,12 @@ from torch import nn
 
 from ..models.embedding import freq_encode
 from ..models.mlp import ObjectNeRFConfig
+from ..ops.compositing import composite, composite_instance
 from ..ops.fused_mlp import (
     PackedWeights, coarse_weights_plain, fused_coarse_weights,
     fused_render_tiles, render_tiles_plain,
 )
+from ..ops.fused_mlp_vjp import fused_mlp_eval, mlp_eval_plain
 from ..ops.sampling import merge_z_vals, sample_pdf, stratified_sample
 
 
@@ -43,7 +54,7 @@ class RenderSettings:
     frustum_bound_th: float = 0.0
     is_eval: bool = False
     rays_in_bbox: bool = False
-    # matmul operand precision of the fused eval passes: the CUDA kernels run
+    # matmul operand precision of the fused passes: the CUDA kernels run
     # bf16; on CPU tensors the plain versions follow this (float32 = exact)
     matmul_dtype: torch.dtype = torch.bfloat16
 
@@ -147,3 +158,121 @@ def render_rays_plain(models: nn.Module, rays: torch.Tensor, settings: RenderSet
 
     return _render_chunk(models, rays, settings, embedding_instance, coarse_fn,
                          tiles_fn, {})
+
+
+# ---------------------------------------------------------------------------
+# The stochastic render of the training step
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RenderDraws:
+    """The random draws of one `render_rays` call, in the order of the JAX
+    package's key split (`renderer.py:479`): uniform [0, 1) for `perturb`
+    (N, N_samples) and `pdf` (N, N_importance), standard normal for the four
+    density noises (coarse (N, N_samples), fine (N, N_samples +
+    N_importance))."""
+
+    perturb: torch.Tensor
+    noise_coarse: torch.Tensor
+    noise_inst_coarse: torch.Tensor
+    pdf: torch.Tensor
+    noise_fine: torch.Tensor
+    noise_inst_fine: torch.Tensor
+
+    @classmethod
+    def sample(cls, settings: RenderSettings, n_rays: int, device,
+               generator: Optional[torch.Generator] = None) -> "RenderDraws":
+        """Draw them from `generator`, which lives on `device` (None: the
+        device's default generator)."""
+        s_c = settings.N_samples
+        s_f = s_c + settings.N_importance
+
+        def u(*shape):
+            return torch.rand(shape, device=device, generator=generator)
+
+        def nrm(*shape):
+            return torch.randn(shape, device=device, generator=generator)
+
+        return cls(u(n_rays, s_c), nrm(n_rays, s_c), nrm(n_rays, s_c),
+                   u(n_rays, settings.N_importance), nrm(n_rays, s_f), nrm(n_rays, s_f))
+
+
+def _eval_models(model: nn.Module, settings: RenderSettings, xyz: torch.Tensor,
+                 dir_pe: torch.Tensor, codes: Optional[torch.Tensor], plain: bool):
+    """Both branches over (N_rays, S) samples: the fused op (kernels on CUDA
+    tensors), or its plain version under autograd when `plain`."""
+    fn = mlp_eval_plain if plain else fused_mlp_eval
+    kw = {"matmul_dtype" if plain else "dtype": settings.matmul_dtype}
+    return fn(model, settings.mlp, xyz.contiguous(), dir_pe, codes,
+              forward_instance=settings.forward_instance, **kw)
+
+
+def _composite_pass(results: Dict[str, torch.Tensor], settings: RenderSettings, typ: str,
+                    raw, z_vals: torch.Tensor, noise: Optional[torch.Tensor],
+                    noise_inst: Optional[torch.Tensor],
+                    pass_through_mask: Optional[torch.Tensor]) -> None:
+    sigma, rgb, inst_sigma, inst_rgb = raw
+    scene = composite(sigma, rgb, z_vals, noise_std=settings.noise_std,
+                      last_delta_inf=True, white_back=settings.white_back, noise=noise)
+    results[f"weights_{typ}"] = scene.weights
+    results[f"opacity_{typ}"] = scene.opacity
+    results[f"z_vals_{typ}"] = z_vals
+    results[f"rgb_{typ}"] = scene.rgb
+    results[f"depth_{typ}"] = scene.depth
+    if settings.forward_instance:
+        inst = composite_instance(
+            inst_sigma, inst_rgb, z_vals, scene.depth, noise_std=settings.noise_std,
+            frustum_bound_th=settings.frustum_bound_th, pass_through_mask=pass_through_mask,
+            apply_occlusion=not settings.is_eval, noise=noise_inst)
+        results[f"rgb_instance_{typ}"] = inst.rgb
+        results[f"depth_instance_{typ}"] = inst.depth
+        results[f"opacity_instance_{typ}"] = inst.opacity
+
+
+def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
+                embedding_instance: Optional[torch.Tensor] = None,
+                pass_through_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RenderDraws] = None,
+                plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Render a batch of rays (N, 8) = [o, d, near, far], differentiably.
+
+    The randomness is `draws` when given, else it is drawn from `generator`
+    on the rays' device; with neither, `perturb` uses the default generator
+    and no density noise is added (as with no key in the JAX package).
+    `plain` routes the MLP through `mlp_eval_plain` under autograd instead of
+    the fused op. Returns both passes' maps under the reference's keys
+    (`rgb_fine`, `opacity_instance_coarse`, `weights_coarse`, ...)."""
+    if settings.rays_in_bbox:
+        raise ValueError("rays_in_bbox (instance-weight pdf, reference "
+                         "rendering.py:228-229) is not ported yet")
+    cfg = settings.mlp
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    if draws is None and generator is not None:
+        draws = RenderDraws.sample(settings, rays.shape[0], rays.device, generator)
+    d = draws
+    codes = embedding_instance if settings.forward_instance else None
+
+    z_vals = stratified_sample(near, far, settings.N_samples, settings.use_disp,
+                               settings.perturb, u=d.perturb if d else None)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    dir_pe = freq_encode(rays_d, cfg.N_freq_dir).contiguous()
+
+    results: Dict[str, torch.Tensor] = {}
+    raw = _eval_models(models.nerf_coarse, settings, xyz, dir_pe, codes, plain)
+    _composite_pass(results, settings, "coarse", raw, z_vals,
+                    d.noise_coarse if d else None, d.noise_inst_coarse if d else None,
+                    pass_through_mask)
+    if settings.N_importance > 0:
+        z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        z_fine = sample_pdf(z_mid, results["weights_coarse"][:, 1:-1], settings.N_importance,
+                            det=(settings.perturb == 0), u=d.pdf if d else None)
+        z_all = merge_z_vals(z_vals, z_fine)
+        xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
+        raw_f = _eval_models(models.nerf_fine, settings, xyz_fine, dir_pe, codes, plain)
+        _composite_pass(results, settings, "fine", raw_f, z_all,
+                        d.noise_fine if d else None, d.noise_inst_fine if d else None,
+                        pass_through_mask)
+    return results

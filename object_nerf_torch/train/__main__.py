@@ -1,0 +1,82 @@
+"""Training CLI.
+
+    python -m object_nerf_torch.train dataset_config=config/synthetic.yml \
+        exp_name=desk [device=cuda] ["img_wh=[640,480]"] [train.batch_size=2048]
+
+Counterpart of the JAX package's `train.py:20-140`, with the same dotted
+overrides (`default_conf.yml < dataset yaml < key=value arguments`): builds
+the datasets and an `ObjectNeRFSystem` on `device` (default `cuda`;
+`device=cpu` runs the kernels' plain versions), writes the run-config
+snapshot, trains with `fit`, saves a checkpoint whenever validation PSNR
+improves, one per epoch (`train.save_top_k`: -1 keeps all, k > 0 the best k
+by the epoch's own validation PSNR, 0 none) and a `last`, under
+`logs/<time>_<exp_name>/`. `ckpt_path=<file>` resumes from one of these
+checkpoints, or starts from a reference checkpoint's weights.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+
+def main(argv) -> None:
+    from ..config import load_config
+    from ..data import dataset_dict
+    from .checkpoint import save_checkpoint, save_config_snapshot
+    from .system import ObjectNeRFSystem
+
+    config = load_config(cli_args=argv)
+    if config.dataset_name not in dataset_dict:
+        raise SystemExit(
+            f"dataset {config.dataset_name!r} is not ported yet (have: "
+            f"{sorted(dataset_dict)}): pass dataset_config=config/synthetic.yml")
+    log_path = os.path.join("logs", time.strftime("%Y-%m-%d_%H-%M-%S") + "_" + config.exp_name)
+    config["log_path"] = log_path
+    print("-" * 40)
+    print(config.to_yaml())
+    print("-" * 40)
+
+    dataset_cls = dataset_dict[config.dataset_name]
+    kwargs = dict(img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
+    system = ObjectNeRFSystem(config, dataset=dataset_cls(split="train", **kwargs),
+                              val_dataset=dataset_cls(split="val", **kwargs),
+                              device=config.get("device", "cuda"))
+    save_config_snapshot(log_path, config)
+
+    best_psnr = float("-inf")
+    epoch_psnr = float("-inf")  # the best val/psnr seen within the current epoch
+
+    def on_val(epoch, it, metrics, sys_):
+        nonlocal best_psnr, epoch_psnr
+        vp = metrics.get("val/psnr", float("-inf"))
+        epoch_psnr = max(epoch_psnr, vp)
+        if vp > best_psnr:
+            best_psnr = vp
+            save_checkpoint(log_path, sys_)
+        print(f"  [val] epoch {epoch} it {it}: psnr {vp:.2f} (best {best_psnr:.2f})")
+
+    save_top_k = int(config.train.get("save_top_k", -1))
+    epoch_ckpts = []  # [(the epoch's own best val/psnr, path)]
+
+    def on_epoch_end(epoch, sys_):
+        nonlocal epoch_psnr
+        save_checkpoint(log_path, sys_, name="last")
+        if save_top_k != 0:
+            epoch_ckpts.append((epoch_psnr, save_checkpoint(log_path, sys_,
+                                                            name=f"epoch_{epoch}")))
+            if 0 < save_top_k < len(epoch_ckpts):
+                epoch_ckpts.sort(key=lambda t: t[0], reverse=True)
+                for _, stale in epoch_ckpts[save_top_k:]:
+                    stale.unlink(missing_ok=True)
+                del epoch_ckpts[save_top_k:]
+        epoch_psnr = float("-inf")
+
+    system.fit(callbacks=[on_val], epoch_end_callbacks=[on_epoch_end])
+    save_checkpoint(log_path, system)
+    print(f"Done. Logs + checkpoints in {log_path}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -65,6 +65,13 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def from_jax_grads(grads: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX gradient pytree (the param pytree's structure, leaves as numpy
+    arrays) -> {the port's parameter name: gradient}. A gradient has its
+    parameter's layout, so this is `from_jax_params`."""
+    return from_jax_params(grads)
+
+
 def load_reference_ckpt(path, prefixes_to_ignore=("loss",)) -> Dict[str, torch.Tensor]:
     """A reference Lightning `.ckpt` (or a bare state dict saved with
     `torch.save`) -> the port's state dict, on the CPU.

@@ -1,14 +1,29 @@
-"""Model construction and the whole-image eval render.
+"""Model construction, the train step, the whole-image eval render and the
+fit loop.
 
-Counterpart of the eval half of `object_nerf_tpu/train/system.py`:
-`init_params` (:46-60), `make_render_fn` (:121-245) and
-`ObjectNeRFSystem.render_image` (:455-485). The train step and the fit
-loop come with the training slice.
+Counterpart of `object_nerf_tpu/train/system.py`: `init_params` (:46-60),
+`make_train_step` (:69-118, the monolithic step; the split-program
+schedule of the TPU is not ported), `make_render_fn` (:121-245) and
+`ObjectNeRFSystem` (:248-667: `training_step`, `render_image`,
+`validation`, `fit`). One train step is one eager PyTorch step: the
+stochastic `render_rays` (two launches of the fused forward kernel), the
+reference TotalLoss, autograd (two launches of the fused backward kernel),
+and the optimizer with its learning rate set from the schedule.
+
+Randomness: initial weights and batch sampling come from CPU generators, so
+a seed means the same on every device; the perturbation and the density
+noise of a step come from a `torch.Generator` on the training device (no
+host-to-device copy in the loop), so they differ between CPU and CUDA runs.
+
+Not ported: voxel grids and their epoch hooks, multi-device meshes (one
+device), the profiler hook, TensorBoard scalars and the validation image
+panel.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -18,7 +33,12 @@ from ..device import resolve_device
 from ..models.code_library import CodeLibrary
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
 from ..ops.fused_mlp import pack_kernel_weights
-from ..render.renderer import RenderSettings, render_rays_fused_eval
+from ..render.renderer import (
+    RenderDraws, RenderSettings, render_rays, render_rays_fused_eval,
+)
+from .losses import total_loss
+from .metrics import psnr, ssim
+from .optim import make_lr_schedule, make_optimizer, set_lr
 
 
 class ObjectNeRFModels(nn.Module):
@@ -100,3 +120,215 @@ def render_image(models: ObjectNeRFModels, settings: RenderSettings, np_batch,
     out = render(models, torch.from_numpy(rays).to(device),
                  torch.from_numpy(ids).to(device))
     return {k: v[:n].cpu().numpy() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+class TrainStep:
+    """One optimisation step: `step(models, batch, generator=None,
+    draws=None) -> metrics`. `batch` is a dict of tensors on the models'
+    device; `optimizer` must hold the models' parameters. `global_step`
+    counts the steps taken and indexes the learning-rate schedule (set it
+    when resuming). Metrics stay on the device: nothing here synchronises."""
+
+    def __init__(self, settings: RenderSettings, loss_weights: Mapping[str, float],
+                 optimizer: torch.optim.Optimizer,
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 plain: bool = False):
+        self.settings = settings
+        self.loss_weights = dict(loss_weights)
+        self.optimizer = optimizer
+        self.lr_schedule = lr_schedule
+        self.plain = plain
+        self.global_step = 0
+
+    def __call__(self, models: ObjectNeRFModels, batch, generator=None,
+                 draws: Optional[RenderDraws] = None) -> Dict[str, object]:
+        st = self.settings
+        metrics: Dict[str, object] = {}
+        if self.lr_schedule is not None:
+            metrics["lr"] = self.lr_schedule(self.global_step)
+            set_lr(self.optimizer, metrics["lr"])
+        codes = None
+        if st.forward_instance:
+            codes = models.code_library(batch["instance_ids"])
+        results = render_rays(models, batch["rays"], st, embedding_instance=codes,
+                              pass_through_mask=batch.get("pass_through_mask"),
+                              generator=generator, draws=draws, plain=self.plain)
+        loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance)
+        typ = "fine" if st.N_importance > 0 else "coarse"
+        with torch.no_grad():
+            train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
+                              batch["valid_mask"][:, None])
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.global_step += 1
+        metrics.update({"train/loss": loss.detach(), "train/psnr": train_psnr})
+        metrics.update({f"train/{k}": v for k, v in logs.items()})
+        return metrics
+
+
+def make_train_step(settings: RenderSettings, loss_weights: Mapping[str, float],
+                    optimizer: torch.optim.Optimizer, lr_schedule=None,
+                    plain: bool = False) -> TrainStep:
+    """Build the train step (see `TrainStep`). `plain` routes the MLP
+    through the kernels' plain version under autograd on any device: the
+    reference a kernel-path step is checked against."""
+    return TrainStep(settings, loss_weights, optimizer, lr_schedule, plain)
+
+
+def _fetch(metrics: Mapping[str, object]) -> Dict[str, float]:
+    """Metrics as host floats (synchronises with the device)."""
+    return {k: float(v) for k, v in metrics.items()}
+
+
+class ObjectNeRFSystem:
+    """End-to-end trainer with the reference system's public surface. Runs
+    on `device` (default `cuda`; raises when CUDA is asked for and absent)."""
+
+    def __init__(self, config, dataset=None, val_dataset=None, device=None):
+        self.config = config
+        self.device = resolve_device(device if device is not None
+                                     else config.get("device"))
+        if bool(config.model.get("use_voxel_embedding", True)):
+            raise NotImplementedError("voxel conditioning is not ported yet: set "
+                                      "model.use_voxel_embedding=false")
+        self.train_dataset = dataset
+        self.val_dataset = val_dataset
+        for ds in (dataset, val_dataset):
+            if ds is not None and getattr(ds, "is_rays_in_bbox", lambda: False)():
+                raise NotImplementedError("rays_in_bbox datasets are not ported yet")
+
+        seed = int(config.train.get("seed", 42))
+        # the CUDA kernels compute in bf16; the CPU path is the exact f32 one
+        dtype_kw = dict(matmul_dtype=torch.bfloat16 if self.device.type == "cuda"
+                        else torch.float32)
+        self.settings = RenderSettings.from_config(
+            config, white_back=getattr(dataset, "white_back", False), is_eval=False,
+            **dtype_kw)
+        self.eval_settings = RenderSettings.from_config(
+            config, white_back=getattr(val_dataset or dataset, "white_back", False),
+            is_eval=True, **dtype_kw)
+
+        self.models = init_params(torch.Generator().manual_seed(seed), self.settings,
+                                  config.model, device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.batch_rng = np.random.RandomState(seed)
+
+        batch_size = int(config.train.batch_size)
+        if dataset is not None:
+            self.steps_per_epoch = max(1, self._steps_per_epoch(dataset, batch_size))
+        else:
+            self.steps_per_epoch = 1000
+        self.optimizer = make_optimizer(config.train, self.models.parameters())
+        self.lr_schedule = make_lr_schedule(config.train, self.steps_per_epoch)
+        self.train_step = make_train_step(self.settings, dict(config.loss), self.optimizer,
+                                          self.lr_schedule)
+        if config.get("ckpt_path"):
+            from .checkpoint import restore_system
+
+            restore_system(self, config.ckpt_path)
+
+    @property
+    def global_step(self) -> int:
+        return self.train_step.global_step
+
+    def _steps_per_epoch(self, dataset, batch_size) -> int:
+        limit = self.config.train.get("limit_train_batches", 1.0)
+        full = max(1, len(dataset) // batch_size)
+        if limit is None:
+            return full
+        if isinstance(limit, float) and limit <= 1.0:
+            return max(1, int(full * limit))
+        return min(full, int(limit))
+
+    def _device_batch(self, np_batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in np_batch.items()}
+
+    # -- public API ---------------------------------------------------------------
+    def training_step(self, np_batch) -> Dict[str, object]:
+        return self.train_step(self.models, self._device_batch(np_batch),
+                               generator=self.generator)
+
+    def render_image(self, np_batch, chunk: int = 4096) -> Dict[str, np.ndarray]:
+        """Render a whole-image batch at eval settings; returns host arrays."""
+        return render_image(self.models, self.eval_settings, np_batch, chunk=chunk,
+                            device=self.device)
+
+    def validation(self, frame: int = 0, chunk: int = 4096, img_wh=None):
+        """PSNR (over valid pixels of the frame's instance) and SSIM of one
+        validation frame through the eval render: (metrics, maps)."""
+        batch = self.val_dataset.whole_image_batch(frame)
+        out = self.render_image(batch, chunk)
+        typ = "fine" if self.eval_settings.N_importance > 0 else "coarse"
+        mask = np.asarray(batch["valid_mask"], bool)
+        if "instance_mask" in batch:
+            mask = mask & np.asarray(batch["instance_mask"], bool)
+        pred = torch.from_numpy(out[f"rgb_{typ}"])
+        gt = torch.from_numpy(np.asarray(batch["rgbs"], np.float32))
+        metrics = {"val/psnr": float(psnr(pred, gt, torch.from_numpy(mask)[:, None]))}
+        img_wh = img_wh or getattr(self.val_dataset, "img_wh", None)
+        if img_wh is not None:
+            w, h = img_wh
+            metrics["val/ssim"] = float(ssim(pred.reshape(h, w, 3), gt.reshape(h, w, 3)))
+        return metrics, out
+
+    def fit(self, callbacks=None, epoch_end_callbacks=None):
+        """The training loop, from `global_step` (0, or a resumed step) to
+        `train.num_epochs` epochs.
+
+        `callbacks` fire after each validation: cb(epoch, it, metrics, self);
+        `epoch_end_callbacks` once per epoch after its last step: cb(epoch,
+        self). Validation runs every `train.val_check_interval` of an epoch.
+        `train.nan_guard` (default on) raises when the loss is not finite; it
+        looks every `train.nan_check_every` steps (default 50), and that
+        host fetch is the only synchronisation of the loop besides
+        validation. Returns the metrics of every validation."""
+        callbacks = callbacks or []
+        cfg = self.config.train
+        batch_size = int(cfg.batch_size)
+        num_epochs = int(cfg.num_epochs)
+        val_interval = max(1, int(self.steps_per_epoch
+                                  * float(cfg.get("val_check_interval", 0.25))))
+        nan_guard = bool(cfg.get("nan_guard", True))
+        nan_check_every = max(1, int(cfg.get("nan_check_every", 50)))
+
+        def check_finite(loss_value, epoch, it):
+            if nan_guard and not np.isfinite(float(loss_value)):
+                raise FloatingPointError(
+                    f"non-finite loss at epoch {epoch} it {it}: lower train.lr "
+                    f"or enable model.noise_std")
+
+        history = []
+        first_epoch, first_it = divmod(self.global_step, self.steps_per_epoch)
+        for epoch in range(first_epoch, num_epochs):
+            t0 = time.time()
+            start = first_it if epoch == first_epoch else 0
+            metrics = None
+            for it in range(start, self.steps_per_epoch):
+                np_batch = self.train_dataset.sample_batch(batch_size, self.batch_rng)
+                metrics = self.training_step(np_batch)
+                if nan_guard and self.global_step % nan_check_every == 0:
+                    check_finite(metrics["train/loss"], epoch, it)
+                if (it + 1) % val_interval == 0 and self.val_dataset is not None:
+                    val_metrics, _ = self.validation()
+                    metrics = {**_fetch(metrics), **val_metrics}
+                    check_finite(metrics["train/loss"], epoch, it)
+                    history.append(metrics)
+                    for cb in callbacks:
+                        cb(epoch, it, metrics, self)
+            if metrics is None:
+                continue
+            m = _fetch(metrics)  # waits for the epoch's last step
+            dt = time.time() - t0  # epoch timing excludes checkpoint writes
+            for cb in (epoch_end_callbacks or []):
+                cb(epoch, self)
+            rays_per_sec = (self.steps_per_epoch - start) * batch_size / dt
+            print(f"epoch {epoch}: loss={m['train/loss']:.4f} "
+                  f"psnr={m['train/psnr']:.2f} ({rays_per_sec:,.0f} rays/s)")
+        return history

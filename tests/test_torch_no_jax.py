@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package, and `chip_smoke.py`
+"""The port imports nothing of JAX or of the JAX package (its training modules
+and `python -m object_nerf_torch.train` included), and `chip_smoke.py`
 refuses to run without a card."""
 
 import os
@@ -37,7 +38,37 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 26  # every module was walked
+    walked = {p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
+              for p in PORT.rglob("*.py") if p.name != "__init__.py"}
+    assert {"object_nerf_torch.ops.fused_mlp_vjp", "object_nerf_torch.train.losses",
+            "object_nerf_torch.train.optim", "object_nerf_torch.train.checkpoint",
+            "object_nerf_torch.train.__main__"} <= walked
+
+
+_TRAIN_CLI = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "object_nerf_tpu"):
+    sys.modules[name] = None  # any import of these now raises
+sys.argv = ["object_nerf_torch.train", "dataset_config=config/synthetic.yml",
+            "img_wh=[8,6]", "device=cpu", "model.D=2", "model.W=32", "model.skips=[1]",
+            "model.inst_D=2", "model.inst_W=16", "model.inst_skips=[1]",
+            "model.N_samples=8", "model.N_importance=4", "train.num_epochs=1",
+            "train.batch_size=32", "train.limit_train_batches=2"]
+runpy.run_module("object_nerf_torch.train", run_name="__main__")
+"""
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """`python -m object_nerf_torch.train` takes two steps with JAX and the JAX
+    package made unimportable."""
+    env = _env()
+    env["PYTHONPATH"] = str(ROOT)
+    (tmp_path / "config").symlink_to(ROOT / "config")
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CLI], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "Done." in out.stdout and list(tmp_path.glob("logs/*/last.ckpt"))
 
 
 def test_no_jax_import_in_port_sources():
