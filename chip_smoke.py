@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, the deterministic eval render and the
-training step of the flagship model (classical positional encoding, scene
-branch 8x256 with a skip at 4, object branch 4x128 with a skip at 2, codes
-of 64, 64 coarse + 64 importance samples, instance branch on), on random
-weights from a seed:
+Drives the port's main paths, the deterministic eval render, the training
+step, the editable multi-object render and the mesh-extraction density sweep
+of the flagship model (classical positional encoding, scene branch 8x256 with
+a skip at 4, object branch 4x128 with a skip at 2, codes of 64, 64 coarse +
+64 importance samples, instance branch on), on random weights from a seed:
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
@@ -28,7 +28,22 @@ weights from a seed:
    path from identical weights and draws (loss and gradients compared),
    then 24 more steps: every loss finite, the loss falling, exactly two
    forward and two backward launches per step; times the step;
-8. prints one JSON line describing every kernel, and, last, one JSON line
+8. holds the point-wise density kernel `fused_sigma_eval` against its plain
+   version, both branches, at the edit chunk's 4096 x 64 points, and times it;
+9. renders one 320x240 edit frame with an `EditableRenderer` (background +
+   object 1 moved, its original carved out of the background; chunk 4096):
+   finite maps, the launch counts that the hit-compaction plan implies, two
+   mixed chunks and one background-only chunk against `render_rays_multi`
+   on the f32 plain path (colour by PSNR, opacity and depth by max abs), the
+   compacted frame against the dense one; holds `fused_mlp_eval` against
+   its plain version as this path calls it (4096 x 128, one branch on,
+   weights packed beforehand); times the frame;
+10. sweeps the density grid at 128^3 through `fused_sigma_eval`, scene branch
+   and one object, each against the plain f32 sweep, runs marching
+   tetrahedra on it (the native C++ backend wherever g++ exists) and writes
+   and re-reads a PLY; times the sweep alone at
+   512^3 (or 256^3 if that would take more than about a minute);
+11. prints one JSON line describing every kernel, and, last, one JSON line
    naming the device.
 
 `--profile` adds a `torch.profiler` table of the device time of three
@@ -90,6 +105,31 @@ STEP_GRAD_TOL = 2e-2
 # loss of the kernel-path step vs the plain bf16 step, relative: the forward
 # kernels agree with their plain versions to KERNEL_TOL per output
 LOSS_TOL = 1e-3
+
+# edit path: the frame of bench.py's edit metric (320x240, chunk 4096)
+EDIT_W, EDIT_H, EDIT_CHUNK = 320, 240, 4096
+EDIT_OBJ = 1  # the sphere that is moved (and carved out of the background)
+EDIT_PROGRESS = 0.25  # point of the demo's duplication trajectory
+# edit chunks vs render_rays_multi on the f32 plain path: bf16 operands change
+# the coarse densities, hence each ray set's importance samples, hence the maps.
+# Measured on an H100: 87.6 to 91.1 dB on rgb_fine, opacity within 8.6e-4 and
+# depth (scene units, rays a few units long) within 1.2e-2 of the f32 maps; a
+# wrong code row or a swapped branch moves the colours by their own size
+EDIT_PSNR_FLOOR_DB = 70.0
+EDIT_MAP_TOL = {"opacity_fine": 5e-3, "depth_fine": 5e-2}  # max abs
+# compacted vs dense frame: the kernels compute each ray on its own, so the
+# two differ only by the +1e-10 transmittance epsilon of the muted samples
+# that the compacted background-only chunks leave out (1e-8 on a map)
+COMPACT_TOL = 1e-5
+# mesh path: grid of the checked sweep, and of the timed one
+MESH_GRID, MESH_GRID_TIMED, MESH_CHUNK = 128, 512, 262144
+MESH_OBJ = 1
+# kernel sweep (bf16 operands) vs the plain f32 sweep, max abs over the grid:
+# the bf16 roundings of eight (scene) or four (object) layers on densities of
+# about 1 (scene, raised bias) and up to 0.17 (object); measured on an H100:
+# 2.2e-4 and 9.2e-4
+MESH_F32_TOL = 5e-3
+SWEEP_BUDGET_S = 60.0
 
 # dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
 PEAKS = (  # (name substring, TFLOP/s, TB/s)
@@ -419,7 +459,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     print(f"{n_steps} steps: launches {launches} (expect {2 * n_steps} of each training "
           f"kernel); loss " + " ".join(f"{x:.4f}" for x in losses))
     if launches != {"fused_coarse_weights": 0, "fused_render_tiles": 0,
-                    "fused_mlp_eval": 2 * n_steps, "fused_mlp_bwd": 2 * n_steps}:
+                    "fused_mlp_eval": 2 * n_steps, "fused_mlp_bwd": 2 * n_steps,
+                    "fused_sigma_eval": 0}:
         raise SystemExit(f"expected 2 forward and 2 backward launches per step: {launches}")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise SystemExit("a training loss is not finite")
@@ -491,6 +532,355 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
               f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
               f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
     return entries
+
+
+def _branch_macs(cfg, instance: bool) -> int:
+    """Multiply-adds of one point through one branch's trunk and sigma head
+    (unpadded): what `fused_sigma_eval` computes."""
+    width, depth, skips = ((cfg.inst_W, cfg.inst_D, cfg.inst_skips) if instance
+                           else (cfg.W, cfg.D, cfg.skips))
+    c_in = cfg.xyz_pe_size + (cfg.N_obj_code_length if instance else 0)
+    m = width  # sigma head
+    for i in range(depth):
+        m += (c_in if i == 0 else (c_in + width if i in skips else width)) * width
+    return m
+
+
+def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
+    """Phase 8; returns the kernel's entry for the `kernels` line (without
+    its launches) and its ms per launch by branch."""
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_sigma as fs
+
+    if _branch_macs(cfg, False) != _macs_per_sample(cfg, True):
+        raise SystemExit("the scene branch's operation count disagrees with the coarse pass's")
+    n_rows, s = EDIT_CHUNK, N_SAMPLES
+    n = n_rows * s
+    gen = torch.Generator().manual_seed(SEED + 2)
+    pts = (torch.rand(n, 3, generator=gen) * 3.0 - 1.5).to(dev)
+    ids = torch.randint(0, 64, (n_rows,), generator=gen).to(dev)
+    model = models.nerf_coarse
+    ms, plain_ms, bound, by, errs = {}, {}, {}, {}, {}
+    with torch.no_grad():
+        codes = models.code_library(ids).contiguous()
+        packed = fused_mlp.pack_kernel_weights(model, cfg, True, sigma_only=True)
+        for branch in fs.BRANCHES:
+            def run(branch=branch):
+                return fs.fused_sigma_eval(model, cfg, pts, codes, branch, s, packed=packed)
+
+            def run_plain(branch=branch):
+                return fs.sigma_eval_plain(model, cfg, pts, codes, branch, s)
+
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            errs[branch] = (got - want).abs().max().item()
+            print(f"fused_sigma_eval {branch} ({n} points, {n_rows} code rows): max |kernel - "
+                  f"plain bf16| = {errs[branch]:.3e} (tol {KERNEL_TOL:g}; raw densities "
+                  f"{got.min().item():.4f} .. {got.max().item():.4f})")
+            if not errs[branch] <= KERNEL_TOL:
+                raise SystemExit(f"fused_sigma_eval ({branch}) disagrees with its plain "
+                                 f"version: {errs[branch]:.3e}")
+            ms[branch] = _cuda_ms(run, TIMED_LAUNCHES)
+            plain_ms[branch] = _cuda_ms(run_plain, 3)
+            instance = branch == "instance"
+            macs = _branch_macs(cfg, instance)
+            depth, width = (cfg.inst_D, cfg.inst_W) if instance else (cfg.D, cfg.W)
+            # points read and densities written once, the codes once, the
+            # branch's weights (one per multiply-add of a point) and biases once
+            nbytes = (16 * n + (4 * codes.numel() if instance else 0) + 2 * macs
+                      + 4 * (depth * width + 1))
+            t_ops, t_bytes = 2 * macs * n / peak_flops * 1e3, nbytes / peak_bytes * 1e3
+            bound[branch] = max(t_ops, t_bytes)
+            by[branch] = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"fused_sigma_eval {branch}: {ms[branch]:.3f} ms/launch, plain "
+                  f"{plain_ms[branch]:.3f} ms, bound {bound[branch]:.3f} ms ({by[branch]}: "
+                  f"{macs} multiply-adds per point, {2 * macs * n / 1e12:.3f} TFLOP, "
+                  f"{nbytes / 1e6:.1f} MB), {2 * macs * n / ms[branch] / 1e9:.1f} TFLOP/s "
+                  f"achieved")
+    entry = {
+        "name": "fused_sigma_eval", "route": "cuda",
+        "source": "object_nerf_torch/ops/csrc/fused_sigma.cu",
+        "replaces": "object_nerf_tpu/ops/pallas_mlp.py:971",
+        "max_abs_err": max(errs.values()), "tol": KERNEL_TOL, "err_is": "max abs",
+        # a mixed edit chunk launches each branch once: the sum is its cost
+        "ms": sum(ms.values()), "plain_ms": sum(plain_ms.values()),
+        "bound_ms": sum(bound.values()), "bound_by": by["scene"], "library_ms": None,
+        "ms_by_branch": ms, "plain_ms_by_branch": plain_ms, "bound_ms_by_branch": bound,
+    }
+    return entry, ms
+
+
+def _edit_phase(torch, dev, models, cfg, sigma_ms):
+    """Phase 9: one edit frame through `EditableRenderer`; returns the
+    frame's launch counts and the largest error of `fused_mlp_eval` against
+    its plain version at the edit chunk's shape and flags."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.config import Config, load_config
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.data.synthetic import _default_spheres
+    from object_nerf_torch.edit.__main__ import get_transformation_with_duplication_offset
+    from object_nerf_torch.edit.bbox import boxes_to_arrays
+    from object_nerf_torch.edit.editable_renderer import EditableRenderer
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.render.multi import compact_hit_order, render_rays_multi
+    from object_nerf_torch.train.metrics import psnr
+
+    root = _repo_root()
+    ckpt = load_config(cli_args=[
+        f"dataset_config={os.path.join(root, 'config', 'synthetic.yml')}",
+        f"model.N_samples={N_SAMPLES}", f"model.N_importance={N_IMPORTANCE}"]).to_dict()
+    ds = dataset_dict["synthetic"]("val", img_wh=(EDIT_W, EDIT_H))
+    Twc = np.eye(4)
+    Twc[:3] = np.asarray(ds.poses[0])[:3]
+    fovx = math.degrees(2 * math.atan(0.5 / 0.7))  # the dataset's focal is 0.7 w
+    with tempfile.TemporaryDirectory() as tmp:
+        # the scene's spheres as ToyDesk oriented boxes (json only)
+        bbox_path = os.path.join(tmp, "bbox.json")
+        with open(bbox_path, "w") as f:
+            json.dump({"labels": [
+                {"id": int(s.instance_id),
+                 "data": {"position": [float(x) for x in s.center],
+                          "quaternion": [0.0, 0.0, 0.0, 1.0],
+                          "scale": [float(2.2 * s.radius)] * 3}}
+                for s in _default_spheres()]}, f)
+        ckpt["dataset_name"] = "toydesk"
+        ckpt["dataset_extra"]["bbox_dir"] = bbox_path
+        renderer = EditableRenderer(Config({"ckpt_config": ckpt, "chunk": EDIT_CHUNK}),
+                                    models=models, device=dev)
+        renderer.remove_scene_object_by_ids([EDIT_OBJ])
+        renderer.set_object_pose_transform(
+            EDIT_OBJ, get_transformation_with_duplication_offset(EDIT_PROGRESS, 0), 0)
+    kw = dict(h=EDIT_H, w=EDIT_W, camera_pose_Twc=Twc, fovx_deg=fovx, chunk=EDIT_CHUNK)
+
+    fused_mlp.reset_launch_counts()
+    frame = renderer.render_edit(**kw)
+    torch.cuda.synchronize()
+    launches = dict(fused_mlp.launch_counts)
+    plan = renderer.last_chunk_plan
+    n_chunks, n_mixed = plan["chunks"], plan["mixed"]
+    expect = 2 * n_mixed + (n_chunks - n_mixed)
+    print(f"edit frame {EDIT_W}x{EDIT_H}, background + object {EDIT_OBJ} moved, its original "
+          f"removed: {n_chunks} chunks of {EDIT_CHUNK}, {n_mixed} with both ray sets; launches "
+          f"{launches} (expect {expect} of fused_sigma_eval and of fused_mlp_eval)")
+    if n_chunks != -(-EDIT_W * EDIT_H // EDIT_CHUNK) or not 0 < n_mixed < n_chunks:
+        raise SystemExit(f"the frame should have mixed and background-only chunks: {plan}")
+    if launches != {"fused_coarse_weights": 0, "fused_render_tiles": 0,
+                    "fused_mlp_eval": expect, "fused_mlp_bwd": 0, "fused_sigma_eval": expect}:
+        raise SystemExit(f"expected {expect} launches of each edit kernel: {launches}")
+    if set(frame) != {"rgb_fine", "depth_fine", "opacity_fine"}:
+        raise SystemExit(f"unexpected maps {sorted(frame)}")
+    for k, v in frame.items():
+        if v.shape[0] != EDIT_W * EDIT_H or not np.isfinite(v).all():
+            raise SystemExit(f"edit map {k} is not finite or has shape {v.shape}")
+
+    # chunks of the compacted order against render_rays_multi, f32 plain path
+    rays_list, ids = renderer.edit_ray_sets(EDIT_H, EDIT_W, Twc, fovx)
+    perm, n_mixed_plan = compact_hit_order(rays_list, ids, EDIT_CHUNK)
+    if n_mixed_plan != n_mixed:
+        raise SystemExit("the planner disagrees with the renderer's record")
+    a, b, scale = boxes_to_arrays(renderer.get_skipping_bbox_helper(), renderer.scale_factor)
+    skip_boxes = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), scale)
+    settings32 = dataclasses.replace(renderer.settings, matmul_dtype=torch.float32)
+    checked = [("mixed", c) for c in range(min(2, n_mixed))] + [("background-only", n_mixed)]
+    for kind, c in checked:
+        idx = perm[c * EDIT_CHUNK:(c + 1) * EDIT_CHUNK]
+        sets = [torch.from_numpy(np.ascontiguousarray(r[idx])).to(dev) for r in rays_list]
+        ref = render_rays_multi(models, sets, ids, settings32, skip_boxes=skip_boxes,
+                                plain=True)
+        hits = int((rays_list[1][idx, 7] > 0).sum())
+        p = psnr(torch.from_numpy(frame["rgb_fine"][idx]).to(dev), ref["rgb_fine"]).item()
+        diff = {k: (torch.from_numpy(frame[k][idx]).to(dev) - ref[k]).abs().max().item()
+                for k in frame}
+        print(f"edit chunk {c} ({kind}, {hits} rays hit the object's box): rgb_fine PSNR vs "
+              f"render_rays_multi f32 plain {p:.2f} dB (floor {EDIT_PSNR_FLOOR_DB:g}); max abs "
+              f"diff " + ", ".join(f"{k} {v:.2e}" for k, v in diff.items())
+              + " (limits " + ", ".join(f"{k} {v:g}" for k, v in EDIT_MAP_TOL.items()) + ")")
+        if not p >= EDIT_PSNR_FLOOR_DB:
+            raise SystemExit(f"edit chunk {c}: PSNR {p:.2f} dB below {EDIT_PSNR_FLOOR_DB:g}")
+        for k, tol in EDIT_MAP_TOL.items():
+            if not diff[k] <= tol:
+                raise SystemExit(f"edit chunk {c}: {k} is {diff[k]:.3e} from the f32 plain "
+                                 f"path (limit {tol:g})")
+        if (kind == "mixed") != (hits > 0):
+            raise SystemExit(f"edit chunk {c} should be {kind}, but {hits} rays hit")
+
+    fused_mlp.reset_launch_counts()
+    renderer.compact_rays = False
+    dense = renderer.render_edit(**kw)
+    renderer.compact_rays = True
+    torch.cuda.synchronize()
+    dense_launches = fused_mlp.launch_counts["fused_sigma_eval"]
+    worst = max(float(np.abs(dense[k] - frame[k]).max()) for k in frame)
+    moved = float(np.abs(frame["rgb_fine"] - renderer.render_origin(
+        EDIT_H, EDIT_W, Twc, fovx, chunk=EDIT_CHUNK)["rgb_fine"]).max())
+    print(f"dense frame (compaction off): {dense_launches} "
+          f"launches of fused_sigma_eval; max |compacted - dense| = {worst:.2e} (tol "
+          f"{COMPACT_TOL:g}); max |edited - unedited| = {moved:.3f}")
+    if dense_launches != 2 * n_chunks:
+        raise SystemExit("the dense frame should launch both branches on every chunk")
+    if not worst <= COMPACT_TOL:
+        raise SystemExit(f"compacted and dense frames disagree: {worst:.3e}")
+    if not moved > 1e-3:
+        raise SystemExit("the edit changed nothing in the frame")
+
+    times = []
+    for _ in range(FRAMES_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_edit(**kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frame_ms = statistics.median(times) * 1e3
+    host = []
+    for _ in range(FRAMES_TIMED):  # the frame's host part before the first upload
+        t0 = time.perf_counter()
+        compact_hit_order(renderer.edit_ray_sets(EDIT_H, EDIT_W, Twc, fovx)[0], ids, EDIT_CHUNK)
+        host.append(time.perf_counter() - t0)
+    host_ms = statistics.median(host) * 1e3
+
+    # the fine pass's kernel with one branch on, at the chunk's shape
+    gen = torch.Generator().manual_seed(SEED + 3)
+    s_f = N_SAMPLES + N_IMPORTANCE
+    with torch.no_grad():
+        xyz = (torch.rand(EDIT_CHUNK, s_f, 3, generator=gen) * 3.0 - 1.5).to(dev)
+        dirs = torch.nn.functional.normalize(torch.randn(EDIT_CHUNK, 3, generator=gen), dim=-1)
+        dir_pe = freq_encode(dirs.to(dev), cfg.N_freq_dir).contiguous()
+        codes = models.code_library(torch.full((EDIT_CHUNK,), EDIT_OBJ, device=dev)).contiguous()
+        packed = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True)
+        mlp_ms, mlp_err = {}, 0.0
+        for name, fi, cs, cd in (("scene", False, True, None), ("instance", True, False, codes)):
+            def run(fi=fi, cs=cs, cd=cd):
+                return fv.fused_mlp_eval(models.nerf_fine, cfg, xyz, dir_pe, cd,
+                                         forward_instance=fi, compute_scene=cs, packed=packed)
+
+            # the fine pass's calls as the edit path makes them (one branch on,
+            # weights packed once per frame) against the plain version
+            got = run()
+            want = fv.mlp_eval_plain(models.nerf_fine, cfg, xyz, dir_pe, cd,
+                                     forward_instance=fi, compute_scene=cs)
+            torch.cuda.synchronize()
+            e = {k: (g_ - w_).abs().max().item()
+                 for k, g_, w_ in zip(("sigma", "rgb", "inst_sigma", "inst_rgb"), got, want)}
+            print(f"fused_mlp_eval {tuple(xyz.shape)} forward_instance={fi} compute_scene={cs} "
+                  f"packed: max |kernel - plain bf16| "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g})")
+            if not max(e.values()) <= KERNEL_TOL:
+                raise SystemExit(f"fused_mlp_eval ({name} branch alone, packed) disagrees with "
+                                 f"its plain version: {max(e.values()):.3e}")
+            live = ("inst_sigma", "inst_rgb") if fi else ("sigma", "rgb")
+            if any(got[i].abs().max().item() == 0.0 for i, k in enumerate(e) if k in live):
+                raise SystemExit(f"fused_mlp_eval ({name} branch alone) returned zeros")
+            mlp_err = max(mlp_err, *e.values())
+            mlp_ms[name] = _cuda_ms(run, TIMED_LAUNCHES)
+    # whole chunks' worth of rays (the last chunk is shorter)
+    n_bg = EDIT_W * EDIT_H / EDIT_CHUNK
+    k_scene = n_bg * (sigma_ms["scene"] + mlp_ms["scene"])
+    k_obj = n_mixed * (sigma_ms["instance"] + mlp_ms["instance"])
+    print(f"edit frame: {frame_ms:.1f} ms median of {FRAMES_TIMED} (all: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{EDIT_W * EDIT_H / (frame_ms / 1e3):.0f} pixels/s; per {EDIT_CHUNK}-ray chunk: "
+          f"fused_sigma_eval scene {sigma_ms['scene']:.3f} ms, object "
+          f"{sigma_ms['instance']:.3f} ms, fused_mlp_eval ({EDIT_CHUNK}, {s_f}) scene branch "
+          f"alone {mlp_ms['scene']:.3f} ms, object branch alone {mlp_ms['instance']:.3f} ms; "
+          f"background set's kernels {k_scene:.1f} ms, object set's {k_obj:.1f} ms, ray "
+          f"generation + box tests + chunk plan on the host (numpy, timed alone) "
+          f"{host_ms:.1f} ms, glue + packing + copies (by subtraction) "
+          f"{frame_ms - k_scene - k_obj - host_ms:.1f} ms")
+    return launches, mlp_err
+
+
+def _mesh_phase(torch, dev, models, settings):
+    """Phase 10: the density sweep, marching tetrahedra and a PLY round trip;
+    returns the number of `fused_sigma_eval` launches of the sweeps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.config import Config
+    from object_nerf_torch.data.ply_io import read_ply, write_ply
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.tools.extract_mesh import extract_sigma_grid
+    from object_nerf_torch.tools.marching import marching_backend, marching_tetrahedra
+
+    def grid_conf(n):
+        return Config({"N_grid": n, "chunk": MESH_CHUNK, "x_range": [-1.5, 1.5],
+                       "y_range": [-1.5, 1.5], "z_range": [-1.5, 1.5]})
+
+    settings32 = dataclasses.replace(settings, matmul_dtype=torch.float32)
+    per_sweep = -(-MESH_GRID ** 3 // MESH_CHUNK)
+    launches = 0
+    grids = {}
+    for obj_id in (0, MESH_OBJ):
+        fused_mlp.reset_launch_counts()
+        got = extract_sigma_grid(models, settings, grid_conf(MESH_GRID), obj_id, device=dev,
+                                 as_tensor=True)
+        torch.cuda.synchronize()
+        n_launch = fused_mlp.launch_counts["fused_sigma_eval"]
+        launches += n_launch
+        want = extract_sigma_grid(models, settings32, grid_conf(MESH_GRID), obj_id, device=dev,
+                                  plain=True, as_tensor=True)
+        err = (got - want).abs().max().item()
+        print(f"sigma grid {MESH_GRID}^3, {'scene branch' if obj_id == 0 else f'object {obj_id}'}"
+              f": {n_launch} launches (expect {per_sweep}); max |kernel sweep - plain f32 "
+              f"sweep| = {err:.3e} (tol {MESH_F32_TOL:g}); densities {got.min().item():.4f} .. "
+              f"{got.max().item():.4f}, {(got > 0).float().mean().item() * 100:.1f} % above 0")
+        if n_launch != per_sweep or sum(fused_mlp.launch_counts.values()) != per_sweep:
+            raise SystemExit(f"expected {per_sweep} launches of fused_sigma_eval alone")
+        if not torch.isfinite(got).all() or not err <= MESH_F32_TOL:
+            raise SystemExit(f"the kernel sweep disagrees with the plain f32 sweep: {err:.3e}")
+        grids[obj_id] = got
+
+    # a surface through the raised densities of the scene branch, and a PLY;
+    # where there is a compiler the native marching code must have built
+    if shutil.which("g++") is not None and marching_backend() != "native":
+        raise SystemExit("g++ is there, but marching tetrahedra took the numpy backend")
+    sigma = grids[0].cpu().numpy()
+    level = float(np.median(sigma))
+    t0 = time.perf_counter()
+    verts, faces = marching_tetrahedra(sigma, level)
+    t_march = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "extracted_mesh_smoke.ply")
+        write_ply(path, verts, faces=faces)
+        back = read_ply(path)
+    print(f"marching tetrahedra ({marching_backend()} backend) at the median density "
+          f"{level:.4f}: {len(verts)} vertices, {len(faces)} faces in {t_march:.1f} s; PLY "
+          f"read back: {len(back['points'])} vertices, {len(back['faces'])} faces")
+    if not (len(verts) > 0 and len(faces) > 0 and len(back["points"]) == len(verts)
+            and len(back["faces"]) == len(faces)
+            and np.array_equal(np.asarray(back["faces"]), faces)):
+        raise SystemExit("the mesh or its PLY round trip is wrong")
+
+    # the sweep alone at the reference's grid size (no marching)
+    def timed_sweep(n):
+        fused_mlp.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = extract_sigma_grid(models, settings, grid_conf(n), 0, device=dev, as_tensor=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.isfinite(grid).all():
+            raise SystemExit(f"the {n}^3 sweep is not finite")
+        return dt, fused_mlp.launch_counts["fused_sigma_eval"]
+
+    n_timed = MESH_GRID_TIMED // 2
+    dt, n_launch = timed_sweep(n_timed)
+    if 8 * dt <= SWEEP_BUDGET_S:
+        n_timed = MESH_GRID_TIMED
+        dt, n_launch = timed_sweep(n_timed)
+    launches += n_launch
+    print(f"sigma sweep {n_timed}^3 ({n_timed ** 3} points, scene branch, chunk {MESH_CHUNK}): "
+          f"{dt * 1e3:.1f} ms, {n_launch} launches, {n_timed ** 3 / dt / 1e6:.1f} M points/s")
+    return launches
 
 
 def main() -> int:
@@ -631,7 +1021,7 @@ def main() -> int:
     n_chunks = (W * H) // CHUNK
     print(f"frame {W}x{H}: launches {launches} (expect {n_chunks} of each eval kernel)")
     if launches != {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
-                    "fused_mlp_eval": 0, "fused_mlp_bwd": 0}:
+                    "fused_mlp_eval": 0, "fused_mlp_bwd": 0, "fused_sigma_eval": 0}:
         raise SystemExit(f"expected {n_chunks} launches of each eval kernel on the frame")
     for k, v in frame.items():
         if v.shape[0] != W * H or not torch.isfinite(torch.from_numpy(v)).all():
@@ -673,7 +1063,22 @@ def main() -> int:
     train_entries = _train_phases(torch, dev, peak_flops, peak_bytes,
                                   profile="--profile" in sys.argv[1:])
 
-    # -- 8. the kernels -------------------------------------------------------------
+    # -- 8, 9, 10. the density kernel, the edit frame and the mesh sweep ----------------
+    torch.cuda.empty_cache()
+    sigma_entry, sigma_ms = _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes)
+    edit_launches, edit_mlp_err = _edit_phase(torch, dev, models, cfg, sigma_ms)
+    mesh_launches = _mesh_phase(torch, dev, models, settings)
+    sigma_entry["launches_by_path"] = {"edit": edit_launches["fused_sigma_eval"],
+                                       "mesh": mesh_launches}
+    sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
+    for entry in train_entries:
+        if entry["name"] == "fused_mlp_eval":
+            entry["launches_by_path"] = {"train": entry["launches"],
+                                         "edit": edit_launches["fused_mlp_eval"]}
+            entry["launches"] = sum(entry["launches_by_path"].values())
+            entry["max_abs_err"] = max(entry["max_abs_err"], edit_mlp_err)
+
+    # -- 11. the kernels ------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
@@ -685,7 +1090,7 @@ def main() -> int:
          "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None}
         for k in replaces
-    ] + train_entries}))
+    ] + train_entries + [sigma_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

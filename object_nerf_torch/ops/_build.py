@@ -42,6 +42,7 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_sigma_eval": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

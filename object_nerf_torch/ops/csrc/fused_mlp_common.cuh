@@ -1,8 +1,8 @@
 // Device functions shared by the port's fused MLP kernels (fused_mlp.cu,
-// fused_mlp_train.cu): the 128-row tile, the tensor-core products over it
+// fused_mlp_train.cu, fused_sigma.cu): the 128-row tile, the tensor-core products over it
 // (nvcuda::wmma 16x16x16 bf16, f32 accumulators), the branch trunk and heads,
 // the input tile, the per-ray direction bias and the compositing scan. The
-// file comments of the two sources say what each kernel does with them.
+// file comments of the sources say what each kernel does with them.
 
 #pragma once
 
@@ -234,6 +234,22 @@ __device__ void run_heads(const BranchTab& t, const bf16* __restrict__ w,
   head_rgb(H, N / 2, w + t.v[T_RGBW], b + t.v[T_RGBB], rgb);
 }
 
+// Column c of a row of the input tile [PE(p) | code | 0], before rounding:
+// p is the row's xyz, pe = 3 (2 n_freq + 1) the width of its encoding in the
+// reference channel order, code_row the row's latent code (or nullptr).
+__device__ __forceinline__ float input_value(const float* p, int c, int pe,
+                                             const float* __restrict__ code_row,
+                                             int code_len) {
+  if (c < 3) return p[c];
+  if (c < pe) {
+    const int j = c - 3, k = j / 6, q = j % 6;
+    const float x = p[q % 3] * (float)(1 << k);  // exact
+    return q < 3 ? sinf(x) : cosf(x);
+  }
+  if (code_row != nullptr && c < pe + code_len) return code_row[c - pe];
+  return 0.f;
+}
+
 // Fill the input tile of tile number `tile`: z values (when z is given), and
 // X = [PE(xyz) | code | 0] as bf16. Rows of rays past n_rays are zero.
 __device__ void load_inputs(int tile, const float* __restrict__ xyz,
@@ -260,17 +276,9 @@ __device__ void load_inputs(int tile, const float* __restrict__ xyz,
     const int r = e / XCOLS, c = e % XCOLS;
     const int ray = ray0 + r / S;
     float v = 0.f;
-    if (ray < n_rays) {
-      if (c < 3) {
-        v = xyz_s[r * 3 + c];
-      } else if (c < pe) {
-        const int j = c - 3, k = j / 6, q = j % 6;
-        const float x = xyz_s[r * 3 + (q % 3)] * (float)(1 << k);  // exact
-        v = q < 3 ? sinf(x) : cosf(x);
-      } else if (codes != nullptr && c < pe + code_len) {
-        v = codes[(size_t)ray * code_len + (c - pe)];
-      }
-    }
+    if (ray < n_rays)
+      v = input_value(xyz_s + r * 3, c, pe,
+                      codes != nullptr ? codes + (size_t)ray * code_len : nullptr, code_len);
     X[r * LDX + c] = __float2bfloat16(v);
   }
 }

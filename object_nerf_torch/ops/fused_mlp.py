@@ -40,10 +40,11 @@ from .compositing import (
     weights_from_alphas,
 )
 
-# kernel launches since the last reset, by wrapper name (the last two are the
-# training kernels' wrappers in fused_mlp_vjp.py)
+# kernel launches since the last reset, by wrapper name (the training kernels'
+# wrappers are in fused_mlp_vjp.py, the point-wise density's in fused_sigma.py)
 launch_counts: Dict[str, int] = {"fused_coarse_weights": 0, "fused_render_tiles": 0,
-                                 "fused_mlp_eval": 0, "fused_mlp_bwd": 0}
+                                 "fused_mlp_eval": 0, "fused_mlp_bwd": 0,
+                                 "fused_sigma_eval": 0}
 
 
 def reset_launch_counts() -> None:
@@ -98,7 +99,8 @@ def check_kernel_config(cfg: ObjectNeRFConfig) -> None:
 
 class PackedWeights(NamedTuple):
     """One model's weights in the kernels' layout (see csrc/fused_mlp.cu):
-    a bf16 buffer, an f32 bias buffer, and an offset table per branch."""
+    a bf16 buffer, an f32 bias buffer, and an offset table per branch. With
+    `sigma_only` each packed branch holds its trunk and sigma head only."""
 
     w: torch.Tensor
     b: torch.Tensor
@@ -175,17 +177,18 @@ def pack_kernel_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                         sigma_only: bool = False) -> PackedWeights:
     """Flatten one ObjectNeRF for the kernels, on the model's device.
 
-    `sigma_only` keeps the scene trunk and sigma head (the coarse pass);
-    otherwise both heads, plus the object branch when `forward_instance`.
-    The renderer packs once per frame, not once per chunk."""
+    `sigma_only` keeps each branch's trunk and sigma head (the coarse pass,
+    the density query); otherwise the rgb heads too. The object branch is
+    packed when `forward_instance`. The renderers pack once per frame, not
+    once per chunk."""
     check_kernel_config(cfg)
     pk = _Packer()
     pe = cfg.xyz_pe_size
     scene = pk.branch(model, "scene", pe, SCENE_K0, cfg.in_channels_dir, sigma_only)
     obj = None
-    if forward_instance and not sigma_only:
+    if forward_instance:
         obj = pk.branch(model, "object", pe + cfg.N_obj_code_length, OBJ_K0,
-                        cfg.in_channels_dir, False)
+                        cfg.in_channels_dir, sigma_only)
     w = torch.cat(pk.w).to(torch.bfloat16).contiguous()
     b = torch.cat(pk.b).contiguous()
     return PackedWeights(w, b, scene, obj, sigma_only)
@@ -255,22 +258,24 @@ def _check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_launch(cfg: ObjectNeRFConfig, dtype, s: int, packed: PackedWeights,
+def _check_launch(cfg: ObjectNeRFConfig, dtype, s: Optional[int], packed: PackedWeights,
                   device, need_obj: bool, need_heads: bool) -> None:
+    """`s`: samples per ray of a kernel whose tile is made of whole rays
+    (None for the point-wise kernel, which has no such restriction)."""
     if device.type != "cuda":
         raise ValueError(f"kernels run on CUDA or (plain version) CPU tensors, got {device}")
     if dtype != torch.bfloat16:
         raise ValueError("the CUDA kernels compute in bf16: pass dtype=torch.bfloat16, "
                          "or CPU tensors for the f32 plain version")
     check_kernel_config(cfg)
-    if s not in KERNEL_SAMPLES:
+    if s is not None and s not in KERNEL_SAMPLES:
         raise ValueError(f"kernels take S in {KERNEL_SAMPLES} samples per ray, got {s}")
-    if packed.w.device != device or packed.b.device != device:
-        raise ValueError("packed weights are on another device than the inputs")
     if need_heads and packed.sigma_only:
         raise ValueError("packed weights hold the sigma head only")
     if need_obj and packed.obj is None:
         raise ValueError("packed weights lack the object branch")
+    if packed.w.device != device or packed.b.device != device:
+        raise ValueError("packed weights are on another device than the inputs")
 
 
 def _tab(values: Optional[List[int]]):

@@ -372,28 +372,33 @@ def fused_mlp_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                    dir_pe: torch.Tensor, codes: Optional[torch.Tensor] = None,
                    voxel_raw: Optional[torch.Tensor] = None,
                    forward_instance: bool = True, compute_scene: bool = True,
-                   dtype=torch.bfloat16) -> MLPOut:
+                   dtype=torch.bfloat16,
+                   packed: Optional[PackedWeights] = None) -> MLPOut:
     """Both MLP branches over all rays x samples, differentiable with respect
     to the model's parameters and `codes`.
 
     xyz (n, S, 3), dir_pe (n, C_dir), codes (n, C_code), float32 ->
     (sigma (n, S), rgb (n, S, 3), inst_sigma, inst_rgb); zeros for a branch
-    that is off. With `compute_scene=False` (the object branch alone) the
-    call is inference only."""
+    that is off. With `compute_scene=False` (the object branch alone), or
+    with `packed` (the model's `pack_kernel_weights(..., forward_instance)`,
+    packed once by a caller that renders many chunks from frozen weights),
+    the call is inference only."""
     if voxel_raw is not None:
         raise NotImplementedError("voxel conditioning is not ported yet")
     n, s = _check_inputs(cfg, xyz, dir_pe, codes)
     if codes is None:
         codes = xyz.new_zeros(n, cfg.N_obj_code_length)
-    if not compute_scene:
+    if packed is not None or not compute_scene:
         with torch.no_grad():
             if xyz.device.type == "cpu":
                 return mlp_eval_plain(model, cfg, xyz, dir_pe, codes, forward_instance,
-                                      False, dtype)
-            packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
+                                      compute_scene, dtype)
+            if packed is None:
+                packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
             _check_launch(cfg, dtype, s, packed, xyz.device, need_obj=forward_instance,
                           need_heads=True)
-            out = _launch_eval(cfg, xyz, dir_pe, codes, packed, forward_instance, False)
+            out = _launch_eval(cfg, xyz, dir_pe, codes, packed, forward_instance,
+                               compute_scene)
             return _split_out(out, n, s)
     return FusedMLP.apply(xyz, dir_pe, codes, model, cfg, forward_instance, dtype,
                           *model.parameters())

@@ -67,7 +67,8 @@ def test_coarse_weights_matches_jax_kernel(dtype):
     got = fm.fused_coarse_weights(models.nerf_coarse, CFG, _t(xyz), _t(z),
                                   dtype=getattr(torch, dtype))
     assert fm.launch_counts == {"fused_coarse_weights": 0, "fused_render_tiles": 0,
-                                "fused_mlp_eval": 0, "fused_mlp_bwd": 0}
+                                "fused_mlp_eval": 0, "fused_mlp_bwd": 0,
+                                "fused_sigma_eval": 0}
     atol = F32_ATOL if dtype == "float32" else BF16_ATOL
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol, rtol=0)
 

@@ -232,7 +232,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(NotImplementedError, match="voxel"):
         fv.fused_mlp_eval(model, CFG, xyz, dir_pe, codes, voxel_raw=xyz)
     assert set(fm.launch_counts) == {"fused_coarse_weights", "fused_render_tiles",
-                                     "fused_mlp_eval", "fused_mlp_bwd"}
+                                     "fused_mlp_eval", "fused_mlp_bwd",
+                                     "fused_sigma_eval"}
 
 
 # -- the backward kernel's dataflow, emulated at flagship width on the CPU ------

@@ -13,6 +13,7 @@ from object_nerf_torch.models.embedding import freq_encode
 from object_nerf_torch.models.mlp import ObjectNeRFConfig
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_mlp_vjp as fv
+from object_nerf_torch.ops import fused_sigma as fs
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train.system import init_params
 
@@ -58,7 +59,8 @@ def test_kernels_match_plain_bf16_on_card(cuda_device, s, n):
                 assert (got[k] - want[k]).abs().max().item() < 1e-3, k
     torch.cuda.synchronize()
     assert fm.launch_counts == {"fused_coarse_weights": 2, "fused_render_tiles": 3,
-                                "fused_mlp_eval": 0, "fused_mlp_bwd": 0}
+                                "fused_mlp_eval": 0, "fused_mlp_bwd": 0,
+                                "fused_sigma_eval": 0}
 
 
 # forward: both sides round the same operands to bf16 and differ in the order
@@ -159,3 +161,51 @@ def test_autograd_function_launches_both_kernels_on_card(cuda_device):
     for k, p in model.named_parameters():
         assert _rel(p.grad, want[k]) < BWD_REL_TOL, k
     assert _rel(codes.grad, want_codes) < BWD_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,per_row", [(64, 64), (64 * 37, 64), (4096 * 64, 64), (300, 20),
+                                       (7, 1)])
+def test_sigma_kernel_matches_plain_bf16_on_card(cuda_device, n, per_row):
+    """`fused_sigma_eval` against `sigma_eval_plain`, both branches: one
+    pseudo-row, an N that is not a multiple of the 128-point tile, the edit
+    chunk, and pseudo-rows that straddle tiles. Two launches give the same
+    bits. A packing with the rgb heads serves as well as a sigma-only one."""
+    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+    models = init_params(torch.Generator().manual_seed(0), RenderSettings(mlp=cfg), {},
+                         device=cuda_device)
+    model = models.nerf_fine
+    g = torch.Generator().manual_seed(2)
+    pts = (torch.rand(n, 3, generator=g) * 3.0 - 1.5).to(cuda_device)
+    codes = torch.randn(n // per_row, cfg.N_obj_code_length, generator=g).to(cuda_device)
+    full = fm.pack_kernel_weights(model, cfg, forward_instance=True)
+    fm.reset_launch_counts()
+    for branch in fs.BRANCHES:
+        got = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row)
+        again = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row)
+        other = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row, packed=full)
+        with torch.no_grad():
+            want = fs.sigma_eval_plain(model, cfg, pts, codes, branch, per_row)
+        torch.cuda.synchronize()
+        assert got.shape == (n,) and got.dtype == torch.float32
+        assert (got - want).abs().max().item() < FWD_TOL, branch
+        assert torch.equal(got, again) and torch.equal(got, other), branch
+    assert fm.launch_counts["fused_sigma_eval"] == 6
+
+
+@pytest.mark.cuda
+def test_sigma_kernel_wrapper_raises_on_card(cuda_device):
+    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+    models = init_params(torch.Generator().manual_seed(0), RenderSettings(mlp=cfg), {},
+                         device=cuda_device)
+    pts = torch.zeros(128, 3, device=cuda_device)
+    scene_only = fm.pack_kernel_weights(models.nerf_fine, cfg, False, sigma_only=True)
+    codes = torch.zeros(2, cfg.N_obj_code_length, device=cuda_device)
+    with pytest.raises(ValueError, match="object branch"):
+        fs.fused_sigma_eval(models.nerf_fine, cfg, pts, codes, "instance", packed=scene_only)
+    with pytest.raises(ValueError, match="bf16"):
+        fs.fused_sigma_eval(models.nerf_fine, cfg, pts, dtype=torch.float32)
+    with pytest.raises(ValueError, match="another device"):
+        fs.fused_sigma_eval(models.nerf_fine.cpu(), cfg, pts,
+                            packed=fm.PackedWeights(scene_only.w.cpu(), scene_only.b.cpu(),
+                                                    scene_only.scene, None, True))

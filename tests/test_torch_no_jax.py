@@ -1,6 +1,7 @@
-"""The port imports nothing of JAX or of the JAX package (its training modules
-and `python -m object_nerf_torch.train` included), and `chip_smoke.py`
-refuses to run without a card."""
+"""The port imports nothing of JAX or of the JAX package (its training, edit
+and mesh modules and `python -m object_nerf_torch.train`, `.edit` and
+`.tools.extract_mesh` included), and `chip_smoke.py` refuses to run without a
+card."""
 
 import os
 import re
@@ -38,12 +39,17 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 26  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 38  # every module was walked
     walked = {p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
               for p in PORT.rglob("*.py") if p.name != "__init__.py"}
     assert {"object_nerf_torch.ops.fused_mlp_vjp", "object_nerf_torch.train.losses",
             "object_nerf_torch.train.optim", "object_nerf_torch.train.checkpoint",
-            "object_nerf_torch.train.__main__"} <= walked
+            "object_nerf_torch.train.__main__", "object_nerf_torch.ops.fused_sigma",
+            "object_nerf_torch.render.multi", "object_nerf_torch.data.geo_utils",
+            "object_nerf_torch.data.ply_io", "object_nerf_torch.edit.bbox",
+            "object_nerf_torch.edit.editable_renderer", "object_nerf_torch.edit.__main__",
+            "object_nerf_torch.tools.marching", "object_nerf_torch.tools.extract_mesh"} <= walked
+    assert (PORT / "native" / "__init__.py").exists() and (PORT / "tools" / "__init__.py").exists()
 
 
 _TRAIN_CLI = r"""
@@ -71,10 +77,42 @@ def test_train_cli_runs_without_jax(tmp_path):
     assert "Done." in out.stdout and list(tmp_path.glob("logs/*/last.ckpt"))
 
 
+_MESH_CLI = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "object_nerf_tpu"):
+    sys.modules[name] = None  # any import of these now raises
+import torch
+from object_nerf_torch.models.mlp import ObjectNeRFConfig
+from object_nerf_torch.train.system import ObjectNeRFModels
+cfg = ObjectNeRFConfig(D=2, W=32, skips=(1,), inst_D=2, inst_W=16, inst_skips=(1,),
+                       use_voxel_embedding=False, N_obj_code_length=8)
+models = ObjectNeRFModels(cfg, n_importance=1, n_max_objs=8)
+torch.save({"state_dict": models.state_dict()}, "model.ckpt")
+sys.argv = ["object_nerf_torch.tools.extract_mesh", "dataset_config=config/synthetic.yml",
+            "ckpt_path=model.ckpt", "device=cpu", "model.use_voxel_embedding=false",
+            "model.D=2", "model.W=32", "model.skips=[1]", "model.inst_D=2",
+            "model.inst_W=16", "model.inst_skips=[1]", "model.N_max_objs=8",
+            "model.N_obj_code_length=8", "N_grid=8", "sigma_threshold=-1", "out_dir=out"]
+runpy.run_module("object_nerf_torch.tools.extract_mesh", run_name="__main__")
+"""
+
+
+def test_mesh_cli_runs_without_jax(tmp_path):
+    """`python -m object_nerf_torch.tools.extract_mesh` sweeps a small grid
+    with JAX and the JAX package made unimportable."""
+    env = _env()
+    env["PYTHONPATH"] = str(ROOT)
+    (tmp_path / "config").symlink_to(ROOT / "config")
+    out = subprocess.run([sys.executable, "-c", _MESH_CLI], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "sigma grid" in out.stdout and "marching backend" in out.stdout
+
+
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|object_nerf_tpu)\b", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 35
     for f in files:
         assert not pattern.search(f.read_text()), f
 
