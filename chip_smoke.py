@@ -3,11 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, the deterministic eval render, the training
-step, the editable multi-object render and the mesh-extraction density sweep
-of the flagship model (classical positional encoding, scene branch 8x256 with
-a skip at 4, object branch 4x128 with a skip at 2, codes of 64, 64 coarse +
-64 importance samples, instance branch on), on random weights from a seed:
+Drives the port's main paths on random weights from a seed. Phases 3 to 10:
+the deterministic eval render, the training step, the editable multi-object
+render and the mesh-extraction density sweep of the flagship model with the
+classical positional encoding (scene branch 8x256 with a skip at 4, object
+branch 4x128 with a skip at 2, codes of 64, 64 coarse + 64 importance samples,
+instance branch on). Phases 11 to 15: the eval render and the density sweep of
+the same model with voxel conditioning (the reference's default: 16 scene + 8
+instance voxel channels, 6 octaves, so the branches read 271 and 439 input
+columns) on the ScanNet-scale room of the JAX package's bench (6 x 6 x 2.5 m,
+0.1 m voxels, grid (63, 63, 27), corner table 114,688 rows x 192 channels),
+and the three probe kernels of the voxel path:
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
@@ -43,7 +49,28 @@ a skip at 4, object branch 4x128 with a skip at 2, codes of 64, 64 coarse +
    tetrahedra on it (the native C++ backend wherever g++ exists) and writes
    and re-reads a PLY; times the sweep alone at
    512^3 (or 256^3 if that would take more than about a minute);
-11. prints one JSON line describing every kernel, and, last, one JSON line
+11. holds the row gather `gather_rows` against `index_select` bit for bit,
+   bf16 and f32, at the probe's shape (890,000-row table, 983,040 indices) and
+   at the voxel path's (the bench grid's corner table, a chunk's 491,520 and
+   983,040 real sample addresses), and times both;
+12. holds `fused_coarse_weights`, `fused_render_tiles` and `fused_sigma_eval`
+   with the voxel operand against their bf16 plain versions on identical
+   seeded inputs (`voxel_raw` from the real lookup on the bench grid) at
+   7680 x 64, 7680 x 128 and 262,144 points (both branches), and times them;
+13. renders one 640x480 voxel frame with `render_image` (chunk 7680; rays from
+   mid-room, near 0.05, far 2.4): finite maps, exactly 40 + 40 kernel
+   launches, 80 `gather_rows` launches and one corner-table build; four chunks
+   against `render_rays_plain` on the same bf16 table (gated) and on the
+   all-f32 path (gated lower, distance printed); times the frame and prints
+   how it splits into kernels, gathers, table build and the rest;
+14. sweeps the room's density grid at 128^3 through the voxel lookup and
+   `fused_sigma_eval`, scene branch and one object, each against the plain f32
+   sweep, and times the 512^3 voxel sweep (under the same budget rule);
+15. holds `pe_probe` (each of its eight modes, a few tiles) and `scale_copy`
+   against their plain versions, drives them once as the probe scripts do, and
+   holds four modes at 983,040 rows against the plain version over every row
+   before it times them, and `scale_copy` against `torch.mul`;
+16. prints one JSON line describing all eight kernels, and, last, one JSON line
    naming the device.
 
 `--profile` adds a `torch.profiler` table of the device time of three
@@ -131,6 +158,43 @@ MESH_OBJ = 1
 MESH_F32_TOL = 5e-3
 SWEEP_BUDGET_S = 60.0
 
+# voxel path: the frame of bench.py's voxel metric (bench.py:193-196, :216)
+VOX_OBJ = 1
+# voxel frame chunks vs render_rays_plain with bf16 operands on the SAME bf16
+# corner table (the kernels' own rounding points: table in bf16, 8-corner sum
+# in f32, encoding in f32, then bf16): what is left is the order of the f32
+# sums, which moves a coarse weight by ~1e-5, hence an importance sample,
+# hence the fine maps. Measured on an H100: 122.1 dB on every checked chunk
+VOX_PSNR_FLOOR_DB = 90.0
+# the same chunks vs the all-f32 path (f32 table, f32 products): a bf16
+# feature is off by up to 2^-9 of its size and the top octave multiplies that
+# by 2^5 inside a sine, so the encoded inputs themselves differ by ~1e-1 where
+# features are large. On the bench rays only 13 % of the samples lie in
+# occupied voxels, and the random model is smooth: measured 90.2 dB on an
+# H100. The floor leaves 20 dB (a tenfold larger error) for other seeds and
+# cards; features that are wrong where voxels are occupied move the colours of
+# those rays by their own size and land far below it
+VOX_F32_PSNR_FLOOR_DB = 70.0
+# voxel mesh sweep: the room's own box (the classical sweep's +-1.5 cube lies
+# mostly outside the grid, where every feature is 0)
+VOX_MESH_RANGES = {"x_range": [-1.2, 1.2], "y_range": [-1.2, 1.2], "z_range": [-0.5, 0.5]}
+# kernel sweep (f32 table as in the JAX package's sweep, bf16 products) vs the
+# plain f32 sweep, max abs over the grid: as MESH_F32_TOL, with the 208 + 104
+# encoded voxel columns rounded to bf16 on top; measured on an H100: 2.3e-4
+# (scene) and 1.4e-3 (object)
+VOX_MESH_F32_TOL = 5e-3
+# probes: shapes of the JAX package's scripts
+PROBE_ROWS, PROBE_TABLE_ROWS, PROBE_CHANNELS = 983040, 890000, 192
+PROBE_CHECK_ROWS = 128 * 5 + 17  # a few tiles and a ragged one
+PROBE_TIMED_MODES = ("none", "combined", "combined_polysin", "split_polysin")
+# pe_probe vs its plain version, max abs over the rows relative to the largest
+# output: both round the same operands to bf16; their f32 sums run in another
+# order (and the card's sinf differs from torch's in the last bit), which
+# flips bf16 roundings that the 8-layer ReLU chain then carries; measured on
+# an H100: 3.4e-4 (no encoding) to 1.9e-3 (all 348 columns encoded) over 657
+# rows, 2.0e-3 to 3.0e-3 as the largest of all 983,040 rows
+PROBE_REL_TOL = 1e-2
+
 # dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
 PEAKS = (  # (name substring, TFLOP/s, TB/s)
     ("H100 PCIe", 756.0, 2.0),
@@ -183,11 +247,9 @@ def _macs_per_sample(cfg, coarse: bool) -> int:
             m += (width // 2) * 3
         return m
 
-    pe = cfg.xyz_pe_size
-    m = branch(cfg.W, cfg.D, cfg.skips, pe, heads=not coarse)
+    m = branch(cfg.W, cfg.D, cfg.skips, cfg.in_channels_xyz, heads=not coarse)
     if not coarse:
-        m += branch(cfg.inst_W, cfg.inst_D, cfg.inst_skips,
-                    pe + cfg.N_obj_code_length, heads=True)
+        m += branch(cfg.inst_W, cfg.inst_D, cfg.inst_skips, cfg.inst_channel_in, heads=True)
     return m
 
 
@@ -539,7 +601,7 @@ def _branch_macs(cfg, instance: bool) -> int:
     (unpadded): what `fused_sigma_eval` computes."""
     width, depth, skips = ((cfg.inst_W, cfg.inst_D, cfg.inst_skips) if instance
                            else (cfg.W, cfg.D, cfg.skips))
-    c_in = cfg.xyz_pe_size + (cfg.N_obj_code_length if instance else 0)
+    c_in = cfg.inst_channel_in if instance else cfg.in_channels_xyz
     m = width  # sigma head
     for i in range(depth):
         m += (c_in if i == 0 else (c_in + width if i in skips else width)) * width
@@ -883,6 +945,500 @@ def _mesh_phase(torch, dev, models, settings):
     return launches
 
 
+def _bound(flop, nbytes, peak_flops, peak_bytes):
+    """(bound ms, "operations" or "bytes") of work that needs `flop`
+    operations and moves `nbytes`."""
+    t_ops, t_bytes = flop / peak_flops * 1e3, nbytes / peak_bytes * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _gather_phase(torch, dev, peak_bytes, ct_by_dtype, flat_by_rows):
+    """Phase 11: `gather_rows` against `index_select`, bit for bit, and both
+    timed; returns the kernel's entry for the `kernels` line (without its
+    launches) and its ms by (table, dtype, rows)."""
+    import numpy as np
+
+    from object_nerf_torch.ops import gather
+
+    rng = np.random.RandomState(SEED + 4)
+    probe_idx = torch.from_numpy(
+        rng.randint(0, PROBE_TABLE_ROWS, size=(PROBE_ROWS,)).astype(np.int32)).to(dev)
+    ms, lib_ms, bound = {}, {}, {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        probe_table = torch.from_numpy(
+            rng.randn(PROBE_TABLE_ROWS, PROBE_CHANNELS).astype(np.float32)).to(dev).to(dtype)
+        cases = [(f"probe table {PROBE_TABLE_ROWS} x {PROBE_CHANNELS}", probe_table, probe_idx)]
+        cases += [(f"corner table {ct_by_dtype[tag].shape[0]} x {PROBE_CHANNELS}",
+                   ct_by_dtype[tag], flat) for flat in flat_by_rows.values()]
+        for what, table, idx in cases:
+            got = gather.gather_rows(table, idx)  # with the index check
+            want = gather.gather_rows_plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"gather_rows ({what}, {tag}, {idx.shape[0]} rows) is not "
+                                 f"index_select bit for bit")
+            del got, want
+            key = (what.split()[0], tag, idx.shape[0])
+            ms[key] = _cuda_ms(lambda: gather.gather_rows(table, idx, check_indices=False),
+                               TIMED_LAUNCHES)
+            lib_ms[key] = _cuda_ms(lambda: gather.gather_rows_plain(table, idx), TIMED_LAUNCHES)
+            # every output row written once and every index read once; of the
+            # table only the rows that this run's indices name, each read once
+            row_bytes = PROBE_CHANNELS * table.element_size()
+            n_distinct = int(torch.unique(idx).numel())
+            nbytes = idx.shape[0] * (row_bytes + 4) + n_distinct * row_bytes
+            bound[key] = nbytes / peak_bytes * 1e3
+            print(f"gather_rows {what} {tag}, {idx.shape[0]} rows ({n_distinct} distinct): "
+                  f"bit-equal to index_select; {ms[key]:.3f} ms/launch "
+                  f"({nbytes / ms[key] / 1e6:.0f} GB/s of the bytes it must move), index_select "
+                  f"{lib_ms[key]:.3f} ms, bound {bound[key]:.3f} ms (bytes: "
+                  f"{nbytes / 1e6:.1f} MB)")
+        del probe_table
+    try:
+        gather.gather_rows(ct_by_dtype["bf16"], torch.full((4,), ct_by_dtype["bf16"].shape[0],
+                                                           dtype=torch.int32, device=dev))
+    except IndexError:
+        pass
+    else:
+        raise SystemExit("gather_rows took an index past the table's end")
+    # a voxel chunk gathers once per pass from the bf16 table: the sum is its cost
+    path = [k for k in ms if k[0] == "corner" and k[1] == "bf16"]
+    entry = {
+        "name": "gather_rows", "route": "cuda",
+        "source": "object_nerf_torch/ops/csrc/gather_rows.cu",
+        "replaces": "scripts/profile_dma_gather.py:39",
+        "max_abs_err": 0.0, "tol": 0.0, "err_is": "bit-equal to index_select",
+        "ms": sum(ms[k] for k in path), "plain_ms": sum(lib_ms[k] for k in path),
+        "bound_ms": sum(bound[k] for k in path), "bound_by": "bytes",
+        "library_ms": sum(lib_ms[k] for k in path),
+        "ms_by_shape": {" ".join(map(str, k)): v for k, v in ms.items()},
+        "library_ms_by_shape": {" ".join(map(str, k)): v for k, v in lib_ms.items()},
+        "bound_ms_by_shape": {" ".join(map(str, k)): v for k, v in bound.items()},
+    }
+    return entry, ms
+
+
+def _voxel_phases(torch, dev, peak_flops, peak_bytes):
+    """Phases 11 to 14: the voxel-conditioned model's eval frame and density
+    sweep. Returns the `gather_rows` entry and, for the three kernels that
+    gained the voxel operand, their voxel errors, times, bounds and launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from object_nerf_torch.config import Config
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.models.mlp import ObjectNeRFConfig
+    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops import fused_sigma as fs
+    from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
+    from object_nerf_torch.render.renderer import (
+        RenderSettings, lookup_voxel_raw, render_rays_plain,
+    )
+    from object_nerf_torch.scripts._fixtures import bench_grid, bench_rays
+    from object_nerf_torch.tools.extract_mesh import extract_sigma_grid
+    from object_nerf_torch.train.metrics import psnr
+    from object_nerf_torch.train.system import init_params, render_image
+
+    cfg = ObjectNeRFConfig()  # the reference's default: voxel conditioning on
+    settings = RenderSettings(mlp=cfg, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                              perturb=0.0, noise_std=0.0, is_eval=True, forward_instance=True)
+    t0 = time.perf_counter()
+    features, topo, static = bench_grid(cfg, dev, seed=SEED + 2)
+    print(f"voxel grid: shape {static.shape}, {int(topo.n_occupied)} occupied voxels, feature "
+          f"table {tuple(features.shape)}, built on the host in {time.perf_counter() - t0:.1f} s")
+    models = init_params(torch.Generator().manual_seed(SEED), settings, {"N_max_objs": 64},
+                         device=dev, voxel_features=features)
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    features = models.voxel_features.detach()
+    n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
+    batch = {"rays": bench_rays(W * H, seed=0),
+             "instance_ids": np.random.RandomState(SEED).randint(0, 64, W * H)}
+
+    with torch.no_grad():
+        ct = {"bf16": vg.make_corner_table(features, topo, static, lowp=True),
+              "f32": vg.make_corner_table(features, topo, static)}
+        build_ms = _cuda_ms(lambda: vg.make_corner_table(features, topo, static, lowp=True), 5)
+        print(f"corner table {tuple(ct['bf16'].shape)}: {ct['bf16'].numel() * 2 / 1e6:.1f} MB "
+              f"in bf16, built in {build_ms:.3f} ms")
+        ctx = (features, topo, static, ct["bf16"])
+
+        # one chunk's inputs, as the eval path makes them
+        rays = torch.from_numpy(batch["rays"][:CHUNK]).to(dev)
+        ids = torch.from_numpy(batch["instance_ids"][:CHUNK]).to(dev)
+        codes = models.code_library(ids).contiguous()
+        dir_pe = freq_encode(rays[:, 3:6], cfg.N_freq_dir).contiguous()
+        z_c = stratified_sample(rays[:, 6:7], rays[:, 7:8], settings.N_samples)
+        xyz_c = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_c[..., None]).contiguous()
+        raw_c = lookup_voxel_raw(settings, ctx, xyz_c)
+        w_plain = fused_mlp.coarse_weights_plain(models.nerf_coarse, cfg, xyz_c, z_c,
+                                                 voxel_raw=raw_c)
+        z_mid = 0.5 * (z_c[:, :-1] + z_c[:, 1:])
+        z_f = merge_z_vals(z_c, sample_pdf(z_mid, w_plain[:, 1:-1], settings.N_importance,
+                                           det=True)).contiguous()
+        xyz_f = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_f[..., None]).contiguous()
+        raw_f = lookup_voxel_raw(settings, ctx, xyz_f)
+        inside = (raw_f.abs().sum(-1) > 0).float().mean().item()
+        print(f"chunk 0: {inside * 100:.1f} % of the fine samples lie in occupied voxels; raw "
+              f"features within {raw_f.min().item():.2f} .. {raw_f.max().item():.2f}")
+        flat = {xyz.shape[0] * xyz.shape[1]:
+                vg.corner_index_weights(topo, static, xyz.reshape(-1, 3))[0].contiguous()
+                for xyz in (xyz_c, xyz_f)}
+
+    # -- 11. the gather ---------------------------------------------------------------
+    gather_entry, gather_ms = _gather_phase(torch, dev, peak_bytes, ct, flat)
+
+    # -- 12. the three kernels with the voxel operand -----------------------------------
+    with torch.no_grad():
+        pk_c = fused_mlp.pack_kernel_weights(models.nerf_coarse, cfg, False, sigma_only=True)
+        pk_f = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True)
+        runs = {
+            "fused_coarse_weights": (
+                lambda: fused_mlp.fused_coarse_weights(models.nerf_coarse, cfg, xyz_c, z_c,
+                                                       voxel_raw=raw_c, packed=pk_c),
+                lambda: fused_mlp.coarse_weights_plain(models.nerf_coarse, cfg, xyz_c, z_c,
+                                                       voxel_raw=raw_c)),
+            "fused_render_tiles": (
+                lambda: fused_mlp.fused_render_tiles(models.nerf_fine, cfg, xyz_f, z_f, dir_pe,
+                                                     codes, voxel_raw=raw_f, packed=pk_f),
+                lambda: fused_mlp.render_tiles_plain(models.nerf_fine, cfg, xyz_f, z_f, dir_pe,
+                                                     codes, voxel_raw=raw_f)),
+        }
+        n_c, n_f = CHUNK * N_SAMPLES, CHUNK * (N_SAMPLES + N_IMPORTANCE)
+        work = {  # (operations, bytes: inputs once, outputs once, packed weights once)
+            "fused_coarse_weights": (
+                2 * _macs_per_sample(cfg, True) * n_c,
+                4 * (3 + n_vox + 1 + 1) * n_c + 2 * pk_c.w.numel() + 4 * pk_c.b.numel()),
+            "fused_render_tiles": (
+                2 * _macs_per_sample(cfg, False) * n_f,
+                4 * ((3 + n_vox + 1) * n_f + CHUNK * (27 + 64 + 16))
+                + 2 * pk_f.w.numel() + 4 * pk_f.b.numel()),
+        }
+        vox = {}
+        for name, (run, run_plain) in runs.items():
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            if name == "fused_coarse_weights":
+                errs = {"weights": (got - want).abs().max().item()}
+            else:
+                errs = {k: (got[k] - want[k]).abs().max().item() for k in want}
+            err = max(errs.values())
+            print(f"{name} voxel {tuple((xyz_c if name == 'fused_coarse_weights' else xyz_f).shape)}"
+                  f": max |kernel - plain bf16| = {err:.3e} (tol {KERNEL_TOL:g}): "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if not err <= KERNEL_TOL:
+                raise SystemExit(f"{name} with the voxel operand disagrees with its plain "
+                                 f"version: {err:.3e}")
+            del got, want
+            flop, nbytes = work[name]
+            b_ms, b_by = _bound(flop, nbytes, peak_flops, peak_bytes)
+            vox[name] = {"err": err, "ms": _cuda_ms(run, TIMED_LAUNCHES),
+                         "plain_ms": _cuda_ms(run_plain, 3), "bound_ms": b_ms, "bound_by": b_by}
+            print(f"{name} voxel: {vox[name]['ms']:.3f} ms/launch, plain "
+                  f"{vox[name]['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+                  f"{flop / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), "
+                  f"{flop / vox[name]['ms'] / 1e9:.1f} TFLOP/s achieved")
+
+        # the density kernel at the sweep's chunk: points in and around the room,
+        # features from the f32 table as the sweep looks them up
+        gen = torch.Generator().manual_seed(SEED + 5)
+        n_pts, per_row = MESH_CHUNK, N_SAMPLES
+        pts = ((torch.rand(n_pts, 3, generator=gen) * 2.0 - 1.0)
+               * torch.tensor([1.3, 1.3, 0.6])).to(dev)
+        raw_p, _ = vg.voxel_lookup_raw(None, topo, static, pts, ct=ct["f32"])
+        raw_p = raw_p.contiguous()
+        code_rows = models.code_library(
+            torch.randint(0, 64, (n_pts // per_row,), generator=gen).to(dev)).contiguous()
+        pk_s = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True, sigma_only=True)
+        sig = {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}}
+        for branch in fs.BRANCHES:
+            def run(branch=branch):
+                return fs.fused_sigma_eval(models.nerf_fine, cfg, pts, code_rows, branch,
+                                           per_row, voxel_raw=raw_p, packed=pk_s)
+
+            def run_plain(branch=branch):
+                return fs.sigma_eval_plain(models.nerf_fine, cfg, pts, code_rows, branch,
+                                           per_row, voxel_raw=raw_p)
+
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"fused_sigma_eval voxel {branch} ({n_pts} points): max |kernel - plain "
+                  f"bf16| = {err:.3e} (tol {KERNEL_TOL:g}; raw densities "
+                  f"{got.min().item():.4f} .. {got.max().item():.4f})")
+            if not err <= KERNEL_TOL:
+                raise SystemExit(f"fused_sigma_eval ({branch}) with the voxel operand "
+                                 f"disagrees with its plain version: {err:.3e}")
+            instance = branch == "instance"
+            macs = _branch_macs(cfg, instance)
+            depth, width = (cfg.inst_D, cfg.inst_W) if instance else (cfg.D, cfg.W)
+            nbytes = ((16 + 4 * n_vox) * n_pts + (4 * code_rows.numel() if instance else 0)
+                      + 2 * macs + 4 * (depth * width + 1))
+            sig["err"] = max(sig["err"], err)
+            sig["ms"][branch] = _cuda_ms(run, TIMED_LAUNCHES)
+            sig["plain_ms"][branch] = _cuda_ms(run_plain, 3)
+            sig["bound_ms"][branch], sig["bound_by"][branch] = _bound(
+                2 * macs * n_pts, nbytes, peak_flops, peak_bytes)
+            print(f"fused_sigma_eval voxel {branch}: {sig['ms'][branch]:.3f} ms/launch, plain "
+                  f"{sig['plain_ms'][branch]:.3f} ms, bound {sig['bound_ms'][branch]:.3f} ms "
+                  f"({sig['bound_by'][branch]}: {macs} multiply-adds per point), "
+                  f"{2 * macs * n_pts / sig['ms'][branch] / 1e9:.1f} TFLOP/s achieved")
+        vox["fused_sigma_eval"] = sig
+        del pts, raw_p, got, want
+
+        # the lookup of a chunk's two passes, all of it and its gathers alone
+        lookup_ms = _cuda_ms(lambda: (lookup_voxel_raw(settings, ctx, xyz_c),
+                                      lookup_voxel_raw(settings, ctx, xyz_f)), TIMED_LAUNCHES)
+
+    # -- 13. one 640x480 voxel frame through the main path ---------------------------------
+    def reset_counts():
+        fused_mlp.reset_launch_counts()
+        gather.reset_launch_counts()
+        vg.build_counts["corner_table"] = 0
+
+    def frame():
+        return render_image(models, settings, batch, chunk=CHUNK, device=dev,
+                            voxel_topo=topo, voxel_static=static)
+
+    n_chunks = (W * H) // CHUNK
+    reset_counts()
+    out = frame()
+    torch.cuda.synchronize()
+    launches = dict(fused_mlp.launch_counts)
+    n_gathers, n_builds = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
+    print(f"voxel frame {W}x{H}: launches {launches}, gather_rows {n_gathers}, corner-table "
+          f"builds {n_builds} (expect {n_chunks} of each eval kernel, {2 * n_chunks} gathers, "
+          f"1 build)")
+    if (launches != {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
+                     "fused_mlp_eval": 0, "fused_mlp_bwd": 0, "fused_sigma_eval": 0}
+            or n_gathers != 2 * n_chunks or n_builds != 1):
+        raise SystemExit("the voxel frame's launch counts are not those of its path")
+    for k, v in out.items():
+        if v.shape[0] != W * H or not np.isfinite(v).all():
+            raise SystemExit(f"voxel frame map {k} is not finite or has shape {v.shape}")
+    eval_launches = {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
+                     "gather_rows": n_gathers}
+
+    all_ids = torch.from_numpy(batch["instance_ids"]).to(dev)
+    ctx32 = (features, topo, static, ct["f32"])
+    with torch.no_grad():
+        for c in CHECK_CHUNKS:
+            sl = slice(c * CHUNK, (c + 1) * CHUNK)
+            rays_c = torch.from_numpy(batch["rays"][sl]).to(dev)
+            codes_c = models.code_library(all_ids[sl])
+            got = torch.from_numpy(out["rgb_fine"][sl]).to(dev)
+            ref16 = render_rays_plain(models, rays_c, settings, codes_c,
+                                      matmul_dtype=torch.bfloat16, voxel_ctx=ctx)
+            ref32 = render_rays_plain(models, rays_c, settings, codes_c,
+                                      matmul_dtype=torch.float32, voxel_ctx=ctx32)
+            p16, p32 = psnr(got, ref16["rgb_fine"]).item(), psnr(got, ref32["rgb_fine"]).item()
+            diffs = ", ".join(
+                f"{k} {(torch.from_numpy(out[k][sl]).to(dev) - v).abs().max().item():.2e}"
+                for k, v in ref16.items())
+            print(f"voxel chunk {c}: rgb_fine PSNR vs plain bf16 on the same bf16 table "
+                  f"{p16:.2f} dB (floor {VOX_PSNR_FLOOR_DB:g}), vs the all-f32 path {p32:.2f} dB "
+                  f"(floor {VOX_F32_PSNR_FLOOR_DB:g}); max abs diff vs plain bf16: {diffs}")
+            if not p16 >= VOX_PSNR_FLOOR_DB:
+                raise SystemExit(f"voxel chunk {c}: {p16:.2f} dB from the plain bf16 path")
+            if not p32 >= VOX_F32_PSNR_FLOOR_DB:
+                raise SystemExit(f"voxel chunk {c}: {p32:.2f} dB from the all-f32 path")
+            del ref16, ref32
+
+    times = []
+    for _ in range(FRAMES_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frame_ms = statistics.median(times) * 1e3
+    k_ms = n_chunks * (vox["fused_coarse_weights"]["ms"] + vox["fused_render_tiles"]["ms"])
+    g_ms = n_chunks * sum(v for k, v in gather_ms.items() if k[0] == "corner" and k[1] == "bf16")
+    l_ms = n_chunks * lookup_ms - g_ms
+    print(f"voxel frame: {frame_ms:.1f} ms median of {FRAMES_TIMED} (all: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), {W * H / (frame_ms / 1e3):.0f} "
+          f"rays/s; kernels {k_ms:.1f} ms, gathers {g_ms:.1f} ms, the lookups' addressing and "
+          f"8-corner sums {l_ms:.1f} ms, table build {build_ms:.2f} ms, glue + packing + "
+          f"copies (by subtraction) {frame_ms - k_ms - g_ms - l_ms - build_ms:.1f} ms; kernel "
+          f"bound {n_chunks * (vox['fused_coarse_weights']['bound_ms'] + vox['fused_render_tiles']['bound_ms']):.1f} ms")
+    del out
+
+    # -- 14. the voxel density sweep ---------------------------------------------------------
+    def grid_conf(n):
+        return Config({"N_grid": n, "chunk": MESH_CHUNK, **VOX_MESH_RANGES})
+
+    sweep_ctx = (features, topo, static)
+    settings32 = dataclasses.replace(settings, matmul_dtype=torch.float32)
+    per_sweep = -(-MESH_GRID ** 3 // MESH_CHUNK)
+    mesh_launches = {"fused_sigma_eval": 0, "gather_rows": 0}
+    for obj_id in (0, VOX_OBJ):
+        reset_counts()
+        got = extract_sigma_grid(models, settings, grid_conf(MESH_GRID), obj_id, device=dev,
+                                 as_tensor=True, voxel_ctx=sweep_ctx)
+        torch.cuda.synchronize()
+        n_launch, n_gather = (fused_mlp.launch_counts["fused_sigma_eval"],
+                              gather.launch_counts["gather_rows"])
+        n_builds = vg.build_counts["corner_table"]
+        want = extract_sigma_grid(models, settings32, grid_conf(MESH_GRID), obj_id, device=dev,
+                                  plain=True, as_tensor=True, voxel_ctx=sweep_ctx)
+        err = (got - want).abs().max().item()
+        print(f"voxel sigma grid {MESH_GRID}^3, "
+              f"{'scene branch' if obj_id == 0 else f'object {obj_id}'}: {n_launch} launches, "
+              f"{n_gather} gathers, {n_builds} table build (expect {per_sweep}, {per_sweep}, "
+              f"1); max |kernel sweep - plain f32 sweep| = {err:.3e} (tol "
+              f"{VOX_MESH_F32_TOL:g}); densities {got.min().item():.4f} .. "
+              f"{got.max().item():.4f}, {(got > 0).float().mean().item() * 100:.1f} % above 0")
+        if (n_launch, n_gather, n_builds) != (per_sweep, per_sweep, 1) \
+                or sum(fused_mlp.launch_counts.values()) != per_sweep:
+            raise SystemExit(f"expected {per_sweep} launches of fused_sigma_eval and of "
+                             f"gather_rows and one table build")
+        if not torch.isfinite(got).all() or not err <= VOX_MESH_F32_TOL:
+            raise SystemExit(f"the voxel kernel sweep disagrees with the plain f32 sweep: "
+                             f"{err:.3e}")
+        mesh_launches["fused_sigma_eval"] += n_launch
+        mesh_launches["gather_rows"] += n_gather
+        del got, want
+
+    def timed_sweep(n):
+        """Seconds of the n^3 voxel sweep and its (kernel, gather) launches, as
+        counted; fails unless there was one of each per chunk and one table build."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = extract_sigma_grid(models, settings, grid_conf(n), 0, device=dev, as_tensor=True,
+                                  voxel_ctx=sweep_ctx)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counted = (fused_mlp.launch_counts["fused_sigma_eval"],
+                   gather.launch_counts["gather_rows"], vg.build_counts["corner_table"])
+        expect = -(-n ** 3 // MESH_CHUNK)
+        if counted != (expect, expect, 1) or sum(fused_mlp.launch_counts.values()) != expect:
+            raise SystemExit(f"the {n}^3 voxel sweep counted {counted} launches of "
+                             f"fused_sigma_eval, of gather_rows and table builds; expected "
+                             f"{(expect, expect, 1)}")
+        if not torch.isfinite(grid).all():
+            raise SystemExit(f"the {n}^3 voxel sweep is not finite")
+        mesh_launches["fused_sigma_eval"] += counted[0]
+        mesh_launches["gather_rows"] += counted[1]
+        return dt, counted[0], counted[1]
+
+    n_timed = MESH_GRID_TIMED // 2
+    dt, n_launch, n_gather = timed_sweep(n_timed)
+    if 8 * dt <= SWEEP_BUDGET_S:
+        n_timed = MESH_GRID_TIMED
+        dt, n_launch, n_gather = timed_sweep(n_timed)
+    print(f"voxel sigma sweep {n_timed}^3 ({n_timed ** 3} points, scene branch, chunk "
+          f"{MESH_CHUNK}): {dt * 1e3:.1f} ms, {n_launch} launches and {n_gather} gathers "
+          f"counted, 1 table build, {n_timed ** 3 / dt / 1e6:.1f} M points/s; kernel launches "
+          f"alone {n_launch * sig['ms']['scene']:.1f} ms")
+    gather_entry["launches_by_path"] = {"voxel_eval": eval_launches["gather_rows"],
+                                        "voxel_mesh": mesh_launches["gather_rows"]}
+    gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
+    return gather_entry, vox, eval_launches, mesh_launches
+
+
+def _probe_phase(torch, dev, peak_flops, peak_bytes):
+    """Phase 15: the two probe kernels; returns their entries for the
+    `kernels` line."""
+    from object_nerf_torch.ops import probes
+    from object_nerf_torch.scripts._fixtures import probe_inputs
+
+    with torch.no_grad():
+        x, s, trunk = probe_inputs(PROBE_ROWS, dev, seed=SEED)
+        packed = probes.pack_probe_trunk(trunk)
+        xs = x[:PROBE_CHECK_ROWS].contiguous()
+        errs = {}
+        for mode in probes.MODES:
+            got = probes.pe_probe(xs, *s, trunk, mode)
+            want = probes.pe_probe_plain(xs, *s, trunk, mode)
+            torch.cuda.synchronize()
+            errs[mode] = _rel(got, want)
+        print(f"pe_probe ({PROBE_CHECK_ROWS} rows): max |kernel - plain| / max |plain| by mode: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {PROBE_REL_TOL:g})")
+        worst = max(errs, key=errs.get)
+        if not errs[worst] <= PROBE_REL_TOL:
+            raise SystemExit(f"pe_probe ({worst}) disagrees with its plain version: "
+                             f"{errs[worst]:.3e}")
+        y = x[:, :24].contiguous()
+        got, want = probes.scale_copy(y), probes.scale_copy_plain(y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit("scale_copy is not 2 x")
+        del got, want
+
+        # the probes' own path: each timed mode once at the fine pass's row
+        # count, and the trivial kernel once, as the probe scripts launch them
+        probes.reset_launch_counts()
+        for mode in PROBE_TIMED_MODES:
+            out = probes.pe_probe(x, *s, trunk, mode, packed=packed)
+        doubled = probes.scale_copy(y)
+        torch.cuda.synchronize()
+        launches = dict(probes.launch_counts)
+        print(f"probe path: launches {launches} (expect {len(PROBE_TIMED_MODES)} and 1); "
+              f"outputs finite: {bool(torch.isfinite(out).all() and torch.isfinite(doubled).all())}")
+        if launches != {"pe_probe": len(PROBE_TIMED_MODES), "scale_copy": 1}:
+            raise SystemExit(f"unexpected probe launches {launches}")
+        if not (torch.isfinite(out).all() and torch.isfinite(doubled).all()):
+            raise SystemExit("a probe's output is not finite")
+        del out, doubled
+
+        chain = 375 * 256 + 7 * 256 * 256  # multiply-adds per row
+        pe_macs = {"none": 0, "combined": 27 * 348, "combined_polysin": 27 * 348,
+                   "split_polysin": 3 * 60 + 16 * 192 + 8 * 96}
+        weights = 2 * (375 * 256 + 7 * 256 * 256) + 4 * 2 * 27 * 348
+        ms, plain_ms, bound, full_errs = {}, {}, {}, {}
+        for mode in PROBE_TIMED_MODES:
+            got = probes.pe_probe(x, *s, trunk, mode, packed=packed)
+            want = probes.pe_probe_plain(x, *s, trunk, mode)
+            torch.cuda.synchronize()
+            full_errs[mode] = _rel(got, want)
+            if not full_errs[mode] <= PROBE_REL_TOL:
+                raise SystemExit(f"pe_probe ({mode}) at {PROBE_ROWS} rows disagrees with its "
+                                 f"plain version: {full_errs[mode]:.3e}")
+            del got, want
+            ms[mode] = _cuda_ms(lambda: probes.pe_probe(x, *s, trunk, mode, packed=packed),
+                                TIMED_LAUNCHES)
+            plain_ms[mode] = _cuda_ms(lambda: probes.pe_probe_plain(x, *s, trunk, mode), 2)
+            flop = 2 * (chain + pe_macs[mode]) * PROBE_ROWS
+            bound[mode], by = _bound(flop, PROBE_ROWS * (27 * 4 + 4) + weights, peak_flops,
+                                     peak_bytes)
+            print(f"pe_probe {mode} ({PROBE_ROWS} rows): {ms[mode]:.3f} ms/launch "
+                  f"({ms[mode] - ms['none']:+.3f} ms over none), plain {plain_ms[mode]:.3f} ms, "
+                  f"bound {bound[mode]:.3f} ms ({by}: {flop / 1e12:.3f} TFLOP), "
+                  f"{flop / ms[mode] / 1e9:.1f} TFLOP/s achieved; max |kernel - plain| / max "
+                  f"|plain| over all rows {full_errs[mode]:.2e} (tol {PROBE_REL_TOL:g})")
+        nbytes = 2 * 4 * y.numel()
+        sc_ms = _cuda_ms(lambda: probes.scale_copy(y), 50)
+        sc_plain = _cuda_ms(lambda: probes.scale_copy_plain(y), 50)
+        sc_lib = _cuda_ms(lambda: torch.mul(y, 2.0), 50)
+        sc_bound, sc_by = _bound(y.numel(), nbytes, peak_flops, peak_bytes)
+        print(f"scale_copy {tuple(y.shape)}: {sc_ms:.4f} ms/launch "
+              f"({nbytes / sc_ms / 1e6:.0f} GB/s), plain {sc_plain:.4f} ms, torch.mul "
+              f"{sc_lib:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}: {nbytes / 1e6:.1f} MB)")
+    return [
+        {"name": "pe_probe", "route": "cuda",
+         "source": "object_nerf_torch/ops/csrc/probes.cu",
+         "replaces": "scripts/profile_pe_micro.py:53", "launches": launches["pe_probe"],
+         "max_abs_err": max(errs[worst], *full_errs.values()), "tol": PROBE_REL_TOL,
+         "err_is": ("max abs / largest reference output, worst of the eight modes at a few "
+                    "tiles and of the four timed modes at every row"),
+         # the mode that encodes all 27 channels at once with the built-in sine
+         "ms": ms["combined"], "plain_ms": plain_ms["combined"],
+         "bound_ms": bound["combined"], "bound_by": "operations", "library_ms": None,
+         "ms_by_mode": ms, "plain_ms_by_mode": plain_ms, "bound_ms_by_mode": bound},
+        {"name": "scale_copy", "route": "cuda",
+         "source": "object_nerf_torch/ops/csrc/probes.cu",
+         "replaces": "scripts/profile_voxel_split.py:130", "launches": launches["scale_copy"],
+         "max_abs_err": 0.0, "tol": 0.0, "err_is": "bit-equal to 2 x",
+         "ms": sc_ms, "plain_ms": sc_plain, "bound_ms": sc_bound, "bound_by": sc_by,
+         "library_ms": sc_lib},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1078,7 +1634,20 @@ def main() -> int:
             entry["launches"] = sum(entry["launches_by_path"].values())
             entry["max_abs_err"] = max(entry["max_abs_err"], edit_mlp_err)
 
-    # -- 11. the kernels ------------------------------------------------------------
+    # -- 11 to 15. the voxel-conditioned model and the probes -----------------------------
+    del models, frame
+    torch.cuda.empty_cache()
+    gather_entry, vox, vox_eval_launches, vox_mesh_launches = _voxel_phases(
+        torch, dev, peak_flops, peak_bytes)
+    torch.cuda.empty_cache()
+    probe_entries = _probe_phase(torch, dev, peak_flops, peak_bytes)
+    sigma_entry["launches_by_path"]["voxel_mesh"] = vox_mesh_launches["fused_sigma_eval"]
+    sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
+    sigma_entry["max_abs_err"] = max(sigma_entry["max_abs_err"], vox["fused_sigma_eval"]["err"])
+    for key in ("ms", "plain_ms", "bound_ms"):
+        sigma_entry[f"voxel_{key}_by_branch"] = vox["fused_sigma_eval"][key]
+
+    # -- 16. the kernels ------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
@@ -1086,11 +1655,15 @@ def main() -> int:
     errs = {"fused_coarse_weights": err_c, "fused_render_tiles": err_f}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": "object_nerf_torch/ops/csrc/fused_mlp.cu",
-         "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
+         "replaces": replaces[k], "launches": launches[k] + vox_eval_launches[k],
+         "launches_by_path": {"eval": launches[k], "voxel_eval": vox_eval_launches[k]},
+         "max_abs_err": max(errs[k], vox[k]["err"]),
          "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
-         "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None}
+         "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None,
+         "voxel_ms": vox[k]["ms"], "voxel_plain_ms": vox[k]["plain_ms"],
+         "voxel_bound_ms": vox[k]["bound_ms"]}
         for k in replaces
-    ] + train_entries + [sigma_entry]}))
+    ] + train_entries + [sigma_entry, gather_entry] + probe_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

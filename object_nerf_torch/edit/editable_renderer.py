@@ -85,8 +85,10 @@ class EditableRenderer:
             [np.eye(3), np.array(dataset_extra["scene_center"])[:, None]], 1)
 
         if bool(self.ckpt_config.model.get("use_voxel_embedding", True)):
-            raise NotImplementedError("voxel conditioning is not ported yet: the edit "
-                                      "renderer takes use_voxel_embedding=false models")
+            raise NotImplementedError("the edit render of a voxel-conditioned model is not "
+                                      "ported yet (it needs the voxel operand of "
+                                      "fused_mlp_eval): the edit renderer takes "
+                                      "use_voxel_embedding=false models")
         self.compact_rays = bool(
             dict(config.get("tpu", {}) or {}).get("compact_edit_rays", True))
         # the CUDA kernels compute in bf16; the CPU path is the exact f32 one

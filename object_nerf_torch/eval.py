@@ -5,7 +5,8 @@
         [chunk=7680]
 
 Counterpart of `scripts/eval.py`: loads a reference Lightning checkpoint
-(or a state dict in its schema), renders whole frames through the fused
+(or a state dict in its schema, or one of the port's checkpoints; a
+voxel-conditioned one brings its grid along), renders whole frames through the fused
 eval path (the CUDA kernels on `device=cuda`, the default; their plain
 versions on `device=cpu`) and prints per-frame and mean masked PSNR and
 SSIM.
@@ -24,7 +25,7 @@ def main(argv) -> None:
     from .data import dataset_dict
     from .device import resolve_device
     from .render.renderer import RenderSettings
-    from .train.convert import load_reference_ckpt
+    from .train.convert import load_reference_ckpt, voxel_grid_from_ckpt
     from .train.metrics import psnr, ssim
     from .train.system import init_params, render_image
 
@@ -42,9 +43,17 @@ def main(argv) -> None:
     ds = dataset_dict[config.dataset_name](
         split=split, img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
     settings = RenderSettings.from_config(config, white_back=ds.white_back, is_eval=True)
+    sd, voxel = load_reference_ckpt(config.ckpt_path, with_voxel=True)
+    if (voxel is not None) != settings.mlp.use_voxel_embedding:
+        raise SystemExit(f"{config.ckpt_path} holds {'a' if voxel is not None else 'no'} "
+                         f"voxel grid, but model.use_voxel_embedding is "
+                         f"{settings.mlp.use_voxel_embedding}")
+    # a voxel checkpoint brings its own grid: the table's rows are indexed by it
+    features, voxel_topo, voxel_static = (None, None, None) if voxel is None else \
+        voxel_grid_from_ckpt(voxel, settings.mlp.N_freq_voxel, device)
     models = init_params(torch.Generator().manual_seed(0), settings, config.model,
-                         device=device)
-    models.load_state_dict(load_reference_ckpt(config.ckpt_path))
+                         device=device, voxel_features=features)
+    models.load_state_dict(sd)
 
     w, h = tuple(config.img_wh)
     typ = "fine" if settings.N_importance > 0 else "coarse"
@@ -52,7 +61,8 @@ def main(argv) -> None:
     count = min(n_frames, len(ds.poses))
     for i in range(count):
         batch = ds.whole_image_batch(i)
-        out = render_image(models, settings, batch, chunk=chunk, device=device)
+        out = render_image(models, settings, batch, chunk=chunk, device=device,
+                           voxel_topo=voxel_topo, voxel_static=voxel_static)
         mask = np.asarray(batch["valid_mask"], bool)
         if "instance_mask" in batch:
             mask = mask & np.asarray(batch["instance_mask"], bool)

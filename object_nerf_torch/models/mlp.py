@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .embedding import freq_encode_channels
+from .embedding import freq_encode, freq_encode_channels
 
 LEAKY_SLOPE = 0.01  # torch.nn.LeakyReLU default, used throughout the reference
 
@@ -102,6 +102,23 @@ class ObjectNeRFConfig:
     @property
     def inst_channel_in(self) -> int:
         return self.in_channels_xyz + self.N_obj_code_length + self.obj_voxel_emb_size
+
+
+def embed_inputs(cfg: ObjectNeRFConfig, xyz: torch.Tensor,
+                 voxel_raw: Optional[torch.Tensor] = None):
+    """The two branches' position inputs from sample positions xyz (N, 3) and,
+    for a voxel-conditioned model, their raw voxel features (..., C_scn +
+    C_obj): (emb_xyz, obj_voxel) = ([PE(scene_ftr), PE(xyz)], PE(inst_ftr)),
+    the reference's `EmbeddingVoxel.forward` layout (embedding_helper.py:
+    325-329); (PE(xyz), None) for a classical model. What the fused kernels
+    build inside a block."""
+    xyz_emb = freq_encode(xyz, cfg.N_freq_xyz)
+    if voxel_raw is None:
+        return xyz_emb, None
+    raw = voxel_raw.reshape(xyz.shape[0], -1)
+    scene_emb = freq_encode(raw[:, :cfg.N_scn_voxel_size], cfg.N_freq_voxel)
+    inst_emb = freq_encode(raw[:, cfg.N_scn_voxel_size:], cfg.N_freq_voxel)
+    return torch.cat([scene_emb, xyz_emb], dim=-1), inst_emb
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,479 @@
+"""Sparse voxel feature grid with trilinear interpolation.
+
+Counterpart of `object_nerf_tpu/models/voxel_grid.py` (itself parity with the
+reference `EmbeddingVoxel`, models/embedding_helper.py:77-479):
+
+* Build (`build_voxel_grid`, :135-214): normalise a scene point cloud by
+  (scene_center, scale_factor), quantise at voxel_size, mark occupancy, dilate
+  with an all-ones cube of size `neighbor_marks`, and map occupied cells to
+  rows of a fixed-capacity `(capacity, channels)` feature table.
+* Lookup (`voxel_lookup_raw`, :596-643): trilinear interpolation over the 8
+  neighbour corners; out-of-bounds or empty corners contribute zero. Three
+  routes: the corner table (`voxel_lookup_dense`, one row fetch per sample),
+  the per-corner gather for grids whose corner table would exceed
+  `DENSE_CELL_TABLE_LIMIT_BYTES`, and the nearest-cell lookup.
+* `voxel_embed` (:646-665): the full `EmbeddingVoxel.forward`.
+
+The corner table is `((X+1)(Y+1)(Z+1), 8 C)`: row p holds the features of the
+8 corners of the padded-frame base cell p, so a sample's whole neighbourhood
+is ONE contiguous row. On a CUDA tensor `voxel_lookup_dense` fetches those
+rows through the hand-written `ops.gather.gather_rows` kernel; everything
+else here is plain tensor code, so autograd gives the table gradient on the
+plain route. Topology tensors live on an explicit device; the build runs on
+the host in numpy.
+
+Not ported yet (they belong to voxel training): the hand-written
+`corner_table_transpose` and the segment-sum backward of the row fetch,
+`prune_empty_voxels` and `subdivide_voxels`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.gather import gather_rows, gather_rows_plain
+from .embedding import freq_encode
+
+INSTANCE_FTR_C = 8  # instance channels at the tail of the table (embedding_helper.py:185)
+
+# corner tables built since the last reset (a frame or a sweep builds one)
+build_counts = {"corner_table": 0}
+
+
+class VoxelTopology(NamedTuple):
+    """Non-trainable voxel-grid state (buffers in the reference)."""
+
+    idx_map: torch.Tensor  # (X*Y*Z,) int32 flattened; -1 = empty
+    occupancy: torch.Tensor  # (X*Y*Z,) bool
+    voxel_size: torch.Tensor  # () f32, normalised units
+    voxel_offset: torch.Tensor  # (3,) f32, -bounds_min
+    n_occupied: torch.Tensor  # () int32
+    # inverse of idx_map: table row -> flat cell index (X*Y*Z for unused rows)
+    row_to_cell: torch.Tensor  # (capacity,) int32
+
+    def to(self, device) -> "VoxelTopology":
+        return VoxelTopology(*(t.to(device) for t in self))
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelStatic:
+    """Shape-defining metadata."""
+
+    shape: Tuple[int, int, int]
+    channels: int
+    n_freq_voxel: int
+    n_max_voxels: int
+
+    @property
+    def scene_channels(self) -> int:
+        return self.channels - INSTANCE_FTR_C
+
+
+# ---------------------------------------------------------------------------
+# Build (host-side numpy; runs once at dataset setup)
+# ---------------------------------------------------------------------------
+
+
+def _row_to_cell_from_idx_map(idx_map: np.ndarray, capacity: int) -> np.ndarray:
+    """Invert a dense cell->row idx map into row->flat-cell. Unused rows map
+    to the trash cell `n_cells` (one past the grid)."""
+    idx = np.asarray(idx_map).reshape(-1)
+    n_cells = idx.shape[0]
+    rtc = np.full((capacity,), n_cells, np.int32)
+    cells = np.flatnonzero(idx >= 0)
+    rtc[idx[cells]] = cells.astype(np.int32)
+    return rtc
+
+
+def _topology(idx_map: np.ndarray, occ: np.ndarray, voxel_size: float, offset,
+              capacity: int, device) -> VoxelTopology:
+    idx_map = np.asarray(idx_map).reshape(-1).astype(np.int32)
+    return VoxelTopology(
+        idx_map=torch.from_numpy(idx_map),
+        occupancy=torch.from_numpy(np.asarray(occ).reshape(-1).astype(bool)),
+        voxel_size=torch.tensor(np.float32(voxel_size)),
+        voxel_offset=torch.from_numpy(np.asarray(offset, dtype=np.float32).copy()),
+        n_occupied=torch.tensor(int((idx_map >= 0).sum()), dtype=torch.int32),
+        row_to_cell=torch.from_numpy(_row_to_cell_from_idx_map(idx_map, capacity)),
+    ).to(device)
+
+
+def topology_from_dict(d, capacity: Optional[int] = None, device="cpu") -> VoxelTopology:
+    """Rebuild a VoxelTopology from a checkpoint dict of arrays or tensors.
+    `capacity` is the feature table's row count; row_to_cell is derived when
+    absent."""
+    d = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    if "row_to_cell" not in d:
+        idx = d["idx_map"].numpy()
+        if capacity is None:
+            capacity = int(idx.max()) + 1 if (idx >= 0).any() else 1
+        d["row_to_cell"] = torch.from_numpy(_row_to_cell_from_idx_map(idx, capacity))
+    return VoxelTopology(
+        idx_map=d["idx_map"].reshape(-1).to(torch.int32),
+        occupancy=d["occupancy"].reshape(-1).to(torch.bool),
+        voxel_size=d["voxel_size"].reshape(()).to(torch.float32),
+        voxel_offset=d["voxel_offset"].reshape(3).to(torch.float32),
+        n_occupied=d["n_occupied"].reshape(()).to(torch.int32),
+        row_to_cell=d["row_to_cell"].reshape(-1).to(torch.int32),
+    ).to(device)
+
+
+def topology_to_dict(topo: VoxelTopology):
+    """The topology as CPU tensors under its field names (for checkpoints)."""
+    return {k: v.detach().cpu() for k, v in topo._asdict().items()}
+
+
+def _dilate_occupancy(occ: np.ndarray, k: int) -> np.ndarray:
+    """All-ones k^3 dilation (the reference's Conv3d trick,
+    embedding_helper.py:154-169) via shifted ORs."""
+    if k <= 1:
+        return occ
+    r = (k - 1) // 2
+    out = np.zeros_like(occ)
+    for dx in range(-r, k - r):
+        for dy in range(-r, k - r):
+            for dz in range(-r, k - r):
+                src = occ[
+                    max(0, -dx): occ.shape[0] - max(0, dx),
+                    max(0, -dy): occ.shape[1] - max(0, dy),
+                    max(0, -dz): occ.shape[2] - max(0, dz),
+                ]
+                out[
+                    max(0, dx): occ.shape[0] - max(0, -dx),
+                    max(0, dy): occ.shape[1] - max(0, -dy),
+                    max(0, dz): occ.shape[2] - max(0, -dz),
+                ] |= src
+    return out
+
+
+def build_voxel_grid(pcd_xyz: np.ndarray, scene_center, scale_factor: float,
+                     voxel_size_world: float, neighbor_marks: int, channels: int,
+                     n_freq_voxel: int, n_max_voxels: int,
+                     generator: Optional[torch.Generator] = None,
+                     auto_capacity: bool = True, device="cpu"):
+    """Construct (features, topology, static) from a raw point cloud.
+
+    pcd_xyz: (N, 3) world-space points (e.g. from read_ply). Returns
+    (features (capacity, channels) f32, VoxelTopology, VoxelStatic) on
+    `device`. Features are N(0, 1) (torch.nn.Embedding's default) drawn from
+    the CPU `generator` (seed 0 when None), so a seed means the same table on
+    every device.
+
+    auto_capacity sizes the table to ~9x the occupied count (a power of two,
+    capped by n_max_voxels): room for the one 8x subdivision of progressive
+    training with 12.5 % headroom."""
+    pts = (np.asarray(pcd_xyz, np.float64) - np.asarray(scene_center)) / scale_factor
+    voxel_size = voxel_size_world / scale_factor
+    bounds_min = pts.min(0)
+    bounds_max = pts.max(0)
+    offset = -bounds_min
+    # +3 margin matches the reference (embedding_helper.py:119-123)
+    shape = tuple(int((bounds_max[i] - bounds_min[i]) / voxel_size) + 3 for i in range(3))
+
+    q = np.round((pts + offset) / voxel_size).astype(np.int64)
+    valid = np.all((q >= 0) & (q < np.array(shape)), axis=1)
+    q = q[valid]
+    occ = np.zeros(shape, dtype=bool)
+    occ[q[:, 0], q[:, 1], q[:, 2]] = True
+    occ = _dilate_occupancy(occ, neighbor_marks)
+
+    n_occ = int(occ.sum())
+    if n_occ > n_max_voxels:
+        raise ValueError(f"{n_occ} occupied voxels exceed capacity {n_max_voxels}")
+    capacity = n_max_voxels
+    if auto_capacity:
+        capacity = min(n_max_voxels, max(1024, 1 << int(np.ceil(np.log2(n_occ * 9)))))
+
+    idx_map = np.full(shape, -1, dtype=np.int32)
+    idx_map[occ] = np.arange(n_occ, dtype=np.int32)
+
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    features = torch.randn((capacity, channels), generator=generator).to(device)
+    topo = _topology(idx_map, occ, voxel_size, offset, capacity, device)
+    static = VoxelStatic(shape=shape, channels=channels, n_freq_voxel=n_freq_voxel,
+                         n_max_voxels=capacity)
+    return features, topo, static
+
+
+def from_torch_buffers(vt, n_freq_voxel: int, device="cpu"):
+    """(features, topo, static) from a reference checkpoint's buffers.
+
+    `vt` is the "voxel" dict of `train.convert.load_reference_ckpt`: the
+    features table and voxel_size / voxel_offset / voxel_shape /
+    voxel_occupancy / voxel_idx_map (embedding_helper.py:107-137,187-200).
+    Row indices of the table are preserved exactly."""
+    features = torch.as_tensor(np.asarray(vt["features"], np.float32)).to(device)
+    shape = tuple(int(x) for x in np.asarray(vt["voxel_shape"]))
+    idx_map = np.asarray(vt["voxel_idx_map"]).reshape(-1).astype(np.int32)
+    topo = _topology(idx_map, np.asarray(vt["voxel_occupancy"]),
+                     float(np.asarray(vt["voxel_size"])), np.asarray(vt["voxel_offset"]),
+                     int(features.shape[0]), device)
+    static = VoxelStatic(shape=shape, channels=int(features.shape[-1]),
+                         n_freq_voxel=int(n_freq_voxel), n_max_voxels=int(features.shape[0]))
+    return features, topo, static
+
+
+def build_voxel_grid_from_config(pcd_xyz, cfg, generator=None, device="cpu"):
+    """Convenience wrapper reading the reference config schema."""
+    return build_voxel_grid(
+        pcd_xyz,
+        scene_center=cfg.dataset_extra.scene_center,
+        scale_factor=float(cfg.dataset_extra.scale_factor),
+        voxel_size_world=float(cfg.dataset_extra.voxel_size),
+        neighbor_marks=int(cfg.dataset_extra.neighbor_marks),
+        channels=int(cfg.model.N_scn_voxel_size) + int(cfg.model.N_obj_voxel_size),
+        n_freq_voxel=int(cfg.model.N_freq_voxel),
+        n_max_voxels=int(cfg.model.N_max_voxels),
+        generator=generator, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Lookup
+# ---------------------------------------------------------------------------
+
+_CORNERS = np.array(
+    [[0, 0, 0], [0, 0, 1], [0, 1, 0], [0, 1, 1],
+     [1, 0, 0], [1, 0, 1], [1, 1, 0], [1, 1, 1]],
+    dtype=np.int64,
+)  # binary order matches the reference's itertools.product weights
+
+
+def _flat_index(q: torch.Tensor, shape) -> torch.Tensor:
+    return (q[..., 0] * shape[1] + q[..., 1]) * shape[2] + q[..., 2]
+
+
+def _shape_tensor(static: VoxelStatic, device) -> torch.Tensor:
+    return torch.tensor(static.shape, dtype=torch.int64, device=device)
+
+
+def _gather_rows(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                 q: torch.Tensor):
+    """Per-cell row gather with out-of-bounds / empty masking: q (..., 3)
+    integer cell coordinates -> (ftr (..., C), invalid (...,) bool)
+    (get_voxel_feature_sparse_from_quantized, embedding_helper.py:331-352)."""
+    shape = _shape_tensor(static, q.device)
+    oob = ((q < 0) | (q >= shape)).any(dim=-1)
+    q_safe = torch.minimum(q.clamp(min=0), shape - 1)
+    emb_idx = topo.idx_map[_flat_index(q_safe, static.shape)].long()
+    invalid = oob | (emb_idx < 0)
+    ftr = features[emb_idx.clamp(min=0)]
+    ftr = torch.where(invalid[..., None], torch.zeros((), dtype=ftr.dtype, device=ftr.device),
+                      ftr)
+    return ftr, invalid
+
+
+# Transient corner-table budget for the dense lookup route; above it the
+# per-corner gather route is used instead. 2 GiB covers the reference's
+# flagship progressive run after its subdivision: an ~8 x 8 x 3 m ScanNet
+# scene at 0.1 m voxels subdivides to (166, 166, 66), a 1.34 GiB f32 table.
+DENSE_CELL_TABLE_LIMIT_BYTES = 2 << 30
+
+
+def dense_table_bytes(static: VoxelStatic) -> int:
+    """f32 size of the dense corner table for this grid."""
+    n_pcells = (static.shape[0] + 1) * (static.shape[1] + 1) * (static.shape[2] + 1)
+    return n_pcells * 8 * static.channels * 4
+
+
+def dense_path_ok(static: VoxelStatic) -> bool:
+    return dense_table_bytes(static) <= DENSE_CELL_TABLE_LIMIT_BYTES
+
+
+def _trilinear_weights(p: torch.Tensor) -> torch.Tensor:
+    """(N, 8) corner weights in _CORNERS binary order from fractions (N, 3)."""
+    u, v, w = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    lu, lv, lw = 1.0 - u, 1.0 - v, 1.0 - w
+    return torch.cat(
+        [lu * lv * lw, lu * lv * w, lu * v * lw, lu * v * w,
+         u * lv * lw, u * lv * w, u * v * lw, u * v * w], dim=-1)
+
+
+def make_corner_table(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                      lowp: bool = False) -> torch.Tensor:
+    """Materialise the ((X+1)(Y+1)(Z+1), 8 C) corner table.
+
+    1. Gather the dense cell grid from the table (`features[idx_map]`, empty
+       cells zeroed);
+    2. zero-pad the grid by one cell on every side, so out-of-bounds corners
+       contribute exactly 0 (embedding_helper.py:346-351);
+    3. lay the 8 shifted views side by side: row p, block k holds
+       padded[p + corner_k]. A pure copy, written as eight slices and one
+       `cat`.
+
+    Base cells are indexed in the padded frame: pb = floor(xyz_scaled) + 1,
+    valid for floor coordinates in [-1, shape - 1]. `lowp` casts the features
+    to bf16 before the build (a pure copy, so cast-then-build equals
+    build-then-cast). Differentiable with respect to `features`. Eval
+    renderers build it once per frame and hand it to every chunk
+    (`voxel_lookup_dense(..., ct=...)`)."""
+    X, Y, Z = static.shape
+    C = static.channels
+    build_counts["corner_table"] += 1
+    if lowp:
+        features = features.to(torch.bfloat16)
+    idx = topo.idx_map.long()
+    dense = torch.where((idx >= 0)[:, None], features[idx.clamp(min=0)],
+                        torch.zeros((), dtype=features.dtype, device=features.device))
+    p = torch.nn.functional.pad(dense.reshape(X, Y, Z, C), (0, 0, 1, 1, 1, 1, 1, 1))
+    views = [p[bx:bx + X + 1, by:by + Y + 1, bz:bz + Z + 1] for bx, by, bz in _CORNERS]
+    return torch.cat(views, dim=-1).reshape(-1, 8 * C)
+
+
+def corner_index_weights(topo: VoxelTopology, static: VoxelStatic, xyz: torch.Tensor):
+    """Dense-route sample addressing: (flat (N,) int32 padded-cell row index,
+    wts (N, 8) f32 trilinear weights, zeroed for out-of-bounds samples,
+    sample_valid (N,) bool).
+
+    `sum(ct[flat].reshape(N, 8, C) * wts[..., None], 1)` is the masked
+    trilinear lookup: an out-of-bounds sample reads a valid (clipped) row with
+    weight 0."""
+    _, Y, Z = static.shape
+    xyz_scaled = (xyz + topo.voxel_offset) / topo.voxel_size
+    base = torch.floor(xyz_scaled)
+    q0 = base.to(torch.int32)
+    shape = torch.tensor(static.shape, dtype=torch.int32, device=xyz.device)
+    sample_valid = ((q0 >= -1) & (q0 <= shape - 1)).all(dim=-1)
+    pb = torch.minimum((q0 + 1).clamp(min=0), shape)  # padded-frame base cell
+    flat = (pb[:, 0] * (Y + 1) + pb[:, 1]) * (Z + 1) + pb[:, 2]
+    wts = _trilinear_weights(xyz_scaled - base) * sample_valid[:, None]
+    return flat, wts, sample_valid
+
+
+def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
+                       static: VoxelStatic, xyz: torch.Tensor, lowp: bool = False,
+                       ct: Optional[torch.Tensor] = None, with_addressing: bool = False):
+    """Trilinear lookup through the corner table: one row fetch per sample.
+
+    xyz (N, 3) normalised coordinates -> (ftr (N, C) f32, invalid (N,) bool).
+    `ct`: a prebuilt `make_corner_table` (`features` may be None then);
+    without it the table is built here, in bf16 when `lowp`, and autograd
+    reaches `features` through it. The row fetch of a CUDA table is the
+    `gather_rows` kernel (inference only: it carries no gradient); a CPU table
+    goes through its plain version. The 8-corner sum runs in f32.
+    `with_addressing` also returns (flat, wts)."""
+    flat, wts, sample_valid = corner_index_weights(topo, static, xyz)
+    if ct is None:
+        ct = make_corner_table(features, topo, static, lowp=lowp)
+    if ct.device.type == "cuda" and not (torch.is_grad_enabled() and ct.requires_grad):
+        # flat is clipped into the table by construction: no index check
+        rows = gather_rows(ct, flat, check_indices=False)
+    elif ct.device.type == "cuda":
+        raise NotImplementedError(
+            "the table gradient of the corner-table lookup on the card is not ported yet "
+            "(the gather kernel has no backward): run the lookup under torch.no_grad(), "
+            "or on CPU tensors")
+    else:
+        rows = gather_rows_plain(ct, flat)
+    out = (rows.reshape(-1, 8, static.channels).float() * wts[..., None]).sum(dim=1)
+    if with_addressing:
+        return out, ~sample_valid, flat, wts
+    return out, ~sample_valid
+
+
+def voxel_lookup_raw(features: Optional[torch.Tensor], topo: VoxelTopology,
+                     static: VoxelStatic, xyz: torch.Tensor, trilinear: bool = True,
+                     lowp: bool = False, ct: Optional[torch.Tensor] = None):
+    """Raw (un-encoded) voxel features at xyz: (ftr (N, C), invalid (N,)).
+
+    Trilinear lookups take the corner-table route when the grid is small
+    enough to materialise it (or `ct` is given); the per-corner gather route
+    remains for huge grids, and the nearest-cell lookup for `trilinear=False`.
+    `invalid` means all 8 corners empty on the gather route and sample out of
+    bounds on the dense route; the renders consume only `ftr`."""
+    if ct is not None and not trilinear:
+        raise ValueError("ct (prebuilt corner table) implies the trilinear dense path; "
+                         "the nearest-neighbor lookup never consults it")
+    xyz_scaled = (xyz + topo.voxel_offset) / topo.voxel_size
+    if not trilinear:
+        q = torch.round(xyz_scaled).long()
+        return _gather_rows(features, topo, static, q)
+    if ct is not None or dense_path_ok(static):
+        return voxel_lookup_dense(features, topo, static, xyz, lowp=lowp, ct=ct)
+
+    base = torch.floor(xyz_scaled)
+    q = base.long()[:, None, :] + torch.from_numpy(_CORNERS).to(xyz.device)[None]
+    ftr, invalid = _gather_rows(features, topo, static, q)  # (N, 8, C), (N, 8)
+    wts = _trilinear_weights(xyz_scaled - base)
+    out = (ftr * wts[..., None]).sum(dim=1)
+    return out, invalid.all(dim=-1)
+
+
+def voxel_embed(features: Optional[torch.Tensor], topo: VoxelTopology, static: VoxelStatic,
+                xyz: torch.Tensor, n_freq_xyz: int = 10, ct: Optional[torch.Tensor] = None):
+    """The full EmbeddingVoxel.forward (embedding_helper.py:325-329): returns
+    (emb_xyz = [PE(scene_ftr), PE(xyz)], obj_voxel = PE(inst_ftr))."""
+    raw, _ = voxel_lookup_raw(features, topo, static, xyz, trilinear=True, ct=ct)
+    scene_x = raw[:, : static.scene_channels]
+    inst_x = raw[:, static.scene_channels:]
+    scene_emb = freq_encode(scene_x, static.n_freq_voxel)
+    inst_emb = freq_encode(inst_x, static.n_freq_voxel)
+    xyz_emb = freq_encode(xyz, n_freq_xyz)
+    return torch.cat([scene_emb, xyz_emb], dim=-1), inst_emb
+
+
+def check_occupancy(topo: VoxelTopology, static: VoxelStatic, xyz: torch.Tensor):
+    """Occupancy at rounded xyz (embedding_helper.py:413-427)."""
+    q = torch.round((xyz + topo.voxel_offset) / topo.voxel_size).long()
+    shape = _shape_tensor(static, xyz.device)
+    oob = ((q < 0) | (q >= shape)).any(dim=-1)
+    q_safe = torch.minimum(q.clamp(min=0), shape - 1)
+    occ = topo.occupancy[_flat_index(q_safe, static.shape)]
+    return occ & ~oob
+
+
+def voxel_lookup_grid_sample(features: torch.Tensor, static: VoxelStatic, xyz: torch.Tensor,
+                             bounds: torch.Tensor) -> torch.Tensor:
+    """Dense grid_sample-style trilinear lookup: the reference's unused
+    `forward_voxel_features_dense` variant (embedding_helper.py:429-479).
+
+    The first X*Y*Z table rows are read as a dense (X, Y, Z, C) grid; points
+    normalise to [0, 1] over `bounds` ((2, 3): lo / hi) and sample with
+    `grid_sample(align_corners=True, padding_mode="border")` semantics. Two
+    reference quirks are reproduced on purpose: point coordinate k samples
+    grid axis 2 - k (its rearrange keeps (X, Y, Z) while grid_sample's x
+    addresses the innermost axis), and no sample is zeroed by occupancy
+    (`ind_occu = ind_full`, :441-443). Returns raw (M, C) features."""
+    X, Y, Z = static.shape
+    sizes = torch.tensor([X, Y, Z], dtype=torch.float32, device=xyz.device)
+    lo, hi = bounds[0], bounds[1]
+    u = (xyz - lo) / (hi - lo)
+    p = u.flip(-1) * (sizes - 1.0)
+    p = torch.minimum(p.clamp(min=0.0), sizes - 1.0)  # border padding
+    i0 = torch.floor(p).long()
+    i1 = torch.minimum(i0 + 1, _shape_tensor(static, xyz.device) - 1)
+    f = p - i0
+    out = torch.zeros((xyz.shape[0], features.shape[-1]), dtype=features.dtype,
+                      device=features.device)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                ix = i1[:, 0] if cx else i0[:, 0]
+                iy = i1[:, 1] if cy else i0[:, 1]
+                iz = i1[:, 2] if cz else i0[:, 2]
+                w = ((f[:, 0] if cx else 1.0 - f[:, 0])
+                     * (f[:, 1] if cy else 1.0 - f[:, 1])
+                     * (f[:, 2] if cz else 1.0 - f[:, 2]))
+                out = out + features[(ix * Y + iy) * Z + iz] * w[:, None]
+    return out
+
+
+def ray_box_intersection(topo: VoxelTopology, static: VoxelStatic, rays_o: torch.Tensor,
+                         rays_d: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                         n_samples: int = 256):
+    """Brute-force near/far tightening by occupancy probing
+    (embedding_helper.py:304-323)."""
+    t = torch.linspace(0.0, 1.0, n_samples, device=rays_o.device)
+    z = near * (1 - t) + far * t  # (N, S)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    occ = check_occupancy(topo, static, xyz.reshape(-1, 3)).reshape(z.shape)
+    near_out = (z + (~occ) * 1e9).min(dim=-1, keepdim=True).values
+    near_out = torch.where(near_out > 1e5, near, near_out)
+    far_out = (z * occ).max(dim=-1, keepdim=True).values
+    far_out = torch.where(far_out == 0, far, far_out)
+    return near_out, far_out

@@ -32,6 +32,16 @@
 // exclusive scan over S/32 samples per lane with __shfl_up_sync.
 // Left for later work: wgmma, TMA, warp specialisation, more blocks per SM.
 //
+// A voxel-conditioned model (`vox` given) gets the VOX instantiation of each
+// kernel: the raw voxel features (n, S, 16 + 8) are one more operand, the
+// block frequency-encodes them itself (sinf/cosf in f32, then bf16) and its
+// input tile is [svox | PE(svox) | xyz | PE(xyz)] for the scene branch (271
+// columns, read as 320 with zero weight rows) and that followed by
+// [ivox | PE(ivox) | code] for the object branch (439, read as 448). The
+// wider tile has its own shared-memory layout (fused_mlp_common.cuh); the
+// classical instantiation keeps its layout and its inner loops: the width
+// is a template parameter, not a run-time branch.
+//
 // Numerics follow the TPU kernels and the plain PyTorch versions
 // (object_nerf_torch/ops/fused_mlp.py): every matmul operand is rounded
 // to bf16 and accumulated in f32; bias and LeakyReLU run in f32 before the
@@ -50,17 +60,26 @@
 
 namespace {
 
+template <bool VOX>
 __global__ void __launch_bounds__(THREADS, 1)
 coarse_weights_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
+                      const float* __restrict__ vox, VoxDims vd,
                       const bf16* __restrict__ w, const float* __restrict__ b,
                       BranchTab scene, float* __restrict__ weights, int n_rays,
                       int S, int n_freq, int last_delta_inf) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Smem s = carve(smem);
+  Smem s = VOX ? carve_vox(smem) : carve(smem);
   const int R = ROWS / S;
-  // the xyz staging reuses the scratch tile (384 floats of its 2048)
-  load_inputs(blockIdx.x, xyz, z, nullptr, n_rays, S, n_freq, 0, s.X, s.zs, s.scratch);
-  run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
+  if (VOX) {
+    // the staging reuses the H buffer, free until the first layer's epilogue
+    load_inputs_vox(blockIdx.x, xyz, z, vox, nullptr, (long long)n_rays * S, S, n_freq, vd,
+                    0, false, scene.v[T_K0], s.X, s.zs, reinterpret_cast<float*>(s.H));
+    run_trunk<WS, LDX_V>(scene, w, b, s.X, s.H, s.wst, s.scratch);
+  } else {
+    // the xyz staging reuses the scratch tile (384 floats of its 2048)
+    load_inputs(blockIdx.x, xyz, z, nullptr, n_rays, S, n_freq, 0, s.X, s.zs, s.scratch);
+    run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
+  }
   head_sigma(s.H, WS, w + scene.v[T_SIGW], b[scene.v[T_SIGB]], s.sig);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -74,26 +93,35 @@ coarse_weights_kernel(const float* __restrict__ xyz, const float* __restrict__ z
   }
 }
 
+template <bool VOX>
 __global__ void __launch_bounds__(THREADS, 1)
 render_tiles_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
                     const float* __restrict__ dir_pe, const float* __restrict__ codes,
+                    const float* __restrict__ vox, VoxDims vd,
                     const bf16* __restrict__ w, const float* __restrict__ b,
                     BranchTab scene, BranchTab obj, float* __restrict__ maps,
                     float* __restrict__ weights, int n_rays, int S, int n_freq,
                     int c_dir, int code_len, int forward_instance,
                     int last_delta_inf) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Smem s = carve(smem);
+  Smem s = VOX ? carve_vox(smem) : carve(smem);
   const int R = ROWS / S;
-  load_inputs(blockIdx.x, xyz, z, forward_instance ? codes : nullptr, n_rays, S, n_freq,
-              code_len, s.X, s.zs, s.scratch);
+  constexpr int LD = VOX ? LDX_V : LDX;
+  if (VOX)
+    load_inputs_vox(blockIdx.x, xyz, z, vox, codes, (long long)n_rays * S, S, n_freq, vd,
+                    code_len, forward_instance != 0,
+                    forward_instance ? obj.v[T_K0] : scene.v[T_K0], s.X, s.zs,
+                    reinterpret_cast<float*>(s.H));
+  else
+    load_inputs(blockIdx.x, xyz, z, forward_instance ? codes : nullptr, n_rays, S, n_freq,
+                code_len, s.X, s.zs, s.scratch);
   dir_bias(blockIdx.x, scene, w, b, WS / 2, dir_pe, c_dir, n_rays, R, s.dbs);
   if (forward_instance)
     dir_bias(blockIdx.x, obj, w, b, WO / 2, dir_pe, c_dir, n_rays, R, s.dbo);
-  run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
+  run_trunk<WS, LD>(scene, w, b, s.X, s.H, s.wst, s.scratch);
   run_heads<WS>(scene, w, b, s.H, s.wst, s.scratch, s.dbs, S, s.sig, s.rgb);
   if (forward_instance) {
-    run_trunk<WO>(obj, w, b, s.X, s.H, s.wst, s.scratch);
+    run_trunk<WO, LD>(obj, w, b, s.X, s.H, s.wst, s.scratch);
     run_heads<WO>(obj, w, b, s.H, s.wst, s.scratch, s.dbo, S, s.isig, s.irgb);
   }
   __syncthreads();
@@ -126,6 +154,41 @@ render_tiles_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
   }
 }
 
+template <bool VOX>
+int launch_coarse(const float* xyz, const float* z, const float* vox, VoxDims vd,
+                  const void* w, const float* b, const int* scene_tab, float* weights,
+                  int n_rays, int S, int n_freq, int last_delta_inf, void* stream) {
+  constexpr int BYTES = VOX ? SMEM_BYTES_V : SMEM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      coarse_weights_kernel<VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int R = ROWS / S;
+  dim3 grid((n_rays + R - 1) / R);
+  coarse_weights_kernel<VOX><<<grid, THREADS, BYTES, (cudaStream_t)stream>>>(
+      xyz, z, vox, vd, static_cast<const bf16*>(w), b, to_tab(scene_tab), weights, n_rays,
+      S, n_freq, last_delta_inf);
+  return (int)cudaGetLastError();
+}
+
+template <bool VOX>
+int launch_render(const float* xyz, const float* z, const float* dir_pe,
+                  const float* codes, const float* vox, VoxDims vd, const void* w,
+                  const float* b, const int* scene_tab, const int* obj_tab, float* maps,
+                  float* weights, int n_rays, int S, int n_freq, int c_dir, int code_len,
+                  int forward_instance, int last_delta_inf, void* stream) {
+  constexpr int BYTES = VOX ? SMEM_BYTES_V : SMEM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      render_tiles_kernel<VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int R = ROWS / S;
+  dim3 grid((n_rays + R - 1) / R);
+  render_tiles_kernel<VOX><<<grid, THREADS, BYTES, (cudaStream_t)stream>>>(
+      xyz, z, dir_pe, codes, vox, vd, static_cast<const bf16*>(w), b, to_tab(scene_tab),
+      to_tab(obj_tab), maps, weights, n_rays, S, n_freq, c_dir, code_len,
+      forward_instance, last_delta_inf);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -134,38 +197,37 @@ const char* onerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int onerf_coarse_weights(const float* xyz, const float* z, const void* w,
-                         const float* b, const int* scene_tab, float* weights,
-                         int n_rays, int S, int n_freq, int last_delta_inf,
+// `vox` is the raw voxel feature operand (n_rays, S, c_svox + c_ivox) of a
+// voxel-conditioned model, or null for a classical one (then the three widths
+// are unused). Returns cudaGetLastError() after the launch (0 on success).
+int onerf_coarse_weights(const float* xyz, const float* z, const float* vox,
+                         const void* w, const float* b, const int* scene_tab,
+                         float* weights, int n_rays, int S, int n_freq,
+                         int last_delta_inf, int c_svox, int c_ivox, int n_freq_vox,
                          void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      coarse_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int R = ROWS / S;
-  dim3 grid((n_rays + R - 1) / R);
-  coarse_weights_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      xyz, z, static_cast<const bf16*>(w), b, to_tab(scene_tab), weights, n_rays,
-      S, n_freq, last_delta_inf);
-  return (int)cudaGetLastError();
+  const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
+  if (vox != nullptr)
+    return launch_coarse<true>(xyz, z, vox, vd, w, b, scene_tab, weights, n_rays, S,
+                               n_freq, last_delta_inf, stream);
+  return launch_coarse<false>(xyz, z, vox, vd, w, b, scene_tab, weights, n_rays, S,
+                              n_freq, last_delta_inf, stream);
 }
 
 int onerf_render_tiles(const float* xyz, const float* z, const float* dir_pe,
-                       const float* codes, const void* w, const float* b,
-                       const int* scene_tab, const int* obj_tab, float* maps,
-                       float* weights, int n_rays, int S, int n_freq, int c_dir,
-                       int code_len, int forward_instance, int last_delta_inf,
+                       const float* codes, const float* vox, const void* w,
+                       const float* b, const int* scene_tab, const int* obj_tab,
+                       float* maps, float* weights, int n_rays, int S, int n_freq,
+                       int c_dir, int code_len, int forward_instance,
+                       int last_delta_inf, int c_svox, int c_ivox, int n_freq_vox,
                        void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      render_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int R = ROWS / S;
-  dim3 grid((n_rays + R - 1) / R);
-  render_tiles_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      xyz, z, dir_pe, codes, static_cast<const bf16*>(w), b, to_tab(scene_tab),
-      to_tab(obj_tab), maps, weights, n_rays, S, n_freq, c_dir, code_len,
-      forward_instance, last_delta_inf);
-  return (int)cudaGetLastError();
+  const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
+  if (vox != nullptr)
+    return launch_render<true>(xyz, z, dir_pe, codes, vox, vd, w, b, scene_tab, obj_tab,
+                               maps, weights, n_rays, S, n_freq, c_dir, code_len,
+                               forward_instance, last_delta_inf, stream);
+  return launch_render<false>(xyz, z, dir_pe, codes, vox, vd, w, b, scene_tab, obj_tab,
+                              maps, weights, n_rays, S, n_freq, c_dir, code_len,
+                              forward_instance, last_delta_inf, stream);
 }
 
 }  // extern "C"

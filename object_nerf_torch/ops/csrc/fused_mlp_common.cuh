@@ -1,8 +1,9 @@
 // Device functions shared by the port's fused MLP kernels (fused_mlp.cu,
 // fused_mlp_train.cu, fused_sigma.cu): the 128-row tile, the tensor-core products over it
 // (nvcuda::wmma 16x16x16 bf16, f32 accumulators), the branch trunk and heads,
-// the input tile, the per-ray direction bias and the compositing scan. The
-// file comments of the sources say what each kernel does with them.
+// the input tile (classical, and the wider voxel-conditioned one), the per-ray
+// direction bias and the compositing scan. The file comments of the sources
+// say what each kernel does with them.
 
 #pragma once
 
@@ -53,6 +54,27 @@ constexpr int SM_SCR = SM_W + KC * LDWST * 2;
 constexpr int SM_ROW = SM_SCR + (THREADS / 32) * 256 * 4;  // 9 floats per row
 constexpr int SM_DB = SM_ROW + ROWS * 9 * 4;                // dir biases
 constexpr int SMEM_BYTES = SM_DB + MAX_R * (WS / 2 + WO / 2) * 4;
+
+// The voxel-conditioned eval kernels' layout. Their input tile is wider:
+// [svox | PE(svox) | xyz | PE(xyz)] is 271 columns at the default widths and
+// the object branch appends [ivox | PE(ivox) | code] to 439, padded to 448.
+// With that tile the classical layout would need 233,984 bytes, more than
+// the 232,448 a block may have, so here the epilogue's f32 staging tile
+// shares the weight stage: every product ends before the epilogue's first
+// barrier and the next product starts with one, so the two are never live
+// together. The classical kernels keep their own layout above.
+constexpr int XCOLS_V = 448;
+constexpr int LDX_V = XCOLS_V + 8;
+constexpr int MAX_VOX = 32;   // raw voxel channels per sample (16 + 8 by default)
+constexpr int SV_X = 0;
+constexpr int SV_H = SV_X + ROWS * LDX_V * 2;
+constexpr int SV_W = SV_H + ROWS * LDH * 2;      // weight stage and scratch
+constexpr int SV_ROW = SV_W + KC * LDWST * 2;
+constexpr int SV_DB = SV_ROW + ROWS * 9 * 4;
+constexpr int SMEM_BYTES_V = SV_DB + MAX_R * (WS / 2 + WO / 2) * 4;
+static_assert(SMEM_BYTES_V <= 232448, "voxel layout exceeds a block's shared memory");
+static_assert((THREADS / 32) * 256 * 4 <= KC * LDWST * 2, "scratch exceeds the stage");
+static_assert(ROWS * (3 + MAX_VOX) * 4 <= ROWS * LDH * 2, "input staging exceeds H");
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -141,8 +163,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The branch trunk: H[0:128, 0:N] = the output of the last trunk layer.
-template <int N>
+// The branch trunk: H[0:128, 0:N] = the output of the last trunk layer. LD is
+// the input tile's leading dimension (LDX, or LDX_V for the voxel tile).
+template <int N, int LD = LDX>
 __device__ void run_trunk(const BranchTab& t, const bf16* __restrict__ w,
                           const float* __restrict__ b, const bf16* X, bf16* H,
                           bf16* wst, float* scratch) {
@@ -152,9 +175,9 @@ __device__ void run_trunk(const BranchTab& t, const bf16* __restrict__ w,
     acc_zero(acc);
     const bf16* wl = w + t.v[T_TW + i];
     if (i == 0) {
-      gemm<N>(acc, X, LDX, wl, k0, wst);
+      gemm<N>(acc, X, LD, wl, k0, wst);
     } else if ((t.v[T_SKIPS] >> i) & 1) {  // [input, h] @ W
-      gemm<N>(acc, X, LDX, wl, k0, wst);
+      gemm<N>(acc, X, LD, wl, k0, wst);
       gemm<N>(acc, H, LDH, wl + (size_t)k0 * N, N, wst);
     } else {
       gemm<N>(acc, H, LDH, wl, N, wst);
@@ -283,6 +306,84 @@ __device__ void load_inputs(int tile, const float* __restrict__ xyz,
   }
 }
 
+// Widths of the voxel operand: scene and instance channels of a raw feature
+// row, and the octaves of their encoding.
+struct VoxDims { int c_s, c_i, n_fv; };
+
+// Column j of the encoding of a C-channel piece v, in the reference channel
+// order [sin f0 (C), cos f0 (C), sin f1 (C), ...], f_k = 2^k. sinf / cosf in
+// full precision: a trilinear blend of N(0, 1) features times 2^5 is far
+// outside the range where the fast intrinsics hold.
+__device__ __forceinline__ float pe_piece(const float* v, int C, int j) {
+  const int k = j / (2 * C), q = j % (2 * C);
+  const float x = v[q % C] * (float)(1 << k);  // exact
+  return q < C ? sinf(x) : cosf(x);
+}
+
+// Column c of a row of the voxel input tile, before rounding:
+// [svox | PE(svox) | xyz | PE(xyz)] (the scene branch's input), then, when
+// `inst`, [ivox | PE(ivox) | code]; zero beyond. `vox` is the row's raw
+// feature row [svox c_s | ivox c_i], p its xyz.
+__device__ __forceinline__ float voxel_input_value(
+    const float* p, const float* vox, int c, VoxDims d, int n_freq, bool inst,
+    const float* __restrict__ code_row, int code_len) {
+  int o = d.c_s;
+  if (c < o) return vox[c];
+  int w = 2 * d.n_fv * d.c_s;
+  if (c < o + w) return pe_piece(vox, d.c_s, c - o);
+  o += w;
+  if (c < o + 3) return p[c - o];
+  o += 3;
+  w = 6 * n_freq;
+  if (c < o + w) return pe_piece(p, 3, c - o);
+  o += w;
+  if (!inst) return 0.f;
+  if (c < o + d.c_i) return vox[d.c_s + c - o];
+  o += d.c_i;
+  w = 2 * d.n_fv * d.c_i;
+  if (c < o + w) return pe_piece(vox + d.c_s, d.c_i, c - o);
+  o += w;
+  if (code_row != nullptr && c < o + code_len) return code_row[c - o];
+  return 0.f;
+}
+
+// Fill the voxel input tile of tile number `tile`: rows are the flat samples
+// tile * 128 .. + 127 of n_rows (rows past the end are zero), row g takes the
+// code row g / per_code (per_code = S for a tile of whole rays). Columns
+// [0, ncols) of X (leading dimension LDX_V) are written; `stage` is
+// ROWS * (3 + c_s + c_i) floats that nothing else uses until the tile is
+// built (the H buffer). z values go to zs when z is given.
+__device__ void load_inputs_vox(int tile, const float* __restrict__ xyz,
+                                const float* __restrict__ z,
+                                const float* __restrict__ vox,
+                                const float* __restrict__ codes, long long n_rows,
+                                int per_code, int n_freq, VoxDims d, int code_len,
+                                bool inst, int ncols, bf16* X, float* zs, float* stage) {
+  const long long g0 = (long long)tile * ROWS;
+  const int cv = d.c_s + d.c_i;
+  float* xyz_s = stage;
+  float* vox_s = stage + ROWS * 3;
+  for (int e = threadIdx.x; e < ROWS * 3; e += THREADS)
+    xyz_s[e] = g0 + e / 3 < n_rows ? xyz[g0 * 3 + e] : 0.f;
+  for (int e = threadIdx.x; e < ROWS * cv; e += THREADS)
+    vox_s[e] = g0 + e / cv < n_rows ? vox[g0 * cv + e] : 0.f;
+  if (z != nullptr)
+    for (int r = threadIdx.x; r < ROWS; r += THREADS)
+      zs[r] = g0 + r < n_rows ? z[g0 + r] : 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < ROWS * ncols; e += THREADS) {
+    const int r = e / ncols, c = e % ncols;
+    const long long g = g0 + r;
+    float v = 0.f;
+    if (g < n_rows)
+      v = voxel_input_value(
+          xyz_s + r * 3, vox_s + r * cv, c, d, n_freq, inst,
+          inst && codes != nullptr ? codes + (size_t)(g / per_code) * code_len : nullptr,
+          code_len);
+    X[r * LDX_V + c] = __float2bfloat16(v);
+  }
+}
+
 // dbias[rho, j] = b_dir[j] + dir_pe[ray, :] . W_dir[:, j] (operands in bf16,
 // f32 sum): the view-direction input is constant along a ray, so its part
 // of the direction layer is a per-ray bias.
@@ -372,6 +473,23 @@ __device__ Smem carve(unsigned char* base) {
   s.irgb = row + 5 * ROWS;
   s.zs = row + 8 * ROWS;
   s.dbs = reinterpret_cast<float*>(base + SM_DB);
+  s.dbo = s.dbs + MAX_R * (WS / 2);
+  return s;
+}
+
+__device__ Smem carve_vox(unsigned char* base) {
+  Smem s;
+  s.X = reinterpret_cast<bf16*>(base + SV_X);
+  s.H = reinterpret_cast<bf16*>(base + SV_H);
+  s.wst = reinterpret_cast<bf16*>(base + SV_W);
+  s.scratch = reinterpret_cast<float*>(base + SV_W);  // shared with the stage
+  float* row = reinterpret_cast<float*>(base + SV_ROW);
+  s.sig = row;
+  s.rgb = row + ROWS;
+  s.isig = row + 4 * ROWS;
+  s.irgb = row + 5 * ROWS;
+  s.zs = row + 8 * ROWS;
+  s.dbs = reinterpret_cast<float*>(base + SV_DB);
   s.dbo = s.dbs + MAX_R * (WS / 2);
   return s;
 }

@@ -27,6 +27,11 @@
 // once for more rows, and an object-branch tile that fills the SM better
 // than 128 x 128.
 //
+// A voxel-conditioned model (`vox` given) gets the VOX instantiation: the raw
+// voxel features (N, 16 + 8) are one more operand, encoded by the block
+// itself into the wider input tile of fused_mlp_common.cuh ([svox | PE(svox) |
+// xyz | PE(xyz)], then [ivox | PE(ivox) | code] for the object branch).
+//
 // Numerics as in fused_mlp.cu: matmul operands rounded to bf16, f32
 // accumulation, bias and LeakyReLU in f32, sinf/cosf encoding in the
 // reference channel order. The tile, the products, the trunk and the sigma
@@ -58,17 +63,26 @@ __device__ void load_points(int tile, const float* __restrict__ pts,
   }
 }
 
-template <int N>
+template <int N, bool VOX>
 __global__ void __launch_bounds__(THREADS, 1)
 sigma_eval_kernel(const float* __restrict__ pts, const float* __restrict__ codes,
+                  const float* __restrict__ vox, VoxDims vd,
                   const bf16* __restrict__ w, const float* __restrict__ b,
                   BranchTab branch, float* __restrict__ sigma, int n_pts, int per_row,
                   int n_freq, int code_len) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Smem s = carve(smem);
-  // the xyz staging reuses the scratch tile (384 floats of its 2048)
-  load_points(blockIdx.x, pts, codes, n_pts, per_row, n_freq, code_len, s.X, s.scratch);
-  run_trunk<N>(branch, w, b, s.X, s.H, s.wst, s.scratch);
+  Smem s = VOX ? carve_vox(smem) : carve(smem);
+  if (VOX) {
+    // the staging reuses the H buffer, free until the first layer's epilogue
+    load_inputs_vox(blockIdx.x, pts, nullptr, vox, codes, n_pts, per_row, n_freq, vd,
+                    code_len, codes != nullptr, branch.v[T_K0], s.X, s.zs,
+                    reinterpret_cast<float*>(s.H));
+    run_trunk<N, LDX_V>(branch, w, b, s.X, s.H, s.wst, s.scratch);
+  } else {
+    // the xyz staging reuses the scratch tile (384 floats of its 2048)
+    load_points(blockIdx.x, pts, codes, n_pts, per_row, n_freq, code_len, s.X, s.scratch);
+    run_trunk<N>(branch, w, b, s.X, s.H, s.wst, s.scratch);
+  }
   head_sigma(s.H, N, w + branch.v[T_SIGW], b[branch.v[T_SIGB]], s.sig);
   __syncthreads();
   for (int r = threadIdx.x; r < ROWS; r += THREADS) {
@@ -77,17 +91,18 @@ sigma_eval_kernel(const float* __restrict__ pts, const float* __restrict__ codes
   }
 }
 
-template <int N>
-int launch(const float* pts, const float* codes, const void* w, const float* b,
-           const int* tab, float* sigma, int n_pts, int per_row, int n_freq,
-           int code_len, void* stream) {
+template <int N, bool VOX>
+int launch(const float* pts, const float* codes, const float* vox, VoxDims vd,
+           const void* w, const float* b, const int* tab, float* sigma, int n_pts,
+           int per_row, int n_freq, int code_len, void* stream) {
+  constexpr int BYTES = VOX ? SMEM_BYTES_V : SMEM_BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      sigma_eval_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      sigma_eval_kernel<N, VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((n_pts + ROWS - 1) / ROWS);
-  sigma_eval_kernel<N><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      pts, codes, static_cast<const bf16*>(w), b, to_tab(tab), sigma, n_pts, per_row,
-      n_freq, code_len);
+  sigma_eval_kernel<N, VOX><<<grid, THREADS, BYTES, (cudaStream_t)stream>>>(
+      pts, codes, vox, vd, static_cast<const bf16*>(w), b, to_tab(tab), sigma, n_pts,
+      per_row, n_freq, code_len);
   return (int)cudaGetLastError();
 }
 
@@ -97,15 +112,30 @@ extern "C" {
 
 // `tab` is the offset table of the branch to run: the scene's when
 // `instance` is 0 (codes unused), the object's otherwise (codes holds
-// ceil(n_pts / per_row) rows of code_len). Returns cudaGetLastError().
-int onerf_sigma_eval(const float* pts, const float* codes, const void* w,
-                     const float* b, const int* tab, float* sigma, int n_pts,
-                     int per_row, int n_freq, int code_len, int instance,
-                     void* stream) {
+// ceil(n_pts / per_row) rows of code_len). `vox` is the raw voxel feature
+// operand (n_pts, c_svox + c_ivox) of a voxel-conditioned model, or null for
+// a classical one. Returns cudaGetLastError().
+int onerf_sigma_eval(const float* pts, const float* codes, const float* vox,
+                     const void* w, const float* b, const int* tab, float* sigma,
+                     int n_pts, int per_row, int n_freq, int code_len, int instance,
+                     int c_svox, int c_ivox, int n_freq_vox, void* stream) {
+  const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
+  if (!instance) {
+    codes = nullptr;
+    code_len = 0;
+  }
+  if (vox != nullptr) {
+    if (instance)
+      return launch<WO, true>(pts, codes, vox, vd, w, b, tab, sigma, n_pts, per_row,
+                              n_freq, code_len, stream);
+    return launch<WS, true>(pts, codes, vox, vd, w, b, tab, sigma, n_pts, per_row, n_freq,
+                            code_len, stream);
+  }
   if (instance)
-    return launch<WO>(pts, codes, w, b, tab, sigma, n_pts, per_row, n_freq, code_len,
-                      stream);
-  return launch<WS>(pts, nullptr, w, b, tab, sigma, n_pts, per_row, n_freq, 0, stream);
+    return launch<WO, false>(pts, codes, vox, vd, w, b, tab, sigma, n_pts, per_row,
+                             n_freq, code_len, stream);
+  return launch<WS, false>(pts, codes, vox, vd, w, b, tab, sigma, n_pts, per_row, n_freq,
+                           code_len, stream);
 }
 
 }  // extern "C"

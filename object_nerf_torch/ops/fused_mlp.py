@@ -12,6 +12,14 @@ Replaces the Pallas TPU kernels of `object_nerf_tpu/ops/pallas_mlp.py`:
 The training path's two kernels (`fused_mlp_eval` and its backward) are in
 `fused_mlp_vjp.py` and share the packing and the checks of this module.
 
+Both kernels take the classical model (positional encoding of xyz only) and
+the voxel-conditioned one. For the latter `voxel_raw` (n, S, 16 + 8), the raw
+trilinear features of `models/voxel_grid.voxel_lookup_raw`, is one more
+operand (pallas_mlp.py:193-213): the kernel frequency-encodes it itself and
+its input row is `[svox | PE(svox) | xyz | PE(xyz)]` for the scene branch and
+that followed by `[ivox | PE(ivox) | code]` for the object branch, the
+model's own input order. The training kernels take the classical model only.
+
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp.cu`, built by
 `_build.py`). Each wrapper checks device, dtype, shape and contiguity; on a
 CUDA tensor it launches its kernel or raises, and on a CPU tensor it runs
@@ -33,8 +41,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..models.embedding import freq_encode
-from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
+from ..models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from .compositing import (
     alphas_from_sigmas, composite, composite_instance, compute_deltas,
     weights_from_alphas,
@@ -59,6 +66,8 @@ def reset_launch_counts() -> None:
 KERNEL_SAMPLES = (32, 64, 128)  # a block holds 128 // S whole rays
 SCENE_W, OBJ_W = 256, 128
 SCENE_K0, OBJ_K0 = 64, 128  # input tile columns read by each branch
+SCENE_K0_VOX, OBJ_K0_VOX = 320, 448  # the same of a voxel-conditioned model
+MAX_VOX = 32  # raw voxel channels per sample
 MAX_DIR = 32
 MAX_DEPTH = 8
 MAPS = 16  # [rgb, depth, opacity, rgb_inst, depth_inst, opacity_inst, 0 x 6]
@@ -70,17 +79,27 @@ T_DIRWH, T_DIRWD, T_DIRB, T_RGBW, T_RGBB = 23, 24, 25, 26, 27
 T_LEN = 28
 
 
+def input_tile_columns(cfg: ObjectNeRFConfig):
+    """(scene, object) input columns that the kernels read for this model:
+    each branch's input width padded to the kernels' K step."""
+    return (SCENE_K0_VOX, OBJ_K0_VOX) if cfg.use_voxel_embedding else (SCENE_K0, OBJ_K0)
+
+
 def check_kernel_config(cfg: ObjectNeRFConfig) -> None:
     """Raise unless the CUDA kernels take this architecture."""
     problems = []
-    if cfg.use_voxel_embedding:
-        problems.append("voxel conditioning is not ported yet")
     if cfg.W != SCENE_W or cfg.inst_W != OBJ_W:
         problems.append(f"widths W={cfg.W}, inst_W={cfg.inst_W} "
                         f"(kernels take {SCENE_W}, {OBJ_W})")
-    if cfg.xyz_pe_size > SCENE_K0 or cfg.xyz_pe_size + cfg.N_obj_code_length > OBJ_K0:
-        problems.append(f"xyz PE {cfg.xyz_pe_size} + code {cfg.N_obj_code_length} "
-                        f"channels exceed {SCENE_K0} / {OBJ_K0}")
+    scene_k0, obj_k0 = input_tile_columns(cfg)
+    if cfg.in_channels_xyz > scene_k0 or cfg.inst_channel_in > obj_k0:
+        problems.append(f"branch inputs of {cfg.in_channels_xyz} / {cfg.inst_channel_in} "
+                        f"channels exceed {scene_k0} / {obj_k0}")
+    if cfg.use_voxel_embedding and (
+            cfg.N_scn_voxel_size < 1 or cfg.N_obj_voxel_size < 1
+            or cfg.N_scn_voxel_size + cfg.N_obj_voxel_size > MAX_VOX):
+        problems.append(f"voxel channels {cfg.N_scn_voxel_size} + {cfg.N_obj_voxel_size} "
+                        f"outside 1..{MAX_VOX}")
     if cfg.in_channels_dir > MAX_DIR:
         problems.append(f"direction PE {cfg.in_channels_dir} > {MAX_DIR} channels")
     for name, depth, skips in (("D", cfg.D, cfg.skips), ("inst_D", cfg.inst_D, cfg.inst_skips)):
@@ -183,11 +202,15 @@ def pack_kernel_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     once per chunk."""
     check_kernel_config(cfg)
     pk = _Packer()
-    pe = cfg.xyz_pe_size
-    scene = pk.branch(model, "scene", pe, SCENE_K0, cfg.in_channels_dir, sigma_only)
+    # the scene branch reads the first columns of the object branch's input
+    # row: whatever the shared tile holds past the scene's own width (codes,
+    # instance voxel features) meets zero weight rows
+    scene_k0, obj_k0 = input_tile_columns(cfg)
+    scene = pk.branch(model, "scene", cfg.in_channels_xyz, scene_k0, cfg.in_channels_dir,
+                      sigma_only)
     obj = None
     if forward_instance:
-        obj = pk.branch(model, "object", pe + cfg.N_obj_code_length, OBJ_K0,
+        obj = pk.branch(model, "object", cfg.inst_channel_in, obj_k0,
                         cfg.in_channels_dir, sigma_only)
     w = torch.cat(pk.w).to(torch.bfloat16).contiguous()
     b = torch.cat(pk.b).contiguous()
@@ -199,13 +222,23 @@ def pack_kernel_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
 # ---------------------------------------------------------------------------
 
 
+def check_voxel_operand(cfg: ObjectNeRFConfig, voxel_raw: Optional[torch.Tensor]) -> None:
+    """`voxel_raw` goes with a voxel-conditioned model and with no other."""
+    if cfg.use_voxel_embedding and voxel_raw is None:
+        raise ValueError("voxel_raw required when cfg.use_voxel_embedding")
+    if not cfg.use_voxel_embedding and voxel_raw is not None:
+        raise ValueError("voxel_raw given to a model without voxel embedding")
+
+
 def coarse_weights_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                          xyz: torch.Tensor, z_vals: torch.Tensor,
+                         voxel_raw: Optional[torch.Tensor] = None,
                          last_delta_inf: bool = True,
                          matmul_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of `fused_coarse_weights`: (n, S) f32 weights."""
+    check_voxel_operand(cfg, voxel_raw)
     n, s, _ = xyz.shape
-    emb = freq_encode(xyz.reshape(n * s, 3), cfg.N_freq_xyz)
+    emb, _ = embed_inputs(cfg, xyz.reshape(n * s, 3), voxel_raw)
     sigma, _ = model.scene_forward(emb, sigma_only=True, matmul_dtype=matmul_dtype)
     deltas = compute_deltas(z_vals, last_delta_inf)
     return weights_from_alphas(alphas_from_sigmas(sigma.reshape(n, s), deltas))
@@ -215,13 +248,15 @@ def render_tiles_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                        xyz: torch.Tensor, z_vals: torch.Tensor,
                        dir_pe: torch.Tensor,
                        obj_codes: Optional[torch.Tensor] = None,
+                       voxel_raw: Optional[torch.Tensor] = None,
                        forward_instance: bool = True,
                        last_delta_inf: bool = True,
                        want_weights: bool = False, white_back: bool = False,
                        matmul_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Plain version of `fused_render_tiles`: the same dict of per-ray maps."""
+    check_voxel_operand(cfg, voxel_raw)
     n, s, _ = xyz.shape
-    emb = freq_encode(xyz.reshape(n * s, 3), cfg.N_freq_xyz)
+    emb, obj_voxel = embed_inputs(cfg, xyz.reshape(n * s, 3), voxel_raw)
     dir_flat = dir_pe.repeat_interleave(s, dim=0)
     sigma, rgb = model.scene_forward(emb, dir_flat, matmul_dtype=matmul_dtype)
     scene = composite(sigma.reshape(n, s), rgb.reshape(n, s, 3), z_vals,
@@ -231,7 +266,7 @@ def render_tiles_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig,
         if obj_codes is None:
             obj_codes = xyz.new_zeros(n, cfg.N_obj_code_length)
         codes = obj_codes.repeat_interleave(s, dim=0)
-        i_sigma, i_rgb = model.instance_forward(emb, codes, emb_dir=dir_flat,
+        i_sigma, i_rgb = model.instance_forward(emb, codes, obj_voxel, emb_dir=dir_flat,
                                                 matmul_dtype=matmul_dtype)
         inst = composite_instance(i_sigma.reshape(n, s), i_rgb.reshape(n, s, 3),
                                   z_vals, scene.depth, apply_occlusion=False)
@@ -258,6 +293,20 @@ def _check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_voxel_raw(cfg: ObjectNeRFConfig, voxel_raw: Optional[torch.Tensor], lead,
+                     device) -> None:
+    """The operand's presence, and its shape `lead + (c_svox + c_ivox,)`."""
+    check_voxel_operand(cfg, voxel_raw)
+    if voxel_raw is not None:
+        _check_tensor("voxel_raw", voxel_raw,
+                      tuple(lead) + (cfg.N_scn_voxel_size + cfg.N_obj_voxel_size,), device)
+
+
+def _vox_args(cfg: ObjectNeRFConfig):
+    """(c_svox, c_ivox, n_freq_vox) as the launchers take them."""
+    return cfg.N_scn_voxel_size, cfg.N_obj_voxel_size, cfg.N_freq_voxel
+
+
 def _check_launch(cfg: ObjectNeRFConfig, dtype, s: Optional[int], packed: PackedWeights,
                   device, need_obj: bool, need_heads: bool) -> None:
     """`s`: samples per ray of a kernel whose tile is made of whole rays
@@ -274,6 +323,8 @@ def _check_launch(cfg: ObjectNeRFConfig, dtype, s: Optional[int], packed: Packed
         raise ValueError("packed weights hold the sigma head only")
     if need_obj and packed.obj is None:
         raise ValueError("packed weights lack the object branch")
+    if packed.scene[T_K0] != input_tile_columns(cfg)[0]:
+        raise ValueError("packed weights were packed for another input layout")
     if packed.w.device != device or packed.b.device != device:
         raise ValueError("packed weights are on another device than the inputs")
 
@@ -297,17 +348,17 @@ def fused_coarse_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                          packed: Optional[PackedWeights] = None) -> torch.Tensor:
     """Coarse-pass pdf weights: scene trunk + sigma head + compositing scan.
 
-    xyz (n, S, 3), z_vals (n, S), float32. Returns (n, S) float32 weights.
+    xyz (n, S, 3), z_vals (n, S), float32; `voxel_raw` (n, S, C_vox) for a
+    voxel-conditioned model. Returns (n, S) float32 weights.
     `packed`: the coarse model's `pack_kernel_weights(..., sigma_only=True)`,
     packed here when not given."""
-    if voxel_raw is not None or cfg.use_voxel_embedding:
-        raise NotImplementedError("voxel conditioning is not ported yet")
     n, s = xyz.shape[0], xyz.shape[1]
     device = xyz.device
     _check_tensor("xyz", xyz, (n, s, 3), device)
     _check_tensor("z_vals", z_vals, (n, s), device)
+    _check_voxel_raw(cfg, voxel_raw, (n, s), device)
     if device.type == "cpu":
-        return coarse_weights_plain(model, cfg, xyz, z_vals, last_delta_inf, dtype)
+        return coarse_weights_plain(model, cfg, xyz, z_vals, voxel_raw, last_delta_inf, dtype)
 
     from ._build import check, load_library
 
@@ -320,9 +371,10 @@ def fused_coarse_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     lib = load_library()
     with torch.cuda.device(device):
         rc = lib.onerf_coarse_weights(
-            xyz.data_ptr(), z_vals.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
-            _tab(packed.scene), weights.data_ptr(), n, s, cfg.N_freq_xyz,
-            int(last_delta_inf), torch.cuda.current_stream(device).cuda_stream,
+            xyz.data_ptr(), z_vals.data_ptr(), _ptr(voxel_raw), packed.w.data_ptr(),
+            packed.b.data_ptr(), _tab(packed.scene), weights.data_ptr(), n, s,
+            cfg.N_freq_xyz, int(last_delta_inf), *_vox_args(cfg),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_coarse_weights")
     launch_counts["fused_coarse_weights"] += 1
@@ -343,13 +395,11 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     """One fused pass: PE -> both MLP branches -> alpha compositing.
 
     xyz (n, S, 3), z_vals (n, S), dir_pe (n, C_dir), obj_codes (n, C_code),
-    float32. Returns rgb (n, 3), depth (n,), opacity (n,) and, when
+    float32; `voxel_raw` (n, S, C_vox) for a voxel-conditioned model. Returns rgb (n, 3), depth (n,), opacity (n,) and, when
     `forward_instance`, rgb_instance/depth_instance/opacity_instance, plus
     weights (n, S) when `want_weights`. `packed`: the model's
     `pack_kernel_weights(..., forward_instance)`, packed here when not
     given."""
-    if voxel_raw is not None or cfg.use_voxel_embedding:
-        raise NotImplementedError("voxel conditioning is not ported yet")
     n, s = xyz.shape[0], xyz.shape[1]
     device = xyz.device
     _check_tensor("xyz", xyz, (n, s, 3), device)
@@ -357,8 +407,9 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     _check_tensor("dir_pe", dir_pe, (n, cfg.in_channels_dir), device)
     if obj_codes is not None:
         _check_tensor("obj_codes", obj_codes, (n, cfg.N_obj_code_length), device)
+    _check_voxel_raw(cfg, voxel_raw, (n, s), device)
     if device.type == "cpu":
-        return render_tiles_plain(model, cfg, xyz, z_vals, dir_pe, obj_codes,
+        return render_tiles_plain(model, cfg, xyz, z_vals, dir_pe, obj_codes, voxel_raw,
                                   forward_instance, last_delta_inf, want_weights,
                                   white_back, dtype)
 
@@ -378,12 +429,13 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
         with torch.cuda.device(device):
             rc = lib.onerf_render_tiles(
                 xyz.data_ptr(), z_vals.data_ptr(), dir_pe.data_ptr(),
-                _ptr(obj_codes) if forward_instance else None,
+                _ptr(obj_codes) if forward_instance else None, _ptr(voxel_raw),
                 packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
                 _tab(packed.obj) if forward_instance else None,
                 maps.data_ptr(), _ptr(weights), n, s, cfg.N_freq_xyz,
                 cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
-                int(last_delta_inf), torch.cuda.current_stream(device).cuda_stream,
+                int(last_delta_inf), *_vox_args(cfg),
+                torch.cuda.current_stream(device).cuda_stream,
             )
         check(lib, rc, "fused_render_tiles")
         launch_counts["fused_render_tiles"] += 1

@@ -22,7 +22,10 @@ check of the hand-derived backward) and `mlp_bwd_plain` (the hand-derived
 backward in tensor code, rounding where the kernel rounds). The kernels keep
 the eval kernels' tile of 128 rows of whole rays, hence their restriction to
 `KERNEL_SAMPLES` samples per ray. `launch_counts` (shared with
-`fused_mlp.py`) counts kernel launches and nothing else.
+`fused_mlp.py`) counts kernel launches and nothing else. They take the
+classical model only: the voxel operand (`voxel_raw`, with its gradient
+`d_voxel_raw`, pallas_mlp_vjp.py:350-375) is not ported yet, and both entry
+points raise on a voxel-conditioned model.
 """
 
 from __future__ import annotations
@@ -193,7 +196,9 @@ def mlp_bwd_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
 
 def _check_inputs(cfg: ObjectNeRFConfig, xyz, dir_pe, codes) -> Tuple[int, int]:
     if cfg.use_voxel_embedding:
-        raise NotImplementedError("voxel conditioning is not ported yet")
+        raise NotImplementedError(
+            "the training kernels take no voxel operand yet (fused_mlp_eval / "
+            "fused_mlp_bwd with d_voxel_raw): the eval and density kernels do")
     n, s = xyz.shape[0], xyz.shape[1]
     _check_tensor("xyz", xyz, (n, s, 3), xyz.device)
     _check_tensor("dir_pe", dir_pe, (n, cfg.in_channels_dir), xyz.device)
@@ -384,7 +389,9 @@ def fused_mlp_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
     packed once by a caller that renders many chunks from frozen weights),
     the call is inference only."""
     if voxel_raw is not None:
-        raise NotImplementedError("voxel conditioning is not ported yet")
+        raise NotImplementedError(
+            "the training kernels take no voxel operand yet (fused_mlp_eval / "
+            "fused_mlp_bwd with d_voxel_raw): the eval and density kernels do")
     n, s = _check_inputs(cfg, xyz, dir_pe, codes)
     if codes is None:
         codes = xyz.new_zeros(n, cfg.N_obj_code_length)

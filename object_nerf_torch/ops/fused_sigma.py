@@ -20,11 +20,10 @@ from typing import Optional
 
 import torch
 
-from ..models.embedding import freq_encode
-from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
+from ..models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from .fused_mlp import (
-    PackedWeights, _check_launch, _check_tensor, _tab, launch_counts,
-    pack_kernel_weights,
+    PackedWeights, _check_launch, _check_tensor, _check_voxel_raw, _ptr, _tab, _vox_args,
+    check_voxel_operand, launch_counts, pack_kernel_weights,
 )
 
 BRANCHES = ("scene", "instance")
@@ -33,15 +32,18 @@ BRANCHES = ("scene", "instance")
 def sigma_eval_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor,
                      obj_codes: Optional[torch.Tensor] = None, branch: str = "scene",
                      samples_per_row: int = 64,
+                     voxel_raw: Optional[torch.Tensor] = None,
                      matmul_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of `fused_sigma_eval`: pts (N, 3), obj_codes
-    (N / samples_per_row, C_code) -> (N,) f32 raw density."""
-    emb = freq_encode(pts, cfg.N_freq_xyz)
+    (N / samples_per_row, C_code), voxel_raw (N, C_vox) for a
+    voxel-conditioned model -> (N,) f32 raw density."""
+    check_voxel_operand(cfg, voxel_raw)
+    emb, obj_voxel = embed_inputs(cfg, pts, voxel_raw)
     if branch == "scene":
         sigma, _ = model.scene_forward(emb, sigma_only=True, matmul_dtype=matmul_dtype)
     else:
         codes = obj_codes.repeat_interleave(samples_per_row, dim=0)
-        sigma, _ = model.instance_forward(emb, codes, sigma_only=True,
+        sigma, _ = model.instance_forward(emb, codes, obj_voxel, sigma_only=True,
                                           matmul_dtype=matmul_dtype)
     return sigma
 
@@ -57,8 +59,9 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
     pts (N, 3) float32 with N divisible by `samples_per_row`; `branch` is
     "scene" (scene trunk + sigma head) or "instance" (object trunk + sigma
     head on `[PE, code]`, `obj_codes` (N / samples_per_row, C_code) holding
-    one code per pseudo-row). Returns (N,) float32, before any ReLU: the
-    callers clamp or mute it themselves.
+    one code per pseudo-row); `voxel_raw` (N, C_vox), the points' raw voxel
+    features, for a voxel-conditioned model. Returns (N,) float32, before any
+    ReLU: the callers clamp or mute it themselves.
 
     `samples_per_row` only fixes how often the code changes: the kernel takes
     any value >= 1 and any N (its 128-point tiles are not made of whole
@@ -66,8 +69,6 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
     `packed`: the model's `pack_kernel_weights(..., forward_instance=(branch
     == "instance"), sigma_only=True)` or any packing that holds the branch;
     packed here when not given. Inference only."""
-    if voxel_raw is not None or cfg.use_voxel_embedding:
-        raise NotImplementedError("voxel conditioning is not ported yet")
     if branch not in BRANCHES:
         raise ValueError(f"branch must be one of {BRANCHES}, got {branch!r}")
     n, s = pts.shape[0], int(samples_per_row)
@@ -82,8 +83,9 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
         if obj_codes is None:
             raise ValueError("obj_codes required for branch='instance'")
         _check_tensor("obj_codes", obj_codes, (n // s, cfg.N_obj_code_length), device)
+    _check_voxel_raw(cfg, voxel_raw, (n,), device)
     if device.type == "cpu":
-        return sigma_eval_plain(model, cfg, pts, obj_codes, branch, s, dtype)
+        return sigma_eval_plain(model, cfg, pts, obj_codes, branch, s, voxel_raw, dtype)
 
     from ._build import check, load_library
 
@@ -96,10 +98,10 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
     lib = load_library()
     with torch.cuda.device(device):
         rc = lib.onerf_sigma_eval(
-            pts.data_ptr(), obj_codes.data_ptr() if instance else None,
+            pts.data_ptr(), obj_codes.data_ptr() if instance else None, _ptr(voxel_raw),
             packed.w.data_ptr(), packed.b.data_ptr(),
             _tab(packed.obj if instance else packed.scene), sigma.data_ptr(), n, s,
-            cfg.N_freq_xyz, cfg.N_obj_code_length, int(instance),
+            cfg.N_freq_xyz, cfg.N_obj_code_length, int(instance), *_vox_args(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_sigma_eval")

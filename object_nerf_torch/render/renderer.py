@@ -16,6 +16,15 @@ detached coarse weights -> the same again for the fine model. Both passes'
 maps are emitted under the reference's key schema. The glue between the
 kernels is plain tensor code under autograd.
 
+Voxel-conditioned models pass a `voxel_ctx` = (features, topology, static[,
+corner table]) (`models/voxel_grid.py`): the eval render looks the raw voxel
+features of each pass's samples up once per chunk (`lookup_voxel_raw`, from
+the prebuilt corner table, in bf16 when the kernels compute in bf16) and
+hands them to the kernels as their `voxel_raw` operand; the plain route of
+`render_rays` embeds them with `_embed_points`. The training kernels do not
+take the operand yet, so `render_rays` with a `voxel_ctx` runs with
+`plain=True` only.
+
 The `rays_in_bbox` route (instance-weight pdf) is not ported yet; this
 module raises on it.
 """
@@ -23,13 +32,14 @@ module raises on it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..models.embedding import freq_encode
 from ..models.mlp import ObjectNeRFConfig
+from ..models.voxel_grid import voxel_embed, voxel_lookup_raw
 from ..ops.compositing import composite, composite_instance
 from ..ops.fused_mlp import (
     PackedWeights, coarse_weights_plain, fused_coarse_weights,
@@ -78,6 +88,38 @@ class RenderSettings:
         return cls(**kw)
 
 
+# Voxel context: (features, topology, static[, corner_table]) or None for the
+# classical PE. The optional 4th element is a prebuilt eval-only corner table
+# (`models/voxel_grid.make_corner_table`), built once per frame by
+# `train.system.make_render_fn`.
+VoxelCtx = Optional[Tuple]
+
+
+def lookup_voxel_raw(settings: RenderSettings, voxel_ctx: VoxelCtx,
+                      xyz: torch.Tensor) -> Optional[torch.Tensor]:
+    """Raw (n, S, C) voxel features for the fused kernels, or None: the one
+    place the fused passes fetch voxel features (from a bf16 corner table
+    when the kernels compute in bf16)."""
+    if voxel_ctx is None:
+        return None
+    features, topo, static = voxel_ctx[:3]
+    ct = voxel_ctx[3] if len(voxel_ctx) > 3 else None
+    raw, _ = voxel_lookup_raw(features, topo, static, xyz.reshape(-1, 3), trilinear=True,
+                              lowp=settings.matmul_dtype == torch.bfloat16, ct=ct)
+    return raw.reshape(xyz.shape[0], xyz.shape[1], -1).contiguous()
+
+
+def _embed_points(xyz_flat: torch.Tensor, settings: RenderSettings, voxel_ctx: VoxelCtx):
+    """(emb_xyz (N, C), obj_voxel (N, Cv) or None): the EmbeddingVoxel.forward
+    / classical Embedding split (reference train.py:45-53)."""
+    if voxel_ctx is None:
+        return freq_encode(xyz_flat, settings.mlp.N_freq_xyz), None
+    features, topo, static = voxel_ctx[:3]
+    ct = voxel_ctx[3] if len(voxel_ctx) > 3 else None
+    return voxel_embed(features, topo, static, xyz_flat, n_freq_xyz=settings.mlp.N_freq_xyz,
+                       ct=ct)
+
+
 def _check_eval(settings: RenderSettings) -> None:
     if settings.perturb != 0 or settings.noise_std != 0:
         raise ValueError("fused render is the deterministic eval path "
@@ -89,7 +131,8 @@ def _check_eval(settings: RenderSettings) -> None:
 
 def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
                   codes: Optional[torch.Tensor], coarse_fn, tiles_fn,
-                  packed: Dict[str, PackedWeights]) -> Dict[str, torch.Tensor]:
+                  packed: Dict[str, PackedWeights],
+                  voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     _check_eval(settings)
     cfg = settings.mlp
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
@@ -103,6 +146,7 @@ def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSetting
     if settings.N_importance > 0:
         # only the pdf weights survive the coarse pass: scene density only
         weights = coarse_fn(models.nerf_coarse, cfg, xyz_c, z_vals,
+                            voxel_raw=lookup_voxel_raw(settings, voxel_ctx, xyz_c),
                             packed=packed.get("coarse"))
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         z_fine = sample_pdf(z_mid, weights[:, 1:-1], settings.N_importance, det=True)
@@ -112,6 +156,7 @@ def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSetting
     else:
         z_final, xyz, model, typ = z_vals, xyz_c, models.nerf_coarse, "coarse"
     out = tiles_fn(model, cfg, xyz, z_final, dir_pe, obj_codes=codes,
+                   voxel_raw=lookup_voxel_raw(settings, voxel_ctx, xyz),
                    forward_instance=settings.forward_instance,
                    white_back=settings.white_back, packed=packed.get(typ))
     keys = ["rgb", "depth", "opacity"]
@@ -124,40 +169,46 @@ def render_rays_fused_eval(models: nn.Module, rays: torch.Tensor,
                            settings: RenderSettings,
                            embedding_instance: Optional[torch.Tensor] = None,
                            packed: Optional[Dict[str, PackedWeights]] = None,
-                           ) -> Dict[str, torch.Tensor]:
+                           voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     """Deterministic eval render of one chunk of rays (N, 8) = [o, d, near,
     far] through the two fused kernels (their plain versions on CPU
     tensors). `models` holds `nerf_coarse` (and `nerf_fine` when
     N_importance > 0); `embedding_instance` (N, C_code) are the rays' object
-    codes; `packed` maps "coarse"/"fine" to weights packed once per frame.
-    Emits only the final pass's maps."""
+    codes; `packed` maps "coarse"/"fine" to weights packed once per frame;
+    `voxel_ctx` is the voxel grid of a voxel-conditioned model (one lookup per
+    pass). Emits only the final pass's maps."""
 
-    def coarse_fn(model, cfg, xyz, z, packed=None):
-        return fused_coarse_weights(model, cfg, xyz, z, dtype=settings.matmul_dtype,
-                                    packed=packed)
+    def coarse_fn(model, cfg, xyz, z, voxel_raw=None, packed=None):
+        return fused_coarse_weights(model, cfg, xyz, z, voxel_raw=voxel_raw,
+                                    dtype=settings.matmul_dtype, packed=packed)
 
     def tiles_fn(model, cfg, xyz, z, dir_pe, packed=None, **kw):
         return fused_render_tiles(model, cfg, xyz, z, dir_pe, dtype=settings.matmul_dtype,
                                   packed=packed, **kw)
 
     return _render_chunk(models, rays, settings, embedding_instance, coarse_fn,
-                         tiles_fn, packed or {})
+                         tiles_fn, packed or {}, voxel_ctx)
 
 
 def render_rays_plain(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
                       embedding_instance: Optional[torch.Tensor] = None,
-                      matmul_dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                      matmul_dtype=torch.float32,
+                      voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     """`render_rays_fused_eval` through the kernels' plain versions, on any
-    device: the reference a kernel render is checked against."""
+    device: the reference a kernel render is checked against. The voxel
+    lookup follows `matmul_dtype` (a bf16 corner table for bf16), whatever
+    `settings.matmul_dtype` says."""
+    settings = dataclasses.replace(settings, matmul_dtype=matmul_dtype)
 
-    def coarse_fn(model, cfg, xyz, z, packed=None):
-        return coarse_weights_plain(model, cfg, xyz, z, matmul_dtype=matmul_dtype)
+    def coarse_fn(model, cfg, xyz, z, voxel_raw=None, packed=None):
+        return coarse_weights_plain(model, cfg, xyz, z, voxel_raw=voxel_raw,
+                                    matmul_dtype=matmul_dtype)
 
     def tiles_fn(model, cfg, xyz, z, dir_pe, packed=None, **kw):
         return render_tiles_plain(model, cfg, xyz, z, dir_pe, matmul_dtype=matmul_dtype, **kw)
 
     return _render_chunk(models, rays, settings, embedding_instance, coarse_fn,
-                         tiles_fn, {})
+                         tiles_fn, {}, voxel_ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +250,27 @@ class RenderDraws:
 
 
 def _eval_models(model: nn.Module, settings: RenderSettings, xyz: torch.Tensor,
-                 dir_pe: torch.Tensor, codes: Optional[torch.Tensor], plain: bool):
+                 dir_pe: torch.Tensor, codes: Optional[torch.Tensor], plain: bool,
+                 voxel_ctx: VoxelCtx = None):
     """Both branches over (N_rays, S) samples: the fused op (kernels on CUDA
-    tensors), or its plain version under autograd when `plain`."""
+    tensors), or its plain version under autograd when `plain`. A voxel model
+    takes the plain route only: its inputs come from `_embed_points`."""
+    if voxel_ctx is not None:
+        if not plain:
+            raise NotImplementedError(
+                "the training kernels (fused_mlp_eval / fused_mlp_bwd) do not take the "
+                "voxel operand yet: render a voxel model with plain=True")
+        n, s, _ = xyz.shape
+        emb, obj_voxel = _embed_points(xyz.reshape(n * s, 3), settings, voxel_ctx)
+        dir_flat = dir_pe.repeat_interleave(s, dim=0)
+        sigma, rgb = model.scene_forward(emb, dir_flat, matmul_dtype=settings.matmul_dtype)
+        out = (sigma.reshape(n, s), rgb.reshape(n, s, 3))
+        if not settings.forward_instance:
+            return out + (xyz.new_zeros(n, s), xyz.new_zeros(n, s, 3))
+        i_sigma, i_rgb = model.instance_forward(
+            emb, codes.repeat_interleave(s, dim=0), obj_voxel, emb_dir=dir_flat,
+            matmul_dtype=settings.matmul_dtype)
+        return out + (i_sigma.reshape(n, s), i_rgb.reshape(n, s, 3))
     fn = mlp_eval_plain if plain else fused_mlp_eval
     kw = {"matmul_dtype" if plain else "dtype": settings.matmul_dtype}
     return fn(model, settings.mlp, xyz.contiguous(), dir_pe, codes,
@@ -235,14 +304,16 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
                 pass_through_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[RenderDraws] = None,
-                plain: bool = False) -> Dict[str, torch.Tensor]:
+                plain: bool = False,
+                voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     """Render a batch of rays (N, 8) = [o, d, near, far], differentiably.
 
     The randomness is `draws` when given, else it is drawn from `generator`
     on the rays' device; with neither, `perturb` uses the default generator
     and no density noise is added (as with no key in the JAX package).
     `plain` routes the MLP through `mlp_eval_plain` under autograd instead of
-    the fused op. Returns both passes' maps under the reference's keys
+    the fused op; a voxel-conditioned model (`voxel_ctx`) has that route
+    only, so far. Returns both passes' maps under the reference's keys
     (`rgb_fine`, `opacity_instance_coarse`, `weights_coarse`, ...)."""
     if settings.rays_in_bbox:
         raise ValueError("rays_in_bbox (instance-weight pdf, reference "
@@ -261,7 +332,7 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
     dir_pe = freq_encode(rays_d, cfg.N_freq_dir).contiguous()
 
     results: Dict[str, torch.Tensor] = {}
-    raw = _eval_models(models.nerf_coarse, settings, xyz, dir_pe, codes, plain)
+    raw = _eval_models(models.nerf_coarse, settings, xyz, dir_pe, codes, plain, voxel_ctx)
     _composite_pass(results, settings, "coarse", raw, z_vals,
                     d.noise_coarse if d else None, d.noise_inst_coarse if d else None,
                     pass_through_mask)
@@ -271,7 +342,8 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
                             det=(settings.perturb == 0), u=d.pdf if d else None)
         z_all = merge_z_vals(z_vals, z_fine)
         xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-        raw_f = _eval_models(models.nerf_fine, settings, xyz_fine, dir_pe, codes, plain)
+        raw_f = _eval_models(models.nerf_fine, settings, xyz_fine, dir_pe, codes, plain,
+                             voxel_ctx)
         _composite_pass(results, settings, "fine", raw_f, z_all,
                         d.noise_fine if d else None, d.noise_inst_fine if d else None,
                         pass_through_mask)

@@ -13,7 +13,9 @@ C++ implementation when g++ is there, else numpy; the line printed after it
 says which ran), rescales vertices by scale_factor with the reference's x/y
 swap (extract_mesh.py:124-134), optionally predicts vertex colours through
 the plain model with normals as view directions (extract_mesh.py:140-164),
-keeps the largest connected component, and writes a PLY.
+keeps the largest connected component, and writes a PLY. A voxel-conditioned
+checkpoint brings its grid along: the sweep looks each chunk's raw voxel
+features up (corner table built once per sweep) and hands them to the kernel.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def grid_points(config, off: int, size: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def extract_sigma_grid(models, settings, config, obj_id: int = 0, device=None,
-                       plain: bool = False, as_tensor: bool = False):
+                       plain: bool = False, as_tensor: bool = False, voxel_ctx=None):
     """Dense density query of the fine model over the configured grid:
     (N_grid, N_grid, N_grid) float32, clamped at 0, x outer / y mid / z inner.
 
@@ -77,10 +79,17 @@ def extract_sigma_grid(models, settings, config, obj_id: int = 0, device=None,
     is copied to the host once at the end. `device` defaults to the models'
     own.
 
+    `voxel_ctx` = (features, topology, static) of a voxel-conditioned model:
+    every chunk then takes one lookup of its points' raw voxel features (f32,
+    as the JAX package's sweep looks them up) before its launch, from a corner
+    table built once per sweep, or through the per-corner gathers when the
+    grid's table would exceed `DENSE_CELL_TABLE_LIMIT_BYTES`.
+
     `plain` and `as_tensor` serve tests and the smoke run, not the tool:
     `plain` evaluates `sigma_eval_plain` at `settings.matmul_dtype` on any
     device, the reference a kernel sweep is held against; `as_tensor` returns
     the device tensor instead of a host array."""
+    from ..models import voxel_grid as vg
     from ..ops.fused_mlp import pack_kernel_weights
     from ..ops.fused_sigma import fused_sigma_eval, sigma_eval_plain
 
@@ -100,14 +109,24 @@ def extract_sigma_grid(models, settings, config, obj_id: int = 0, device=None,
     if device.type == "cuda" and not plain:
         packed = pack_kernel_weights(model, cfg, forward_instance=obj_id > 0, sigma_only=True)
 
+    ct = None
+    if voxel_ctx is not None:
+        features, topo, static = voxel_ctx[:3]
+        if vg.dense_path_ok(static):
+            ct = vg.make_corner_table(features, topo, static)
+
     sigma = torch.empty(n3, dtype=torch.float32, device=device)
     for off in range(0, n3, chunk):
         m = min(chunk, n3 - off)
         pts = grid_points(config, off, m, device)
+        raw = None
+        if voxel_ctx is not None:
+            raw, _ = vg.voxel_lookup_raw(features, topo, static, pts, ct=ct)
         if plain:
-            s = sigma_eval_plain(model, cfg, pts, code, branch, m, settings.matmul_dtype)
+            s = sigma_eval_plain(model, cfg, pts, code, branch, m, raw,
+                                 settings.matmul_dtype)
         else:
-            s = fused_sigma_eval(model, cfg, pts, code, branch, m,
+            s = fused_sigma_eval(model, cfg, pts, code, branch, m, voxel_raw=raw,
                                  dtype=settings.matmul_dtype, packed=packed)
         sigma[off:off + m] = s
     sigma = sigma.clamp_(min=0.0).reshape(n, n, n)
@@ -129,8 +148,8 @@ def main(argv) -> None:
     from ..data.ply_io import write_ply
     from ..device import resolve_device
     from ..models.embedding import freq_encode
-    from ..render.renderer import RenderSettings
-    from ..train.convert import load_reference_ckpt
+    from ..render.renderer import RenderSettings, _embed_points
+    from ..train.convert import load_reference_ckpt, voxel_grid_from_ckpt
     from ..train.system import init_params
     from .marching import (
         largest_connected_component, marching_backend, marching_tetrahedra,
@@ -141,9 +160,6 @@ def main(argv) -> None:
     config.merge({k: v for k, v in SCRIPT_CONF.items() if k not in config})
     if not config.get("ckpt_path"):
         raise SystemExit("ckpt_path not set")
-    if bool(config.model.get("use_voxel_embedding", True)):
-        raise NotImplementedError("voxel conditioning is not ported yet: set "
-                                  "model.use_voxel_embedding=false")
     device = resolve_device(config.get("device", "cuda"))
     on_card = device.type == "cuda"
     if on_card and not user_set_chunk:
@@ -152,14 +168,26 @@ def main(argv) -> None:
     # the CUDA kernel computes in bf16; the CPU path is the exact f32 one
     settings = RenderSettings.from_config(
         config, is_eval=True, matmul_dtype=torch.bfloat16 if on_card else torch.float32)
+    sd, voxel = load_reference_ckpt(config.ckpt_path, with_voxel=True)
+    if (voxel is not None) != settings.mlp.use_voxel_embedding:
+        raise SystemExit(f"{config.ckpt_path} holds {'a' if voxel is not None else 'no'} "
+                         f"voxel grid, but model.use_voxel_embedding is "
+                         f"{settings.mlp.use_voxel_embedding}")
+    voxel_ctx = None
+    if voxel is not None:  # the checkpoint's own grid: its table rows are indexed by it
+        voxel_ctx = voxel_grid_from_ckpt(voxel, settings.mlp.N_freq_voxel, device)
     models = init_params(torch.Generator().manual_seed(0), settings, config.model,
-                         device=device)
-    models.load_state_dict(load_reference_ckpt(config.ckpt_path))
+                         device=device,
+                         voxel_features=voxel_ctx[0] if voxel_ctx is not None else None)
+    models.load_state_dict(sd)
     models.eval()
+    if voxel_ctx is not None:
+        voxel_ctx = (models.voxel_features.detach(),) + tuple(voxel_ctx[1:])
 
     obj_id = int(config.obj_id)
     t0 = time.perf_counter()
-    sigma = extract_sigma_grid(models, settings, config, obj_id, device=device)
+    sigma = extract_sigma_grid(models, settings, config, obj_id, device=device,
+                               voxel_ctx=voxel_ctx)
     t_sigma = time.perf_counter() - t0
 
     backend = marching_backend(str(config.marching_backend))
@@ -199,8 +227,8 @@ def main(argv) -> None:
         with torch.no_grad():
             pts = torch.from_numpy(np.asarray(out / scale, np.float32)).to(device)
             dirs = torch.from_numpy(np.asarray(-nrm, np.float32)).to(device)
-            _, rgb = model.scene_forward(freq_encode(pts, settings.mlp.N_freq_xyz),
-                                         freq_encode(dirs, settings.mlp.N_freq_dir))
+            emb, _ = _embed_points(pts, settings, voxel_ctx)
+            _, rgb = model.scene_forward(emb, freq_encode(dirs, settings.mlp.N_freq_dir))
         colors = rgb.cpu().numpy()
 
     os.makedirs(config.out_dir, exist_ok=True)

@@ -9,7 +9,13 @@ there; loading those is not ported). A checkpoint is one file holding
 * `optimizer`: the optimizer's state dict (moments, lookahead slow weights);
 * `step`, `epoch`: the global step and the epoch it falls in;
 * `generator`, `batch_rng`: the states of the device generator (perturbation
-  and density noise) and of the numpy batch sampler.
+  and density noise) and of the numpy batch sampler;
+* `voxel_topo`, `voxel_static`: a voxel-conditioned model's grid (the
+  topology's tensors and the static's fields; the feature table is in the
+  state dict as `embedding_xyz.embedding_space_ftr.weight`), None otherwise.
+  The JAX package stores the same two beside its params
+  (`object_nerf_tpu/train/system.py:406-426`), so an eval or mesh run finds
+  the grid its table rows are indexed by.
 
 Restored on the same device type, the next step repeats bit for bit what the
 uninterrupted run computed.
@@ -17,6 +23,7 @@ uninterrupted run computed.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Optional
 
@@ -35,6 +42,8 @@ def save_config_snapshot(log_dir, config) -> None:
 def save_checkpoint(ckpt_dir, system, name: Optional[str] = None) -> Path:
     """Write `<ckpt_dir>/<name>.ckpt` (default name `step_<global step>`) from
     an `ObjectNeRFSystem`; returns the path."""
+    from ..models.voxel_grid import topology_to_dict
+
     step = system.global_step
     path = Path(ckpt_dir) / f"{name or f'step_{step}'}{SUFFIX}"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -47,6 +56,10 @@ def save_checkpoint(ckpt_dir, system, name: Optional[str] = None) -> Path:
         "epoch": step // system.steps_per_epoch,
         "generator": system.generator.get_state(),
         "batch_rng": system.batch_rng.get_state(),
+        "voxel_topo": (topology_to_dict(system.voxel_topo)
+                       if system.voxel_topo is not None else None),
+        "voxel_static": (dataclasses.asdict(system.voxel_static)
+                         if system.voxel_static is not None else None),
     }, tmp)
     tmp.replace(path)
     return path
@@ -69,11 +82,27 @@ def restore_system(system, path) -> None:
     dict (weights only; missing modules keep their fresh initialisation).
     The file is unpickled in full: load only checkpoints from a trusted
     source."""
-    from .convert import load_reference_ckpt
+    from .convert import load_reference_ckpt, voxel_grid_from_ckpt
 
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    if not (isinstance(ckpt, dict) and ckpt.get("format") == FORMAT):
-        result = system.models.load_state_dict(load_reference_ckpt(path), strict=False)
+    sd, voxel = load_reference_ckpt(ckpt, with_voxel=True)
+    if (voxel is not None) != system.use_voxel:
+        raise ValueError(f"{path} holds {'a' if voxel is not None else 'no'} voxel grid, but "
+                         f"model.use_voxel_embedding is {system.use_voxel}")
+    own = isinstance(ckpt, dict) and ckpt.get("format") == FORMAT
+    if voxel is not None:
+        # the checkpoint's table rows are indexed by its own topology: adopt both
+        feats, system.voxel_topo, system.voxel_static = voxel_grid_from_ckpt(
+            voxel, int(system.config.model.N_freq_voxel), system.device)
+        if feats.shape != system.models.voxel_features.shape:
+            if own:
+                raise ValueError(
+                    f"{path} holds a {tuple(feats.shape)} feature table, the system a "
+                    f"{tuple(system.models.voxel_features.shape)} one")
+            # a reference table has its own capacity: take it, with a fresh optimizer
+            system.adopt_voxel_features(feats)
+    if not own:
+        result = system.models.load_state_dict(sd, strict=False)
         if result.unexpected_keys:
             raise ValueError(f"unexpected checkpoint entries: {result.unexpected_keys[:5]}")
         print(f"loaded weights from {path}")

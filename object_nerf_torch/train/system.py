@@ -15,14 +15,24 @@ a seed means the same on every device; the perturbation and the density
 noise of a step come from a `torch.Generator` on the training device (no
 host-to-device copy in the loop), so they differ between CPU and CUDA runs.
 
-Not ported: voxel grids and their epoch hooks, multi-device meshes (one
-device), the profiler hook, TensorBoard scalars and the validation image
+A voxel-conditioned model (`model.use_voxel_embedding`, the reference's
+default) carries its feature table under the reference's state-dict name
+`embedding_xyz.embedding_space_ftr.weight`; the grid's topology and static
+shape live beside the models (`ObjectNeRFSystem.voxel_topo`,
+`.voxel_static`). The eval render builds the corner table once per frame and
+hands it to every chunk. Training a voxel model is not ported yet: its
+`training_step` raises.
+
+Not ported: voxel training (the voxel operand of the training kernels, the
+table gradient, prune / subdivide and their epoch hooks), multi-device meshes
+(one device), the profiler hook, TensorBoard scalars and the validation image
 panel.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -31,6 +41,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.code_library import CodeLibrary
+from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
 from ..ops.fused_mlp import pack_kernel_weights
 from ..render.renderer import (
@@ -41,26 +52,50 @@ from .metrics import psnr, ssim
 from .optim import make_lr_schedule, make_optimizer, set_lr
 
 
+class VoxelEmbedding(nn.Module):
+    """The voxel feature table under the reference's name
+    (`embedding_xyz.embedding_space_ftr`, embedding_helper.py:187)."""
+
+    def __init__(self, features: torch.Tensor):
+        super().__init__()
+        self.embedding_space_ftr = nn.Embedding(features.shape[0], features.shape[1])
+        with torch.no_grad():
+            self.embedding_space_ftr.weight.copy_(features)
+
+
 class ObjectNeRFModels(nn.Module):
     """The reference system's modules under their state-dict names:
-    `nerf_coarse`, `nerf_fine` (when N_importance > 0) and `code_library`."""
+    `nerf_coarse`, `nerf_fine` (when N_importance > 0), `code_library` and,
+    for a voxel-conditioned model, `embedding_xyz` (the feature table)."""
 
     def __init__(self, cfg: ObjectNeRFConfig, n_importance: int = 64,
-                 n_max_objs: int = 64):
+                 n_max_objs: int = 64, voxel_features: Optional[torch.Tensor] = None):
         super().__init__()
         self.nerf_coarse = ObjectNeRF(cfg)
         self.nerf_fine = ObjectNeRF(cfg) if n_importance > 0 else None
         self.code_library = CodeLibrary(n_max_objs, cfg.N_obj_code_length)
+        self.embedding_xyz = (VoxelEmbedding(voxel_features)
+                              if voxel_features is not None else None)
+
+    @property
+    def voxel_features(self) -> Optional[torch.Tensor]:
+        """The (capacity, channels) feature table, or None."""
+        if self.embedding_xyz is None:
+            return None
+        return self.embedding_xyz.embedding_space_ftr.weight
 
 
 def init_params(generator: torch.Generator, settings: RenderSettings, model_cfg,
-                device=None) -> ObjectNeRFModels:
+                device=None, voxel_features: Optional[torch.Tensor] = None,
+                ) -> ObjectNeRFModels:
     """Fresh models from a seeded CPU `torch.Generator`, moved to `device`
     (default `cuda`). Linear layers are U(±1/sqrt(fan_in)); codes N(0, 1).
-    The same seed gives the same weights on every device."""
+    The same seed gives the same weights on every device. `voxel_features`
+    (from `models/voxel_grid.build_voxel_grid`) becomes the models' feature
+    table."""
     device = resolve_device(device)
     models = ObjectNeRFModels(settings.mlp, settings.N_importance,
-                              int(model_cfg.get("N_max_objs", 64)))
+                              int(model_cfg.get("N_max_objs", 64)), voxel_features)
     models.nerf_coarse.reset_parameters_(generator)
     if models.nerf_fine is not None:
         models.nerf_fine.reset_parameters_(generator)
@@ -68,17 +103,42 @@ def init_params(generator: torch.Generator, settings: RenderSettings, model_cfg,
     return models.to(device)
 
 
-def make_render_fn(settings: RenderSettings, chunk: int = 4096):
+def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStatic] = None,
+                   chunk: int = 4096):
     """Whole-image eval renderer: render(models, rays (N, 8), instance_ids
-    (N,)) -> final-pass maps. Loops over chunks of `chunk` rays; the caller
-    pads rays to a multiple of `chunk`. On the card the kernel weights are
-    packed once per call (one frame), not once per chunk."""
+    (N,), voxel_topo=None) -> final-pass maps. Loops over chunks of `chunk`
+    rays; the caller pads rays to a multiple of `chunk`. On the card the
+    kernel weights are packed once per call (one frame), not once per chunk.
+
+    A voxel-conditioned model (`voxel_static` given, `voxel_topo` at call
+    time) gets its corner table built once per frame too, not per chunk, in
+    bf16 when the kernels compute in bf16. A grid whose table would exceed
+    `DENSE_CELL_TABLE_LIMIT_BYTES` renders through the per-corner gathers
+    instead, with a warning."""
     cfg = settings.mlp
+    use_voxel = voxel_static is not None
+    if use_voxel != cfg.use_voxel_embedding:
+        raise ValueError("a voxel-conditioned model needs its voxel_static, and no other "
+                         "model takes one")
+    dense = use_voxel and vg.dense_path_ok(voxel_static)
+    if use_voxel and not dense:
+        warnings.warn(
+            f"voxel grid {voxel_static.shape} needs a "
+            f"{vg.dense_table_bytes(voxel_static) / (1 << 30):.2f} GiB dense corner table > "
+            f"{vg.DENSE_CELL_TABLE_LIMIT_BYTES / (1 << 30):.0f} GiB limit; rendering "
+            f"through the per-corner gathers")
 
     @torch.no_grad()
-    def render(models: ObjectNeRFModels, rays: torch.Tensor,
-               instance_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def render(models: ObjectNeRFModels, rays: torch.Tensor, instance_ids: torch.Tensor,
+               voxel_topo: Optional[vg.VoxelTopology] = None) -> Dict[str, torch.Tensor]:
         codes = models.code_library(instance_ids) if settings.forward_instance else None
+        voxel_ctx = None
+        if use_voxel:
+            voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
+            if dense:
+                voxel_ctx += (vg.make_corner_table(
+                    models.voxel_features, voxel_topo, voxel_static,
+                    lowp=settings.matmul_dtype == torch.bfloat16),)
         packed = {}
         if rays.device.type == "cuda":
             if settings.N_importance > 0:
@@ -93,17 +153,20 @@ def make_render_fn(settings: RenderSettings, chunk: int = 4096):
         for i in range(0, rays.shape[0], chunk):
             codes_c = codes[i:i + chunk] if codes is not None else None
             outs.append(render_rays_fused_eval(models, rays[i:i + chunk], settings,
-                                               codes_c, packed))
+                                               codes_c, packed, voxel_ctx))
         return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
 
     return render
 
 
 def render_image(models: ObjectNeRFModels, settings: RenderSettings, np_batch,
-                 chunk: int = 4096, device=None) -> Dict[str, np.ndarray]:
+                 chunk: int = 4096, device=None,
+                 voxel_topo: Optional[vg.VoxelTopology] = None,
+                 voxel_static: Optional[vg.VoxelStatic] = None) -> Dict[str, np.ndarray]:
     """Render a whole-image batch (`rays`, `instance_ids`) at eval settings on
-    `device` (default `cuda`; the models must already be there). The last
-    chunk is padded by repeating the last ray. Returns host arrays."""
+    `device` (default `cuda`; the models, and a voxel model's topology, must
+    already be there). The last chunk is padded by repeating the last ray.
+    Returns host arrays."""
     device = resolve_device(device)
     param_device = next(models.parameters()).device
     if param_device.type != device.type:
@@ -116,9 +179,9 @@ def render_image(models: ObjectNeRFModels, settings: RenderSettings, np_batch,
     if pad:
         rays = np.concatenate([rays, np.repeat(rays[-1:], pad, 0)])
         ids = np.concatenate([ids, np.repeat(ids[-1:], pad, 0)])
-    render = make_render_fn(settings, chunk)
+    render = make_render_fn(settings, voxel_static, chunk)
     out = render(models, torch.from_numpy(rays).to(device),
-                 torch.from_numpy(ids).to(device))
+                 torch.from_numpy(ids).to(device), voxel_topo)
     return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
 
@@ -194,9 +257,7 @@ class ObjectNeRFSystem:
         self.config = config
         self.device = resolve_device(device if device is not None
                                      else config.get("device"))
-        if bool(config.model.get("use_voxel_embedding", True)):
-            raise NotImplementedError("voxel conditioning is not ported yet: set "
-                                      "model.use_voxel_embedding=false")
+        self.use_voxel = bool(config.model.get("use_voxel_embedding", True))
         self.train_dataset = dataset
         self.val_dataset = val_dataset
         for ds in (dataset, val_dataset):
@@ -214,8 +275,24 @@ class ObjectNeRFSystem:
             config, white_back=getattr(val_dataset or dataset, "white_back", False),
             is_eval=True, **dtype_kw)
 
+        # voxel grid, from the scene's point cloud (the reference builds it from
+        # dataset_extra.pcd_path; its features have a generator of their own,
+        # so a seed gives the MLPs the same weights with and without a grid)
+        self.voxel_topo = None
+        self.voxel_static = None
+        voxel_features = None
+        if self.use_voxel:
+            from ..data.ply_io import read_ply
+
+            pcd = read_ply(config.dataset_extra.pcd_path)["points"]
+            voxel_features, self.voxel_topo, self.voxel_static = (
+                vg.build_voxel_grid_from_config(
+                    pcd, config, generator=torch.Generator().manual_seed(seed + 2),
+                    device=self.device))
+
         self.models = init_params(torch.Generator().manual_seed(seed), self.settings,
-                                  config.model, device=self.device)
+                                  config.model, device=self.device,
+                                  voxel_features=voxel_features)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.batch_rng = np.random.RandomState(seed)
 
@@ -224,14 +301,23 @@ class ObjectNeRFSystem:
             self.steps_per_epoch = max(1, self._steps_per_epoch(dataset, batch_size))
         else:
             self.steps_per_epoch = 1000
-        self.optimizer = make_optimizer(config.train, self.models.parameters())
         self.lr_schedule = make_lr_schedule(config.train, self.steps_per_epoch)
-        self.train_step = make_train_step(self.settings, dict(config.loss), self.optimizer,
-                                          self.lr_schedule)
+        self._build_optimizer()
         if config.get("ckpt_path"):
             from .checkpoint import restore_system
 
             restore_system(self, config.ckpt_path)
+
+    def _build_optimizer(self) -> None:
+        self.optimizer = make_optimizer(self.config.train, self.models.parameters())
+        self.train_step = make_train_step(self.settings, dict(self.config.loss),
+                                          self.optimizer, self.lr_schedule)
+
+    def adopt_voxel_features(self, features: torch.Tensor) -> None:
+        """Replace the feature table by one of another capacity (a reference
+        checkpoint's) and rebuild the optimizer over the new parameter."""
+        self.models.embedding_xyz = VoxelEmbedding(features).to(self.device)
+        self._build_optimizer()
 
     @property
     def global_step(self) -> int:
@@ -252,13 +338,20 @@ class ObjectNeRFSystem:
 
     # -- public API ---------------------------------------------------------------
     def training_step(self, np_batch) -> Dict[str, object]:
+        if self.use_voxel:
+            raise NotImplementedError(
+                "training a voxel-conditioned model is not ported yet: it needs the voxel "
+                "operand of fused_mlp_eval / fused_mlp_bwd (with d_voxel_raw), the table "
+                "gradient and prune / subdivide. Train with model.use_voxel_embedding="
+                "false, or render and validate this model")
         return self.train_step(self.models, self._device_batch(np_batch),
                                generator=self.generator)
 
     def render_image(self, np_batch, chunk: int = 4096) -> Dict[str, np.ndarray]:
         """Render a whole-image batch at eval settings; returns host arrays."""
         return render_image(self.models, self.eval_settings, np_batch, chunk=chunk,
-                            device=self.device)
+                            device=self.device, voxel_topo=self.voxel_topo,
+                            voxel_static=self.voxel_static)
 
     def validation(self, frame: int = 0, chunk: int = 4096, img_wh=None):
         """PSNR (over valid pixels of the frame's instance) and SSIM of one

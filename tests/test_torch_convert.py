@@ -51,7 +51,14 @@ def test_load_reference_ckpt(tmp_path):
     for k in sd:
         assert torch.equal(loaded[k], sd[k]), k
 
+    # a checkpoint with a voxel grid is not loaded without its grid
     torch.save({"state_dict": {**sd, "embedding_xyz.embedding_space_ftr.weight":
                                torch.zeros(4, 16)}}, path)
-    with pytest.raises(NotImplementedError, match="voxel"):
+    with pytest.raises(ValueError, match="voxel"):
         load_reference_ckpt(str(path))
+    loaded, voxel = load_reference_ckpt(str(path), with_voxel=True)
+    assert set(loaded) == set(sd) | {"embedding_xyz.embedding_space_ftr.weight"}
+    assert voxel["features"].shape == (4, 16)
+    assert load_reference_ckpt(str(path), with_voxel=True)[1] is not None
+    torch.save({"state_dict": sd}, path)
+    assert load_reference_ckpt(str(path), with_voxel=True)[1] is None

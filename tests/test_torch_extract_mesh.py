@@ -271,7 +271,8 @@ def test_extract_mesh_cli_refuses_what_is_not_ported(tmp_path):
     _blob_checkpoint(tmp_path / "model.ckpt")
     with pytest.raises(SystemExit, match="ckpt_path"):
         tx.main(TINY + ["device=cpu"])
-    with pytest.raises(NotImplementedError, match="voxel"):
+    # a voxel-conditioned model needs a checkpoint that brings its grid
+    with pytest.raises(SystemExit, match="voxel grid"):
         tx.main([a for a in TINY if "use_voxel" not in a]
                 + ["model.use_voxel_embedding=true", f"ckpt_path={tmp_path / 'model.ckpt'}",
                    "device=cpu"])

@@ -110,7 +110,7 @@ def test_wrappers_check_their_inputs():
         fm.fused_render_tiles(models.nerf_fine, CFG, xyz, z.t().contiguous().t(), dir_pe)
     with pytest.raises(ValueError, match="shape"):
         fm.fused_render_tiles(models.nerf_fine, CFG, xyz, z, dir_pe, codes[:, :4])
-    with pytest.raises(NotImplementedError, match="voxel"):
+    with pytest.raises(ValueError, match="voxel"):  # a classical model takes none
         fm.fused_coarse_weights(models.nerf_coarse, CFG, xyz, z, voxel_raw=xyz)
     with pytest.raises(ValueError, match="widths"):
         fm.check_kernel_config(CFG)

@@ -92,7 +92,7 @@ def test_sigma_wrapper_checks_its_inputs():
         fs.fused_sigma_eval(models.nerf_fine, CFG, pts, branch="object")
     with pytest.raises(ValueError, match="float32"):
         fs.fused_sigma_eval(models.nerf_fine, CFG, pts.double())
-    with pytest.raises(NotImplementedError, match="voxel"):
+    with pytest.raises(ValueError, match="voxel"):  # a classical model takes none
         fs.fused_sigma_eval(models.nerf_fine, CFG, pts, voxel_raw=pts)
     assert "fused_sigma_eval" in fm.launch_counts
 

@@ -1,7 +1,8 @@
-"""The port imports nothing of JAX or of the JAX package (its training, edit
-and mesh modules and `python -m object_nerf_torch.train`, `.edit` and
-`.tools.extract_mesh` included), and `chip_smoke.py` refuses to run without a
-card."""
+"""The port imports nothing of JAX, of the JAX package or of its `scripts/`
+(its training, edit, mesh and voxel modules, its probe scripts and
+`python -m object_nerf_torch.train`, `.edit` and `.tools.extract_mesh`
+included), `chip_smoke.py` refuses to run without a card, and so do the probe
+scripts."""
 
 import os
 import re
@@ -17,7 +18,7 @@ PORT = ROOT / "object_nerf_torch"
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "object_nerf_tpu"):
+for name in ("jax", "jaxlib", "object_nerf_tpu", "scripts"):
     sys.modules[name] = None  # any import of these now raises
 import object_nerf_torch
 mods = [m.name for m in pkgutil.walk_packages(object_nerf_torch.__path__,
@@ -39,7 +40,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 46  # every module was walked
     walked = {p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
               for p in PORT.rglob("*.py") if p.name != "__init__.py"}
     assert {"object_nerf_torch.ops.fused_mlp_vjp", "object_nerf_torch.train.losses",
@@ -48,7 +49,12 @@ def test_every_port_module_imports_without_jax():
             "object_nerf_torch.render.multi", "object_nerf_torch.data.geo_utils",
             "object_nerf_torch.data.ply_io", "object_nerf_torch.edit.bbox",
             "object_nerf_torch.edit.editable_renderer", "object_nerf_torch.edit.__main__",
-            "object_nerf_torch.tools.marching", "object_nerf_torch.tools.extract_mesh"} <= walked
+            "object_nerf_torch.tools.marching", "object_nerf_torch.tools.extract_mesh",
+            "object_nerf_torch.models.voxel_grid", "object_nerf_torch.ops.gather",
+            "object_nerf_torch.ops.probes", "object_nerf_torch.scripts._fixtures",
+            "object_nerf_torch.scripts.profile_dma_gather",
+            "object_nerf_torch.scripts.profile_pe_micro",
+            "object_nerf_torch.scripts.profile_voxel_split"} <= walked
     assert (PORT / "native" / "__init__.py").exists() and (PORT / "tools" / "__init__.py").exists()
 
 
@@ -110,7 +116,7 @@ def test_mesh_cli_runs_without_jax(tmp_path):
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|object_nerf_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|object_nerf_tpu|scripts)\b", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 35
     for f in files:
@@ -130,3 +136,13 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode != 0
     assert '"ok"' not in run.stdout
+
+
+def test_probe_scripts_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        return  # with a card they measure it
+    for name in ("profile_dma_gather", "profile_pe_micro", "profile_voxel_split"):
+        run = subprocess.run([sys.executable, "-m", f"object_nerf_torch.scripts.{name}"],
+                             cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+        assert run.returncode != 0 and "CUDA is not available" in run.stderr, name
+        assert " ms" not in run.stdout

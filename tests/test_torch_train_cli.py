@@ -82,9 +82,18 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch)
     cfg = load_config(cli_args=[a for a in ARGS if a != "device=cpu"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ObjectNeRFSystem(cfg)  # no device given: cuda
+    # a voxel-conditioned system builds its grid and renders; training it waits
+    # for the training kernels' voxel operand
+    from object_nerf_torch.data.ply_io import write_ply
+
+    write_ply(str(tmp_path / "pcd.ply"), np.random.RandomState(0).rand(200, 3) - 0.5)
     cfg.model["use_voxel_embedding"] = True
+    cfg.dataset_extra.merge({"pcd_path": str(tmp_path / "pcd.ply"), "voxel_size": 0.25,
+                             "neighbor_marks": 3})
+    system = ObjectNeRFSystem(cfg, device="cpu")
+    assert system.voxel_static is not None and system.models.voxel_features is not None
     with pytest.raises(NotImplementedError, match="voxel"):
-        ObjectNeRFSystem(cfg, device="cpu")
+        system.training_step({})
 
 
 def _system(ckpt_path=None, **train_over):
