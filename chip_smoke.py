@@ -13,7 +13,9 @@ the same model with voxel conditioning (the reference's default: 16 scene + 8
 instance voxel channels, 6 octaves, so the branches read 271 and 439 input
 columns) on the ScanNet-scale room of the JAX package's bench (6 x 6 x 2.5 m,
 0.1 m voxels, grid (63, 63, 27), corner table 114,688 rows x 192 channels),
-and the three probe kernels of the voxel path:
+and the three probe kernels of the voxel path. Phases 16 to 19: that model
+trained on the room (the JAX package's voxel train step, bench.py:73-134),
+pruned and subdivided, and its edit render:
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
@@ -70,11 +72,31 @@ and the three probe kernels of the voxel path:
    against their plain versions, drives them once as the probe scripts do, and
    holds four modes at 983,040 rows against the plain version over every row
    before it times them, and `scale_copy` against `torch.mul`;
-16. prints one JSON line describing all eight kernels, and, last, one JSON line
+16. holds `fused_mlp_eval` and `fused_mlp_bwd` with the voxel operand against
+   their plain versions at the training shapes (2048 x 64 and x 128, raw
+   features from the step's bf16 corner table at real sample addresses), the
+   backward on the cotangent of the real loss (weights, d_codes, d_voxel_raw)
+   with a bit-equal relaunch, times them, and times the step's table build,
+   lookups and table gradient alone;
+17. trains the voxel model (`ObjectNeRFSystem` on the room, batch 2048,
+   64 + 64 samples, perturbation and noise on, Adam): one step through the
+   kernels against the same step through the plain bf16 path (loss, every
+   gradient, the table's included), then 24 + 10 more steps: 2 + 2 kernel
+   launches, 2 gathers and one table build per step, the loss falling; times
+   the step;
+18. runs the progressive hooks: the epoch-3 prune (one density launch and one
+   gather per batch of 256 voxels), the epoch-5 prune and subdivision (grid to
+   (126, 126, 54), still the dense route), and times 10 steps on the
+   subdivided grid;
+19. renders one 320x240 voxel edit frame with an `EditableRenderer` on the room
+   (object 1 moved and carved out, chunk 4096): the launch counts of its plan,
+   one table build, three chunks against `render_rays_multi` on the f32 plain
+   path; times it;
+20. prints one JSON line describing all eight kernels, and, last, one JSON line
    naming the device.
 
 `--profile` adds a `torch.profiler` table of the device time of three
-training steps by kernel.
+training steps by kernel, classical and voxel.
 
 Any failed check exits non-zero. Without CUDA, or run from a directory that
 holds this file and nothing else of the repository, it exits non-zero and
@@ -195,6 +217,61 @@ PROBE_TIMED_MODES = ("none", "combined", "combined_polysin", "split_polysin")
 # rows, 2.0e-3 to 3.0e-3 as the largest of all 983,040 rows
 PROBE_REL_TOL = 1e-2
 
+# voxel training (phases 16-18). d_voxel_raw is per sample: no sum over rows
+# averages its bf16 roundings out as they average out of a weight gradient, and
+# each entry is a cancelling sum over 208 or 104 encoded columns whose top
+# octave multiplies by 32. The bf16 plain version itself is 11-22 % of the
+# largest entry from f32 in max abs (3-8 % in norm), and a rounding that flips
+# in one of two bf16 computations moves one row by up to 10 % of the largest
+# entry; the drift grows with depth (in norm: 1-2e-4 with one layer per branch,
+# 5-8e-4 with two, 1-9e-3 at 8 + 4; measured on an H100 over 2368 and 131,072
+# rows). That is on random-sign cotangents; on the real loss's cotangent
+# (phase 16) the max abs reads 3.5e-4 of the largest entry. So d_voxel_raw is
+# held in max abs within BWD_TOL of its largest entry, as every other output
+# of the backward, and besides in the norm of the difference relative to the
+# plain version's norm: within 5e-3, and within a quarter of the plain
+# version's own distance to f32; a wrong column, piece or octave is off by
+# O(1) in both
+VOX_DVOX_NORM_TOL = 5e-3
+# a whole voxel step, kernels vs plain bf16 path, per MLP gradient tensor:
+# the classical backward's limit (ROADMAP.md section 3)
+VOX_STEP_GRAD_TOL = 5e-3
+# ... and the table's gradient, which sums the per-sample d_voxel_raw of both
+# passes (a row of a voxel that few samples reach carries their drift; the
+# card's index_add_ sums in no fixed order): within 1e-2 of its largest
+# entry, and within a quarter of the plain bf16 step's own distance to the
+# plain f32 step (the control printed beside it)
+VOX_TABLE_GRAD_TOL = 1e-2
+VOX_SUBDIV_STEPS = 10
+# the prune's decisions, card vs plain f32 on the card, on the same jitter:
+# samples per voxel of the check (the hook takes the config's 4096), the
+# threshold is the median of the card's per-voxel alphas (the room's field,
+# with the raised sigma biases, has alpha ~0.63 everywhere, so the hook's 0.5
+# drops nothing); voxels whose plain alpha lies within this margin of the
+# threshold may go either way (bf16 products move a density by ~2e-4, an
+# alpha by less)
+PRUNE_CHECK_SPV = 256
+PRUNE_ALPHA_MARGIN = 1e-3
+# voxel edit chunks (phase 19) vs render_rays_multi with bf16 operands on the
+# frame's own bf16 corner table: the maps at phase 9's EDIT_MAP_TOL, the colour
+# at 80 dB. Not phase 13's 90 dB: the edit path's kernels return raw outputs
+# (fused_sigma_eval, fused_mlp_eval), which differ from their plain versions
+# by up to 7.4e-4 on the object branch's densities (phases 12, 16; the eval
+# kernels' composited outputs by 5e-6 to 4e-5), and the object densities,
+# whose biases are not raised, sit near 0, where the ReLU and the 1e10 last
+# delta carry that to whole samples of a few rays. Measured on an H100: 88.3
+# and 99.8 dB, opacity within 3.8e-3, depth within 1.1e-2; a wrong code row, a
+# swapped branch or a wrong voxel column moves the colours by their own size
+VOX_EDIT_BF16_PSNR_FLOOR_DB = 80.0
+# against the f32 plain path (f32 table, f32 products): colour
+# at EDIT_PSNR_FLOOR_DB and depth at phase 9's limit; opacity looser than
+# phase 9's 5e-3: the frame reads the bf16 corner table, whose features are
+# off by up to 2^-9 of their size, which the top octave's sine multiplies by
+# 32 (measured on an H100: 5.7e-3 on a chunk whose 4096 rays all hit the
+# object's box, at 80.6 dB; the classical frame's chunks: 8.6e-4)
+VOX_EDIT_MAP_TOL = {"opacity_fine": 2e-2, "depth_fine": 5e-2}
+VOX_ROOM_GRID = (63, 63, 27)  # the room's grid at 0.1 m (bench.py:156-178)
+
 # dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
 PEAKS = (  # (name substring, TFLOP/s, TB/s)
     ("H100 PCIe", 756.0, 2.0),
@@ -233,8 +310,12 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _macs_per_sample(cfg, coarse: bool) -> int:
-    """Multiply-adds of one sample through the kernel's layers (unpadded)."""
+def _macs_per_sample(cfg, coarse: bool, k0=None) -> int:
+    """Multiply-adds of one sample through the model's layers. `k0`: the
+    (scene, object) input columns counted at layer 0 and the skip layers
+    (default: the model's own; the kernels' padded tile for the count they
+    actually perform)."""
+    c_s, c_o = k0 or (cfg.in_channels_xyz, cfg.inst_channel_in)
 
     def branch(width, depth, skips, c_in, heads):
         m = 0
@@ -247,17 +328,19 @@ def _macs_per_sample(cfg, coarse: bool) -> int:
             m += (width // 2) * 3
         return m
 
-    m = branch(cfg.W, cfg.D, cfg.skips, cfg.in_channels_xyz, heads=not coarse)
+    m = branch(cfg.W, cfg.D, cfg.skips, c_s, heads=not coarse)
     if not coarse:
-        m += branch(cfg.inst_W, cfg.inst_D, cfg.inst_skips, cfg.inst_channel_in, heads=True)
+        m += branch(cfg.inst_W, cfg.inst_D, cfg.inst_skips, c_o, heads=True)
     return m
 
 
-def _bwd_macs_per_sample(cfg) -> int:
+def _bwd_macs_per_sample(cfg, k0=None, grad_cols=None) -> int:
     """Multiply-adds of one sample row through the backward: the forward
     recompute, one product per weight for its gradient, and the input
-    gradients that have a consumer (none for the PE and direction inputs;
-    only the code columns of the object branch's input)."""
+    gradients that have a consumer. `grad_cols`: the (scene, object) input
+    columns whose gradient has a consumer, at layer 0 and the skip layers
+    (default: none of the scene's, the object's code columns, a classical
+    model's; a voxel model's are `_voxel_grad_cols`)."""
 
     def input_grads(width, depth, skips, c_need):
         m = 0
@@ -269,13 +352,50 @@ def _bwd_macs_per_sample(cfg) -> int:
         # sigma head, final, direction layer's hidden part, rgb head
         return m + width + width * width + width * (width // 2) + (width // 2) * 3
 
-    fwd = _macs_per_sample(cfg, False)
-    return (2 * fwd + input_grads(cfg.W, cfg.D, cfg.skips, 0)
-            + input_grads(cfg.inst_W, cfg.inst_D, cfg.inst_skips, cfg.N_obj_code_length))
+    g_s, g_o = grad_cols or (0, cfg.N_obj_code_length)
+    fwd = _macs_per_sample(cfg, False, k0)
+    return (2 * fwd + input_grads(cfg.W, cfg.D, cfg.skips, g_s)
+            + input_grads(cfg.inst_W, cfg.inst_D, cfg.inst_skips, g_o))
+
+
+def _voxel_grad_cols(cfg):
+    """(scene, object) input columns of a voxel model whose gradient has a
+    consumer: the encoded scene voxel features, and those plus the encoded
+    object voxel features and the code (the xyz encoding's get none)."""
+    n = 2 * cfg.N_freq_voxel + 1
+    return (cfg.N_scn_voxel_size * n,
+            (cfg.N_scn_voxel_size + cfg.N_obj_voxel_size) * n + cfg.N_obj_code_length)
 
 
 def _rel(got, want) -> float:
     return ((got - want).abs().max() / (want.abs().max() + 1e-30)).item()
+
+
+def _nrel(got, want) -> float:
+    return ((got - want).norm() / (want.norm() + 1e-30)).item()
+
+
+def _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch, loss_weights):
+    """g (n*S, 8) of the training loss with respect to one pass's MLP outputs
+    `outs` = (sigma, rgb, inst_sigma, inst_rgb) (the bf16 plain forward's)."""
+    import torch
+
+    from object_nerf_torch.ops.compositing import composite, composite_instance
+    from object_nerf_torch.train.losses import total_loss
+
+    outs = [o.detach().requires_grad_() for o in outs]
+    scene = composite(outs[0], outs[1], z, noise_std=1.0, noise=noise)
+    inst = composite_instance(outs[2], outs[3], z, scene.depth, noise_std=1.0,
+                              frustum_bound_th=settings.frustum_bound_th,
+                              pass_through_mask=batch["pass_through_mask"], noise=noise_inst)
+    results = {f"rgb_{typ}": scene.rgb, f"depth_{typ}": scene.depth,
+               f"rgb_instance_{typ}": inst.rgb, f"depth_instance_{typ}": inst.depth,
+               f"opacity_instance_{typ}": inst.opacity}
+    total_loss(results, batch, loss_weights)[0].backward()
+    n, s = z.shape
+    return torch.cat([outs[0].grad.reshape(n * s, 1), outs[1].grad.reshape(n * s, 3),
+                      outs[2].grad.reshape(n * s, 1), outs[3].grad.reshape(n * s, 3)],
+                     dim=-1).contiguous()
 
 
 def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
@@ -288,10 +408,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     from object_nerf_torch.models.embedding import freq_encode
     from object_nerf_torch.ops import fused_mlp
     from object_nerf_torch.ops import fused_mlp_vjp as fv
-    from object_nerf_torch.ops.compositing import composite, composite_instance
+    from object_nerf_torch.ops.compositing import composite
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import RenderDraws
-    from object_nerf_torch.train.losses import total_loss
     from object_nerf_torch.train.optim import make_optimizer
     from object_nerf_torch.train.system import ObjectNeRFSystem, make_train_step
 
@@ -335,23 +454,10 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     }
 
     def real_cotangent(model, typ, xyz, z, noise, noise_inst):
-        """g (n*S, 8) of the training loss with respect to one pass's MLP
-        outputs (from the bf16 plain forward)."""
         with torch.no_grad():
             outs = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes)
-        outs = [o.detach().requires_grad_() for o in outs]
-        scene = composite(outs[0], outs[1], z, noise_std=1.0, noise=noise)
-        inst = composite_instance(outs[2], outs[3], z, scene.depth, noise_std=1.0,
-                                  frustum_bound_th=settings.frustum_bound_th,
-                                  pass_through_mask=batch["pass_through_mask"], noise=noise_inst)
-        results = {f"rgb_{typ}": scene.rgb, f"depth_{typ}": scene.depth,
-                   f"rgb_instance_{typ}": inst.rgb, f"depth_instance_{typ}": inst.depth,
-                   f"opacity_instance_{typ}": inst.opacity}
-        total_loss(results, batch, dict(config.loss))[0].backward()
-        n, s = z.shape
-        return torch.cat([outs[0].grad.reshape(n * s, 1), outs[1].grad.reshape(n * s, 3),
-                          outs[2].grad.reshape(n * s, 1), outs[3].grad.reshape(n * s, 3)],
-                         dim=-1).contiguous()
+        return _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch,
+                               dict(config.loss))
 
     names = ("sigma", "rgb", "inst_sigma", "inst_rgb")
     ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
@@ -370,8 +476,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             errs["fused_mlp_eval"] = max(errs["fused_mlp_eval"], *e.values())
         g = real_cotangent(model, typ, xyz, z, noise, noise_inst)
         with torch.no_grad():
-            grads, d_codes = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed)
-            want_g, want_c = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g)
+            grads, d_codes, _ = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed)
+            want_g, want_c, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g)
             torch.cuda.synchronize()
         # f32 autograd of the f32 plain forward, for scale only (not gated)
         outs32 = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, matmul_dtype=torch.float32)
@@ -1059,12 +1165,13 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
              "instance_ids": np.random.RandomState(SEED).randint(0, 64, W * H)}
 
     with torch.no_grad():
-        ct = {"bf16": vg.make_corner_table(features, topo, static, lowp=True),
-              "f32": vg.make_corner_table(features, topo, static)}
+        tables = {"bf16": vg.CornerTable(features, topo, static, lowp=True),
+                  "f32": vg.CornerTable(features, topo, static)}
+        ct = {k: t.ct for k, t in tables.items()}
         build_ms = _cuda_ms(lambda: vg.make_corner_table(features, topo, static, lowp=True), 5)
         print(f"corner table {tuple(ct['bf16'].shape)}: {ct['bf16'].numel() * 2 / 1e6:.1f} MB "
               f"in bf16, built in {build_ms:.3f} ms")
-        ctx = (features, topo, static, ct["bf16"])
+        ctx = (features, topo, static, tables["bf16"])
 
         # one chunk's inputs, as the eval path makes them
         rays = torch.from_numpy(batch["rays"][:CHUNK]).to(dev)
@@ -1223,7 +1330,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
                      "gather_rows": n_gathers}
 
     all_ids = torch.from_numpy(batch["instance_ids"]).to(dev)
-    ctx32 = (features, topo, static, ct["f32"])
+    ctx32 = (features, topo, static, tables["f32"])
     with torch.no_grad():
         for c in CHECK_CHUNKS:
             sl = slice(c * CHUNK, (c + 1) * CHUNK)
@@ -1439,6 +1546,610 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
     ]
 
 
+def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
+    """Phases 16 to 18: the voxel-conditioned model's training kernels against
+    their plain versions, its training step, and the progressive hooks.
+    Returns, for rows 3-4 and the sigma kernel and the gather, what the
+    `kernels` line needs of these paths."""
+    import copy
+    import dataclasses
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.config import load_config
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.data.ply_io import write_ply
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.ops import fused_sigma as fs
+    from object_nerf_torch.ops.compositing import composite
+    from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
+    from object_nerf_torch.render.renderer import RenderDraws
+    from object_nerf_torch.scripts._fixtures import SCENE, scannet_scale_pcd
+    from object_nerf_torch.train.optim import make_optimizer
+    from object_nerf_torch.train.system import ObjectNeRFSystem, make_train_step
+
+    def reset_counts():
+        fused_mlp.reset_launch_counts()
+        gather.reset_launch_counts()
+        vg.build_counts["corner_table"] = 0
+
+    def counts():
+        return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
+                vg.build_counts["corner_table"])
+
+    root = _repo_root()
+    with tempfile.TemporaryDirectory() as tmp:
+        pcd = os.path.join(tmp, "room.ply")
+        write_ply(pcd, scannet_scale_pcd())
+        config = load_config(cli_args=[
+            f"dataset_config={os.path.join(root, 'config', 'synthetic.yml')}",
+            "img_wh=[64,48]", f"train.batch_size={BATCH}", f"model.N_samples={N_SAMPLES}",
+            f"model.N_importance={N_IMPORTANCE}", "model.perturb=1", "model.noise_std=1",
+            "model.use_voxel_embedding=true", "model.N_max_voxels=800000",
+            "train.optimizer=adam", "train.lr_scheduler=poly", f"train.seed={SEED}",
+            "train.num_epochs=6", "train.nan_check_every=1000000",
+            "train.progressive_train=true", f"dataset_extra.pcd_path={pcd}",
+            f"dataset_extra.scale_factor={SCENE['scale_factor']}",
+            "dataset_extra.scene_center=[" + ",".join(map(str, SCENE["scene_center"])) + "]",
+            f"dataset_extra.voxel_size={SCENE['voxel_size_world']}",
+            f"dataset_extra.neighbor_marks={SCENE['neighbor_marks']}",
+            "dataset_extra.near=0.05", "dataset_extra.far=2.4"])
+        kw = dict(img_wh=(64, 48), dataset_extra=config.dataset_extra)
+        t0 = time.perf_counter()
+        system = ObjectNeRFSystem(config, dataset=dataset_dict["synthetic"]("train", n_frames=2,
+                                                                            **kw), device=dev)
+    models, settings, cfg = system.models, system.settings, system.settings.mlp
+    topo, static = system.voxel_topo, system.voxel_static
+    print(f"voxel training: grid {static.shape}, {int(topo.n_occupied)} occupied voxels, table "
+          f"{tuple(models.voxel_features.shape)}, system built in {time.perf_counter() - t0:.1f} s")
+    if static.shape != VOX_ROOM_GRID:
+        raise SystemExit(f"the room's grid should be {VOX_ROOM_GRID}, got {static.shape}")
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    rng = system.batch_rng
+    batch = system._device_batch(system.train_dataset.sample_batch(BATCH, rng))
+    draws = RenderDraws.sample(settings, BATCH, dev, system.generator)
+
+    # -- 16. the training kernels with the voxel operand ---------------------------------
+    rays = batch["rays"]
+    features = models.voxel_features
+    with torch.no_grad():
+        table = vg.CornerTable(features.detach(), topo, static, lowp=True)
+        codes = models.code_library(batch["instance_ids"]).contiguous()
+        dir_pe = freq_encode(rays[:, 3:6], cfg.N_freq_dir).contiguous()
+        z_c = stratified_sample(rays[:, 6:7], rays[:, 7:8], N_SAMPLES, False, 1.0,
+                                u=draws.perturb)
+        xyz_c = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_c[..., None]).contiguous()
+
+        def lookup(xyz):
+            return table.lookup(xyz.reshape(-1, 3))[0].reshape(BATCH, xyz.shape[1], -1) \
+                .contiguous()
+
+        raw_c = lookup(xyz_c)
+        sig_c = fv.mlp_eval_plain(models.nerf_coarse, cfg, xyz_c, dir_pe, codes,
+                                  voxel_raw=raw_c)[0]
+        w_c = composite(sig_c, sig_c.new_zeros(BATCH, N_SAMPLES, 3), z_c, noise_std=1.0,
+                        noise=draws.noise_coarse).weights
+        z_mid = 0.5 * (z_c[:, :-1] + z_c[:, 1:])
+        z_f = merge_z_vals(z_c, sample_pdf(z_mid, w_c[:, 1:-1], N_IMPORTANCE, u=draws.pdf))
+        xyz_f = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_f[..., None]).contiguous()
+        raw_f = lookup(xyz_f)
+        inside = (raw_f.abs().sum(-1) > 0).float().mean().item()
+    print(f"the step's batch: {inside * 100:.1f} % of the fine samples lie in occupied voxels")
+    shapes = {
+        N_SAMPLES: (models.nerf_coarse, "coarse", xyz_c, z_c, raw_c, draws.noise_coarse,
+                    draws.noise_inst_coarse),
+        N_SAMPLES + N_IMPORTANCE: (models.nerf_fine, "fine", xyz_f, z_f, raw_f,
+                                   draws.noise_fine, draws.noise_inst_fine),
+    }
+
+    def real_cotangent(model, typ, xyz, z, raw, noise, noise_inst):
+        with torch.no_grad():
+            outs = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+        return _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch,
+                               dict(config.loss))
+
+    names = ("sigma", "rgb", "inst_sigma", "inst_rgb")
+    out = {"fused_mlp_eval": {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}},
+           "fused_mlp_bwd": {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}}}
+    # the bound counts the model's own input columns and the input gradients
+    # that have a consumer; the kernels perform more (their padded tile, and
+    # the 128-column chunks of the input gradient), printed beside it
+    k0_pad, grad_cols = fused_mlp.input_tile_columns(cfg), _voxel_grad_cols(cfg)
+    grad_cols_pad = (256, 448)
+    n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
+    dvox_err = {"max": 0.0, "norm": 0.0}
+    for s_, (model, typ, xyz, z, raw, noise, noise_inst) in shapes.items():
+        with torch.no_grad():
+            packed = fused_mlp.pack_kernel_weights(model, cfg, True)
+            got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+            want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+            torch.cuda.synchronize()
+            e = {k: (a - b).abs().max().item() for k, a, b in zip(names, got, want)}
+        print(f"fused_mlp_eval voxel {tuple(xyz.shape)}: max |kernel - plain bf16| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g})")
+        out["fused_mlp_eval"]["err"] = max(out["fused_mlp_eval"]["err"], *e.values())
+        g = real_cotangent(model, typ, xyz, z, raw, noise, noise_inst)
+        with torch.no_grad():
+            grads, d_codes, d_vox = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g,
+                                                     packed=packed, voxel_raw=raw)
+            again = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
+                                     voxel_raw=raw)
+            want_g, want_c, want_v = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g,
+                                                      voxel_raw=raw)
+            _, _, v32 = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True,
+                                         torch.float32, voxel_raw=raw)
+            torch.cuda.synchronize()
+        same = (torch.equal(again[2], d_vox) and torch.equal(again[1], d_codes)
+                and all(torch.equal(again[0][k], grads[k]) for k in grads))
+        e = {k: _rel(grads[k], want_g[k]) for k in want_g}
+        e["d_codes"] = _rel(d_codes, want_c)
+        worst = max(e, key=e.get)
+        dv = {"max": _rel(d_vox, want_v), "norm": _nrel(d_vox, want_v),
+              "bf16_f32_max": _rel(want_v, v32), "bf16_f32_norm": _nrel(want_v, v32)}
+        print(f"fused_mlp_bwd voxel {tuple(xyz.shape)}, g of the real loss: max over "
+              f"{len(e)} tensors of |kernel - plain bf16| / max|plain| = {e[worst]:.2e} at "
+              f"{worst} (tol {BWD_TOL:g}); d_voxel_raw in max abs {dv['max']:.2e} (tol "
+              f"{BWD_TOL:g}; bf16 vs f32 {dv['bf16_f32_max']:.2e}), in norm {dv['norm']:.2e} "
+              f"(tol {VOX_DVOX_NORM_TOL:g} and a quarter of the bf16 plain version's own "
+              f"distance to f32, {dv['bf16_f32_norm']:.2e}); relaunch bit-equal: {same}")
+        out["fused_mlp_bwd"]["err"] = max(out["fused_mlp_bwd"]["err"], e[worst], dv["max"])
+        dvox_err = {k: max(v, dv[k]) for k, v in dvox_err.items()}
+        if not (e[worst] <= BWD_TOL and dv["max"] <= BWD_TOL
+                and dv["norm"] <= VOX_DVOX_NORM_TOL
+                and dv["norm"] <= 0.25 * dv["bf16_f32_norm"]):
+            raise SystemExit(f"fused_mlp_bwd with the voxel operand disagrees with its plain "
+                             f"version: {e[worst]:.3e} at {worst}, d_voxel_raw {dv}")
+        if not same:
+            raise SystemExit("two launches of the voxel backward on the same inputs differ")
+        rows = BATCH * s_
+        with torch.no_grad():
+            out["fused_mlp_eval"]["ms"][s_] = _cuda_ms(
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True, raw),
+                TIMED_LAUNCHES)
+            out["fused_mlp_bwd"]["ms"][s_] = _cuda_ms(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
+                                         voxel_raw=raw), TIMED_LAUNCHES)
+            out["fused_mlp_eval"]["plain_ms"][s_] = _cuda_ms(
+                lambda: fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw), 3)
+            out["fused_mlp_bwd"]["plain_ms"][s_] = _cuda_ms(
+                lambda: fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, voxel_raw=raw), 3)
+        w_bytes = 2 * packed.w.numel() + 4 * packed.b.numel()
+        per_ray = 4 * BATCH * (cfg.in_channels_dir + cfg.N_obj_code_length)
+        for name, macs, pad_macs, nbytes in (
+                ("fused_mlp_eval", _macs_per_sample(cfg, False),
+                 _macs_per_sample(cfg, False, k0_pad),
+                 rows * (12 + 4 * n_vox + 32) + per_ray + w_bytes),
+                ("fused_mlp_bwd", _bwd_macs_per_sample(cfg, None, grad_cols),
+                 _bwd_macs_per_sample(cfg, k0_pad, grad_cols_pad),
+                 rows * (12 + 8 * n_vox + 32) + per_ray + w_bytes
+                 + 4 * (packed.w.numel() + packed.b.numel()) + 4 * BATCH * cfg.N_obj_code_length)):
+            b_ms, b_by = _bound(2 * macs * rows, nbytes, peak_flops, peak_bytes)
+            out[name]["bound_ms"][s_], out[name]["bound_by"] = b_ms, b_by
+            print(f"{name} voxel ({BATCH}, {s_}): {out[name]['ms'][s_]:.3f} ms/launch, plain "
+                  f"{out[name]['plain_ms'][s_]:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+                  f"{macs} multiply-adds per row, {2 * macs * rows / 1e12:.3f} TFLOP; the "
+                  f"kernel's padded tile performs {pad_macs}), "
+                  f"{2 * macs * rows / out[name]['ms'][s_] / 1e9:.1f} TFLOP/s achieved")
+        del grads, again, want_g, v32
+    if not out["fused_mlp_eval"]["err"] <= KERNEL_TOL:
+        raise SystemExit(f"fused_mlp_eval with the voxel operand disagrees with its plain "
+                         f"version: {out['fused_mlp_eval']['err']:.3e}")
+    out["fused_mlp_bwd"]["dvox_err"] = dvox_err
+
+    # the step's voxel pieces alone, by CUDA events: the table build, the two
+    # lookups, and the table gradient of both passes (segment-sum + transpose)
+    with torch.no_grad():
+        build_ms = _cuda_ms(lambda: vg.make_corner_table(features.detach(), topo, static,
+                                                         lowp=True), 5)
+        look_ms = _cuda_ms(lambda: (lookup(xyz_c), lookup(xyz_f)), TIMED_LAUNCHES)
+        cot = []
+        for xyz in (xyz_c, xyz_f):
+            flat, wts, _ = vg.corner_index_weights(topo, static, xyz.reshape(-1, 3))
+            cot.append((torch.randn(flat.shape[0], n_vox, device=dev), flat, wts))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        grad_ms = _cuda_ms(lambda: vg.corner_table_grad(cot, topo, static), 5)
+        grad_mem = torch.cuda.max_memory_allocated(dev) - base_mem
+        n_samples = sum(c[1].shape[0] for c in cot)
+        seg_bytes = n_samples * 8 * n_vox * 4
+        del cot
+    print(f"voxel step pieces: table build {build_ms:.3f} ms (bf16), two lookups "
+          f"{look_ms:.3f} ms (gathers, addressing, 8-corner sums), table gradient "
+          f"{grad_ms:.3f} ms (d_rows of {n_samples} samples: {seg_bytes / 1e6:.0f} MB, one "
+          f"index_add_ into the f32 corner table, the transpose; {grad_mem / 1e6:.0f} MB of "
+          f"transient device memory)")
+
+    # -- 17. the voxel training step ---------------------------------------------------------
+    # the plain bf16 step is the reference; the plain f32 step is the control
+    # that says how far the bf16 rounding alone moves each gradient
+    twin, twin32 = copy.deepcopy(models), copy.deepcopy(models)
+    plain_step = make_train_step(settings, dict(config.loss),
+                                 make_optimizer(config.train, twin.parameters()),
+                                 system.lr_schedule, plain=True)
+    plain_step32 = make_train_step(dataclasses.replace(settings, matmul_dtype=torch.float32),
+                                   dict(config.loss),
+                                   make_optimizer(config.train, twin32.parameters()),
+                                   system.lr_schedule, plain=True)
+    reset_counts()
+    m_k = system.train_step(models, batch, draws=draws, voxel_topo=topo, voxel_static=static)
+    torch.cuda.synchronize()
+    first = counts()
+    m_p = plain_step(twin, batch, draws=draws, voxel_topo=topo, voxel_static=static)
+    plain_step32(twin32, batch, draws=draws, voxel_topo=topo, voxel_static=static)
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(m_k["train/loss"]), float(m_p["train/loss"])
+    e = {k: _rel(p.grad, q.grad) for (k, p), q in zip(models.named_parameters(),
+                                                      twin.parameters())}
+    control = {k: _rel(p.grad, q.grad) for (k, p), q in zip(twin.named_parameters(),
+                                                            twin32.parameters())}
+    table_name = "embedding_xyz.embedding_space_ftr.weight"
+    e_table = e.pop(table_name)
+    worst = max(e, key=e.get)
+    print(f"voxel step 1, kernels vs plain bf16 path: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{abs(loss_k - loss_p) / abs(loss_p):.2e}, tol {LOSS_TOL:g}); MLP gradients: worst "
+          f"{e[worst]:.2e} at {worst} (tol {VOX_STEP_GRAD_TOL:g}; plain bf16 vs f32 there "
+          f"{control[worst]:.2e}), median {statistics.median(e.values()):.2e}; table gradient "
+          f"{e_table:.2e} (tol {VOX_TABLE_GRAD_TOL:g} and a quarter of the plain bf16 step's "
+          f"distance to the plain f32 step, {control[table_name]:.2e}); plain bf16 vs f32 over "
+          f"the MLP gradients: median {statistics.median(v for k, v in control.items() if k != table_name):.2e}"
+          f"; launches {first}")
+    if first[0]["fused_mlp_eval"] != 2 or first[0]["fused_mlp_bwd"] != 2 or first[1:] != (2, 1):
+        raise SystemExit(f"a voxel step should launch 2 + 2 kernels, 2 gathers and build one "
+                         f"table: {first}")
+    if not abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p):
+        raise SystemExit("the voxel step's loss disagrees with the plain path's")
+    if not e[worst] <= VOX_STEP_GRAD_TOL:
+        raise SystemExit(f"the voxel step's gradients disagree: {e[worst]:.3e} at {worst}")
+    if not (e_table <= VOX_TABLE_GRAD_TOL and e_table <= 0.25 * control[table_name]):
+        raise SystemExit(f"the voxel step's table gradient disagrees: {e_table:.3e} (plain "
+                         f"bf16 vs f32 {control[table_name]:.3e})")
+    del twin, twin32, plain_step, plain_step32
+
+    def timed_steps(n):
+        times = []
+        for _ in range(n):
+            np_batch = system.train_dataset.sample_batch(BATCH, rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system.training_step(np_batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    reset_counts()
+    losses = [m_k["train/loss"]]
+    for _ in range(TRAIN_STEPS):
+        losses.append(system.training_step(system.train_dataset.sample_batch(BATCH, rng))
+                      ["train/loss"])
+    times = timed_steps(STEPS_TIMED)
+    torch.cuda.synchronize()
+    n_steps = TRAIN_STEPS + STEPS_TIMED
+    launches, n_gather, n_build = counts()
+    losses = [float(x) for x in losses]
+    print(f"{n_steps} more voxel steps: launches {launches}, gather_rows {n_gather}, table "
+          f"builds {n_build} (expect {2 * n_steps}, {2 * n_steps}, {n_steps}); loss "
+          + " ".join(f"{x:.4f}" for x in losses))
+    if ((launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build)
+            != (2 * n_steps, 2 * n_steps, 2 * n_steps, n_steps)
+            or sum(launches.values()) != 4 * n_steps):
+        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 gathers, one build")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise SystemExit("a voxel training loss is not finite")
+    head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"voxel loss: mean of the first five {head:.4f}, of the last five {tail:.4f}")
+    if not tail < head:
+        raise SystemExit("the voxel loss did not fall")
+    step_ms = statistics.median(times) * 1e3
+    k_ms = sum(out["fused_mlp_eval"]["ms"].values()) + sum(out["fused_mlp_bwd"]["ms"].values())
+    print(f"voxel train step: {step_ms:.2f} ms median of {STEPS_TIMED} (all: "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (step_ms / 1e3):.0f} rays/s; "
+          f"kernels {k_ms:.2f} ms (forward {sum(out['fused_mlp_eval']['ms'].values()):.2f}, "
+          f"backward {sum(out['fused_mlp_bwd']['ms'].values()):.2f}), lookups {look_ms:.2f}, "
+          f"table build {build_ms:.2f}, table gradient {grad_ms:.2f}, the rest (packing, "
+          f"optimizer, glue, loss, autograd, upload; by subtraction) "
+          f"{step_ms - k_ms - look_ms - build_ms - grad_ms:.2f} ms")
+    train_launches = {"fused_mlp_eval": 2 * (n_steps + 1), "fused_mlp_bwd": 2 * (n_steps + 1),
+                      "gather_rows": 2 * (n_steps + 1)}
+
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                system.training_step(system.train_dataset.sample_batch(BATCH, rng))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        print(averages.table(sort_by="cuda_time_total", row_limit=25,
+                             max_name_column_width=60))
+        busy_ms = sum(e_.self_device_time_total for e_ in averages
+                      if e_.device_type == DeviceType.CUDA) / 1e3
+        print(f"profiled 3 voxel steps: device busy {busy_ms / 3:.2f} ms per step of "
+              f"{wall_ms / 3:.2f} ms wall: idle share {100 * (1 - busy_ms / wall_ms):.1f} %")
+
+    # -- 18. prune and subdivide on the room, then the subdivided step ---------------------------
+    # the prune's decisions on the card against its plain f32 version on the
+    # same jitter, at the median of the card's per-voxel alphas
+    topo0 = system.voxel_topo
+    n0 = int(topo0.n_occupied)
+    spv = int(config.train.get("prune_samples_per_voxel", 16 ** 3))
+    per_batch = int(config.train.get("prune_voxel_batch", 256))
+    model = models.nerf_fine
+    with torch.no_grad():
+        pk_s = fused_mlp.pack_kernel_weights(model, cfg, False, sigma_only=True)
+    uniform = torch.rand(-(-n0 // per_batch) * per_batch * PRUNE_CHECK_SPV, 3, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+
+    def prune(th, plain):
+        """(new topology, per-voxel largest alpha) of one prune of the room."""
+        sigmas = []
+
+        def sigma_fn(pts, raw):
+            if plain:
+                sig = fs.sigma_eval_plain(model, cfg, pts, None, "scene", PRUNE_CHECK_SPV,
+                                          voxel_raw=raw, matmul_dtype=torch.float32)
+            else:
+                sig = fs.fused_sigma_eval(model, cfg, pts, None, "scene", PRUNE_CHECK_SPV,
+                                          voxel_raw=raw, packed=pk_s)
+            sigmas.append(sig)
+            return sig
+
+        new = vg.prune_empty_voxels(features.detach(), topo0, static, sigma_fn,
+                                    uniform=uniform, max_alpha_th=th,
+                                    samples_per_voxel=PRUNE_CHECK_SPV, voxel_batch=per_batch)
+        alpha = (1.0 - torch.exp(-torch.relu(torch.cat(sigmas)))).reshape(-1, PRUNE_CHECK_SPV)
+        return new, alpha.amax(-1)[:n0].cpu().numpy()
+
+    _, alpha_k = prune(0.5, plain=False)
+    th = float(np.median(alpha_k))
+    topo_k, alpha_k = prune(th, plain=False)
+    topo_p, alpha_p = prune(th, plain=True)
+    cells = np.flatnonzero(topo0.occupancy.cpu().numpy())  # the order prune visits them
+    keep_k = topo_k.occupancy.cpu().numpy()[cells]
+    keep_p = topo_p.occupancy.cpu().numpy()[cells]
+    clear = np.abs(alpha_p - th) > PRUNE_ALPHA_MARGIN
+    mismatch = int((keep_k != keep_p)[clear].sum())
+    idx0, idx_k = topo0.idx_map.cpu().numpy(), topo_k.idx_map.cpu().numpy()
+    r2c0, r2c_k = topo0.row_to_cell.cpu().numpy(), topo_k.row_to_cell.cpu().numpy()
+    dropped_rows = idx0[cells[~keep_k]]
+    rewrite_ok = (np.all(idx_k[cells[~keep_k]] == -1)
+                  and np.array_equal(idx_k[cells[keep_k]], idx0[cells[keep_k]])
+                  and np.all(r2c_k[dropped_rows] == int(np.prod(static.shape)))
+                  and np.array_equal(np.delete(r2c_k, dropped_rows), np.delete(r2c0, dropped_rows))
+                  and int(topo_k.n_occupied) == int(keep_k.sum()))
+    n_kept = int(keep_k.sum())
+    print(f"prune check ({PRUNE_CHECK_SPV} samples per voxel, threshold {th:.6f}, the median "
+          f"of the card's per-voxel alphas): card keeps {n_kept} of {n0}; plain f32 keeps "
+          f"{int(keep_p.sum())}; {int((~clear).sum())} voxels within {PRUNE_ALPHA_MARGIN:g} of "
+          f"the threshold, {mismatch} decisions differ outside it; max |alpha card - plain| "
+          f"{np.abs(alpha_k - alpha_p).max():.2e}; idx_map / row_to_cell rewrite: {rewrite_ok}")
+    if not (0 < n_kept < n0 and mismatch == 0 and rewrite_ok
+            and np.array_equal(keep_k, alpha_k >= th) and np.array_equal(keep_p, alpha_p >= th)):
+        raise SystemExit("the card's prune disagrees with its plain version")
+    # one step on the pruned grid: the dropped voxels' rows get no gradient
+    system.voxel_topo = topo_k
+    reset_counts()
+    m = system.training_step(system.train_dataset.sample_batch(BATCH, rng))
+    torch.cuda.synchronize()
+    launches, n_gather, n_build = counts()
+    grad = models.voxel_features.grad
+    g_drop = grad[torch.from_numpy(dropped_rows).to(dev).long()].abs().max().item()
+    g_kept = grad[torch.from_numpy(idx0[cells[keep_k]]).to(dev).long()].abs().max().item()
+    print(f"a step on the pruned grid: loss {float(m['train/loss']):.4f}; largest table gradient "
+          f"in the dropped voxels' rows {g_drop:.3e}, in the kept ones' {g_kept:.3e}; launches "
+          f"{launches}, gather_rows {n_gather}, builds {n_build}")
+    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build) != (2, 2, 2, 1):
+        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 gathers, one build")
+    if not (g_drop == 0.0 and g_kept > 0.0 and math.isfinite(float(m["train/loss"]))):
+        raise SystemExit("the pruned voxels' rows should take no gradient, the kept ones some")
+    for name in ("fused_mlp_eval", "fused_mlp_bwd", "gather_rows"):
+        train_launches[name] += 2
+
+    # the hook (epoch 3: a prune at the config's threshold and sample count), timed
+    n0 = n_kept
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.on_epoch_start(3)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    launches, n_gather, n_build = counts()
+    n1 = int(system.voxel_topo.n_occupied)
+    expect = -(-n0 // per_batch)
+    print(f"prune (epoch 3): {n0} -> {n1} occupied voxels ({n0 - n1} dropped), {spv} samples "
+          f"per voxel, {n0 * spv} points; {prune_s * 1e3:.1f} ms; fused_sigma_eval "
+          f"{launches['fused_sigma_eval']}, gather_rows {n_gather}, table builds {n_build} "
+          f"(expect {expect}, {expect}, 1)")
+    if (launches["fused_sigma_eval"], n_gather, n_build) != (expect, expect, 1) \
+            or sum(launches.values()) != expect or not 0 < n1 <= n0:
+        raise SystemExit("the prune should launch one density kernel and one gather per batch "
+                         "of voxels and keep some of them")
+    prune_launches = {"fused_sigma_eval": expect, "gather_rows": expect}
+    shape0 = system.voxel_static.shape
+    reset_counts()
+    t0 = time.perf_counter()
+    system.on_epoch_start(5)  # a prune, then the subdivision
+    torch.cuda.synchronize()
+    subdiv_s = time.perf_counter() - t0
+    launches, n_gather, n_build = counts()
+    static2 = system.voxel_static
+    print(f"epoch-5 hook (prune, then subdivide): grid {shape0} -> {static2.shape}, "
+          f"{int(system.voxel_topo.n_occupied)} occupied voxels, dense corner table "
+          f"{vg.dense_table_bytes(static2) / 1e6:.0f} MB in f32 (dense route: "
+          f"{vg.dense_path_ok(static2)}); {subdiv_s * 1e3:.1f} ms; launches {launches}, "
+          f"gather_rows {n_gather}, builds {n_build}")
+    if static2.shape != tuple(2 * x for x in shape0) or not vg.dense_path_ok(static2):
+        raise SystemExit("the subdivision should double the grid and keep the dense route")
+    prune_launches["fused_sigma_eval"] += launches["fused_sigma_eval"]
+    prune_launches["gather_rows"] += n_gather
+    reset_counts()
+    times = timed_steps(VOX_SUBDIV_STEPS)
+    launches, n_gather, n_build = counts()
+    sub_ms = statistics.median(times) * 1e3
+    print(f"subdivided voxel step: {sub_ms:.2f} ms median of {VOX_SUBDIV_STEPS} (all: "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (sub_ms / 1e3):.0f} rays/s; "
+          f"launches {launches}, gather_rows {n_gather}, builds {n_build}")
+    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build) != (
+            2 * VOX_SUBDIV_STEPS, 2 * VOX_SUBDIV_STEPS, 2 * VOX_SUBDIV_STEPS, VOX_SUBDIV_STEPS):
+        raise SystemExit("the subdivided step should launch 2 + 2 kernels and 2 gathers")
+    for name in ("fused_mlp_eval", "fused_mlp_bwd", "gather_rows"):
+        train_launches[name] += 2 * VOX_SUBDIV_STEPS
+    return out, train_launches, prune_launches
+
+
+def _voxel_edit_phase(torch, dev):
+    """Phase 19: one voxel edit frame through `EditableRenderer` on the room;
+    returns its launch counts."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.config import Config
+    from object_nerf_torch.edit.__main__ import get_transformation_with_duplication_offset
+    from object_nerf_torch.edit.bbox import boxes_to_arrays
+    from object_nerf_torch.edit.editable_renderer import EditableRenderer
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.models.mlp import ObjectNeRFConfig
+    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.render.multi import compact_hit_order, render_rays_multi
+    from object_nerf_torch.render.renderer import RenderSettings
+    from object_nerf_torch.scripts._fixtures import SCENE, bench_grid
+    from object_nerf_torch.train.metrics import psnr
+    from object_nerf_torch.train.system import init_params
+
+    cfg = ObjectNeRFConfig()
+    features, topo, static = bench_grid(cfg, dev, seed=SEED + 2)
+    models = init_params(torch.Generator().manual_seed(SEED),
+                         RenderSettings(mlp=cfg, N_importance=N_IMPORTANCE), {"N_max_objs": 64},
+                         device=dev, voxel_features=features)
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    model_conf = {"use_voxel_embedding": True, "N_samples": N_SAMPLES,
+                  "N_importance": N_IMPORTANCE, "frustum_bound": -1, "use_disp": False,
+                  "perturb": 0, "noise_std": 0, "N_max_objs": 64,
+                  **{k: getattr(cfg, k) for k in (
+                      "D", "W", "inst_D", "inst_W", "N_freq_xyz", "N_freq_dir",
+                      "N_freq_voxel", "N_scn_voxel_size", "N_obj_voxel_size",
+                      "N_obj_code_length")},
+                  "skips": list(cfg.skips), "inst_skips": list(cfg.inst_skips)}
+    # the room's object 1 (`scannet_scale_pcd`: a sphere of radius 0.6 m at
+    # (0.8, 0, 0.6)) as a ToyDesk box; a camera at mid-room looking at it
+    scale = SCENE["scale_factor"]
+    Twc = np.eye(4)
+    Twc[:3, 3] = [0.2, -2.0, 1.0]
+    Twc[:3, :3] = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], float)
+    with tempfile.TemporaryDirectory() as tmp:
+        bbox_path = os.path.join(tmp, "bbox.json")
+        with open(bbox_path, "w") as f:
+            json.dump({"labels": [{"id": VOX_OBJ, "data": {
+                "position": [0.8, 0.0, 0.6], "quaternion": [0.0, 0.0, 0.0, 1.0],
+                "scale": [1.32, 1.32, 1.32]}}]}, f)
+        ckpt = {"dataset_name": "toydesk", "model": model_conf,
+                "dataset_extra": {"scale_factor": scale,
+                                  "scene_center": list(SCENE["scene_center"]),
+                                  "near": 0.05 * scale, "far": 2.4 * scale,
+                                  "bbox_dir": bbox_path}}
+        renderer = EditableRenderer(Config({"ckpt_config": ckpt, "chunk": EDIT_CHUNK}),
+                                    models=models, device=dev, voxel_grid=(topo, static))
+        renderer.remove_scene_object_by_ids([VOX_OBJ])
+        renderer.set_object_pose_transform(
+            VOX_OBJ, get_transformation_with_duplication_offset(EDIT_PROGRESS, 0), 0)
+    fovx = 70.0
+    kw = dict(h=EDIT_H, w=EDIT_W, camera_pose_Twc=Twc, fovx_deg=fovx, chunk=EDIT_CHUNK)
+
+    fused_mlp.reset_launch_counts()
+    gather.reset_launch_counts()
+    vg.build_counts["corner_table"] = 0
+    frame = renderer.render_edit(**kw)
+    torch.cuda.synchronize()
+    launches = dict(fused_mlp.launch_counts)
+    n_gather, n_build = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
+    plan = renderer.last_chunk_plan
+    n_chunks, n_mixed = plan["chunks"], plan["mixed"]
+    expect = 2 * n_mixed + (n_chunks - n_mixed)
+    print(f"voxel edit frame {EDIT_W}x{EDIT_H} on the room, background + object {VOX_OBJ} "
+          f"moved, its original removed: {n_chunks} chunks, {n_mixed} with both ray sets; "
+          f"launches {launches}, gather_rows {n_gather}, table builds {n_build} (expect "
+          f"{expect} of each kernel, {2 * expect} gathers, 1 build)")
+    if not 0 < n_mixed < n_chunks:
+        raise SystemExit(f"the voxel edit frame should have mixed and background-only chunks: "
+                         f"{plan}")
+    if (launches != {"fused_coarse_weights": 0, "fused_render_tiles": 0,
+                     "fused_mlp_eval": expect, "fused_mlp_bwd": 0, "fused_sigma_eval": expect}
+            or n_gather != 2 * expect or n_build != 1):
+        raise SystemExit("the voxel edit frame's launch counts are not those of its path")
+    for k, v in frame.items():
+        if v.shape[0] != EDIT_W * EDIT_H or not np.isfinite(v).all():
+            raise SystemExit(f"voxel edit map {k} is not finite or has shape {v.shape}")
+
+    rays_list, ids = renderer.edit_ray_sets(EDIT_H, EDIT_W, Twc, fovx)
+    perm, _ = compact_hit_order(rays_list, ids, EDIT_CHUNK)
+    a, b, s = boxes_to_arrays(renderer.get_skipping_bbox_helper(), renderer.scale_factor)
+    skip_boxes = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), s)
+    settings16 = dataclasses.replace(renderer.settings, matmul_dtype=torch.bfloat16)
+    settings32 = dataclasses.replace(renderer.settings, matmul_dtype=torch.float32)
+    with torch.no_grad():  # the frame's own bf16 table (the same build), and an f32 one
+        refs = {"bf16": (settings16, (features, topo, static,
+                                      vg.CornerTable(features, topo, static, lowp=True)),
+                         VOX_EDIT_BF16_PSNR_FLOOR_DB, EDIT_MAP_TOL),
+                "f32": (settings32, (features, topo, static,
+                                     vg.CornerTable(features, topo, static)),
+                        EDIT_PSNR_FLOOR_DB, VOX_EDIT_MAP_TOL)}
+    checked = [("mixed", c) for c in range(min(2, n_mixed))] + [("background-only", n_mixed)]
+    for kind, c in checked:
+        idx = perm[c * EDIT_CHUNK:(c + 1) * EDIT_CHUNK]
+        sets = [torch.from_numpy(np.ascontiguousarray(r[idx])).to(dev) for r in rays_list]
+        hits = int((rays_list[1][idx, 7] > 0).sum())
+        for ref_name, (st, ctx, floor, limits) in refs.items():
+            ref = render_rays_multi(models, sets, ids, st, skip_boxes=skip_boxes, plain=True,
+                                    voxel_ctx=ctx)
+            p = psnr(torch.from_numpy(frame["rgb_fine"][idx]).to(dev), ref["rgb_fine"]).item()
+            diff = {k: (torch.from_numpy(frame[k][idx]).to(dev) - ref[k]).abs().max().item()
+                    for k in frame}
+            print(f"voxel edit chunk {c} ({kind}, {hits} rays hit the box): rgb_fine PSNR vs "
+                  f"render_rays_multi {ref_name} plain {p:.2f} dB (floor {floor:g}); max abs "
+                  f"diff " + ", ".join(f"{k} {v:.2e}" for k, v in diff.items())
+                  + " (limits " + ", ".join(f"{k} {v:g}" for k, v in limits.items()) + ")")
+            if not p >= floor:
+                raise SystemExit(f"voxel edit chunk {c}: PSNR {p:.2f} dB from the {ref_name} "
+                                 f"plain path")
+            for k, tol in limits.items():
+                if not diff[k] <= tol:
+                    raise SystemExit(f"voxel edit chunk {c}: {k} is {diff[k]:.3e} from the "
+                                     f"{ref_name} plain path (limit {tol:g})")
+        if (kind == "mixed") != (hits > 0):
+            raise SystemExit(f"voxel edit chunk {c} should be {kind}, but {hits} rays hit")
+    moved = float(np.abs(frame["rgb_fine"] - renderer.render_origin(
+        EDIT_H, EDIT_W, Twc, fovx, chunk=EDIT_CHUNK)["rgb_fine"]).max())
+    if not moved > 1e-3:
+        raise SystemExit("the voxel edit changed nothing in the frame")
+    times = []
+    for _ in range(FRAMES_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_edit(**kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frame_ms = statistics.median(times) * 1e3
+    print(f"voxel edit frame: {frame_ms:.1f} ms median of {FRAMES_TIMED} (all: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{EDIT_W * EDIT_H / (frame_ms / 1e3):.0f} pixels/s; max |edited - unedited| "
+          f"{moved:.3f}")
+    return {"fused_mlp_eval": expect, "fused_sigma_eval": expect, "gather_rows": 2 * expect}
+
+
 def main() -> int:
     import torch
 
@@ -1642,12 +2353,44 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_entries = _probe_phase(torch, dev, peak_flops, peak_bytes)
     sigma_entry["launches_by_path"]["voxel_mesh"] = vox_mesh_launches["fused_sigma_eval"]
-    sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
     sigma_entry["max_abs_err"] = max(sigma_entry["max_abs_err"], vox["fused_sigma_eval"]["err"])
     for key in ("ms", "plain_ms", "bound_ms"):
         sigma_entry[f"voxel_{key}_by_branch"] = vox["fused_sigma_eval"][key]
 
-    # -- 16. the kernels ------------------------------------------------------------
+    # -- 16 to 19. the voxel model trained, pruned, subdivided and edited ------------------------
+    torch.cuda.empty_cache()
+    vtrain, vtrain_launches, prune_launches = _voxel_train_phases(
+        torch, dev, peak_flops, peak_bytes, profile="--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    vedit_launches = _voxel_edit_phase(torch, dev)
+    for entry in train_entries:
+        name, v = entry["name"], vtrain[entry["name"]]
+        entry["launches_by_path"] = {**entry.get("launches_by_path",
+                                                 {"train": entry["launches"]}),
+                                     "voxel_train": vtrain_launches[name]}
+        if name == "fused_mlp_eval":
+            entry["launches_by_path"]["voxel_edit"] = vedit_launches[name]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        entry["max_abs_err"] = max(entry["max_abs_err"], v["err"])
+        entry["voxel_ms"] = sum(v["ms"].values())
+        entry["voxel_plain_ms"] = sum(v["plain_ms"].values())
+        entry["voxel_bound_ms"] = sum(v["bound_ms"].values())
+        entry["voxel_ms_by_samples"] = v["ms"]
+        entry["voxel_bound_ms_by_samples"] = v["bound_ms"]
+        if name == "fused_mlp_bwd":
+            entry["d_voxel_raw_max_err"] = v["dvox_err"]["max"]
+            entry["d_voxel_raw_norm_err"] = v["dvox_err"]["norm"]
+            entry["d_voxel_raw_norm_tol"] = VOX_DVOX_NORM_TOL
+    sigma_entry["launches_by_path"]["prune"] = prune_launches["fused_sigma_eval"]
+    sigma_entry["launches_by_path"]["voxel_edit"] = vedit_launches["fused_sigma_eval"]
+    sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
+    for path, n in (("voxel_train", vtrain_launches["gather_rows"]),
+                    ("prune", prune_launches["gather_rows"]),
+                    ("voxel_edit", vedit_launches["gather_rows"])):
+        gather_entry["launches_by_path"][path] = n
+    gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
+
+    # -- 20. the kernels ------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",

@@ -20,8 +20,12 @@ frame). A frame's rays are uploaded once, the kernel weights are packed once,
 every chunk goes through `render_multi_fused_eval` (the CUDA kernels on
 `device=cuda`, their plain versions on `device=cpu`), the chunks' maps stay on
 the device and come back in one copy per frame. The kernels mask a ragged
-last tile themselves, so the tail chunk is not padded. Voxel conditioning and
-multi-device rendering are not ported.
+last tile themselves, so the tail chunk is not padded. A voxel-conditioned
+model brings its grid (from a port checkpoint's `voxel_topo` /
+`voxel_static`, or a reference `.ckpt`'s buffers; JAX: editable_renderer.py:
+150-190); its corner table is built once per frame, in bf16 on the card,
+and every chunk's lookups read it (:271-291). Multi-device rendering is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..config import Config
 from ..data.geo_utils import center_pose_from_avg
 from ..data.ray_utils import get_ray_directions, get_rays
 from ..device import resolve_device
+from ..models import voxel_grid as vg
 from ..render.multi import compact_hit_order, pack_multi_weights, render_multi_fused_eval
 from ..render.renderer import RenderSettings
 from .bbox import BBoxRayHelper, boxes_to_arrays
@@ -64,14 +69,15 @@ def read_testing_config(cli_args=None, config_path=None) -> Config:
 
 
 class EditableRenderer:
-    def __init__(self, config, models=None, device=None):
+    def __init__(self, config, models=None, device=None, voxel_grid=None):
         """config: the merged edit config (`read_testing_config`). `models`:
-        an `ObjectNeRFModels` to render (tests inject fresh weights); else
+        an `ObjectNeRFModels` to render (tests inject fresh weights), with
+        `voxel_grid` = (topology, static) when it is voxel-conditioned; else
         `config.ckpt_path` is loaded, one of the port's checkpoints or a
-        reference `.ckpt`. Runs on `device` (default: `config.device`, else
-        `cuda`). `tpu.compact_edit_rays` (the key of the edit configs that both
-        packages read; default on) turns hit compaction off for the dense
-        composite."""
+        reference `.ckpt`, with its grid. Runs on `device` (default:
+        `config.device`, else `cuda`). `tpu.compact_edit_rays` (the key of
+        the edit configs that both packages read; default on) turns hit
+        compaction off for the dense composite."""
         self.config = config
         self.ckpt_config = Config(config.ckpt_config)
         self.device = resolve_device(device if device is not None
@@ -84,11 +90,7 @@ class EditableRenderer:
         self.pose_avg = np.concatenate(
             [np.eye(3), np.array(dataset_extra["scene_center"])[:, None]], 1)
 
-        if bool(self.ckpt_config.model.get("use_voxel_embedding", True)):
-            raise NotImplementedError("the edit render of a voxel-conditioned model is not "
-                                      "ported yet (it needs the voxel operand of "
-                                      "fused_mlp_eval): the edit renderer takes "
-                                      "use_voxel_embedding=false models")
+        self.use_voxel = bool(self.ckpt_config.model.get("use_voxel_embedding", True))
         self.compact_rays = bool(
             dict(config.get("tpu", {}) or {}).get("compact_edit_rays", True))
         # the CUDA kernels compute in bf16; the CPU path is the exact f32 one
@@ -96,8 +98,16 @@ class EditableRenderer:
             self.ckpt_config, is_eval=True,
             matmul_dtype=torch.bfloat16 if self.device.type == "cuda" else torch.float32)
 
-        self.models = (models if models is not None
-                       else self._load_model(config.ckpt_path)).to(self.device).eval()
+        self.voxel_topo, self.voxel_static = None, None
+        if models is None:
+            models, voxel_grid = self._load_model(config.ckpt_path)
+        if self.use_voxel != (voxel_grid is not None):
+            raise ValueError("a voxel-conditioned model renders with its voxel_grid "
+                             "(topology, static), and no other model takes one")
+        self.models = models.to(self.device).eval()
+        if voxel_grid is not None:
+            self.voxel_topo = voxel_grid[0].to(self.device)
+            self.voxel_static = voxel_grid[1]
 
         self.object_to_remove: List[int] = []
         self.active_object_ids: List[int] = [0]
@@ -110,13 +120,25 @@ class EditableRenderer:
 
     # -- model loading ---------------------------------------------------------
     def _load_model(self, ckpt_path):
-        from ..train.convert import load_reference_ckpt
+        """(models, voxel grid (topology, static) or None) from a port
+        checkpoint or a reference `.ckpt`: a voxel model's table rows are
+        indexed by the checkpoint's own topology, which comes along."""
+        from ..train.convert import load_reference_ckpt, voxel_grid_from_ckpt
         from ..train.system import init_params
 
+        sd, voxel = load_reference_ckpt(ckpt_path, with_voxel=True)
+        if (voxel is not None) != self.use_voxel:
+            raise ValueError(f"{ckpt_path} holds {'a' if voxel is not None else 'no'} voxel "
+                             f"grid, but model.use_voxel_embedding is {self.use_voxel}")
+        features, grid = None, None
+        if voxel is not None:
+            features, topo, static = voxel_grid_from_ckpt(
+                voxel, int(self.ckpt_config.model.N_freq_voxel))
+            grid = (topo, static)
         models = init_params(torch.Generator().manual_seed(0), self.settings,
-                             self.ckpt_config.model, device="cpu")
-        models.load_state_dict(load_reference_ckpt(ckpt_path))
-        return models
+                             self.ckpt_config.model, device="cpu", voxel_features=features)
+        models.load_state_dict(sd)
+        return models, grid
 
     # -- frame metadata ----------------------------------------------------------
     def load_frame_meta(self):
@@ -206,6 +228,14 @@ class EditableRenderer:
                     for r in rays_list]
         packed = pack_multi_weights(self.models, settings, obj_ids) \
             if dev.type == "cuda" else None
+        voxel_ctx = None
+        if self.use_voxel:  # one corner table per frame, read by every chunk
+            features = self.models.voxel_features.detach()
+            voxel_ctx = (features, self.voxel_topo, self.voxel_static)
+            if vg.dense_path_ok(self.voxel_static):
+                voxel_ctx += (vg.CornerTable(
+                    features, self.voxel_topo, self.voxel_static,
+                    lowp=settings.matmul_dtype == torch.bfloat16),)
 
         n_chunks = -(-n // chunk)
         self.last_chunk_plan = {"chunks": n_chunks,
@@ -217,7 +247,7 @@ class EditableRenderer:
             sets = rays_dev if mixed else rays_dev[:1]
             outs.append(render_multi_fused_eval(
                 self.models, [r[i:i + chunk] for r in sets], ids_c, settings,
-                skip_boxes=skip_boxes, packed=packed))
+                skip_boxes=skip_boxes, packed=packed, voxel_ctx=voxel_ctx))
         merged = {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
         if plan is not None:
             # scatter back to pixel order: row j carries ray perm[j]

@@ -13,18 +13,27 @@ reference `EmbeddingVoxel`, models/embedding_helper.py:77-479):
   the per-corner gather for grids whose corner table would exceed
   `DENSE_CELL_TABLE_LIMIT_BYTES`, and the nearest-cell lookup.
 * `voxel_embed` (:646-665): the full `EmbeddingVoxel.forward`.
+* The table gradient (`corner_table_transpose`, :456-474, and the
+  segment-sum backward of the row fetch, :296-330; as the JAX split step
+  writes it, `train/split_step.py:242-271`): `CornerTable` builds the
+  corner table of one training step (or one eval frame) once; every lookup
+  of the step reads it,
+  and the backward of all of them is ONE `index_add_` segment-sum of the
+  weighted row cotangents into an f32 table and the linear transpose of the
+  build (8 slice-adds and one `row_to_cell` gather), in f32 whether the
+  table was built in bf16 or not (the cast's derivative is the identity, as
+  `_take_rows_bf16`, :307-330). `PlainCornerTable` is its plain version
+  (autograd through an f32 build).
+* Progressive training (`prune_empty_voxels`, `subdivide_voxels`,
+  :759-888): host-orchestrated; the topology they return lives on the grid's
+  device.
 
 The corner table is `((X+1)(Y+1)(Z+1), 8 C)`: row p holds the features of the
 8 corners of the padded-frame base cell p, so a sample's whole neighbourhood
 is ONE contiguous row. On a CUDA tensor `voxel_lookup_dense` fetches those
 rows through the hand-written `ops.gather.gather_rows` kernel; everything
-else here is plain tensor code, so autograd gives the table gradient on the
-plain route. Topology tensors live on an explicit device; the build runs on
-the host in numpy.
-
-Not ported yet (they belong to voxel training): the hand-written
-`corner_table_transpose` and the segment-sum backward of the row fetch,
-`prune_empty_voxels` and `subdivide_voxels`.
+else here is plain tensor code. Topology tensors live on an explicit device;
+the build runs on the host in numpy.
 """
 
 from __future__ import annotations
@@ -345,6 +354,146 @@ def corner_index_weights(topo: VoxelTopology, static: VoxelStatic, xyz: torch.Te
     return flat, wts, sample_valid
 
 
+def corner_table_transpose(d_ct: torch.Tensor, row_to_cell: torch.Tensor,
+                           static: VoxelStatic) -> torch.Tensor:
+    """d_features (capacity, C) f32 from a corner-table cotangent d_ct
+    ((X+1)(Y+1)(Z+1), 8 C): the linear transpose of `make_corner_table`.
+    Block k of row p came from padded cell p + corner_k, so it is added back
+    there (8 slice-adds); the padding is dropped, and each table row takes
+    its cell's sum through `row_to_cell` (one gather; rows of no cell read
+    the zero trash row). No scatter into capacity rows: idx_map and
+    row_to_cell are mutually inverse (`corner_table_transpose`,
+    object_nerf_tpu/models/voxel_grid.py:456-474)."""
+    X, Y, Z = static.shape
+    C = static.channels
+    d = d_ct.reshape(X + 1, Y + 1, Z + 1, 8, C).float()
+    padded = d.new_zeros(X + 2, Y + 2, Z + 2, C)
+    for k, (bx, by, bz) in enumerate(_CORNERS):
+        padded[bx:bx + X + 1, by:by + Y + 1, bz:bz + Z + 1] += d[..., k, :]
+    d_dense = padded[1:X + 1, 1:Y + 1, 1:Z + 1].reshape(-1, C)
+    d_dense = torch.cat([d_dense, d_dense.new_zeros(1, C)])  # the trash cell
+    return d_dense[row_to_cell.long()]
+
+
+def _corner_sum(rows: torch.Tensor, wts: torch.Tensor, channels: int) -> torch.Tensor:
+    """The f32 trilinear sum of fetched corner rows (N, 8 C) with weights (N, 8)."""
+    return (rows.reshape(-1, 8, channels).float() * wts[..., None]).sum(dim=1)
+
+
+def corner_table_grad(cotangents, topo: VoxelTopology, static: VoxelStatic) -> torch.Tensor:
+    """d_features from the lookups of one table: `cotangents` is a list of
+    (d_out (N, C), flat (N,), wts (N, 8)). d_rows = d_out (x) wts in f32, ONE
+    `index_add_` segment-sum over all of them into an f32 corner table, then
+    `corner_table_transpose` (split_step.py:242-271)."""
+    C = static.channels
+    d_rows = torch.cat([(d.reshape(-1, 1, C).float() * w[:, :, None]).reshape(-1, 8 * C)
+                        for d, _, w in cotangents])
+    flat = torch.cat([f for _, f, _ in cotangents]).long()
+    X, Y, Z = static.shape
+    d_ct = d_rows.new_zeros(((X + 1) * (Y + 1) * (Z + 1), 8 * C)).index_add_(0, flat, d_rows)
+    del d_rows
+    return corner_table_transpose(d_ct, topo.row_to_cell, static)
+
+
+class _TableToken(torch.autograd.Function):
+    """The feature table's entry into a step's graph. Every lookup of the
+    table consumes the token and leaves its cotangent in `pending`; autograd
+    runs this backward once, after all of them: the whole table gradient."""
+
+    @staticmethod
+    def forward(ctx, features, pending, topo, static):
+        ctx.pending, ctx.topo, ctx.static = pending, topo, static
+        return features.new_zeros(1)
+
+    @staticmethod
+    def backward(ctx, _):
+        if not ctx.pending:
+            return None, None, None, None
+        d_features = corner_table_grad(ctx.pending, ctx.topo, ctx.static)
+        ctx.pending.clear()
+        return d_features, None, None, None
+
+
+class _CornerLookup(torch.autograd.Function):
+    """One lookup of a step's table: the row fetch (`gather_rows`: the kernel
+    on a CUDA table, index_select on a CPU one) and the f32 8-corner sum. Its
+    backward only files (d_out, flat, wts) for the table's token."""
+
+    @staticmethod
+    def forward(ctx, token, ct, flat, wts, pending, channels):
+        ctx.pending = pending
+        ctx.save_for_backward(flat, wts)
+        return _corner_sum(_fetch_rows(ct, flat), wts, channels)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        flat, wts = ctx.saved_tensors
+        ctx.pending.append((d_out, flat, wts))
+        return d_out.new_zeros(1), None, None, None, None, None
+
+
+def _fetch_rows(ct: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Rows of a corner table at clipped addresses: the kernel on the card."""
+    if ct.device.type == "cuda":
+        return gather_rows(ct, flat, check_indices=False)  # clipped by construction
+    return gather_rows_plain(ct, flat)
+
+
+class CornerTable:
+    """The corner table of one training step (the JAX split step's P1,
+    train/split_step.py:131-152) or one eval frame: built once from
+    `features`, in bf16 when `lowp`, and read by every `lookup` of the step
+    or frame. Built under autograd from a table that requires a gradient,
+    the table gradient of all lookups is one segment-sum and one transpose
+    (`corner_table_grad`), in f32 whatever `lowp`; built under
+    `torch.no_grad()` it is an eval table."""
+
+    def __init__(self, features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                 lowp: bool = False):
+        self.topo, self.static = topo, static
+        with torch.no_grad():
+            self.ct = make_corner_table(features, topo, static, lowp=lowp)
+        # the lookups' cotangents; the token's backward (not this object)
+        # holds it, so the graph keeps no reference cycle to the table
+        pending: list = []
+        self._pending = pending
+        self._token = None
+        if torch.is_grad_enabled() and features.requires_grad:
+            self._token = _TableToken.apply(features, pending, topo, static)
+
+    def lookup(self, xyz: torch.Tensor, with_addressing: bool = False):
+        """(ftr (N, C) f32, invalid (N,) bool) at normalised xyz (N, 3), as
+        `voxel_lookup_dense`; `with_addressing` also returns (flat, wts)."""
+        flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
+        if self._token is None:
+            out = _corner_sum(_fetch_rows(self.ct, flat), wts, self.static.channels)
+        else:
+            out = _CornerLookup.apply(self._token, self.ct, flat, wts, self._pending,
+                                      self.static.channels)
+        if with_addressing:
+            return out, ~sample_valid, flat, wts
+        return out, ~sample_valid
+
+
+class PlainCornerTable:
+    """Plain version of `CornerTable`: autograd through an f32 build and
+    `index_select`; with `lowp` the table holds the bf16 values and passes
+    the gradient unchanged (straight through), the JAX package's rule."""
+
+    def __init__(self, features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                 lowp: bool = False):
+        self.topo, self.static = topo, static
+        ct = make_corner_table(features, topo, static)
+        if lowp:
+            ct = ct + (ct.to(torch.bfloat16).float() - ct).detach()
+        self.ct = ct
+
+    def lookup(self, xyz: torch.Tensor):
+        flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
+        return _corner_sum(gather_rows_plain(self.ct, flat), wts, self.static.channels), \
+            ~sample_valid
+
+
 def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
                        static: VoxelStatic, xyz: torch.Tensor, lowp: bool = False,
                        ct: Optional[torch.Tensor] = None, with_addressing: bool = False):
@@ -352,25 +501,22 @@ def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
 
     xyz (N, 3) normalised coordinates -> (ftr (N, C) f32, invalid (N,) bool).
     `ct`: a prebuilt `make_corner_table` (`features` may be None then);
-    without it the table is built here, in bf16 when `lowp`, and autograd
-    reaches `features` through it. The row fetch of a CUDA table is the
-    `gather_rows` kernel (inference only: it carries no gradient); a CPU table
-    goes through its plain version. The 8-corner sum runs in f32.
-    `with_addressing` also returns (flat, wts)."""
-    flat, wts, sample_valid = corner_index_weights(topo, static, xyz)
+    without it the table is built here, in bf16 when `lowp`, and under
+    autograd the table gradient reaches `features` through
+    `CornerTable`'s hand-written backward (f32 whatever `lowp`). The row
+    fetch of a CUDA table is the `gather_rows` kernel, which carries no
+    gradient (a prebuilt CUDA table that requires one is refused), of a CPU
+    table its plain version; the 8-corner sum runs in f32. `with_addressing`
+    also returns (flat, wts)."""
     if ct is None:
-        ct = make_corner_table(features, topo, static, lowp=lowp)
-    if ct.device.type == "cuda" and not (torch.is_grad_enabled() and ct.requires_grad):
-        # flat is clipped into the table by construction: no index check
-        rows = gather_rows(ct, flat, check_indices=False)
-    elif ct.device.type == "cuda":
-        raise NotImplementedError(
-            "the table gradient of the corner-table lookup on the card is not ported yet "
-            "(the gather kernel has no backward): run the lookup under torch.no_grad(), "
-            "or on CPU tensors")
-    else:
-        rows = gather_rows_plain(ct, flat)
-    out = (rows.reshape(-1, 8, static.channels).float() * wts[..., None]).sum(dim=1)
+        return CornerTable(features, topo, static, lowp=lowp).lookup(
+            xyz, with_addressing=with_addressing)
+    if ct.device.type == "cuda" and torch.is_grad_enabled() and ct.requires_grad:
+        raise ValueError("the row fetch of a prebuilt CUDA corner table carries no gradient: "
+                         "pass `features` and no `ct` (the table gradient of "
+                         "CornerTable), or look up under torch.no_grad()")
+    flat, wts, sample_valid = corner_index_weights(topo, static, xyz)
+    out = _corner_sum(_fetch_rows(ct, flat), wts, static.channels)
     if with_addressing:
         return out, ~sample_valid, flat, wts
     return out, ~sample_valid
@@ -477,3 +623,136 @@ def ray_box_intersection(topo: VoxelTopology, static: VoxelStatic, rays_o: torch
     far_out = (z * occ).max(dim=-1, keepdim=True).values
     far_out = torch.where(far_out == 0, far, far_out)
     return near_out, far_out
+
+
+# ---------------------------------------------------------------------------
+# Progressive training: prune + subdivide (host-orchestrated)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def prune_empty_voxels(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                       sigma_fn, generator: Optional[torch.Generator] = None,
+                       uniform: Optional[torch.Tensor] = None, max_alpha_th: float = 0.5,
+                       samples_per_voxel: int = 16 ** 3, voxel_batch: int = 256,
+                       ) -> VoxelTopology:
+    """Drop the voxels whose largest alpha over random interior samples is
+    below `max_alpha_th` (`prune_empty_voxels`,
+    object_nerf_tpu/models/voxel_grid.py:759-820; reference
+    embedding_helper.py:202-245). Returns the new topology (same shapes, on
+    the grid's device); the table keeps its rows.
+
+    The occupied voxels go in batches of `voxel_batch` (the last one padded
+    with the origin, as in the JAX package), `samples_per_voxel` points each,
+    jittered by U(-v/2, v/2) per axis. `sigma_fn(pts (M, 3), voxel_raw (M, C))
+    -> (M,)` is the density of the points (`fused_sigma_eval` on the fine
+    scene branch, whose plain version runs on CPU tensors); their raw voxel
+    features come from one f32 corner table built here. The uniform draws
+    come from `generator` (on the grid's device; None: its default one) or,
+    in batch order, from `uniform` (n_batches * voxel_batch *
+    samples_per_voxel, 3), which a test fills with the JAX package's draws."""
+    occ3 = topo.occupancy.cpu().numpy().reshape(static.shape)
+    idx_occ = np.argwhere(occ3)  # (K, 3)
+    if len(idx_occ) == 0:
+        return topo  # nothing left to prune
+    device = features.device
+    voxel_size = float(topo.voxel_size)
+    offset = topo.voxel_offset.cpu().numpy()
+    voxel_xyz = idx_occ.astype(np.float32) * voxel_size - offset
+    ct = make_corner_table(features, topo, static) if dense_path_ok(static) else None
+
+    n, step = len(voxel_xyz), int(voxel_batch)
+    per_batch = step * samples_per_voxel
+    empty = []
+    for b, i in enumerate(range(0, n, step)):
+        chunk = voxel_xyz[i:i + step]
+        pad = step - len(chunk)
+        if pad:
+            chunk = np.concatenate([chunk, np.zeros((pad, 3), np.float32)])
+        pts = torch.from_numpy(np.repeat(chunk, samples_per_voxel, axis=0)).to(device)
+        if uniform is not None:
+            u = uniform[b * per_batch:(b + 1) * per_batch].to(device)
+        else:
+            u = torch.rand(pts.shape, generator=generator, device=device)
+        pts = (pts + (u * voxel_size - voxel_size / 2)).contiguous()
+        raw, _ = voxel_lookup_raw(features, topo, static, pts, ct=ct)
+        sigma = sigma_fn(pts, raw.contiguous())
+        # alpha over 1 m of field (embedding_helper.py:224-226)
+        alphas = 1.0 - torch.exp(-torch.relu(sigma))
+        alphas = alphas.reshape(step, samples_per_voxel).amax(-1).cpu().numpy()
+        empty.append(alphas[:step - pad] < max_alpha_th)
+    empty = np.concatenate(empty)[:n]
+
+    keep3 = occ3.copy()
+    drop = idx_occ[empty]
+    keep3[drop[:, 0], drop[:, 1], drop[:, 2]] = False
+    idx_map = topo.idx_map.cpu().numpy().reshape(static.shape).copy()
+    dropped_rows = idx_map[drop[:, 0], drop[:, 1], drop[:, 2]]
+    idx_map[drop[:, 0], drop[:, 1], drop[:, 2]] = -1
+    # pruned rows point at the trash cell, so the table gradient skips them
+    row_to_cell = topo.row_to_cell.cpu().numpy().copy()
+    row_to_cell[dropped_rows[dropped_rows >= 0]] = int(np.prod(static.shape))
+    dev = topo.idx_map.device
+    return topo._replace(
+        idx_map=torch.from_numpy(idx_map.reshape(-1)).to(dev),
+        occupancy=torch.from_numpy(keep3.reshape(-1)).to(dev),
+        n_occupied=torch.tensor(int(keep3.sum()), dtype=torch.int32, device=dev),
+        row_to_cell=torch.from_numpy(row_to_cell).to(dev),
+    )
+
+
+@torch.no_grad()
+def subdivide_voxels(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
+                     chunk: int = 1 << 18):
+    """Halve the voxel size: every occupied voxel spawns 8 children whose
+    features are the trilinear resample of the parent grid at the child
+    positions (`subdivide_voxels`, object_nerf_tpu/models/voxel_grid.py:
+    823-888; reference embedding_helper.py:247-302).
+
+    Returns (new features, new topology, new static) on the grid's device:
+    the shape doubles, the table keeps its capacity and every row that no
+    child takes keeps its value. Children that land on one cell are written
+    in order, the last one wins (the reference's index_put). Raises when
+    the children outnumber the table's rows."""
+    occ3 = topo.occupancy.cpu().numpy().reshape(static.shape)
+    idx_occ = np.argwhere(occ3)
+    voxel_size = float(topo.voxel_size)
+    offset = topo.voxel_offset.cpu().numpy().astype(np.float64)
+    voxel_xyz = idx_occ.astype(np.float64) * voxel_size - offset
+
+    target = voxel_size / 2
+    children = [voxel_xyz + c * target for c in _CORNERS.astype(np.float64)]
+    new_xyz = np.concatenate(children, 0)
+    new_coord = np.round((new_xyz + offset) / target).astype(np.int64)
+
+    new_shape = tuple(s * 2 for s in static.shape)
+    if len(new_xyz) > static.n_max_voxels:
+        raise ValueError(
+            f"subdivision needs {len(new_xyz)} voxels > capacity {static.n_max_voxels}")
+
+    # resample the features at the child positions from the OLD grid
+    device = features.device
+    ct = make_corner_table(features, topo, static) if dense_path_ok(static) else None
+    feats = []
+    for i in range(0, len(new_xyz), chunk):
+        pts = torch.from_numpy(new_xyz[i:i + chunk].astype(np.float32)).to(device)
+        feats.append(voxel_lookup_raw(features, topo, static, pts, ct=ct)[0].cpu())
+    new_ftrs = torch.cat(feats).numpy() if feats else np.zeros((0, static.channels), np.float32)
+
+    occ_new = np.zeros(new_shape, dtype=bool)
+    occ_new[new_coord[:, 0], new_coord[:, 1], new_coord[:, 2]] = True
+    n_occ = int(occ_new.sum())
+    idx_map_new = np.full(new_shape, -1, dtype=np.int32)
+    idx_map_new[occ_new] = np.arange(n_occ, dtype=np.int32)
+
+    assign = idx_map_new[new_coord[:, 0], new_coord[:, 1], new_coord[:, 2]]
+    # children that share a cell: the last one wins
+    _, first_of_reversed = np.unique(assign[::-1], return_index=True)
+    last = len(assign) - 1 - first_of_reversed
+    feat_np = features.detach().cpu().numpy().copy()
+    feat_np[assign[last]] = new_ftrs[last]
+
+    new_topo = _topology(idx_map_new, occ_new, target, offset.astype(np.float32),
+                         int(features.shape[0]), topo.idx_map.device)
+    new_static = dataclasses.replace(static, shape=new_shape)
+    return torch.from_numpy(feat_np).to(device), new_topo, new_static

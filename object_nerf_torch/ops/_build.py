@@ -39,10 +39,10 @@ SIGNATURES = {
     "onerf_coarse_weights": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_sigma_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_gather_rows": [_P, _P, _P, _L, _I, _P],
     "onerf_pe_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.onerf_error_string.argtypes = [ctypes.c_int]
     lib.onerf_error_string.restype = ctypes.c_char_p
-    lib.onerf_bwd_stash_elems.argtypes = []
+    lib.onerf_bwd_stash_elems.argtypes = [ctypes.c_int]
     lib.onerf_bwd_stash_elems.restype = ctypes.c_longlong
     return lib
 

@@ -18,7 +18,8 @@ trilinear features of `models/voxel_grid.voxel_lookup_raw`, is one more
 operand (pallas_mlp.py:193-213): the kernel frequency-encodes it itself and
 its input row is `[svox | PE(svox) | xyz | PE(xyz)]` for the scene branch and
 that followed by `[ivox | PE(ivox) | code]` for the object branch, the
-model's own input order. The training kernels take the classical model only.
+model's own input order. The training kernels (`fused_mlp_vjp.py`) take the
+same operand and return its gradient.
 
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp.cu`, built by
 `_build.py`). Each wrapper checks device, dtype, shape and contiguity; on a

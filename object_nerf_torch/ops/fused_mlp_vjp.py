@@ -9,11 +9,13 @@ Replaces two Pallas TPU kernels and the custom VJP around them:
   caller's);
 * `fused_mlp_bwd` (`_bwd_kernel` / `_run_bwd`,
   `object_nerf_tpu/ops/pallas_mlp_vjp.py:72, :417-557`): recompute the
-  forward, sweep back, return every weight and bias gradient and the per-ray
-  code gradient;
+  forward, sweep back, return every weight and bias gradient, the per-ray
+  code gradient and, for a voxel-conditioned model, the gradient of the raw
+  voxel features `d_voxel_raw` (pallas_mlp_vjp.py:350-375);
 * `FusedMLP` (`make_fused_mlp_op`, `pallas_mlp_vjp.py:608-668`): the forward
   saves its inputs only, the backward packs the four output cotangents to
-  (n*S, 8) and runs the backward kernel; `xyz` and `dir_pe` get no gradient.
+  (n*S, 8) and runs the backward kernel; `xyz` and `dir_pe` get no gradient,
+  `codes` and `voxel_raw` do.
 
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp_train.cu`). On CUDA
 tensors the wrappers launch them or raise; on CPU tensors they run the plain
@@ -22,10 +24,14 @@ check of the hand-derived backward) and `mlp_bwd_plain` (the hand-derived
 backward in tensor code, rounding where the kernel rounds). The kernels keep
 the eval kernels' tile of 128 rows of whole rays, hence their restriction to
 `KERNEL_SAMPLES` samples per ray. `launch_counts` (shared with
-`fused_mlp.py`) counts kernel launches and nothing else. They take the
-classical model only: the voxel operand (`voxel_raw`, with its gradient
-`d_voxel_raw`, pallas_mlp_vjp.py:350-375) is not ported yet, and both entry
-points raise on a voxel-conditioned model.
+`fused_mlp.py`) counts kernel launches and nothing else.
+
+A voxel-conditioned model takes `voxel_raw` (n, S, 16 + 8), the raw trilinear
+features of its samples, as the eval kernels do: the input row is
+`[svox | PE(svox) | xyz | PE(xyz)]` for the scene branch and that followed by
+`[ivox | PE(ivox) | code]` for the object branch. Its gradient goes through
+the input gradient of layer 0 and the skip layers of both branches and the
+chain of the frequency encoding, in f32 (`_freq_encode_vjp`).
 """
 
 from __future__ import annotations
@@ -34,15 +40,18 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.embedding import freq_encode
-from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig
+from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from .fused_mlp import (
     MAX_DIR, T_DIRB, T_DIRWD, T_DIRWH, T_FINB, T_FINW, T_K0, T_RGBB, T_RGBW,
-    T_SIGB, T_SIGW, T_TB, T_TW, PackedWeights, _check_launch, _check_tensor, _ptr,
-    _tab, launch_counts, pack_kernel_weights,
+    T_SIGB, T_SIGW, T_TB, T_TW, PackedWeights, _check_launch, _check_tensor,
+    _check_voxel_raw, _ptr, _tab, _vox_args, check_voxel_operand, launch_counts,
+    pack_kernel_weights,
 )
 
 MLPOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# (weight and bias gradients by parameter name, d_codes (n, C_code),
+#  d_voxel_raw (n, S, C_vox) f32 or None for a classical model)
+BwdOut = Tuple[Dict[str, torch.Tensor], torch.Tensor, Optional[torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
@@ -63,12 +72,15 @@ def _lrelu_grad(act: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 def mlp_eval_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                    dir_pe: torch.Tensor, codes: Optional[torch.Tensor] = None,
                    forward_instance: bool = True, compute_scene: bool = True,
-                   matmul_dtype=torch.bfloat16) -> MLPOut:
+                   matmul_dtype=torch.bfloat16,
+                   voxel_raw: Optional[torch.Tensor] = None) -> MLPOut:
     """Plain version of `fused_mlp_eval`: xyz (n, S, 3), dir_pe (n, C_dir),
-    codes (n, C_code) -> sigma (n, S), rgb (n, S, 3), inst_sigma, inst_rgb;
-    zeros for a branch that is off."""
+    codes (n, C_code), voxel_raw (n, S, C_vox) for a voxel-conditioned model
+    -> sigma (n, S), rgb (n, S, 3), inst_sigma, inst_rgb; zeros for a branch
+    that is off. Differentiable (autograd) in every input."""
+    check_voxel_operand(cfg, voxel_raw)
     n, s, _ = xyz.shape
-    emb = freq_encode(xyz.reshape(n * s, 3), cfg.N_freq_xyz)
+    emb, obj_voxel = embed_inputs(cfg, xyz.reshape(n * s, 3), voxel_raw)
     dir_flat = dir_pe.repeat_interleave(s, dim=0)
     zeros = (xyz.new_zeros(n, s), xyz.new_zeros(n, s, 3))
     scene, inst = zeros, zeros
@@ -79,7 +91,7 @@ def mlp_eval_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
         if codes is None:
             codes = xyz.new_zeros(n, cfg.N_obj_code_length)
         i_sigma, i_rgb = model.instance_forward(
-            emb, codes.repeat_interleave(s, dim=0), emb_dir=dir_flat,
+            emb, codes.repeat_interleave(s, dim=0), obj_voxel, emb_dir=dir_flat,
             matmul_dtype=matmul_dtype)
         inst = (i_sigma.reshape(n, s), i_rgb.reshape(n, s, 3))
     return scene + inst
@@ -149,6 +161,21 @@ def _branch_bwd_plain(p: Dict[str, object], prefix: Dict[str, str], cat: torch.T
     return d_cat
 
 
+def _freq_encode_vjp(x: torch.Tensor, d: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """The gradient of `freq_encode(x, n_freqs)` (x (M, C)) given the
+    cotangent d (M, C (2 n_freqs + 1)) of its output, in f32: the identity
+    block, plus 2^k cos(2^k x) times a sin column's cotangent and -2^k
+    sin(2^k x) times a cos column's (JAX: `(d_sin * cos(pre)) @ S^T`,
+    pallas_mlp_vjp.py:350-375, with the phase folded into the cos columns)."""
+    c = x.shape[1]
+    out = d[:, :c].clone()
+    for k in range(n_freqs):
+        f = 2.0 ** k
+        blk = d[:, c + 2 * c * k: c + 2 * c * (k + 1)]
+        out += f * torch.cos(f * x) * blk[:, :c] - f * torch.sin(f * x) * blk[:, c:]
+    return out
+
+
 def _prefixes(model: ObjectNeRF, branch: str) -> Dict[str, str]:
     """Layer key -> parameter name prefix of one branch of `model`."""
     names = {id(m): n for n, m in model.named_modules()}
@@ -162,31 +189,49 @@ def _prefixes(model: ObjectNeRF, branch: str) -> Dict[str, str]:
 def mlp_bwd_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                   dir_pe: torch.Tensor, codes: torch.Tensor, g: torch.Tensor,
                   forward_instance: bool = True, matmul_dtype=torch.bfloat16,
-                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                  voxel_raw: Optional[torch.Tensor] = None) -> BwdOut:
     """Plain version of `fused_mlp_bwd`: the hand-derived backward of
     `mlp_eval_plain`, given g (n*S, 8) = [g_sigma, g_rgb(3), g_inst_sigma,
     g_inst_rgb(3)]. Returns ({parameter name of `model`: gradient}, d_codes
-    (n, C_code)): zeros for the object branch and the codes when it is off.
+    (n, C_code), d_voxel_raw (n, S, C_vox) or None): zeros for the object
+    branch, the codes and the instance voxel channels when it is off.
     Activations are kept at `matmul_dtype`, every d_pre is rounded to it for
-    its products, bias gradients sum the unrounded d_pre."""
+    its products, bias gradients sum the unrounded d_pre; the input gradient
+    and the encoding's chain stay f32."""
+    check_voxel_operand(cfg, voxel_raw)
     n, s, _ = xyz.shape
     with torch.no_grad():
-        emb = freq_encode(xyz.reshape(n * s, 3), cfg.N_freq_xyz)
+        emb, obj_voxel = embed_inputs(cfg, xyz.reshape(n * s, 3), voxel_raw)
         dir_rows = dir_pe.repeat_interleave(s, dim=0)
         grads: Dict[str, torch.Tensor] = {}
-        _branch_bwd_plain(model.branch_layers("scene"), _prefixes(model, "scene"), emb,
-                          dir_rows, g[:, 0:1], g[:, 1:4], matmul_dtype, False, grads)
+        use_voxel = voxel_raw is not None
+        d_cat_s = _branch_bwd_plain(model.branch_layers("scene"), _prefixes(model, "scene"),
+                                    emb, dir_rows, g[:, 0:1], g[:, 1:4], matmul_dtype,
+                                    use_voxel, grads)
         d_codes = codes.new_zeros(codes.shape)
+        d_cat_o = None
         if forward_instance:
-            cat = torch.cat([emb, codes.repeat_interleave(s, dim=0)], dim=-1)
-            d_cat = _branch_bwd_plain(
+            pieces = [emb] + ([obj_voxel] if use_voxel else [])
+            cat = torch.cat(pieces + [codes.repeat_interleave(s, dim=0)], dim=-1)
+            d_cat_o = _branch_bwd_plain(
                 model.branch_layers("object"), _prefixes(model, "object"), cat, dir_rows,
                 g[:, 4:5], g[:, 5:8], matmul_dtype, True, grads)
-            d_codes = d_cat[:, emb.shape[1]:].reshape(n, s, -1).sum(dim=1)
+            d_codes = d_cat_o[:, -codes.shape[1]:].reshape(n, s, -1).sum(dim=1)
+        d_vox = None
+        if use_voxel:
+            raw = voxel_raw.reshape(n * s, -1).float()
+            c_s, c_i, nf = cfg.N_scn_voxel_size, cfg.N_obj_voxel_size, cfg.N_freq_voxel
+            c_in_s, w_s, w_i = emb.shape[1], c_s * (2 * nf + 1), c_i * (2 * nf + 1)
+            if d_cat_o is not None:  # the object branch reads the scene's columns too
+                d_cat_s = d_cat_s + d_cat_o[:, :c_in_s]
+            d_svox = _freq_encode_vjp(raw[:, :c_s], d_cat_s[:, :w_s], nf)
+            d_ivox = (_freq_encode_vjp(raw[:, c_s:], d_cat_o[:, c_in_s:c_in_s + w_i], nf)
+                      if d_cat_o is not None else raw.new_zeros(n * s, c_i))
+            d_vox = torch.cat([d_svox, d_ivox], dim=-1).reshape(n, s, c_s + c_i)
         for name, param in model.named_parameters():
             if name not in grads:
                 grads[name] = torch.zeros_like(param)
-    return grads, d_codes
+    return grads, d_codes, d_vox
 
 
 # ---------------------------------------------------------------------------
@@ -194,21 +239,19 @@ def mlp_bwd_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(cfg: ObjectNeRFConfig, xyz, dir_pe, codes) -> Tuple[int, int]:
-    if cfg.use_voxel_embedding:
-        raise NotImplementedError(
-            "the training kernels take no voxel operand yet (fused_mlp_eval / "
-            "fused_mlp_bwd with d_voxel_raw): the eval and density kernels do")
+def _check_inputs(cfg: ObjectNeRFConfig, xyz, dir_pe, codes, voxel_raw) -> Tuple[int, int]:
     n, s = xyz.shape[0], xyz.shape[1]
     _check_tensor("xyz", xyz, (n, s, 3), xyz.device)
     _check_tensor("dir_pe", dir_pe, (n, cfg.in_channels_dir), xyz.device)
     if codes is not None:
         _check_tensor("codes", codes, (n, cfg.N_obj_code_length), xyz.device)
+    _check_voxel_raw(cfg, voxel_raw, (n, s), xyz.device)
     return n, s
 
 
 def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, forward_instance: bool,
-                 compute_scene: bool) -> torch.Tensor:
+                 compute_scene: bool, voxel_raw: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Launch `mlp_eval_kernel`; returns the (n*S, 8) f32 output."""
     from ._build import check, load_library
 
@@ -221,10 +264,10 @@ def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, forward_instanc
     with torch.cuda.device(device):
         rc = lib.onerf_mlp_eval(
             xyz.data_ptr(), dir_pe.data_ptr(), _ptr(codes) if forward_instance else None,
-            packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
+            _ptr(voxel_raw), packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
             _tab(packed.obj) if forward_instance else None, out.data_ptr(), n, s,
             cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length,
-            int(forward_instance), int(compute_scene),
+            int(forward_instance), int(compute_scene), *_vox_args(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_mlp_eval")
@@ -279,17 +322,19 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                   dir_pe: torch.Tensor, codes: torch.Tensor, g: torch.Tensor,
                   forward_instance: bool = True, dtype=torch.bfloat16,
                   packed: Optional[PackedWeights] = None,
-                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                  voxel_raw: Optional[torch.Tensor] = None) -> BwdOut:
     """Backward of `fused_mlp_eval` given g (n*S, 8): ({parameter name:
-    gradient}, d_codes (n, C_code)). One persistent block per SM adds its
-    tiles' weight gradients into its own partial; a second kernel sums the
-    partials in block order, so the result is deterministic. On CPU tensors
-    this is `mlp_bwd_plain`."""
-    n, s = _check_inputs(cfg, xyz, dir_pe, codes)
+    gradient}, d_codes (n, C_code), d_voxel_raw (n, S, C_vox) f32 or None).
+    One persistent block per SM adds its tiles' weight gradients into its own
+    partial; a second kernel sums the partials in block order, and every row
+    of d_voxel_raw is written once, so the result is deterministic. On CPU
+    tensors this is `mlp_bwd_plain`."""
+    n, s = _check_inputs(cfg, xyz, dir_pe, codes, voxel_raw)
     device = xyz.device
     _check_tensor("g", g, (n * s, 8), device)
     if device.type == "cpu":
-        return mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, forward_instance, dtype)
+        return mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, forward_instance, dtype,
+                             voxel_raw)
 
     from ._build import check, load_library
 
@@ -298,8 +343,9 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
     _check_launch(cfg, dtype, s, packed, device, need_obj=forward_instance, need_heads=True)
     grads = {name: torch.zeros_like(p) for name, p in model.named_parameters()}
     d_codes = torch.zeros_like(codes)
+    d_vox = torch.empty_like(voxel_raw) if voxel_raw is not None else None
     if n == 0:
-        return grads, d_codes
+        return grads, d_codes, d_vox
     lib = load_library()
     rays_per_tile = 128 // s
     n_tiles = -(-n // rays_per_tile)
@@ -308,26 +354,27 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
     stride = nw + nb + (-(nw + nb)) % 8
     partials = torch.empty((n_blocks, stride), dtype=torch.float32, device=device)
     flat = torch.empty((stride,), dtype=torch.float32, device=device)
-    stash = torch.empty((n_blocks, lib.onerf_bwd_stash_elems()), dtype=torch.bfloat16,
-                        device=device)
+    stash = torch.empty((n_blocks, lib.onerf_bwd_stash_elems(int(voxel_raw is not None))),
+                        dtype=torch.bfloat16, device=device)
     with torch.cuda.device(device):
         rc = lib.onerf_mlp_bwd(
             xyz.data_ptr(), dir_pe.data_ptr(), codes.data_ptr() if forward_instance else None,
-            g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
-            _tab(packed.obj) if forward_instance else None, partials.data_ptr(),
-            flat.data_ptr(), stride, nw, stash.data_ptr(), d_codes.data_ptr(), n_blocks,
-            n, s, cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length,
-            int(forward_instance), torch.cuda.current_stream(device).cuda_stream,
+            _ptr(voxel_raw), g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+            _tab(packed.scene), _tab(packed.obj) if forward_instance else None,
+            partials.data_ptr(), flat.data_ptr(), stride, nw, stash.data_ptr(),
+            d_codes.data_ptr(), _ptr(d_vox), n_blocks, n, s, cfg.N_freq_xyz,
+            cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
+            *_vox_args(cfg), torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_mlp_bwd")
     launch_counts["fused_mlp_bwd"] += 1
     gw, gb = flat[:nw], flat[nw:nw + nb]
-    pe = cfg.xyz_pe_size
-    _unpack_branch(model, "scene", packed.scene, pe, cfg.in_channels_dir, gw, gb, grads)
+    c_in_s = cfg.in_channels_xyz
+    _unpack_branch(model, "scene", packed.scene, c_in_s, cfg.in_channels_dir, gw, gb, grads)
     if forward_instance:
-        _unpack_branch(model, "object", packed.obj, pe + cfg.N_obj_code_length,
+        _unpack_branch(model, "object", packed.obj, cfg.inst_channel_in,
                        cfg.in_channels_dir, gw, gb, grads)
-    return grads, d_codes
+    return grads, d_codes, d_vox
 
 
 # ---------------------------------------------------------------------------
@@ -339,37 +386,40 @@ class FusedMLP(torch.autograd.Function):
     """`fused_mlp_eval` with `fused_mlp_bwd` as its backward. The model's
     parameters enter as tensors (in `named_parameters()` order) so that
     autograd delivers their gradients; `ctx` keeps the inputs only, and the
-    backward recomputes every activation."""
+    backward recomputes every activation. `voxel_raw` may be None (a
+    classical model); otherwise its gradient is the kernel's d_voxel_raw."""
 
     @staticmethod
-    def forward(ctx, xyz, dir_pe, codes, model, cfg, forward_instance, dtype, *params):
+    def forward(ctx, xyz, dir_pe, codes, voxel_raw, model, cfg, forward_instance, dtype,
+                *params):
         ctx.model, ctx.cfg = model, cfg
         ctx.forward_instance, ctx.dtype = forward_instance, dtype
-        ctx.save_for_backward(xyz, dir_pe, codes)
+        ctx.save_for_backward(xyz, dir_pe, codes, voxel_raw)
         n, s = xyz.shape[0], xyz.shape[1]
         if xyz.device.type == "cpu":
             with torch.no_grad():
                 out = mlp_eval_plain(model, cfg, xyz, dir_pe, codes, forward_instance,
-                                     True, dtype)
+                                     True, dtype, voxel_raw)
             return tuple(o.contiguous() for o in out)
         # the bf16 copy of the weights, kept for the backward launch
         ctx.packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
         _check_launch(cfg, dtype, s, ctx.packed, xyz.device, need_obj=forward_instance,
                       need_heads=True)
-        out = _launch_eval(cfg, xyz, dir_pe, codes, ctx.packed, forward_instance, True)
+        out = _launch_eval(cfg, xyz, dir_pe, codes, ctx.packed, forward_instance, True,
+                           voxel_raw)
         return _split_out(out, n, s)
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb, g_isigma, g_irgb):
-        xyz, dir_pe, codes = ctx.saved_tensors
+        xyz, dir_pe, codes, voxel_raw = ctx.saved_tensors
         n, s = xyz.shape[0], xyz.shape[1]
         g = torch.cat([g_sigma.reshape(n * s, 1), g_rgb.reshape(n * s, 3),
                        g_isigma.reshape(n * s, 1), g_irgb.reshape(n * s, 3)], dim=-1)
-        grads, d_codes = fused_mlp_bwd(
+        grads, d_codes, d_vox = fused_mlp_bwd(
             ctx.model, ctx.cfg, xyz, dir_pe, codes, g.contiguous(), ctx.forward_instance,
-            ctx.dtype, packed=getattr(ctx, "packed", None))
+            ctx.dtype, packed=getattr(ctx, "packed", None), voxel_raw=voxel_raw)
         # sample positions and ray directions never feed trainable parameters
-        return (None, None, d_codes, None, None, None, None,
+        return (None, None, d_codes, d_vox, None, None, None, None,
                 *(grads[name] for name, _ in ctx.model.named_parameters()))
 
 
@@ -380,32 +430,29 @@ def fused_mlp_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                    dtype=torch.bfloat16,
                    packed: Optional[PackedWeights] = None) -> MLPOut:
     """Both MLP branches over all rays x samples, differentiable with respect
-    to the model's parameters and `codes`.
+    to the model's parameters, `codes` and `voxel_raw`.
 
-    xyz (n, S, 3), dir_pe (n, C_dir), codes (n, C_code), float32 ->
-    (sigma (n, S), rgb (n, S, 3), inst_sigma, inst_rgb); zeros for a branch
-    that is off. With `compute_scene=False` (the object branch alone), or
-    with `packed` (the model's `pack_kernel_weights(..., forward_instance)`,
-    packed once by a caller that renders many chunks from frozen weights),
-    the call is inference only."""
-    if voxel_raw is not None:
-        raise NotImplementedError(
-            "the training kernels take no voxel operand yet (fused_mlp_eval / "
-            "fused_mlp_bwd with d_voxel_raw): the eval and density kernels do")
-    n, s = _check_inputs(cfg, xyz, dir_pe, codes)
+    xyz (n, S, 3), dir_pe (n, C_dir), codes (n, C_code), voxel_raw (n, S,
+    C_vox) for a voxel-conditioned model (the raw trilinear features of the
+    samples), float32 -> (sigma (n, S), rgb (n, S, 3), inst_sigma, inst_rgb);
+    zeros for a branch that is off. With `compute_scene=False` (the object
+    branch alone), or with `packed` (the model's `pack_kernel_weights(...,
+    forward_instance)`, packed once by a caller that renders many chunks from
+    frozen weights), the call is inference only."""
+    n, s = _check_inputs(cfg, xyz, dir_pe, codes, voxel_raw)
     if codes is None:
         codes = xyz.new_zeros(n, cfg.N_obj_code_length)
     if packed is not None or not compute_scene:
         with torch.no_grad():
             if xyz.device.type == "cpu":
                 return mlp_eval_plain(model, cfg, xyz, dir_pe, codes, forward_instance,
-                                      compute_scene, dtype)
+                                      compute_scene, dtype, voxel_raw)
             if packed is None:
                 packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
             _check_launch(cfg, dtype, s, packed, xyz.device, need_obj=forward_instance,
                           need_heads=True)
             out = _launch_eval(cfg, xyz, dir_pe, codes, packed, forward_instance,
-                               compute_scene)
+                               compute_scene, voxel_raw)
             return _split_out(out, n, s)
-    return FusedMLP.apply(xyz, dir_pe, codes, model, cfg, forward_instance, dtype,
+    return FusedMLP.apply(xyz, dir_pe, codes, voxel_raw, model, cfg, forward_instance, dtype,
                           *model.parameters())

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel `dma_gather`
 table (`models/voxel_grid.voxel_lookup_dense`), one row of 8 x 24 channels per
 sample. The kernel is CUDA C++ for Hopper (`csrc/gather_rows.cu`, built by
 `_build.py`). On a CUDA table the wrapper launches it or raises; on a CPU
-table it runs `gather_rows_plain`, which sits beside it here. Inference only:
-the kernel carries no gradient (the plain version is differentiable).
+table it runs `gather_rows_plain`, which sits beside it here. The wrapper
+carries no gradient: the table gradient of a training step's lookups is the
+hand-written backward of `models/voxel_grid.CornerTable` (one
+`index_add_` segment-sum and the transpose of the table build).
 `launch_counts` counts kernel launches and nothing else.
 """
 

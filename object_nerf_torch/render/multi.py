@@ -28,6 +28,15 @@ final pass's maps are returned. Its math is that of the JAX package's
 `make_multi_eval_stages` (multi.py:323-590) without the split into 2K + 3
 separately compiled programs, which exists there for the TPU toolchain. On
 CUDA tensors both launch the kernels, on CPU tensors their plain versions.
+
+A voxel-conditioned model passes `voxel_ctx` = (features, topology, static[,
+corner table]) (`render/renderer.py`): every ray set's samples of each pass
+take one lookup of their raw voxel features (`lookup_voxel_raw`: `gather_rows`
+on the card, from the corner table the edit renderer builds once per frame,
+in bf16 when the kernels compute in bf16), which feeds the kernels' voxel
+operand (`fused_sigma_eval(voxel_raw=)`, `fused_mlp_eval(voxel_raw=)`), as
+the JAX package's `lookup` / `stage_prep` / `_sigma_kernel_stage`
+(multi.py:105-160, :326-590) do.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from ..ops.fused_mlp import PackedWeights, pack_kernel_weights
 from ..ops.fused_mlp_vjp import fused_mlp_eval, mlp_eval_plain
 from ..ops.fused_sigma import fused_sigma_eval
 from ..ops.sampling import sample_pdf, stratified_sample
-from .renderer import RenderSettings
+from .renderer import RenderSettings, VoxelCtx, lookup_voxel_raw
 
 MUTE_SIGMA = -1e5
 
@@ -224,11 +233,12 @@ class MultiDraws:
 def _eval_object(models: nn.Module, settings: RenderSettings, typ: str, instance_id: int,
                  xyz: torch.Tensor, z_vals: torch.Tensor, dir_pe: torch.Tensor,
                  codes: Optional[torch.Tensor], skip_boxes: Optional[SkipBoxes],
-                 plain: bool, packed: Optional[PackedWeights]):
+                 plain: bool, packed: Optional[PackedWeights], voxel_ctx: VoxelCtx = None):
     """(rgb (N, S, 3), muted sigma (N, S)) of one ray set: the scene branch
     alone for the background, the object branch alone for an object."""
     model = getattr(models, f"nerf_{typ}")
-    kw = dict(forward_instance=instance_id > 0, compute_scene=instance_id == 0)
+    kw = dict(forward_instance=instance_id > 0, compute_scene=instance_id == 0,
+              voxel_raw=lookup_voxel_raw(settings, voxel_ctx, xyz))
     if plain:
         out = mlp_eval_plain(model, settings.mlp, xyz, dir_pe, codes,
                              matmul_dtype=settings.matmul_dtype, **kw)
@@ -245,7 +255,7 @@ def render_rays_multi(models: nn.Module, rays_list: Sequence[torch.Tensor],
                       skip_boxes: Optional[SkipBoxes] = None,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[MultiDraws] = None, plain: bool = False,
-                      ) -> Dict[str, torch.Tensor]:
+                      voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     """Joint render of K ray sets (N, 8), or (N, 10) with a per-ray box-mask
     interval in channels 8:10 that clips the fine samples.
 
@@ -254,8 +264,9 @@ def render_rays_multi(models: nn.Module, rays_list: Sequence[torch.Tensor],
     given, else drawn from `generator`; with neither, `perturb` uses the
     default generator and no density noise is added. `plain` evaluates the
     models with `mlp_eval_plain` on any device (the f32 reference of a frame
-    rendered through the kernels). Returns both passes' `rgb_*`, `depth_*`,
-    `opacity_*`, `weights_*` and `z_vals_*` (inference only)."""
+    rendered through the kernels). `voxel_ctx`: a voxel-conditioned model's
+    grid (one lookup per ray set and pass). Returns both passes' `rgb_*`,
+    `depth_*`, `opacity_*`, `weights_*` and `z_vals_*` (inference only)."""
     ids = [int(i) for i in obj_instance_ids]
     if len(rays_list) != len(ids):
         raise ValueError(f"{len(rays_list)} ray sets for {len(ids)} object ids")
@@ -278,7 +289,7 @@ def render_rays_multi(models: nn.Module, rays_list: Sequence[torch.Tensor],
         for i in range(n_obj):
             rgb, sigma = _eval_object(models, settings, typ, ids[i],
                                       _sample_xyz(rays_list[i], zs[i]), zs[i], dir_list[i],
-                                      codes_list[i], skip_boxes, plain, None)
+                                      codes_list[i], skip_boxes, plain, None, voxel_ctx)
             rgbs.append(rgb)
             sigmas.append(sigma)
         return rgbs, sigmas
@@ -309,7 +320,7 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
                             obj_instance_ids: Sequence[int], settings: RenderSettings,
                             skip_boxes: Optional[SkipBoxes] = None,
                             packed: Optional[Dict[str, PackedWeights]] = None,
-                            ) -> Dict[str, torch.Tensor]:
+                            voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     """The deterministic multi-object render of one chunk: K ray sets (N, 8 or
     10) -> the final pass's `rgb_*`, `depth_*`, `opacity_*`.
 
@@ -318,7 +329,9 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
     otherwise), the joint coarse weights, `sample_pdf` per object; then
     `fused_mlp_eval` per ray set on the fine model with one branch on, muting
     and the joint composite. `packed`: `pack_multi_weights(...)`, packed here
-    (per call) when not given. Raises unless perturb == 0 and noise_std == 0;
+    (per call) when not given. `voxel_ctx`: a voxel-conditioned model's grid
+    with its frame's corner table, which every ray set's lookups of both
+    passes read. Raises unless perturb == 0 and noise_std == 0;
     `render_rays_multi` is the stochastic path."""
     if settings.perturb != 0 or settings.noise_std != 0:
         raise ValueError("the fused multi render is the deterministic eval path "
@@ -342,9 +355,11 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
         sigma_list = []
         for i in range(n_obj):
             xyz = _sample_xyz(rays_list[i], z_list[i])
+            raw = lookup_voxel_raw(settings, voxel_ctx, xyz)
             sigma = fused_sigma_eval(
                 models.nerf_coarse, cfg, xyz.reshape(-1, 3), codes_list[i],
                 branch="instance" if ids[i] > 0 else "scene", samples_per_row=n_samples,
+                voxel_raw=None if raw is None else raw.reshape(n * n_samples, -1),
                 dtype=settings.matmul_dtype, packed=packed.get("coarse"))
             sigma_list.append(_mute_sigma(sigma.reshape(n, n_samples), z_list[i],
                                           _removal_mask(xyz, ids[i], skip_boxes)))
@@ -360,7 +375,7 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
         rgb, sigma = _eval_object(models, settings, typ_final, ids[i],
                                   _sample_xyz(rays_list[i], z_list[i]), z_list[i],
                                   dir_list[i], codes_list[i], skip_boxes, False,
-                                  packed.get(typ_final))
+                                  packed.get(typ_final), voxel_ctx)
         rgb_list.append(rgb)
         sigma_list.append(sigma)
     results: Dict[str, torch.Tensor] = {}

@@ -19,11 +19,14 @@ kernels is plain tensor code under autograd.
 Voxel-conditioned models pass a `voxel_ctx` = (features, topology, static[,
 corner table]) (`models/voxel_grid.py`): the eval render looks the raw voxel
 features of each pass's samples up once per chunk (`lookup_voxel_raw`, from
-the prebuilt corner table, in bf16 when the kernels compute in bf16) and
-hands them to the kernels as their `voxel_raw` operand; the plain route of
-`render_rays` embeds them with `_embed_points`. The training kernels do not
-take the operand yet, so `render_rays` with a `voxel_ctx` runs with
-`plain=True` only.
+the frame's `voxel_grid.CornerTable`, in bf16 when the kernels compute in
+bf16) and hands them to the kernels as their `voxel_raw` operand.
+`render_rays` does the same under autograd: it builds ONE trainable
+`CornerTable` (the JAX split step's P1, `train/split_step.py:131-152`)
+unless `voxel_ctx` brings one, both passes read it, and the table gradient
+of both passes is one segment-sum and one transpose of the build. With
+`plain=True` the lookup and the MLP are the plain versions under autograd
+(`voxel_grid.PlainCornerTable`).
 
 The `rays_in_bbox` route (instance-weight pdf) is not ported yet; this
 module raises on it.
@@ -32,11 +35,13 @@ module raises on it.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..models import voxel_grid as vg
 from ..models.embedding import freq_encode
 from ..models.mlp import ObjectNeRFConfig
 from ..models.voxel_grid import voxel_embed, voxel_lookup_raw
@@ -89,23 +94,26 @@ class RenderSettings:
 
 
 # Voxel context: (features, topology, static[, corner_table]) or None for the
-# classical PE. The optional 4th element is a prebuilt eval-only corner table
-# (`models/voxel_grid.make_corner_table`), built once per frame by
-# `train.system.make_render_fn`.
+# classical PE. The optional 4th element is a prebuilt `voxel_grid.CornerTable`
+# (built once per frame by the eval renders, once per step by `render_rays`)
+# or its `PlainCornerTable`; without it each lookup builds its own table, or
+# takes the per-corner gathers of a grid too large for one.
 VoxelCtx = Optional[Tuple]
 
 
 def lookup_voxel_raw(settings: RenderSettings, voxel_ctx: VoxelCtx,
                       xyz: torch.Tensor) -> Optional[torch.Tensor]:
-    """Raw (n, S, C) voxel features for the fused kernels, or None: the one
-    place the fused passes fetch voxel features (from a bf16 corner table
-    when the kernels compute in bf16)."""
+    """Raw (n, S, C) voxel features of samples xyz (n, S, 3) for the fused
+    kernels, or None: the one place the passes fetch voxel features (from a
+    bf16 corner table when the kernels compute in bf16). A trainable table
+    (`voxel_ctx[3]` of a training step) looks up under autograd."""
     if voxel_ctx is None:
         return None
-    features, topo, static = voxel_ctx[:3]
-    ct = voxel_ctx[3] if len(voxel_ctx) > 3 else None
-    raw, _ = voxel_lookup_raw(features, topo, static, xyz.reshape(-1, 3), trilinear=True,
-                              lowp=settings.matmul_dtype == torch.bfloat16, ct=ct)
+    if len(voxel_ctx) > 3:
+        raw, _ = voxel_ctx[3].lookup(xyz.reshape(-1, 3))
+    else:  # a table of its own, or the per-corner gathers
+        raw, _ = voxel_lookup_raw(*voxel_ctx, xyz.reshape(-1, 3), trilinear=True,
+                                  lowp=settings.matmul_dtype == torch.bfloat16)
     return raw.reshape(xyz.shape[0], xyz.shape[1], -1).contiguous()
 
 
@@ -115,7 +123,7 @@ def _embed_points(xyz_flat: torch.Tensor, settings: RenderSettings, voxel_ctx: V
     if voxel_ctx is None:
         return freq_encode(xyz_flat, settings.mlp.N_freq_xyz), None
     features, topo, static = voxel_ctx[:3]
-    ct = voxel_ctx[3] if len(voxel_ctx) > 3 else None
+    ct = voxel_ctx[3].ct if len(voxel_ctx) > 3 else None
     return voxel_embed(features, topo, static, xyz_flat, n_freq_xyz=settings.mlp.N_freq_xyz,
                        ct=ct)
 
@@ -253,28 +261,39 @@ def _eval_models(model: nn.Module, settings: RenderSettings, xyz: torch.Tensor,
                  dir_pe: torch.Tensor, codes: Optional[torch.Tensor], plain: bool,
                  voxel_ctx: VoxelCtx = None):
     """Both branches over (N_rays, S) samples: the fused op (kernels on CUDA
-    tensors), or its plain version under autograd when `plain`. A voxel model
-    takes the plain route only: its inputs come from `_embed_points`."""
-    if voxel_ctx is not None:
-        if not plain:
-            raise NotImplementedError(
-                "the training kernels (fused_mlp_eval / fused_mlp_bwd) do not take the "
-                "voxel operand yet: render a voxel model with plain=True")
-        n, s, _ = xyz.shape
-        emb, obj_voxel = _embed_points(xyz.reshape(n * s, 3), settings, voxel_ctx)
-        dir_flat = dir_pe.repeat_interleave(s, dim=0)
-        sigma, rgb = model.scene_forward(emb, dir_flat, matmul_dtype=settings.matmul_dtype)
-        out = (sigma.reshape(n, s), rgb.reshape(n, s, 3))
-        if not settings.forward_instance:
-            return out + (xyz.new_zeros(n, s), xyz.new_zeros(n, s, 3))
-        i_sigma, i_rgb = model.instance_forward(
-            emb, codes.repeat_interleave(s, dim=0), obj_voxel, emb_dir=dir_flat,
-            matmul_dtype=settings.matmul_dtype)
-        return out + (i_sigma.reshape(n, s), i_rgb.reshape(n, s, 3))
-    fn = mlp_eval_plain if plain else fused_mlp_eval
-    kw = {"matmul_dtype" if plain else "dtype": settings.matmul_dtype}
-    return fn(model, settings.mlp, xyz.contiguous(), dir_pe, codes,
-              forward_instance=settings.forward_instance, **kw)
+    tensors), or its plain version under autograd when `plain`. A voxel
+    model's raw features come from the step's corner table (`voxel_ctx[3]`)
+    and enter either as their `voxel_raw` operand."""
+    voxel_raw = lookup_voxel_raw(settings, voxel_ctx, xyz)
+    if plain:
+        return mlp_eval_plain(model, settings.mlp, xyz, dir_pe, codes,
+                              forward_instance=settings.forward_instance,
+                              matmul_dtype=settings.matmul_dtype, voxel_raw=voxel_raw)
+    return fused_mlp_eval(model, settings.mlp, xyz.contiguous(), dir_pe, codes,
+                          voxel_raw=voxel_raw, forward_instance=settings.forward_instance,
+                          dtype=settings.matmul_dtype)
+
+
+def train_voxel_ctx(settings: RenderSettings, voxel_ctx: VoxelCtx,
+                    plain: bool = False) -> VoxelCtx:
+    """`voxel_ctx` with its trainable corner table, built here (once) unless
+    it brings one: the table of a training step, which both passes read. In
+    bf16 when the kernels compute in bf16; `plain` builds the plain version.
+    A grid whose table would exceed `DENSE_CELL_TABLE_LIMIT_BYTES` keeps the
+    per-corner gathers (plain tensor code under autograd), with a warning."""
+    if voxel_ctx is None or len(voxel_ctx) > 3:
+        return voxel_ctx
+    features, topo, static = voxel_ctx
+    if not vg.dense_path_ok(static):
+        warnings.warn(
+            f"voxel grid {static.shape} needs a "
+            f"{vg.dense_table_bytes(static) / (1 << 30):.2f} GiB dense corner table > "
+            f"{vg.DENSE_CELL_TABLE_LIMIT_BYTES / (1 << 30):.0f} GiB limit; training "
+            f"through the per-corner gathers")
+        return voxel_ctx
+    table = vg.PlainCornerTable if plain else vg.CornerTable
+    return (features, topo, static,
+            table(features, topo, static, lowp=settings.matmul_dtype == torch.bfloat16))
 
 
 def _composite_pass(results: Dict[str, torch.Tensor], settings: RenderSettings, typ: str,
@@ -311,10 +330,13 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
     The randomness is `draws` when given, else it is drawn from `generator`
     on the rays' device; with neither, `perturb` uses the default generator
     and no density noise is added (as with no key in the JAX package).
-    `plain` routes the MLP through `mlp_eval_plain` under autograd instead of
-    the fused op; a voxel-conditioned model (`voxel_ctx`) has that route
-    only, so far. Returns both passes' maps under the reference's keys
-    (`rgb_fine`, `opacity_instance_coarse`, `weights_coarse`, ...)."""
+    `plain` routes the MLP (and a voxel model's lookup) through the plain
+    versions under autograd instead of the fused op. A voxel-conditioned
+    model passes `voxel_ctx` = (features, topology, static[, trainable
+    corner table]); without the table one is built here, once for both
+    passes (`train_voxel_ctx`). Returns both passes' maps under the
+    reference's keys (`rgb_fine`, `opacity_instance_coarse`, `weights_coarse`,
+    ...)."""
     if settings.rays_in_bbox:
         raise ValueError("rays_in_bbox (instance-weight pdf, reference "
                          "rendering.py:228-229) is not ported yet")
@@ -325,6 +347,7 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
         draws = RenderDraws.sample(settings, rays.shape[0], rays.device, generator)
     d = draws
     codes = embedding_instance if settings.forward_instance else None
+    voxel_ctx = train_voxel_ctx(settings, voxel_ctx, plain)
 
     z_vals = stratified_sample(near, far, settings.N_samples, settings.use_disp,
                                settings.perturb, u=d.perturb if d else None)

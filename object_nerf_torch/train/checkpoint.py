@@ -12,7 +12,9 @@ there; loading those is not ported). A checkpoint is one file holding
   and density noise) and of the numpy batch sampler;
 * `voxel_topo`, `voxel_static`: a voxel-conditioned model's grid (the
   topology's tensors and the static's fields; the feature table is in the
-  state dict as `embedding_xyz.embedding_space_ftr.weight`), None otherwise.
+  state dict as `embedding_xyz.embedding_space_ftr.weight`), None otherwise:
+  a grid that progressive training pruned or subdivided comes back as it
+  was saved, with the optimizer state of its table.
   The JAX package stores the same two beside its params
   (`object_nerf_tpu/train/system.py:406-426`), so an eval or mesh run finds
   the grid its table rows are indexed by.

@@ -5,10 +5,11 @@ Counterpart of `object_nerf_tpu/train/system.py`: `init_params` (:46-60),
 `make_train_step` (:69-118, the monolithic step; the split-program
 schedule of the TPU is not ported), `make_render_fn` (:121-245) and
 `ObjectNeRFSystem` (:248-667: `training_step`, `render_image`,
-`validation`, `fit`). One train step is one eager PyTorch step: the
-stochastic `render_rays` (two launches of the fused forward kernel), the
-reference TotalLoss, autograd (two launches of the fused backward kernel),
-and the optimizer with its learning rate set from the schedule.
+`validation`, `on_epoch_start`, `fit`). One train step is one eager PyTorch
+step: the stochastic `render_rays` (two launches of the fused forward
+kernel), the reference TotalLoss, autograd (two launches of the fused
+backward kernel), and the optimizer with its learning rate set from the
+schedule.
 
 Randomness: initial weights and batch sampling come from CPU generators, so
 a seed means the same on every device; the perturbation and the density
@@ -20,13 +21,14 @@ default) carries its feature table under the reference's state-dict name
 `embedding_xyz.embedding_space_ftr.weight`; the grid's topology and static
 shape live beside the models (`ObjectNeRFSystem.voxel_topo`,
 `.voxel_static`). The eval render builds the corner table once per frame and
-hands it to every chunk. Training a voxel model is not ported yet: its
-`training_step` raises.
+hands it to every chunk; a training step builds one (bf16 on the card) that
+both passes read, two `gather_rows` launches, and takes the table gradient of
+both in one segment-sum (`render.renderer.train_voxel_ctx`). Under
+`train.progressive_train` the epoch hooks prune (every epoch > 2) and
+subdivide (epoch 5) the grid (`on_epoch_start`).
 
-Not ported: voxel training (the voxel operand of the training kernels, the
-table gradient, prune / subdivide and their epoch hooks), multi-device meshes
-(one device), the profiler hook, TensorBoard scalars and the validation image
-panel.
+Not ported: multi-device meshes (one device), the profiler hook, TensorBoard
+scalars and the validation image panel.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..models.code_library import CodeLibrary
 from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
 from ..ops.fused_mlp import pack_kernel_weights
+from ..ops.fused_sigma import fused_sigma_eval
 from ..render.renderer import (
     RenderDraws, RenderSettings, render_rays, render_rays_fused_eval,
 )
@@ -136,7 +139,7 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
         if use_voxel:
             voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
             if dense:
-                voxel_ctx += (vg.make_corner_table(
+                voxel_ctx += (vg.CornerTable(
                     models.voxel_features, voxel_topo, voxel_static,
                     lowp=settings.matmul_dtype == torch.bfloat16),)
         packed = {}
@@ -192,10 +195,13 @@ def render_image(models: ObjectNeRFModels, settings: RenderSettings, np_batch,
 
 class TrainStep:
     """One optimisation step: `step(models, batch, generator=None,
-    draws=None) -> metrics`. `batch` is a dict of tensors on the models'
-    device; `optimizer` must hold the models' parameters. `global_step`
-    counts the steps taken and indexes the learning-rate schedule (set it
-    when resuming). Metrics stay on the device: nothing here synchronises."""
+    draws=None, voxel_topo=None, voxel_static=None) -> metrics`. `batch` is a
+    dict of tensors on the models' device; `optimizer` must hold the models'
+    parameters. `global_step` counts the steps taken and indexes the
+    learning-rate schedule (set it when resuming). A voxel-conditioned
+    model's step takes its grid (`voxel_topo`, `voxel_static`) at call time:
+    pruning changes the topology, subdivision both. Metrics stay on the
+    device: nothing here synchronises."""
 
     def __init__(self, settings: RenderSettings, loss_weights: Mapping[str, float],
                  optimizer: torch.optim.Optimizer,
@@ -209,8 +215,13 @@ class TrainStep:
         self.global_step = 0
 
     def __call__(self, models: ObjectNeRFModels, batch, generator=None,
-                 draws: Optional[RenderDraws] = None) -> Dict[str, object]:
+                 draws: Optional[RenderDraws] = None,
+                 voxel_topo: Optional[vg.VoxelTopology] = None,
+                 voxel_static: Optional[vg.VoxelStatic] = None) -> Dict[str, object]:
         st = self.settings
+        if (voxel_static is not None) != st.mlp.use_voxel_embedding:
+            raise ValueError("a voxel-conditioned model needs its voxel_static, and no other "
+                             "model takes one")
         metrics: Dict[str, object] = {}
         if self.lr_schedule is not None:
             metrics["lr"] = self.lr_schedule(self.global_step)
@@ -218,9 +229,13 @@ class TrainStep:
         codes = None
         if st.forward_instance:
             codes = models.code_library(batch["instance_ids"])
+        voxel_ctx = None
+        if voxel_static is not None:
+            voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
         results = render_rays(models, batch["rays"], st, embedding_instance=codes,
                               pass_through_mask=batch.get("pass_through_mask"),
-                              generator=generator, draws=draws, plain=self.plain)
+                              generator=generator, draws=draws, plain=self.plain,
+                              voxel_ctx=voxel_ctx)
         loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance)
         typ = "fine" if st.N_importance > 0 else "coarse"
         with torch.no_grad():
@@ -238,9 +253,9 @@ class TrainStep:
 def make_train_step(settings: RenderSettings, loss_weights: Mapping[str, float],
                     optimizer: torch.optim.Optimizer, lr_schedule=None,
                     plain: bool = False) -> TrainStep:
-    """Build the train step (see `TrainStep`). `plain` routes the MLP
-    through the kernels' plain version under autograd on any device: the
-    reference a kernel-path step is checked against."""
+    """Build the train step (see `TrainStep`). `plain` routes the MLP and a
+    voxel model's lookup through their plain versions under autograd on any
+    device: the reference a kernel-path step is checked against."""
     return TrainStep(settings, loss_weights, optimizer, lr_schedule, plain)
 
 
@@ -338,14 +353,54 @@ class ObjectNeRFSystem:
 
     # -- public API ---------------------------------------------------------------
     def training_step(self, np_batch) -> Dict[str, object]:
-        if self.use_voxel:
-            raise NotImplementedError(
-                "training a voxel-conditioned model is not ported yet: it needs the voxel "
-                "operand of fused_mlp_eval / fused_mlp_bwd (with d_voxel_raw), the table "
-                "gradient and prune / subdivide. Train with model.use_voxel_embedding="
-                "false, or render and validate this model")
         return self.train_step(self.models, self._device_batch(np_batch),
-                               generator=self.generator)
+                               generator=self.generator, voxel_topo=self.voxel_topo,
+                               voxel_static=self.voxel_static)
+
+    def on_epoch_start(self, epoch: int) -> None:
+        """Progressive voxel training (reference train.py:140-145; the JAX
+        package's `on_epoch_start`, system.py:534-583): under
+        `train.progressive_train`, prune the grid at every epoch > 2 and
+        subdivide it at epoch 5.
+
+        The prune sweeps `train.prune_samples_per_voxel` jittered points
+        (default 16^3) per voxel, `train.prune_voxel_batch` voxels (default
+        256) at a time, through the fine model's scene density
+        (`fused_sigma_eval`: the kernel on the card, the plain f32 version on
+        CPU), its jitter drawn from the step generator. The subdivision
+        writes the resampled features into the same table parameter: the
+        table keeps its capacity, so every parameter keeps its shape and the
+        optimizer its state for all of them, the table's moments included,
+        as the JAX package's shape-matched graft of the Adam state keeps
+        them. The next step reads the new grid."""
+        cfg = self.config.train
+        if not (cfg.get("progressive_train", False) and self.use_voxel):
+            return
+        features = self.models.voxel_features
+        if epoch > 2:
+            model = (self.models.nerf_fine if self.models.nerf_fine is not None
+                     else self.models.nerf_coarse)
+            mlp = self.settings.mlp
+            spv = int(cfg.get("prune_samples_per_voxel", 16 ** 3))
+            packed = None
+            if self.device.type == "cuda":
+                packed = pack_kernel_weights(model, mlp, forward_instance=False,
+                                             sigma_only=True)
+
+            def sigma_fn(pts, voxel_raw):
+                return fused_sigma_eval(model, mlp, pts, None, "scene", spv,
+                                        voxel_raw=voxel_raw, dtype=self.settings.matmul_dtype,
+                                        packed=packed)
+
+            self.voxel_topo = vg.prune_empty_voxels(
+                features.detach(), self.voxel_topo, self.voxel_static, sigma_fn,
+                generator=self.generator, samples_per_voxel=spv,
+                voxel_batch=int(cfg.get("prune_voxel_batch", 256)))
+        if epoch == 5:
+            feats, self.voxel_topo, self.voxel_static = vg.subdivide_voxels(
+                features.detach(), self.voxel_topo, self.voxel_static)
+            with torch.no_grad():
+                features.copy_(feats)
 
     def render_image(self, np_batch, chunk: int = 4096) -> Dict[str, np.ndarray]:
         """Render a whole-image batch at eval settings; returns host arrays."""
@@ -381,7 +436,11 @@ class ObjectNeRFSystem:
         `train.nan_guard` (default on) raises when the loss is not finite; it
         looks every `train.nan_check_every` steps (default 50), and that
         host fetch is the only synchronisation of the loop besides
-        validation. Returns the metrics of every validation."""
+        validation. `on_epoch_start` runs before the first step of each epoch
+        that the loop begins from its step 0; a run resumed in the middle of
+        an epoch skips it for that epoch, since the checkpoint already holds
+        the grid as that epoch's hook left it (pruned or subdivided). Returns
+        the metrics of every validation."""
         callbacks = callbacks or []
         cfg = self.config.train
         batch_size = int(cfg.batch_size)
@@ -400,8 +459,10 @@ class ObjectNeRFSystem:
         history = []
         first_epoch, first_it = divmod(self.global_step, self.steps_per_epoch)
         for epoch in range(first_epoch, num_epochs):
-            t0 = time.time()
             start = first_it if epoch == first_epoch else 0
+            if start == 0:
+                self.on_epoch_start(epoch)
+            t0 = time.time()
             metrics = None
             for it in range(start, self.steps_per_epoch):
                 np_batch = self.train_dataset.sample_batch(batch_size, self.batch_rng)

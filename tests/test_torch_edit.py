@@ -377,8 +377,13 @@ def test_renderer_refuses_voxel_models_and_absent_cuda(desk_setup):
     conf, params = desk_setup
     voxel = Config(conf)
     voxel.ckpt_config.model.use_voxel_embedding = True
-    with pytest.raises(NotImplementedError, match="voxel"):
+    # a voxel-conditioned model renders with its grid (tests/test_torch_voxel_edit.py);
+    # without one, or a grid for a classical model, is refused
+    with pytest.raises(ValueError, match="voxel_grid"):
         EditableRenderer(voxel, models=_port_models(params), device="cpu")
+    with pytest.raises(ValueError, match="voxel_grid"):
+        EditableRenderer(Config(conf), models=_port_models(params), device="cpu",
+                         voxel_grid=("topology", "static"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             EditableRenderer(Config(conf), models=_port_models(params))  # default: cuda

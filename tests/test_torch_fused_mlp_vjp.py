@@ -11,6 +11,8 @@ The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,8 +115,9 @@ def test_mlp_bwd_plain_matches_jax_bwd_kernel(forward_instance):
         bwd_rows_budget=2 * S, dtype=jnp.float32, interpret=True)
     assert d_vox is None
     want = _jax_grads_as_port(d_params)
-    got, got_codes = fv.mlp_bwd_plain(model, CFG, _t(xyz), _t(dir_pe), _t(codes), _t(g),
-                                      forward_instance, torch.float32)
+    got, got_codes, got_vox = fv.mlp_bwd_plain(model, CFG, _t(xyz), _t(dir_pe), _t(codes),
+                                               _t(g), forward_instance, torch.float32)
+    assert got_vox is None
     assert set(got) == set(want) == {k for k, _ in model.named_parameters()}
     for k in want:
         assert got[k].shape == want[k].shape, k
@@ -158,8 +161,8 @@ def test_mlp_bwd_plain_matches_jax_grad_of_xla_path(forward_instance):
 
     d_params, d_codes = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(codes))
     want = _jax_grads_as_port(d_params)
-    got, got_codes = fv.mlp_bwd_plain(model, CFG, _t(xyz), _t(dir_pe), _t(codes), _t(g),
-                                      forward_instance, torch.float32)
+    got, got_codes, _ = fv.mlp_bwd_plain(model, CFG, _t(xyz), _t(dir_pe), _t(codes), _t(g),
+                                         forward_instance, torch.float32)
     for k in want:
         if np.abs(want[k]).max() == 0:
             assert float(got[k].abs().max()) == 0, k
@@ -183,8 +186,8 @@ def test_mlp_bwd_plain_matches_torch_autograd(forward_instance, dtype, tol):
     outs = fv.mlp_eval_plain(model, CFG, xyz, dir_pe, codes, forward_instance, True, dtype)
     model.zero_grad()
     sum((o * w).sum() for o, w in zip(outs, _split_g(g))).backward()
-    got, got_codes = fv.mlp_bwd_plain(model, CFG, xyz, dir_pe, codes.detach(), g,
-                                      forward_instance, dtype)
+    got, got_codes, _ = fv.mlp_bwd_plain(model, CFG, xyz, dir_pe, codes.detach(), g,
+                                         forward_instance, dtype)
     for k, p in model.named_parameters():
         if p.grad is None:
             assert float(got[k].abs().max()) == 0, k
@@ -209,12 +212,13 @@ def test_fused_mlp_function_on_cpu(forward_instance):
                              forward_instance=forward_instance, dtype=torch.float32)
     assert outs[0].grad_fn is outs[3].grad_fn
     saved = outs[0].grad_fn.saved_tensors
-    assert len(saved) == 3 and all(a is b for a, b in zip(saved, (xyz, dir_pe, codes)))
+    assert len(saved) == 4 and all(a is b for a, b in zip(saved[:3], (xyz, dir_pe, codes)))
+    assert saved[3] is None  # no voxel operand
     model.zero_grad()
     sum((o * w).sum() for o, w in zip(outs, _split_g(g))).backward()
     assert xyz.grad is None and dir_pe.grad is None
-    want, want_codes = fv.mlp_bwd_plain(model, CFG, xyz.detach(), dir_pe.detach(),
-                                        codes.detach(), g, forward_instance, torch.float32)
+    want, want_codes, _ = fv.mlp_bwd_plain(model, CFG, xyz.detach(), dir_pe.detach(),
+                                           codes.detach(), g, forward_instance, torch.float32)
     for k, p in model.named_parameters():
         np.testing.assert_array_equal(p.grad.numpy(), want[k].numpy(), err_msg=k)
     np.testing.assert_array_equal(codes.grad.numpy(), want_codes.numpy())
@@ -229,8 +233,16 @@ def test_wrappers_check_their_inputs():
         fv.fused_mlp_eval(model, CFG, xyz, dir_pe[:, :3].contiguous(), codes)
     with pytest.raises(ValueError, match="shape"):
         fv.fused_mlp_bwd(model, CFG, xyz, dir_pe, codes, g[:, :4].contiguous())
-    with pytest.raises(NotImplementedError, match="voxel"):
+    # the voxel operand goes with a voxel-conditioned model and with no other
+    with pytest.raises(ValueError, match="voxel_raw given to a model without"):
         fv.fused_mlp_eval(model, CFG, xyz, dir_pe, codes, voxel_raw=xyz)
+    with pytest.raises(ValueError, match="voxel_raw given to a model without"):
+        fv.fused_mlp_bwd(model, CFG, xyz, dir_pe, codes, g, voxel_raw=xyz)
+    vcfg = dataclasses.replace(CFG, use_voxel_embedding=True)
+    with pytest.raises(ValueError, match="voxel_raw required"):
+        fv.fused_mlp_eval(model, vcfg, xyz, dir_pe, codes)
+    with pytest.raises(ValueError, match="shape"):
+        fv.fused_mlp_eval(model, vcfg, xyz, dir_pe, codes, voxel_raw=xyz)
     assert set(fm.launch_counts) == {"fused_coarse_weights", "fused_render_tiles",
                                      "fused_mlp_eval", "fused_mlp_bwd",
                                      "fused_sigma_eval"}
@@ -379,7 +391,7 @@ def test_backward_dataflow_reproduces_plain_bf16():
     with torch.no_grad():
         packed = fm.pack_kernel_weights(model, cfg, True)
         got, got_codes = _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_blocks=2)
-        want, want_codes = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True)
+        want, want_codes, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True)
     assert set(got) == set(want)
     for k in want:
         assert got[k].shape == want[k].shape, k

@@ -104,6 +104,10 @@ def _rel(got, want):
     return ((got - want).abs().max() / (want.abs().max() + 1e-30)).item()
 
 
+def _nrel(got, want):
+    return ((got - want).norm() / (want.norm() + 1e-30)).item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,n", [(64, 5), (128, 3), (32, 9), (64, 2048), (128, 2048)])
 def test_train_kernels_match_plain_bf16_on_card(cuda_device, s, n):
@@ -121,8 +125,8 @@ def test_train_kernels_match_plain_bf16_on_card(cuda_device, s, n):
                 assert a.shape == b.shape
                 assert (a - b).abs().max().item() < FWD_TOL, (fi, cs)
         for fi in (True, False):
-            grads, d_codes = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, fi)
-            want, want_codes = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, cot, fi)
+            grads, d_codes, _ = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, fi)
+            want, want_codes, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, cot, fi)
             torch.cuda.synchronize()
             for k in want:
                 if want[k].abs().max() == 0:
@@ -141,8 +145,8 @@ def test_backward_kernel_is_deterministic_on_card(cuda_device):
     """Per-block partials summed in block order: two launches on the same
     inputs give the same bits."""
     cfg, model, xyz, dir_pe, codes, cot = _train_inputs(cuda_device, 700, 64)
-    a, ac = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot)
-    b, bc = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot)
+    a, ac, _ = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot)
+    b, bc, _ = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot)
     torch.cuda.synchronize()
     assert torch.equal(ac, bc)
     for k in a:
@@ -161,7 +165,7 @@ def test_autograd_function_launches_both_kernels_on_card(cuda_device):
     loss.backward()
     torch.cuda.synchronize()
     assert fm.launch_counts["fused_mlp_eval"] == 1 and fm.launch_counts["fused_mlp_bwd"] == 1
-    want, want_codes = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes.detach(), cot)
+    want, want_codes, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes.detach(), cot)
     for k, p in model.named_parameters():
         assert _rel(p.grad, want[k]) < BWD_REL_TOL, k
     assert _rel(codes.grad, want_codes) < BWD_REL_TOL
@@ -292,6 +296,99 @@ def test_voxel_sigma_kernel_matches_plain_bf16_on_card(cuda_device, n, per_row):
                                        voxel_raw=raw)
         torch.cuda.synchronize()
         assert (got - want).abs().max().item() < FWD_TOL, branch
+
+
+# -- the voxel operand of the training kernels, and the table gradient -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n", [(64, 37), (128, 19), (32, 9), (64, 2048), (128, 2048)])
+def test_voxel_train_kernels_match_plain_bf16_on_card(cuda_device, s, n):
+    """`fused_mlp_eval` and `fused_mlp_bwd` with the voxel operand against
+    their plain versions (ragged last tiles, and the training shapes): every
+    weight gradient, d_codes and d_voxel_raw; a second backward launch gives
+    the same bits."""
+    cfg, models, xyz, _, dir_pe, codes, raw = _voxel_setup(cuda_device, n, s)
+    model = models.nerf_fine
+    g = torch.Generator().manual_seed(9)
+    cot = (torch.randn(n * s, 8, generator=g).abs() * 1e-4).to(cuda_device)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        for fi, cs in ((True, True), (False, True), (True, False)):
+            got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw,
+                                    forward_instance=fi, compute_scene=cs)
+            want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, fi, cs, voxel_raw=raw)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape
+                assert (a - b).abs().max().item() < FWD_TOL, (fi, cs)
+        for fi in (True, False):
+            grads, d_codes, d_vox = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, fi,
+                                                     voxel_raw=raw)
+            want, want_codes, want_vox = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, cot,
+                                                          fi, voxel_raw=raw)
+            torch.cuda.synchronize()
+            for k in want:
+                if want[k].abs().max() == 0:
+                    assert grads[k].abs().max() == 0, k
+                else:
+                    assert _rel(grads[k], want[k]) < BWD_REL_TOL, (fi, k)
+            assert d_vox.shape == raw.shape and d_vox.dtype == torch.float32
+            # d_voxel_raw is per sample, so the two bf16 computations' drift does
+            # not average out (chip_smoke.py, VOX_DVOX_NORM_TOL): in norm within a
+            # quarter of the bf16 plain version's own distance to f32
+            _, _, v32 = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, cot, fi,
+                                         torch.float32, voxel_raw=raw)
+            assert _nrel(d_vox, want_vox) < 0.25 * _nrel(want_vox, v32), fi
+            if fi:
+                assert _rel(d_codes, want_codes) < BWD_REL_TOL
+            else:
+                assert d_codes.abs().max() == 0 and d_vox[..., 16:].abs().max() == 0
+        again = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, False, voxel_raw=raw)
+        torch.cuda.synchronize()
+        assert torch.equal(again[2], d_vox)
+        assert all(torch.equal(again[0][k], grads[k]) for k in grads)
+    assert fm.launch_counts["fused_mlp_eval"] == 3 and fm.launch_counts["fused_mlp_bwd"] == 3
+
+
+def _small_grid(device, seed=3):
+    rng = np.random.RandomState(seed)
+    pcd = rng.rand(4000, 3) * [1.2, 1.0, 0.8] - [0.6, 0.5, 0.4]
+    return vg.build_voxel_grid(pcd, [0.0, 0.0, 0.0], 1.0, 0.1, 3, 24, 6, 100000,
+                               generator=torch.Generator().manual_seed(seed), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True])
+def test_table_gradient_on_card(cuda_device, lowp):
+    """One trainable table, two lookups through `gather_rows`, one backward:
+    the hand-written table gradient against autograd of the plain version
+    (f32 build, index_select, the bf16 cast passed straight through). Both
+    sum in f32; index_add_'s order on the card is not fixed: 1e-5 relative."""
+    feats, topo, static = _small_grid(cuda_device)
+    g = torch.Generator().manual_seed(5)
+    pts = [(torch.rand(n, 3, generator=g) * 1.4 - 0.7).to(cuda_device) for n in (4096, 9000)]
+    wts = [torch.randn(len(p), 24, generator=g).to(cuda_device) for p in pts]
+
+    def run(table_cls):
+        f = feats.clone().requires_grad_()
+        table = table_cls(f, topo, static, lowp=lowp)
+        loss = sum((table.lookup(p)[0] * w).sum() for p, w in zip(pts, wts))
+        loss.backward()
+        return float(loss), f.grad
+
+    gather.reset_launch_counts()
+    vg.build_counts["corner_table"] = 0
+    loss, got = run(vg.CornerTable)
+    torch.cuda.synchronize()
+    assert gather.launch_counts["gather_rows"] == 2 and vg.build_counts["corner_table"] == 1
+    want_loss, want = run(vg.PlainCornerTable)
+    assert got.dtype == torch.float32 and abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert _rel(got, want) < 1e-5
+    # the lookup of features under autograd takes the same route on the card
+    f = feats.clone().requires_grad_()
+    out, _ = vg.voxel_lookup_dense(f, topo, static, pts[0], lowp=lowp)
+    (out * wts[0]).sum().backward()
+    assert f.grad is not None and float(f.grad.abs().max()) > 0
 
 
 # -- the gather and the probes ------------------------------------------------------

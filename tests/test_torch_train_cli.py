@@ -82,18 +82,20 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch)
     cfg = load_config(cli_args=[a for a in ARGS if a != "device=cpu"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ObjectNeRFSystem(cfg)  # no device given: cuda
-    # a voxel-conditioned system builds its grid and renders; training it waits
-    # for the training kernels' voxel operand
+    # a voxel-conditioned run of the CLI on the CPU, its grid from a written PLY
     from object_nerf_torch.data.ply_io import write_ply
 
-    write_ply(str(tmp_path / "pcd.ply"), np.random.RandomState(0).rand(200, 3) - 0.5)
-    cfg.model["use_voxel_embedding"] = True
-    cfg.dataset_extra.merge({"pcd_path": str(tmp_path / "pcd.ply"), "voxel_size": 0.25,
-                             "neighbor_marks": 3})
-    system = ObjectNeRFSystem(cfg, device="cpu")
-    assert system.voxel_static is not None and system.models.voxel_features is not None
-    with pytest.raises(NotImplementedError, match="voxel"):
-        system.training_step({})
+    write_ply(str(tmp_path / "pcd.ply"),
+              np.random.RandomState(0).rand(400, 3) * [2.4, 2.4, 1.2] - [1.2, 1.2, 0.2])
+    train_cli.main(_with(ARGS, **{"exp_name": "voxcli", "model.use_voxel_embedding": "true",
+                                  "model.N_freq_voxel": 2,
+                                  "dataset_extra.pcd_path": tmp_path / "pcd.ply",
+                                  "dataset_extra.voxel_size": 0.3,
+                                  "dataset_extra.neighbor_marks": 3}))
+    run = next(p for p in (tmp_path / "logs").iterdir() if p.name.endswith("voxcli"))
+    ckpt = torch.load(latest_checkpoint(run), map_location="cpu", weights_only=False)
+    assert ckpt["step"] == 40 and ckpt["voxel_static"] is not None
+    assert "embedding_xyz.embedding_space_ftr.weight" in ckpt["state_dict"]
 
 
 def _system(ckpt_path=None, **train_over):

@@ -150,8 +150,10 @@ def test_voxel_coarse_only_and_no_instance():
 
 
 def test_voxel_render_rays_plain_route_matches_jax_render_rays():
-    """The differentiable render shares `_embed_points`; its kernel route
-    raises until the training kernels take the voxel operand."""
+    """The differentiable render's plain route against the JAX package's; its
+    kernel route (the fused op and the step's trainable corner table, whose
+    plain versions run on CPU tensors) gives the same maps and the same
+    table gradient."""
     params, jgrid = jax_params(seed=13, cfg_jax=VCFG_JAX), _grid(2)
     jf, jt, js = jgrid
     r = _rays(12, seed=6)
@@ -172,11 +174,17 @@ def test_voxel_render_rays_plain_route_matches_jax_render_rays():
                                    atol=FINE_ATOL, rtol=RTOL, err_msg=k)
     # autograd reaches the feature table through the plain lookup
     got["rgb_fine"].sum().backward()
-    grad = models.embedding_xyz.embedding_space_ftr.weight.grad
-    assert grad is not None and float(grad.abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="voxel operand"):
-        render_rays(models, torch.from_numpy(r), _settings(), embedding_instance=codes,
-                    voxel_ctx=ctx)
+    table = models.embedding_xyz.embedding_space_ftr.weight
+    grad = table.grad.clone()
+    assert float(grad.abs().max()) > 0
+    table.grad = None
+    fused = render_rays(models, torch.from_numpy(r), _settings(), embedding_instance=codes,
+                        voxel_ctx=ctx)
+    for k in got:
+        np.testing.assert_allclose(fused[k].detach().numpy(), got[k].detach().numpy(),
+                                   atol=1e-6, rtol=1e-6, err_msg=k)
+    fused["rgb_fine"].sum().backward()
+    np.testing.assert_allclose(table.grad.numpy(), grad.numpy(), atol=1e-6, rtol=0)
 
 
 def test_render_fn_warns_and_takes_per_corner_route_above_the_table_limit(monkeypatch):
@@ -296,8 +304,11 @@ def test_voxel_system_renders_validates_and_round_trips_its_checkpoint(tmp_path)
     assert system.models.voxel_features.shape == (system.voxel_static.n_max_voxels, 24)
     metrics, maps = system.validation(chunk=16)
     assert np.isfinite(metrics["val/psnr"]) and np.isfinite(maps["rgb_fine"]).all()
-    with pytest.raises(NotImplementedError, match="training a voxel-conditioned model"):
-        system.training_step(system.train_dataset.sample_batch(32, system.batch_rng))
+    before = system.models.voxel_features.detach().clone()
+    m = system.training_step(system.train_dataset.sample_batch(32, system.batch_rng))
+    assert np.isfinite(float(m["train/loss"]))  # and the table trained with the MLPs
+    assert float((system.models.voxel_features.detach() - before).abs().max()) > 0
+    metrics, maps = system.validation(chunk=16)
 
     path = save_checkpoint(tmp_path / "ckpts", system, "voxel")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
