@@ -27,15 +27,24 @@ pruned and subdivided, and its edit render:
    frame is finite, and that four of its chunks agree with the f32 plain
    path;
 5. times the frame (median of a few, after a warm-up);
-6. holds the training kernels `fused_mlp_eval` and `fused_mlp_bwd` against
-   their plain versions at the training shapes (2048 rays x 64 and x 128
-   samples), the backward on the cotangent of a real loss, and times them;
+6. holds the backward's weight-gradient GEMM alone (wgmma on TMA-loaded
+   operands) against torch on a random workspace, prints the registers,
+   spills, stack frames and wgmma serialization of the backward's kernels
+   (`-Xptxas -v`) and counts the wgmma (HGMMA) and TMA (UTMALDG)
+   instructions in their machine code (`cuobjdump -sass`), then holds the
+   training kernels `fused_mlp_eval` and `fused_mlp_bwd` against their plain
+   versions at the training shapes (2048 rays x 64 and x 128 samples), the
+   backward on the cotangent of a real loss with a bit-equal relaunch, and
+   times them (the backward split into its sweep, its weight-gradient GEMM
+   and its reduction by `torch.profiler`) and reads the memory one backward
+   launch adds at its peak (held to its workspace and partials);
 7. trains: an `ObjectNeRFSystem` on the synthetic scene (batch 2048, 64 + 64
    samples, perturbation and density noise on, Adam, poly schedule) takes
    one step through the kernels and the same step through the plain bf16
    path from identical weights and draws (loss and gradients compared),
    then 24 more steps: every loss finite, the loss falling, exactly two
-   forward and two backward launches per step; times the step;
+   forward and two backward launches per step; times the step and reads its
+   peak device memory;
 8. holds the point-wise density kernel `fused_sigma_eval` against its plain
    version, both branches, at the edit chunk's 4096 x 64 points, and times it;
 9. renders one 320x240 edit frame with an `EditableRenderer` (background +
@@ -71,13 +80,16 @@ pruned and subdivided, and its edit render:
 15. holds `pe_probe` (each of its eight modes, a few tiles) and `scale_copy`
    against their plain versions, drives them once as the probe scripts do, and
    holds four modes at 983,040 rows against the plain version over every row
-   before it times them, and `scale_copy` against `torch.mul`;
+   before it times them; times `scale_copy` against `torch.mul` in turns
+   (library, kernel, kernel, library; 5 rounds of 200 launches, the L2 flushed
+   before each turn) and prints both medians and their spread;
 16. holds `fused_mlp_eval` and `fused_mlp_bwd` with the voxel operand against
    their plain versions at the training shapes (2048 x 64 and x 128, raw
    features from the step's bf16 corner table at real sample addresses), the
    backward on the cotangent of the real loss (weights, d_codes, d_voxel_raw)
-   with a bit-equal relaunch, times them, and times the step's table build,
-   lookups and table gradient alone;
+   with a bit-equal relaunch, times them (the backward by kernel), reads one
+   backward launch's peak memory, and times the step's table build, lookups
+   and table gradient alone;
 17. trains the voxel model (`ObjectNeRFSystem` on the room, batch 2048,
    64 + 64 samples, perturbation and noise on, Adam): one step through the
    kernels against the same step through the plain bf16 path (loss, every
@@ -146,6 +158,11 @@ STEPS_TIMED = 10
 # distance to f32 autograd printed beside each error, ~2e-2). Measured on an
 # H100: 3.6e-4; a wrong term or layout is off by O(1).
 BWD_TOL = 5e-3
+# the weight-gradient GEMM alone vs torch's f32 product of the same bf16
+# operands: the products are exact in f32, only the order of the sums differs
+# (4096 terms: ~1e-6 of the largest entry); a wrong descriptor, swizzle or
+# fragment mapping is off by O(1)
+WGRAD_TOL = 1e-4
 # gradients of a whole step, kernel path vs plain bf16 path: the two forward
 # passes already differ (KERNEL_TOL), hence the coarse weights, the
 # importance samples and the cotangents that enter the backward; measured
@@ -207,6 +224,9 @@ VOX_MESH_RANGES = {"x_range": [-1.2, 1.2], "y_range": [-1.2, 1.2], "z_range": [-
 VOX_MESH_F32_TOL = 5e-3
 # probes: shapes of the JAX package's scripts
 PROBE_ROWS, PROBE_TABLE_ROWS, PROBE_CHANNELS = 983040, 890000, 192
+# scale_copy against torch.mul: rounds of four turns, launches a turn, and the
+# buffer written before each turn to flush the 50 MB L2
+SC_ROUNDS, SC_LAUNCHES, SC_FLUSH_BYTES = 5, 200, 256 * 2 ** 20
 PROBE_CHECK_ROWS = 128 * 5 + 17  # a few tiles and a ragged one
 PROBE_TIMED_MODES = ("none", "combined", "combined_polysin", "split_polysin")
 # pe_probe vs its plain version, max abs over the rows relative to the largest
@@ -375,6 +395,173 @@ def _nrel(got, want) -> float:
     return ((got - want).norm() / (want.norm() + 1e-30)).item()
 
 
+# the backward's three kernels, by a piece of their (mangled or demangled) names
+BWD_KERNELS = {"sweep": "mlp_bwd_kernel", "weight_gradient": "wgrad_kernel",
+               "reduction": "reduce_segments_kernel"}
+
+
+def _ptxas_resources(names):
+    """{piece of a kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack_frame" (bytes), "wgmma_serialized" (ptxas's C7510: it serialized
+    the kernel's wgmma because their pipeline crosses a function call)}}
+    from the `-Xptxas -v` report kept beside the built library."""
+    import re
+
+    from object_nerf_torch.ops import _build
+
+    found, current = {}, None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "(C7510)" in line:
+            for k in names:
+                if k in line:
+                    found.setdefault(k, {})["wgmma_serialized"] = True
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            current = next((k for k in names if k in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        entry = found.setdefault(current, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    missing = [k for k in names if "registers" not in found.get(k, {})]
+    if missing:
+        raise SystemExit(f"no ptxas report for {missing} in the build log")
+    for k in names:
+        found[k].setdefault("wgmma_serialized", False)
+    return found
+
+
+def _sass_counts(names, opcodes=("HGMMA", "UTMALDG")):
+    """{piece of a kernel name: {opcode: count}} from `cuobjdump -sass` of
+    the built library: what the compiler emitted for each kernel."""
+    import shutil
+
+    from object_nerf_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, current = {k: {op: 0 for op in opcodes} for k in names}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in names if k in line), None)
+        elif current is not None:
+            for op in opcodes:
+                if op in line:
+                    counts[current][op] += 1
+    return counts
+
+
+def _bwd_split_ms(run, n: int):
+    """Device ms per launch of each of the backward's three kernels, from
+    torch.profiler over n launches of `run` (None where it saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    split = {k: 0.0 for k in BWD_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for part, piece in BWD_KERNELS.items():
+                if piece in e.key:
+                    split[part] += e.self_device_time_total / 1e3 / n
+    return {k: (v if v > 0 else None) for k, v in split.items()}
+
+
+def _fmt_split(split) -> str:
+    return ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.3f} ms")
+                     for k, v in split.items())
+
+
+# the backward's kernels as the build names them: the sweep's two
+# instantiations, the weight-gradient GEMM and the reduction
+BWD_INSTANTIATIONS = {"sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
+                      "weight gradient": "wgrad_kernel", "reduction": "reduce_segments_kernel"}
+
+
+def _bwd_build_report():
+    """Print the registers, spills, stack frame and wgmma serialization of
+    the backward's kernels and the tensor-core and TMA instructions in their
+    machine code; fail unless the weight-gradient kernel and both
+    instantiations of the sweep issue wgmma (HGMMA) and TMA loads (UTMALDG).
+    Returns both for the `kernels` line."""
+    res = _ptxas_resources(list(BWD_INSTANTIATIONS.values()))
+    sass = _sass_counts(list(BWD_INSTANTIATIONS.values()))
+    for label, key in BWD_INSTANTIATIONS.items():
+        r = res[key]
+        print(f"fused_mlp_bwd {label} ({key}): {r['registers']} registers, "
+              f"{r.get('spill_stores', 0)} bytes spill stores, {r.get('spill_loads', 0)} bytes "
+              f"spill loads, {r.get('stack_frame', 0)} bytes stack frame, wgmma serialized by "
+              f"ptxas: {r['wgmma_serialized']}; SASS: "
+              + ", ".join(f"{n} {op}" for op, n in sass[key].items()))
+    for label in ("weight gradient", "sweep, classical", "sweep, voxel"):
+        got = sass[BWD_INSTANTIATIONS[label]]
+        if not (got["HGMMA"] > 0 and got["UTMALDG"] > 0):
+            raise SystemExit(f"the backward's {label} issues no wgmma or no TMA load: {got}")
+    return {"ptxas": {k: res[v] for k, v in BWD_INSTANTIATIONS.items()},
+            "sass_counts": {k: sass[v] for k, v in BWD_INSTANTIATIONS.items()}}
+
+
+def _bwd_launch_peak(run, plan, packed, inputs: int) -> int:
+    """The device memory one backward launch adds at its peak, read by
+    `max_memory_allocated` around one launch of `run`: it must hold the
+    workspace of `plan` and its partials, and hold nothing more than those,
+    the gradients three times over (the f32 buffer in the packed layout, the
+    zeros each parameter's gradient starts from, their unpacked copies),
+    outputs as large as the `inputs` bytes (d_codes, d_voxel_raw) and 1 MiB
+    of small tables."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = plan.layout.nbytes + 4 * plan.n_parts
+    outputs = 12 * (packed.w.numel() + packed.b.numel()) + inputs
+    if not need <= peak <= need + outputs + 2 ** 20:
+        raise SystemExit(f"one backward launch adds {peak} bytes at its peak; its workspace "
+                         f"and partials are {need} bytes, its outputs at most {outputs}")
+    return peak
+
+
+def _bwd_report(plan, split, peak: int, rows_of_acts: int, peak_bytes: float) -> str:
+    """The backward's split by kernel, its workspace (the layout's size and
+    the measured peak of one launch) and its own traffic, for a printed
+    line."""
+    design = _bwd_design_bytes(plan, rows_of_acts)
+    return (f"; by kernel: {_fmt_split(split)}; workspace {plan.layout.nbytes / 1e9:.3f} GB "
+            f"by its layout, one launch adds {peak / 1e9:.3f} GB at its peak (measured); "
+            f"{len(plan.work.items)} weight-gradient items over {len(plan.work.slices)} row "
+            f"slices; its own workspace and partial traffic {design / 1e9:.2f} GB = "
+            f"{design / peak_bytes * 1e3:.3f} ms at the memory rate")
+
+
+def _bwd_design_bytes(plan, rows_of_acts: int) -> int:
+    """Device-memory traffic of the backward's own making: the workspace
+    written once, the activations read back by the sweep, every item's
+    boxes read by the weight-gradient kernel, the partials written and
+    read by the reduction."""
+    work = plan.work
+    read = sum((it[2] + it[3]) * (it[5] - it[4]) * 2 for it in work.items)
+    return (plan.layout.nbytes + rows_of_acts + read + 8 * work.n_floats
+            + 8 * plan.n_blocks * plan.small_stride)
+
+
 def _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch, loss_weights):
     """g (n*S, 8) of the training loss with respect to one pass's MLP outputs
     `outs` = (sigma, rgb, inst_sigma, inst_rgb) (the bf16 plain forward's)."""
@@ -433,6 +620,25 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     draws = RenderDraws.sample(settings, BATCH, dev, system.generator)
 
     # -- 6. the training kernels against their plain versions -----------------------
+    # first the backward's weight-gradient GEMM alone (wgmma on TMA-loaded
+    # MN-major operands) against torch on a random workspace: every item
+    # shape the work lists use, boxes away from column and row 0
+    gen = torch.Generator().manual_seed(SEED)
+    ws = torch.randn(4096, 1024, generator=gen).bfloat16().to(dev)
+    items, off = [], 0
+    for i, (m, n) in enumerate(((64, 64), (64, 128), (128, 64), (128, 128), (128, 256))):
+        items.append([64 * i, 512 + 64 * i, n, m, 64 * i, 4096 - 128 * i, off, 0])
+        off += m * n
+    got = fv.wgrad_gemm(ws, torch.tensor(items, dtype=torch.int32, device=dev), off)
+    want = fv.wgrad_gemm_plain(ws, items, off)
+    torch.cuda.synchronize()
+    e = _rel(got, want)
+    print(f"weight-gradient GEMM (wgmma, TMA) on a random (4096, 1024) workspace, items "
+          f"(m, n) in {sorted({(it[3], it[2]) for it in items})}: max |kernel - torch f32| / "
+          f"max |torch| = {e:.2e} (tol {WGRAD_TOL:g})")
+    if not e <= WGRAD_TOL:
+        raise SystemExit(f"the weight-gradient GEMM disagrees with torch: {e:.3e}")
+    del ws, got, want
     rays = batch["rays"]
     with torch.no_grad():
         codes = models.code_library(batch["instance_ids"]).contiguous()
@@ -463,6 +669,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
     plain_ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
     errs = {"fused_mlp_eval": 0.0, "fused_mlp_bwd": 0.0}
+    split = {}  # samples per ray -> the backward's ms by kernel
+    launch_peak = {}  # samples per ray -> the bytes one backward launch adds at its peak
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     pack_ms = 0.0
     for s_, (model, typ, xyz, z, noise, noise_inst) in shapes.items():
         with torch.no_grad():
@@ -477,8 +686,14 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         g = real_cotangent(model, typ, xyz, z, noise, noise_inst)
         with torch.no_grad():
             grads, d_codes, _ = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed)
+            again = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed)
             want_g, want_c, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g)
             torch.cuda.synchronize()
+        same = torch.equal(again[1], d_codes) and all(torch.equal(again[0][k], grads[k])
+                                                      for k in grads)
+        del again
+        if not same:
+            raise SystemExit("two launches of the backward on the same inputs differ")
         # f32 autograd of the f32 plain forward, for scale only (not gated)
         outs32 = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, matmul_dtype=torch.float32)
         params = dict(model.named_parameters())
@@ -494,7 +709,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         print(f"fused_mlp_bwd {tuple(xyz.shape)}, g of the real loss (|g| <= "
               f"{g.abs().max().item():.1e}): max over {len(e)} tensors of |kernel - plain "
               f"bf16| / max|plain| = {e[worst]:.2e} at {worst} (tol {BWD_TOL:g}); median "
-              f"{statistics.median(e.values()):.2e}; plain bf16 vs f32 autograd {e32:.2e}")
+              f"{statistics.median(e.values()):.2e}; plain bf16 vs f32 autograd {e32:.2e}; "
+              f"relaunch bit-equal: {same}")
         errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e[worst])
         with torch.no_grad():
             ms["fused_mlp_eval"][s_] = _cuda_ms(
@@ -503,6 +719,14 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             ms["fused_mlp_bwd"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
                 TIMED_LAUNCHES)
+            split[s_] = _bwd_split_ms(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
+                TIMED_LAUNCHES)
+            rows = BATCH * s_
+            launch_peak[s_] = _bwd_launch_peak(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
+                fv.bwd_plan(packed, cfg, rows, n_sm, min(rows // 128, n_sm)), packed,
+                4 * codes.numel())
             plain_ms["fused_mlp_eval"][s_] = _cuda_ms(
                 lambda: fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes), 3)
             plain_ms["fused_mlp_bwd"][s_] = _cuda_ms(
@@ -532,12 +756,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
 
     # bounds: operations at the dense bf16 peak; bytes that must move (inputs
     # once, outputs once, the packed weights once). The backward design's own
-    # traffic (stash written and read, per-tile read-modify-write of the
-    # block's partial gradients, the partials read by the reduction) is
-    # printed beside it.
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    stash_row = 2 * ((cfg.D + 1) * cfg.W + cfg.W // 2 + (cfg.inst_D + 1) * cfg.inst_W
-                     + cfg.inst_W // 2)
+    # traffic (the workspace written, read back by the sweep and by the
+    # weight-gradient kernel, the partials) is printed beside it.
+    acts_row = 2 * (cfg.D * cfg.W + cfg.inst_D * cfg.inst_W)  # read back for the masks
     w_bytes = 2 * packed.w.numel() + 4 * packed.b.numel()
     g_bytes = 4 * (packed.w.numel() + packed.b.numel())
     entries = []
@@ -556,11 +777,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             bound[s_], by[s_] = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
             extra = ""
             if name == "fused_mlp_bwd":
-                tiles = rows // 128
-                design = (rows * (2 * stash_row - cfg.W - cfg.inst_W)  # dir act. not re-read
-                          + 2 * g_bytes * tiles + g_bytes * min(tiles, n_sm))
-                extra = (f"; its own stash and partial-gradient traffic {design / 1e9:.2f} GB "
-                         f"= {design / peak_bytes * 1e3:.3f} ms at the memory rate")
+                plan = fv.bwd_plan(packed, cfg, rows, n_sm, min(rows // 128, n_sm))
+                extra = _bwd_report(plan, split[s_], launch_peak[s_], rows * acts_row,
+                                    peak_bytes)
             print(f"{name} ({BATCH}, {s_}): {ms[name][s_]:.3f} ms/launch, plain "
                   f"{plain_ms[name][s_]:.3f} ms, bound {bound[s_]:.3f} ms ({by[s_]}: "
                   f"{2 * macs * rows / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), "
@@ -578,6 +797,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             "bound_ms": sum(bound.values()), "bound_by": by[N_SAMPLES], "library_ms": None,
             "ms_by_samples": ms[name], "bound_ms_by_samples": bound,
         })
+    entries[1]["split_ms_by_samples"] = split
+    entries[1]["launch_peak_bytes_by_samples"] = launch_peak
+    entries[1].update(_bwd_build_report())
     print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
 
     # -- 7. the training path -----------------------------------------------------------
@@ -653,6 +875,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         return out
 
     system.optimizer.step = timed_optimizer_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(STEPS_TIMED):
         np_batch = system.train_dataset.sample_batch(BATCH, rng)
         torch.cuda.synchronize()
@@ -661,6 +885,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     system.optimizer.step = optimizer_step
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"train step: peak device memory {step_peak / 1e9:.3f} GB (max_memory_allocated "
+          f"over the timed steps)")
     opt_ms = statistics.median(a.elapsed_time(b) for a, b in opt_events)
     step_ms = statistics.median(times) * 1e3
     k_fwd, k_bwd = sum(ms["fused_mlp_eval"].values()), sum(ms["fused_mlp_bwd"].values())
@@ -1519,13 +1746,41 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
                   f"{flop / ms[mode] / 1e9:.1f} TFLOP/s achieved; max |kernel - plain| / max "
                   f"|plain| over all rows {full_errs[mode]:.2e} (tol {PROBE_REL_TOL:g})")
         nbytes = 2 * 4 * y.numel()
-        sc_ms = _cuda_ms(lambda: probes.scale_copy(y), 50)
         sc_plain = _cuda_ms(lambda: probes.scale_copy_plain(y), 50)
-        sc_lib = _cuda_ms(lambda: torch.mul(y, 2.0), 50)
+        # scale_copy against torch.mul in turns (library, kernel, kernel,
+        # library), SC_LAUNCHES launches a turn between two CUDA events, the
+        # L2 flushed before each turn; ms per launch of each turn
+        flush = torch.empty(SC_FLUSH_BYTES // 4, device=dev)
+        turns = {"kernel": [], "torch.mul": []}
+        fns = {"kernel": lambda: probes.scale_copy(y), "torch.mul": lambda: torch.mul(y, 2.0)}
+        for fn in fns.values():
+            fn()
+        for _ in range(SC_ROUNDS):
+            for name in ("torch.mul", "kernel", "kernel", "torch.mul"):
+                flush.zero_()
+                ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev[0].record()
+                for _ in range(SC_LAUNCHES):
+                    fns[name]()
+                ev[1].record()
+                torch.cuda.synchronize()
+                turns[name].append(ev[0].elapsed_time(ev[1]) / SC_LAUNCHES)
+        del flush
+        sc_ms, sc_lib = statistics.median(turns["kernel"]), statistics.median(turns["torch.mul"])
+        spread = {k: max(v) - min(v) for k, v in turns.items()}
+        slower = sc_ms - sc_lib > max(spread.values())
         sc_bound, sc_by = _bound(y.numel(), nbytes, peak_flops, peak_bytes)
-        print(f"scale_copy {tuple(y.shape)}: {sc_ms:.4f} ms/launch "
-              f"({nbytes / sc_ms / 1e6:.0f} GB/s), plain {sc_plain:.4f} ms, torch.mul "
-              f"{sc_lib:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}: {nbytes / 1e6:.1f} MB)")
+        print(f"scale_copy {tuple(y.shape)} vs torch.mul, {SC_ROUNDS} rounds of library, "
+              f"kernel, kernel, library, {SC_LAUNCHES} launches a turn, L2 flushed between "
+              f"turns: kernel median {sc_ms:.5f} ms (spread {spread['kernel']:.5f}; turns "
+              + " ".join(f"{t:.5f}" for t in turns["kernel"]) + f"), torch.mul median "
+              f"{sc_lib:.5f} ms (spread {spread['torch.mul']:.5f}; turns "
+              + " ".join(f"{t:.5f}" for t in turns["torch.mul"]) + f"); kernel - library "
+              f"{sc_ms - sc_lib:+.5f} ms: "
+              + ("slower by more than the spread" if slower else "within the spread")
+              + f"; plain {sc_plain:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}: "
+              f"{nbytes / 1e6:.1f} MB), kernel at {100 * sc_bound / sc_ms:.1f} % of its bound, "
+              f"{nbytes / sc_ms / 1e6:.0f} GB/s")
     return [
         {"name": "pe_probe", "route": "cuda",
          "source": "object_nerf_torch/ops/csrc/probes.cu",
@@ -1542,7 +1797,8 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
          "replaces": "scripts/profile_voxel_split.py:130", "launches": launches["scale_copy"],
          "max_abs_err": 0.0, "tol": 0.0, "err_is": "bit-equal to 2 x",
          "ms": sc_ms, "plain_ms": sc_plain, "bound_ms": sc_bound, "bound_by": sc_by,
-         "library_ms": sc_lib},
+         "library_ms": sc_lib, "ms_spread": spread["kernel"],
+         "library_ms_spread": spread["torch.mul"], "slower_than_library": slower},
     ]
 
 
@@ -1657,11 +1913,13 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
 
     names = ("sigma", "rgb", "inst_sigma", "inst_rgb")
     out = {"fused_mlp_eval": {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}},
-           "fused_mlp_bwd": {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}}}
+           "fused_mlp_bwd": {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}, "split": {},
+                             "launch_peak": {}}}
     # the bound counts the model's own input columns and the input gradients
     # that have a consumer; the kernels perform more (their padded tile, and
     # the 128-column chunks of the input gradient), printed beside it
     k0_pad, grad_cols = fused_mlp.input_tile_columns(cfg), _voxel_grad_cols(cfg)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     grad_cols_pad = (256, 448)
     n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
     dvox_err = {"max": 0.0, "norm": 0.0}
@@ -1716,6 +1974,14 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             out["fused_mlp_bwd"]["ms"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
                                          voxel_raw=raw), TIMED_LAUNCHES)
+            out["fused_mlp_bwd"]["split"][s_] = _bwd_split_ms(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
+                                         voxel_raw=raw), TIMED_LAUNCHES)
+            out["fused_mlp_bwd"]["launch_peak"][s_] = _bwd_launch_peak(
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
+                                         voxel_raw=raw),
+                fv.bwd_plan(packed, cfg, rows, n_sm, min(rows // 128, n_sm)), packed,
+                4 * codes.numel() + 4 * raw.numel())
             out["fused_mlp_eval"]["plain_ms"][s_] = _cuda_ms(
                 lambda: fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw), 3)
             out["fused_mlp_bwd"]["plain_ms"][s_] = _cuda_ms(
@@ -1732,11 +1998,17 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
                  + 4 * (packed.w.numel() + packed.b.numel()) + 4 * BATCH * cfg.N_obj_code_length)):
             b_ms, b_by = _bound(2 * macs * rows, nbytes, peak_flops, peak_bytes)
             out[name]["bound_ms"][s_], out[name]["bound_by"] = b_ms, b_by
+            extra = ""
+            if name == "fused_mlp_bwd":
+                plan = fv.bwd_plan(packed, cfg, rows, n_sm, min(rows // 128, n_sm))
+                acts_row = 2 * (cfg.D * cfg.W + cfg.inst_D * cfg.inst_W)
+                extra = _bwd_report(plan, out[name]["split"][s_],
+                                    out[name]["launch_peak"][s_], rows * acts_row, peak_bytes)
             print(f"{name} voxel ({BATCH}, {s_}): {out[name]['ms'][s_]:.3f} ms/launch, plain "
                   f"{out[name]['plain_ms'][s_]:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
                   f"{macs} multiply-adds per row, {2 * macs * rows / 1e12:.3f} TFLOP; the "
                   f"kernel's padded tile performs {pad_macs}), "
-                  f"{2 * macs * rows / out[name]['ms'][s_] / 1e9:.1f} TFLOP/s achieved")
+                  f"{2 * macs * rows / out[name]['ms'][s_] / 1e9:.1f} TFLOP/s achieved{extra}")
         del grads, again, want_g, v32
     if not out["fused_mlp_eval"]["err"] <= KERNEL_TOL:
         raise SystemExit(f"fused_mlp_eval with the voxel operand disagrees with its plain "
@@ -1828,8 +2100,11 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     for _ in range(TRAIN_STEPS):
         losses.append(system.training_step(system.train_dataset.sample_batch(BATCH, rng))
                       ["train/loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     times = timed_steps(STEPS_TIMED)
     torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated(dev)
     n_steps = TRAIN_STEPS + STEPS_TIMED
     launches, n_gather, n_build = counts()
     losses = [float(x) for x in losses]
@@ -1848,6 +2123,8 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         raise SystemExit("the voxel loss did not fall")
     step_ms = statistics.median(times) * 1e3
     k_ms = sum(out["fused_mlp_eval"]["ms"].values()) + sum(out["fused_mlp_bwd"]["ms"].values())
+    print(f"voxel train step: peak device memory {step_peak / 1e9:.3f} GB "
+          f"(max_memory_allocated over the timed steps)")
     print(f"voxel train step: {step_ms:.2f} ms median of {STEPS_TIMED} (all: "
           f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (step_ms / 1e3):.0f} rays/s; "
           f"kernels {k_ms:.2f} ms (forward {sum(out['fused_mlp_eval']['ms'].values()):.2f}, "
@@ -2189,7 +2466,7 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used " in line or "spill" in line:
                 print("  ptxas:", line.strip())
 
     # -- 3. each kernel against its plain version ------------------------------
@@ -2378,6 +2655,8 @@ def main() -> int:
         entry["voxel_ms_by_samples"] = v["ms"]
         entry["voxel_bound_ms_by_samples"] = v["bound_ms"]
         if name == "fused_mlp_bwd":
+            entry["voxel_split_ms_by_samples"] = v["split"]
+            entry["voxel_launch_peak_bytes_by_samples"] = v["launch_peak"]
             entry["d_voxel_raw_max_err"] = v["dvox_err"]["max"]
             entry["d_voxel_raw_norm_err"] = v["dvox_err"]["norm"]
             entry["d_voxel_raw_norm_tol"] = VOX_DVOX_NORM_TOL

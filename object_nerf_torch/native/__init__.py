@@ -7,9 +7,11 @@ is host code, not a device kernel: the density grid it walks comes off the
 GPU. The numpy implementation (`tools/marching.py`) stays selectable and is
 its parity oracle.
 
-Build model: one shared object per source, compiled at first use into
-`object_nerf_torch/_build/<name>-<source hash>.so` (a stale binary is never
-picked up after a source edit). Without a toolchain (no `g++` on the PATH)
+Build model: one shared object per source, compiled at first use with
+`-march=native` into `object_nerf_torch/_build/<name>-<source hash>-<CPU
+tag>.so`: a stale binary is never picked up after a source edit, and one
+built for another CPU (a `_build/` directory carried to another host) is
+never loaded. Without a toolchain (no `g++` on the PATH)
 `load_marching_lib` returns None and the caller takes the numpy path, saying
 so; a build that fails where there is a compiler raises with the compiler's
 messages.
@@ -18,8 +20,10 @@ messages.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,18 +36,37 @@ BUILD_DIR = _DIR.parent / "_build"
 _lib_cache: dict = {}
 
 
+@functools.lru_cache(maxsize=None)
+def host_cpu_tag() -> str:
+    """A short hash of what `-march=native` compiles for: the machine type
+    and, where /proc/cpuinfo exists, its first `model name` and `flags`
+    lines."""
+    h = hashlib.sha256(platform.machine().encode())
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        lines = []
+    for key in ("model name", "flags"):
+        h.update(next((ln for ln in lines if ln.startswith(key)), "").encode())
+    return h.hexdigest()[:8]
+
+
+def library_name(name: str, source: bytes, cpu_tag: str) -> str:
+    """The cached library's file name: the source's hash and the CPU tag."""
+    return f"{name}-{hashlib.sha256(source).hexdigest()[:16]}-{cpu_tag}.so"
+
+
 def _compile(name: str):
     """Compile native/<name>.cpp -> the cached .so path, or None where there
     is no g++."""
     src = _DIR / f"{name}.cpp"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{tag}.so"
+    out = BUILD_DIR / library_name(name, src.read_bytes(), host_cpu_tag())
     if out.exists():
         return out
     if shutil.which("g++") is None:
         return None  # no toolchain: the caller takes numpy
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    # -march=native is safe: the .so is built on the host that runs it
+    # -march=native is safe: the name carries the CPU tag of the host that runs it
     cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17",
            str(src), "-o", str(tmp)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,11 @@ shared library with a plain C interface, at first use, into
 their shared headers and the flags, so an edited source is rebuilt and a
 stale library is never loaded. The library is bound with `ctypes`: every
 pointer and the stream pass as `c_void_p`, every launcher returns
-`cudaGetLastError()`.
+`cudaGetLastError()`. It links against the CUDA runtime alone: the TMA
+tensor maps of the backward's kernels (the sweep's weights, the weight-gradient
+kernel's workspace) are encoded by the
+driver's `cuTensorMapEncodeTiled`, which the runtime hands over at run time
+(`cudaGetDriverEntryPoint`), so the link line needs no `-lcuda`.
 
 Nothing here runs when the module is imported: the CPU tests import it on
 machines with no `nvcc`.
@@ -41,8 +45,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+    "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                      _P, _I, _P, _P, _I, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_wgrad": [_P, _I, _I, _P, _I, _P, _P],
     "onerf_sigma_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_gather_rows": [_P, _P, _P, _L, _I, _P],
     "onerf_pe_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -122,8 +128,6 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.onerf_error_string.argtypes = [ctypes.c_int]
     lib.onerf_error_string.restype = ctypes.c_char_p
-    lib.onerf_bwd_stash_elems.argtypes = [ctypes.c_int]
-    lib.onerf_bwd_stash_elems.restype = ctypes.c_longlong
     return lib
 
 

@@ -350,15 +350,17 @@ __device__ __forceinline__ float voxel_input_value(
 // Fill the voxel input tile of tile number `tile`: rows are the flat samples
 // tile * 128 .. + 127 of n_rows (rows past the end are zero), row g takes the
 // code row g / per_code (per_code = S for a tile of whole rays). Columns
-// [0, ncols) of X (leading dimension LDX_V) are written; `stage` is
+// [0, ncols) of X (leading dimension ldx) are written; `stage` is
 // ROWS * (3 + c_s + c_i) floats that nothing else uses until the tile is
-// built (the H buffer). z values go to zs when z is given.
+// built (the H buffer). z values go to zs when z is given. `ldx`: X's
+// leading dimension when X is not a shared-memory tile.
 __device__ void load_inputs_vox(int tile, const float* __restrict__ xyz,
                                 const float* __restrict__ z,
                                 const float* __restrict__ vox,
                                 const float* __restrict__ codes, long long n_rows,
                                 int per_code, int n_freq, VoxDims d, int code_len,
-                                bool inst, int ncols, bf16* X, float* zs, float* stage) {
+                                bool inst, int ncols, bf16* X, float* zs, float* stage,
+                                int ldx = LDX_V) {
   const long long g0 = (long long)tile * ROWS;
   const int cv = d.c_s + d.c_i;
   float* xyz_s = stage;
@@ -380,7 +382,7 @@ __device__ void load_inputs_vox(int tile, const float* __restrict__ xyz,
           xyz_s + r * 3, vox_s + r * cv, c, d, n_freq, inst,
           inst && codes != nullptr ? codes + (size_t)(g / per_code) * code_len : nullptr,
           code_len);
-    X[r * LDX_V + c] = __float2bfloat16(v);
+    X[(size_t)r * ldx + c] = __float2bfloat16(v);
   }
 }
 

@@ -26,6 +26,14 @@ the eval kernels' tile of 128 rows of whole rays, hence their restriction to
 `KERNEL_SAMPLES` samples per ray. `launch_counts` (shared with
 `fused_mlp.py`) counts kernel launches and nothing else.
 
+The backward runs in three launches: a sweep over the tiles that writes
+every product input and rounded d_pre of the weight gradients into a
+row-major workspace (`bwd_workspace_layout`), a split-K GEMM over a work list
+(`wgrad_work_list`) that contracts them over all rows, and a reduction that
+adds the partial sums in a fixed order (`bwd_plan` puts the three together).
+The layout and the work list are built here, where the CPU tests reach them,
+and passed to the kernels as small tables.
+
 A voxel-conditioned model takes `voxel_raw` (n, S, 16 + 8), the raw trilinear
 features of its samples, as the eval kernels do: the input row is
 `[svox | PE(svox) | xyz | PE(xyz)]` for the scene branch and that followed by
@@ -36,16 +44,18 @@ chain of the frequency encoding, in f32 (`_freq_encode_vjp`).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from .fused_mlp import (
-    MAX_DIR, T_DIRB, T_DIRWD, T_DIRWH, T_FINB, T_FINW, T_K0, T_RGBB, T_RGBW,
-    T_SIGB, T_SIGW, T_TB, T_TW, PackedWeights, _check_launch, _check_tensor,
-    _check_voxel_raw, _ptr, _tab, _vox_args, check_voxel_operand, launch_counts,
-    pack_kernel_weights,
+    MAX_DIR, OBJ_W, SCENE_W, T_DEPTH, T_DIRB, T_DIRWD, T_DIRWH, T_FINB, T_FINW, T_K0,
+    T_LEN, T_RGBB, T_RGBW, T_SIGB, T_SIGW, T_SKIPS, T_TB, T_TW, PackedWeights,
+    _check_launch, _check_tensor, _check_voxel_raw, _ptr, _tab, _vox_args,
+    check_voxel_operand, input_tile_columns, launch_counts, pack_kernel_weights,
 )
 
 MLPOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -235,6 +245,282 @@ def mlp_bwd_plain(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The backward's workspace, work list and reduction (csrc/fused_mlp_train.cu)
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 128  # sample rows of a sweep tile (whole rays)
+WG_BOX = (64, 64)  # a TMA box of the weight-gradient kernel: (columns, rows), bf16
+WG_SWIZZLE_BYTES = 128  # its swizzle span: the box's inner extent in bytes
+WG_M = 128  # dW rows (input features) of one item at most: two warpgroups of 64
+WG_N = 256  # dW columns of one item at most: four wgmma blocks of 64
+WG_ITEMS_PER_SM = 6  # the work list fills the card about this many times
+ITEM_LEN = 8  # ints per work-list item (enum I_* in the source)
+BRANCH_WIDTHS = (SCENE_W, OBJ_W)
+WS_TAB_LEN = 13  # enum W_* in the source
+SWEEP_MAPS_PER_BRANCH = 10  # enum WM_*: trunk layers 0-7, `final`, the direction layer
+SWEEP_BOX = (64, 64)  # the sweep's weight boxes: (columns, rows), bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLayout:
+    """The backward's workspace: `rows` rows (every row of the launch's
+    tiles) of `cols` bf16 columns, row-major. Columns [x, x + x_cols) hold
+    the input tile; then per branch (scene, and the object branch when it
+    runs) `(act, fin, g, gfin, gdir)`: the first columns of its trunk
+    activations (layer i at act + i W), `final`, the rounded d_pre of its
+    trunk layers (layer i at g + i W), of `final` and of the direction
+    layer (W/2 columns). Every block starts at a multiple of 64 columns."""
+
+    rows: int
+    cols: int
+    x: int
+    x_cols: int
+    branches: Tuple[Tuple[int, int, int, int, int], ...]
+
+    def tab(self) -> List[int]:
+        """The kernel's WsTab."""
+        out = [self.cols, self.x, self.x_cols]
+        for b in range(2):
+            out += list(self.branches[b]) if b < len(self.branches) else [0] * 5
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        return 2 * self.rows * self.cols
+
+
+def _run_branches(packed: PackedWeights, forward_instance: bool) -> List[List[int]]:
+    return [packed.scene] + ([packed.obj] if forward_instance else [])
+
+
+def sweep_weight_maps(packed: PackedWeights,
+                      forward_instance: bool = True) -> List[Tuple[int, int, int]]:
+    """The weight matrices the sweep multiplies by, as the TMA tensor maps
+    of its weight ring: per branch slot (trunk layer i at i, `final` at 8,
+    the direction layer's hidden part at 9) the matrix's (element offset in
+    the packed weights, rows, columns), row-major bf16; (0, 0, 0) for a slot
+    that no matrix takes. A skip layer is one map: its input rows, then its
+    hidden rows."""
+    maps = [(0, 0, 0)] * (2 * SWEEP_MAPS_PER_BRANCH)
+    for bi, tab in enumerate(_run_branches(packed, forward_instance)):
+        width, k0, base = BRANCH_WIDTHS[bi], tab[T_K0], bi * SWEEP_MAPS_PER_BRANCH
+        for i in range(tab[T_DEPTH]):
+            skip = i > 0 and (tab[T_SKIPS] >> i) & 1
+            rows = k0 if i == 0 else (k0 + width if skip else width)
+            maps[base + i] = (tab[T_TW + i], rows, width)
+        maps[base + 8] = (tab[T_FINW], width, width)
+        maps[base + 9] = (tab[T_DIRWH], width, width // 2)
+    return maps
+
+
+def bwd_workspace_layout(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int,
+                         forward_instance: bool = True) -> BwdLayout:
+    """The workspace of one backward launch over `n_rows` rows (a multiple of
+    TILE_ROWS): the input tile as wide as the widest branch that runs reads
+    it, then each running branch's blocks."""
+    if n_rows % TILE_ROWS:
+        raise ValueError(f"n_rows {n_rows} is not a multiple of {TILE_ROWS}")
+    scene_k0, obj_k0 = input_tile_columns(cfg)
+    x_cols = obj_k0 if forward_instance else scene_k0
+    col, branches = x_cols, []
+    for tab, width in zip(_run_branches(packed, forward_instance), BRANCH_WIDTHS):
+        depth = tab[T_DEPTH]
+        act, fin = col, col + depth * width
+        g = fin + width
+        gfin = g + depth * width
+        gdir = gfin + width
+        col = gdir + width // 2
+        branches.append((act, fin, g, gfin, gdir))
+    return BwdLayout(n_rows, col, 0, x_cols, tuple(branches))
+
+
+def wgrad_units(packed: PackedWeights, layout: BwdLayout,
+                forward_instance: bool = True) -> List[Tuple[int, int, int, int, int]]:
+    """The weight-gradient tiles: `(a, g, n, m, dst)` for dW[m0:m0 + m, 0:n]
+    of a matrix = act[:, a:a + m]^T @ d_pre[:, g:g + n] over the workspace's
+    rows, landing at element `dst` of the packed gradient. Every trunk
+    layer (a skip layer as its input rows and its hidden rows), `final` and
+    the direction layer's hidden part, cut into tiles of at most WG_M rows."""
+    units = []
+    for b, tab in enumerate(_run_branches(packed, forward_instance)):
+        width, k0, depth = BRANCH_WIDTHS[b], tab[T_K0], tab[T_DEPTH]
+        act, fin, g, gfin, gdir = layout.branches[b]
+        mats = []  # (a, m, g, n, dst)
+        for i in range(depth):
+            off, skip = tab[T_TW + i], i > 0 and (tab[T_SKIPS] >> i) & 1
+            if i == 0 or skip:
+                mats.append((layout.x, k0, g + i * width, width, off))
+            if i > 0:
+                mats.append((act + (i - 1) * width, width, g + i * width, width,
+                             off + k0 * width if skip else off))
+        mats.append((act + (depth - 1) * width, width, gfin, width, tab[T_FINW]))
+        mats.append((fin, width, gdir, width // 2, tab[T_DIRWH]))
+        for a, m, gc, n, dst in mats:
+            for m0 in range(0, m, WG_M):
+                units.append((a + m0, gc, n, min(WG_M, m - m0), dst + m0 * n))
+    return units
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradWork:
+    """The weight-gradient kernel's work list: `items` (one block each;
+    ITEM_LEN ints: a, g, n, m, k0, k1, partial offset, 0) in launch order,
+    the `slices` row ranges [k0, k1) shared by every tile, and per tile
+    (`units`) the reduction segment that adds its slices' partials in slice
+    order. The partials take `n_floats`."""
+
+    units: List[Tuple[int, int, int, int, int]]
+    slices: List[Tuple[int, int]]
+    items: List[List[int]]
+    segments: List[List[int]]
+    n_floats: int
+
+
+def wgrad_work_list(packed: PackedWeights, layout: BwdLayout, n_sm: int,
+                    forward_instance: bool = True) -> WgradWork:
+    """Split every weight-gradient tile over slices of the workspace's rows
+    (multiples of WG_BOX[1] rows), enough of them for about WG_ITEMS_PER_SM
+    items per SM. Items are ordered by tile width (the widest first), then
+    slice, then tile, so that the tiles of one matrix that share a slice of
+    d_pre run side by side (the second reads it from L2)."""
+    units = wgrad_units(packed, layout, forward_instance)
+    bk = WG_BOX[1]
+    n_slices = max(1, min(layout.rows // bk, -(-WG_ITEMS_PER_SM * n_sm // len(units))))
+    per = -(-layout.rows // n_slices)
+    per = -(-per // bk) * bk
+    slices = [(k, min(k + per, layout.rows)) for k in range(0, layout.rows, per)]
+    items, segments, base = [], [], 0
+    keyed = []
+    for u, (a, g, n, m, dst) in enumerate(units):
+        for sl, (k0, k1) in enumerate(slices):
+            keyed.append(((-n, sl, u), [a, g, n, m, k0, k1, base + sl * m * n, 0]))
+        segments.append([dst, m * n, base, m * n, len(slices)])
+        base += len(slices) * m * n
+    items = [item for _, item in sorted(keyed, key=lambda kv: kv[0])]
+    return WgradWork(units, slices, items, segments, base)
+
+
+# the bias and small-head gradients that the sweep sums per block: (table
+# entry, length as a function of the branch width W, True for a bias)
+_SWEEP_GRADS = (
+    (T_SIGB, lambda w: 1, True), (T_FINB, lambda w: w, True),
+    (T_DIRB, lambda w: w // 2, True), (T_RGBB, lambda w: 3, True),
+    (T_SIGW, lambda w: w, False), (T_RGBW, lambda w: 3 * (w // 2), False),
+    (T_DIRWD, lambda w: MAX_DIR * (w // 2), False),
+)
+
+
+def sweep_partials(packed: PackedWeights, forward_instance: bool = True):
+    """The sweep's compact per-block partial: (gradient tables of the
+    branches, floats per block, [(dst in the packed gradient, offset in the
+    partial, length)]). A gradient table has the layout of a branch's offset
+    table, with the entries the sweep writes pointing into the partial."""
+    nw = packed.w.numel()
+    gtabs, entries, off = [], [], 0
+    for tab, width in zip(_run_branches(packed, forward_instance), BRANCH_WIDTHS):
+        gt = [0] * T_LEN
+        grads = [(T_TB + i, width, True) for i in range(tab[T_DEPTH])]
+        grads += [(key, size(width), bias) for key, size, bias in _SWEEP_GRADS]
+        for key, length, bias in grads:
+            gt[key] = off
+            entries.append(((nw if bias else 0) + tab[key], off, length))
+            off += length
+        gtabs.append(gt)
+    return gtabs, off + (-off) % 4, entries
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Everything one backward launch needs besides its inputs: the
+    workspace layout, the weight-gradient work list, the sweep's weight maps
+    and gradient tables and partial stride, and the reduction segments
+    `[dst, len, src, stride, n_parts]` over `parts` (the work list's
+    partials, then `n_blocks` sweep partials from `small_base`)."""
+
+    layout: BwdLayout
+    work: WgradWork
+    weight_maps: List[Tuple[int, int, int]]
+    gtabs: List[List[int]]
+    small_base: int
+    small_stride: int
+    n_blocks: int
+    segments: List[List[int]]
+
+    @property
+    def n_parts(self) -> int:
+        return self.small_base + self.n_blocks * self.small_stride
+
+
+def bwd_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: int,
+             n_blocks: int, forward_instance: bool = True) -> BwdPlan:
+    """The backward launch over n_rows rows with `n_blocks` sweep blocks on
+    a card of `n_sm` SMs."""
+    layout = bwd_workspace_layout(packed, cfg, n_rows, forward_instance)
+    work = wgrad_work_list(packed, layout, n_sm, forward_instance)
+    gtabs, stride, entries = sweep_partials(packed, forward_instance)
+    small_base = work.n_floats + (-work.n_floats) % 4
+    segments = list(work.segments) + [[dst, length, small_base + off, stride, n_blocks]
+                                      for dst, off, length in entries]
+    return BwdPlan(layout, work, sweep_weight_maps(packed, forward_instance), gtabs,
+                   small_base, stride, n_blocks, segments)
+
+
+def wgrad_gemm_plain(ws: torch.Tensor, items: List[List[int]], n_floats: int) -> torch.Tensor:
+    """Plain version of the weight-gradient kernel: for each work-list item,
+    act[k0:k1, a:a + m]^T @ d_pre[k0:k1, g:g + n] over the workspace `ws`
+    (rows, cols), in f32, at the item's offset of an (n_floats,) buffer."""
+    parts = torch.zeros(n_floats, dtype=torch.float32, device=ws.device)
+    x = ws.float()
+    for a, g, n, m, k0, k1, off, _ in items:
+        parts[off:off + m * n] = (x[k0:k1, a:a + m].t() @ x[k0:k1, g:g + n]).reshape(-1)
+    return parts
+
+
+def wgrad_gemm(ws: torch.Tensor, items: torch.Tensor, n_floats: int) -> torch.Tensor:
+    """The weight-gradient kernel alone, as `fused_mlp_bwd` launches it after
+    the sweep: `ws` (rows, cols) bf16, `items` (n_items, ITEM_LEN) int32 ->
+    the (n_floats,) f32 partials (entries no item writes are undefined). On
+    CPU tensors this is `wgrad_gemm_plain`."""
+    if ws.device.type == "cpu":
+        return wgrad_gemm_plain(ws, items.tolist(), n_floats)
+    from ._build import check, load_library
+
+    if ws.dtype != torch.bfloat16 or ws.dim() != 2 or not ws.is_contiguous():
+        raise ValueError("ws must be a contiguous (rows, cols) bf16 tensor")
+    if (items.dtype != torch.int32 or items.device != ws.device or items.dim() != 2
+            or items.shape[1] != ITEM_LEN or not items.is_contiguous()):
+        raise ValueError(f"items must be a contiguous (n, {ITEM_LEN}) int32 tensor on "
+                         f"{ws.device}")
+    lib = load_library()
+    parts = torch.empty((n_floats,), dtype=torch.float32, device=ws.device)
+    with torch.cuda.device(ws.device):
+        rc = lib.onerf_wgrad(ws.data_ptr(), ws.shape[0], ws.shape[1], items.data_ptr(),
+                             items.shape[0], parts.data_ptr(),
+                             torch.cuda.current_stream(ws.device).cuda_stream)
+    check(lib, rc, "wgrad_gemm")
+    return parts
+
+
+_plans: Dict[tuple, tuple] = {}
+
+
+def _device_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: int,
+                 n_blocks: int, forward_instance: bool, device):
+    """`bwd_plan` with its work list and segments as int32 tensors on the
+    card, made once per shape (a training run has two)."""
+    key = (tuple(packed.scene), tuple(packed.obj or ()), packed.w.numel(),
+           input_tile_columns(cfg), n_rows, n_sm, n_blocks, forward_instance, str(device))
+    if key not in _plans:
+        if len(_plans) >= 16:
+            _plans.clear()
+        plan = bwd_plan(packed, cfg, n_rows, n_sm, n_blocks, forward_instance)
+        _plans[key] = (plan,
+                       torch.tensor(plan.work.items, dtype=torch.int32, device=device),
+                       torch.tensor(plan.segments, dtype=torch.int32, device=device))
+    return _plans[key]
+
+
+# ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
@@ -325,9 +611,10 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                   voxel_raw: Optional[torch.Tensor] = None) -> BwdOut:
     """Backward of `fused_mlp_eval` given g (n*S, 8): ({parameter name:
     gradient}, d_codes (n, C_code), d_voxel_raw (n, S, C_vox) f32 or None).
-    One persistent block per SM adds its tiles' weight gradients into its own
-    partial; a second kernel sums the partials in block order, and every row
-    of d_voxel_raw is written once, so the result is deterministic. On CPU
+    The tile sweep writes the workspace of `bwd_plan` and its per-block
+    partials, the weight-gradient kernel one partial per item, and the
+    reduction adds each gradient's partials in a fixed order; every row of
+    d_voxel_raw is written once, so the result is deterministic. On CPU
     tensors this is `mlp_bwd_plain`."""
     n, s = _check_inputs(cfg, xyz, dir_pe, codes, voxel_raw)
     device = xyz.device
@@ -347,28 +634,33 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
     if n == 0:
         return grads, d_codes, d_vox
     lib = load_library()
-    rays_per_tile = 128 // s
-    n_tiles = -(-n // rays_per_tile)
-    n_blocks = min(n_tiles, torch.cuda.get_device_properties(device).multi_processor_count)
+    n_rows = -(-n // (TILE_ROWS // s)) * TILE_ROWS
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    n_blocks = min(n_rows // TILE_ROWS, n_sm)
+    plan, items, segs = _device_plan(packed, cfg, n_rows, n_sm, n_blocks, forward_instance,
+                                     device)
+    layout = plan.layout
     nw, nb = packed.w.numel(), packed.b.numel()
-    stride = nw + nb + (-(nw + nb)) % 8
-    partials = torch.empty((n_blocks, stride), dtype=torch.float32, device=device)
-    flat = torch.empty((stride,), dtype=torch.float32, device=device)
-    stash = torch.empty((n_blocks, lib.onerf_bwd_stash_elems(int(voxel_raw is not None))),
-                        dtype=torch.bfloat16, device=device)
+    ws = torch.empty((layout.rows, layout.cols), dtype=torch.bfloat16, device=device)
+    parts = torch.empty((plan.n_parts,), dtype=torch.float32, device=device)
+    flat = torch.zeros((nw + nb,), dtype=torch.float32, device=device)
+    gobj = _tab(plan.gtabs[1]) if forward_instance else None
     with torch.cuda.device(device):
         rc = lib.onerf_mlp_bwd(
             xyz.data_ptr(), dir_pe.data_ptr(), codes.data_ptr() if forward_instance else None,
             _ptr(voxel_raw), g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
             _tab(packed.scene), _tab(packed.obj) if forward_instance else None,
-            partials.data_ptr(), flat.data_ptr(), stride, nw, stash.data_ptr(),
-            d_codes.data_ptr(), _ptr(d_vox), n_blocks, n, s, cfg.N_freq_xyz,
-            cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
+            _tab(plan.gtabs[0]), gobj, (ctypes.c_int * WS_TAB_LEN)(*layout.tab()),
+            (ctypes.c_int * (6 * SWEEP_MAPS_PER_BRANCH))(*sum(plan.weight_maps, ())),
+            ws.data_ptr(), layout.rows, parts[plan.small_base:].data_ptr(), plan.small_stride,
+            items.data_ptr(), items.shape[0], parts.data_ptr(), segs.data_ptr(),
+            segs.shape[0], flat.data_ptr(), d_codes.data_ptr(), _ptr(d_vox), n_blocks, n, s,
+            cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
             *_vox_args(cfg), torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_mlp_bwd")
     launch_counts["fused_mlp_bwd"] += 1
-    gw, gb = flat[:nw], flat[nw:nw + nb]
+    gw, gb = flat[:nw], flat[nw:]
     c_in_s = cfg.in_channels_xyz
     _unpack_branch(model, "scene", packed.scene, c_in_s, cfg.in_channels_dir, gw, gb, grads)
     if forward_instance:

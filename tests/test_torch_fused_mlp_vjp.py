@@ -4,10 +4,13 @@ On the CPU the wrappers run their plain versions. `mlp_eval_plain` is held
 against the JAX package's Pallas forward kernel in interpret mode,
 `mlp_bwd_plain` against its backward kernel in interpret mode, against
 `jax.grad` of the XLA path and against torch autograd of `mlp_eval_plain`.
-The backward kernel's dataflow (tile loop over a persistent grid, per-block
-partials in the packed weight layout, fixed-order reduction, zero-padded
-last tile) is emulated at flagship width and held against `mlp_bwd_plain`.
-The kernels themselves run only on the card
+The backward's dataflow (the tile sweep over a persistent grid writing the
+workspace of `bwd_workspace_layout` and per-block partials, the split-K
+weight-gradient GEMM over `wgrad_work_list`, the fixed-order reduction, the
+zero-padded last tile) is emulated at flagship width, for the classical and
+the voxel-conditioned model, and held against `mlp_bwd_plain`; the work list
+and the TMA boxes it implies are checked against the rules the kernel and
+the hardware need. The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py).
 """
 
@@ -27,7 +30,7 @@ from object_nerf_tpu.ops import pallas_mlp as jk
 from object_nerf_tpu.ops.pallas_mlp_vjp import _run_bwd
 
 from object_nerf_torch.models.embedding import freq_encode
-from object_nerf_torch.models.mlp import ObjectNeRF, ObjectNeRFConfig
+from object_nerf_torch.models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_mlp_vjp as fv
 from object_nerf_torch.train.convert import from_jax_grads, from_jax_params
@@ -251,20 +254,31 @@ def test_wrappers_check_their_inputs():
 # -- the backward kernel's dataflow, emulated at flagship width on the CPU ------
 
 
-def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_blocks):
-    """csrc/fused_mlp_train.cu in tensor code over the packed buffers: tiles
-    of 128 rows of whole rays, zero-padded past the last ray; block b walks
-    tiles b, b + n_blocks, ... and adds each tile's gradients into its own
-    partial (weight gradients at the weights' offsets, bias gradients after
-    them); the partials are summed in block order."""
+def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxel_raw=None):
+    """csrc/fused_mlp_train.cu in tensor code over the packed buffers and the
+    tables of `bwd_plan`. The sweep walks tiles of 128 rows of whole rays,
+    zero-padded past the last ray, block b taking tiles b, b + n_blocks, ...:
+    it writes the input tile, every activation and every rounded d_pre into
+    the workspace at the layout's columns, and adds the bias and small-head
+    gradients into its block's compact partial. Then every item of the work
+    list writes act^T @ d_pre over its slice of rows into its own partial,
+    and each reduction segment adds its partials in order. Returns
+    (gradients by name, d_codes, d_voxel_raw or None)."""
     n, s, _ = xyz.shape
     rays_per_tile = 128 // s
     n_tiles = -(-n // rays_per_tile)
+    plan = fv.bwd_plan(packed, cfg, n_tiles * 128, n_sm, n_blocks, True)
+    lay = plan.layout
+    ws = torch.zeros(lay.rows, lay.cols)  # bf16 values, held in f32
+    parts = torch.zeros(plan.n_parts)
     w, b = packed.w.float(), packed.b
     nw, nb = w.numel(), b.numel()
-    partials = torch.zeros(n_blocks, nw + nb)
+    emb, obj_voxel = embed_inputs(cfg, xyz.reshape(-1, 3), voxel_raw)
+    pieces = [emb] + ([obj_voxel] if obj_voxel is not None else [])
+    inputs = torch.cat(pieces + [codes.repeat_interleave(s, 0)], dim=-1)
+    o_code = inputs.shape[1] - codes.shape[1]
+    dcats = [torch.zeros(n * s, lay.x_cols), torch.zeros(n * s, lay.x_cols)]
     d_codes = torch.zeros_like(codes)
-    pe_size = cfg.xyz_pe_size
 
     def bf(x):
         return x.bfloat16().float()
@@ -275,109 +289,131 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_blocks):
     def slope(act, d):
         return torch.where(act >= 0, d, 0.01 * d)
 
-    def branch(tab, width, X, dirs, gs, gr, part, want_dcat):
-        gw, gb = part[:nw], part[nw:]
+    def branch(bi, tab, gt, width, X, dirs, gs, gr, wsr, part, want_dcat):
+        act, fin, gcol, gfin, gdir = lay.branches[bi]
 
         def mat(off, rows, cols):
             return w[off:off + rows * cols].reshape(rows, cols)
 
-        def add_w(off, val):
-            gw[off:off + val.numel()] += val.reshape(-1)
+        def wmap(slot):  # a matrix the sweep multiplies by, as its tensor map views it
+            off, rows, cols = plan.weight_maps[bi * fv.SWEEP_MAPS_PER_BRANCH + slot]
+            return mat(off, rows, cols)
 
-        def add_b(off, val):
-            gb[off:off + val.numel()] += val.reshape(-1)
+        def add(key, val):
+            part[gt[key]:gt[key] + val.numel()] += val.reshape(-1)
 
         k0, depth, nd = tab[fm.T_K0], tab[fm.T_DEPTH], width // 2
         skips = [i for i in range(depth) if (tab[fm.T_SKIPS] >> i) & 1]
         hs, h = [], None
         for i in range(depth):
-            off = tab[fm.T_TW + i]
             if i == 0:
-                acc = X[:, :k0] @ mat(off, k0, width)
+                acc = X[:, :k0] @ wmap(i)
             elif i in skips:
-                acc = X[:, :k0] @ mat(off, k0, width) + h @ mat(off + k0 * width, width, width)
+                acc = X[:, :k0] @ wmap(i)[:k0] + h @ wmap(i)[k0:]
             else:
-                acc = h @ mat(off, width, width)
+                acc = h @ wmap(i)
             h = bf(lrelu(acc + b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]))
             hs.append(h)
-        hf = bf(h @ mat(tab[fm.T_FINW], width, width) + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width])
+            wsr[:, act + i * width:act + (i + 1) * width] = h
+        hf = bf(h @ wmap(8) + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width])
+        wsr[:, fin:fin + width] = hf
         wdd = mat(tab[fm.T_DIRWD], fm.MAX_DIR, nd)
         dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fm.T_DIRB]:tab[fm.T_DIRB] + nd]
-        denc = bf(lrelu(hf @ mat(tab[fm.T_DIRWH], width, nd) + dbias.repeat_interleave(s, 0)))
+        denc = bf(lrelu(hf @ wmap(9) + dbias.repeat_interleave(s, 0)))
         w_rgb = mat(tab[fm.T_RGBW], 3, nd)
         rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fm.T_RGBB]:tab[fm.T_RGBB] + 3])
-        # reverse sweep
+        # reverse sweep: small heads and bias sums into the block's partial
         dpr = gr * rgb * (1 - rgb)
-        add_w(tab[fm.T_RGBW], bf(dpr).t() @ denc)
-        add_b(tab[fm.T_RGBB], dpr.sum(0))
-        add_b(tab[fm.T_SIGB], gs.sum(0))
+        add(fm.T_RGBW, bf(dpr).t() @ denc)
+        add(fm.T_RGBB, dpr.sum(0))
+        add(fm.T_SIGB, gs.sum(0))
         d_pre_d = slope(denc, bf(dpr) @ w_rgb)
         G = bf(d_pre_d)
-        add_b(tab[fm.T_DIRB], d_pre_d.sum(0))
+        add(fm.T_DIRB, d_pre_d.sum(0))
         raysum = G.reshape(-1, s, nd).sum(1)  # per ray, then the direction product
         gdd = torch.zeros(fm.MAX_DIR, nd)
         gdd[:dirs.shape[1]] = bf(dirs).t() @ raysum
-        add_w(tab[fm.T_DIRWD], gdd)
-        add_w(tab[fm.T_DIRWH], hf.t() @ G)
-        d_hf = G @ mat(tab[fm.T_DIRWH], width, nd).t()
-        add_b(tab[fm.T_FINB], d_hf.sum(0))
+        add(fm.T_DIRWD, gdd)
+        wsr[:, gdir:gdir + nd] = G
+        d_hf = G @ wmap(9).t()
+        add(fm.T_FINB, d_hf.sum(0))
         G = bf(d_hf)
-        add_w(tab[fm.T_FINW], hs[-1].t() @ G)
+        wsr[:, gfin:gfin + width] = G
         w_sig = w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width]
-        add_w(tab[fm.T_SIGW], hs[-1].t() @ bf(gs))
-        d_h = G @ mat(tab[fm.T_FINW], width, width).t() + bf(gs) * w_sig[None, :]
-        dcat = torch.zeros(X.shape[0], k0)
+        add(fm.T_SIGW, hs[-1].t() @ bf(gs))
+        d_h = G @ wmap(8).t() + bf(gs) * w_sig[None, :]
+        dcat = torch.zeros(X.shape[0], lay.x_cols)
         for i in reversed(range(depth)):
             d_pre = slope(hs[i], d_h)
-            add_b(tab[fm.T_TB + i], d_pre.sum(0))
+            add(fm.T_TB + i, d_pre.sum(0))
             G = bf(d_pre)
-            off = tab[fm.T_TW + i]
+            wsr[:, gcol + i * width:gcol + (i + 1) * width] = G
+            rows = 0  # the hidden rows of a skip layer follow its input rows
             if i == 0 or i in skips:
-                add_w(off, X[:, :k0].t() @ G)
                 if want_dcat:
-                    dcat += G @ mat(off, k0, width).t()
+                    dcat[:, :k0] += G @ wmap(i)[:k0].t()
                 if i == 0:
                     break
-                off += k0 * width
-            add_w(off, hs[i - 1].t() @ G)
-            d_h = G @ mat(off, width, width).t()
+                rows = k0
+            d_h = G @ wmap(i)[rows:].t()
         return dcat
 
     for tile in range(n_tiles):
-        part = partials[tile % n_blocks]
+        blk = tile % n_blocks
+        part = parts[plan.small_base + blk * plan.small_stride:][:plan.small_stride]
         lo, hi = tile * rays_per_tile, min((tile + 1) * rays_per_tile, n)
         real = (hi - lo) * s
-        X = torch.zeros(128, fm.OBJ_K0)
-        X[:real, :pe_size] = freq_encode(xyz[lo:hi].reshape(-1, 3), cfg.N_freq_xyz)
-        X[:real, pe_size:pe_size + codes.shape[1]] = codes[lo:hi].repeat_interleave(s, 0)
+        wsr = ws[tile * 128:(tile + 1) * 128]
+        X = torch.zeros(128, lay.x_cols)
+        X[:real, :inputs.shape[1]] = inputs[lo * s:hi * s]
         X = bf(X)
+        wsr[:, lay.x:lay.x + lay.x_cols] = X
         dirs = torch.zeros(rays_per_tile, dir_pe.shape[1])
         dirs[:hi - lo] = dir_pe[lo:hi]
         gt = torch.zeros(128, 8)
         gt[:real] = g[lo * s:hi * s]
-        branch(packed.scene, fm.SCENE_W, X, dirs, gt[:, 0:1], gt[:, 1:4], part, False)
-        dcat = branch(packed.obj, fm.OBJ_W, X, dirs, gt[:, 4:5], gt[:, 5:8], part, True)
-        dc = dcat[:, pe_size:pe_size + codes.shape[1]].reshape(rays_per_tile, s, -1).sum(1)
-        d_codes[lo:hi] = dc[:hi - lo]
+        for bi, (tab, gtab, width) in enumerate(((packed.scene, plan.gtabs[0], fm.SCENE_W),
+                                                  (packed.obj, plan.gtabs[1], fm.OBJ_W))):
+            want = bi == 1 or voxel_raw is not None
+            dcat = branch(bi, tab, gtab, width, X, dirs, gt[:, 4 * bi:4 * bi + 1],
+                          gt[:, 4 * bi + 1:4 * bi + 4], wsr, part, want)
+            dcats[bi][lo * s:hi * s] = dcat[:real]
+        dc = dcats[1][lo * s:hi * s, o_code:o_code + codes.shape[1]]
+        d_codes[lo:hi] = dc.reshape(hi - lo, s, -1).sum(1)
+    wg = fv.wgrad_gemm(ws.bfloat16(), torch.tensor(plan.work.items, dtype=torch.int32),
+                       plan.work.n_floats)  # the weight-gradient GEMM
+    parts[:plan.work.n_floats] = wg
     flat = torch.zeros(nw + nb)
-    for blk in range(n_blocks):  # fixed order
-        flat = flat + partials[blk]
+    for dst, length, src, stride, n_parts in plan.segments:  # the reduction, in order
+        acc = torch.zeros(length)
+        for q in range(n_parts):
+            acc = acc + parts[src + q * stride:src + q * stride + length]
+        flat[dst:dst + length] = acc
     grads = {}
-    pe = cfg.xyz_pe_size
-    fv._unpack_branch(model, "scene", packed.scene, pe, cfg.in_channels_dir, flat[:nw],
-                      flat[nw:], grads)
-    fv._unpack_branch(model, "object", packed.obj, pe + cfg.N_obj_code_length,
-                      cfg.in_channels_dir, flat[:nw], flat[nw:], grads)
-    return grads, d_codes
+    fv._unpack_branch(model, "scene", packed.scene, cfg.in_channels_xyz, cfg.in_channels_dir,
+                      flat[:nw], flat[nw:], grads)
+    fv._unpack_branch(model, "object", packed.obj, cfg.inst_channel_in, cfg.in_channels_dir,
+                      flat[:nw], flat[nw:], grads)
+    d_vox = None
+    if voxel_raw is not None:
+        raw = voxel_raw.reshape(n * s, -1)
+        c_s, nf = cfg.N_scn_voxel_size, cfg.N_freq_voxel
+        w_s, w_i, c_in_s = c_s * (2 * nf + 1), cfg.N_obj_voxel_size * (2 * nf + 1), emb.shape[1]
+        d_svox = fv._freq_encode_vjp(raw[:, :c_s], dcats[0][:, :w_s] + dcats[1][:, :w_s], nf)
+        d_ivox = fv._freq_encode_vjp(raw[:, c_s:], dcats[1][:, c_in_s:c_in_s + w_i], nf)
+        d_vox = torch.cat([d_svox, d_ivox], dim=-1).reshape(n, s, -1)
+    return grads, d_codes, d_vox
 
 
-def test_backward_dataflow_reproduces_plain_bf16():
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_backward_dataflow_reproduces_plain_bf16(voxel):
     """5 rays of 64 samples: three tiles of two rays, the last one half empty,
-    walked by two blocks. Against `mlp_bwd_plain` in bf16, relative to each
-    tensor's largest entry: both round the same operands to bf16, their f32
-    sums run in another order (per tile, per block), which now and then moves
-    one bf16 rounding; 5e-3 bounds that on these 320 rows."""
-    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+    swept by two blocks; six slices of 64 rows per weight-gradient tile.
+    Against `mlp_bwd_plain` in bf16, relative to each tensor's largest
+    entry: both round the same operands to bf16, their f32 sums run in
+    another order (per slice, per block), which now and then moves one bf16
+    rounding; 5e-3 bounds that on these 320 rows."""
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
     model = ObjectNeRF(cfg).reset_parameters_(torch.Generator().manual_seed(0))
     n, s = 5, 64
     gen = torch.Generator().manual_seed(1)
@@ -388,12 +424,177 @@ def test_backward_dataflow_reproduces_plain_bf16():
     dir_pe = freq_encode(d, cfg.N_freq_dir)
     codes = torch.randn(n, cfg.N_obj_code_length, generator=gen)
     g = torch.randn(n * s, 8, generator=gen) * 1e-3
+    raw = None
+    if voxel:
+        n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
+        raw = torch.randn(n, s, n_vox, generator=gen) * 0.5
     with torch.no_grad():
         packed = fm.pack_kernel_weights(model, cfg, True)
-        got, got_codes = _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_blocks=2)
-        want, want_codes, _ = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True)
+        plan = fv.bwd_plan(packed, cfg, 384, 132, 2)
+        assert len(plan.work.slices) == 6
+        got, got_codes, got_vox = _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g,
+                                               n_sm=132, n_blocks=2, voxel_raw=raw)
+        want, want_codes, want_vox = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True,
+                                                      voxel_raw=raw)
     assert set(got) == set(want)
     for k in want:
         assert got[k].shape == want[k].shape, k
         assert _rel(got[k].numpy(), want[k].numpy()) < 5e-3, k
     assert _rel(got_codes.numpy(), want_codes.numpy()) < 5e-3
+    if voxel:
+        assert got_vox.shape == want_vox.shape
+        assert _rel(got_vox.numpy(), want_vox.numpy()) < 5e-3
+    else:
+        assert got_vox is None and want_vox is None
+
+
+# -- the weight-gradient kernel's tables ------------------------------------------
+
+# (rows, SMs) of a launch: the training shapes on an H100, the emulation's
+# three tiles, one tile on a small card
+PLAN_SHAPES = ((2048 * 64, 132), (2048 * 128, 132), (384, 132), (128, 4))
+
+
+def _plans(voxel, forward_instance):
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    packed = fm.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    for rows, n_sm in PLAN_SHAPES:
+        n_blocks = min(rows // fv.TILE_ROWS, n_sm)
+        yield packed, fv.bwd_plan(packed, cfg, rows, n_sm, n_blocks, forward_instance)
+
+
+def _gradient_ranges(packed, forward_instance):
+    """(start, length) of every gradient the backward returns, in the packed
+    gradient buffer (weights, then biases at nw + offset), split into the
+    weight-gradient kernel's matrices and the rest."""
+    nw = packed.w.numel()
+    big, small = [], []
+    for tab, width in zip([packed.scene] + ([packed.obj] if forward_instance else []),
+                          (fm.SCENE_W, fm.OBJ_W)):
+        k0, depth, nd = tab[fm.T_K0], tab[fm.T_DEPTH], width // 2
+        for i in range(depth):
+            rows = k0 if i == 0 else (k0 + width if (tab[fm.T_SKIPS] >> i) & 1 else width)
+            big.append((tab[fm.T_TW + i], rows * width))
+            small.append((nw + tab[fm.T_TB + i], width))
+        big += [(tab[fm.T_FINW], width * width), (tab[fm.T_DIRWH], width * nd)]
+        small += [(tab[fm.T_SIGW], width), (tab[fm.T_DIRWD], fm.MAX_DIR * nd),
+                  (tab[fm.T_RGBW], 3 * nd), (nw + tab[fm.T_SIGB], 1),
+                  (nw + tab[fm.T_FINB], width), (nw + tab[fm.T_DIRB], nd),
+                  (nw + tab[fm.T_RGBB], 3)]
+    return big, small
+
+
+def _cover(ranges, size):
+    hits = np.zeros(size, np.int64)
+    for start, length in ranges:
+        hits[start:start + length] += 1
+    return hits
+
+
+@pytest.mark.parametrize("forward_instance", [True, False])
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_work_list_partitions_rows_and_covers_every_weight_once(voxel, forward_instance):
+    """The slices partition the workspace's rows in order; in every slice the
+    items write each weight element of each matrix exactly once, each into a
+    partial of its own; the reduction then writes every gradient the
+    backward returns exactly once, adding one partial per slice (per sweep
+    block for the sweep's gradients)."""
+    for packed, plan in _plans(voxel, forward_instance):
+        work, rows = plan.work, plan.layout.rows
+        assert work.slices[0][0] == 0 and work.slices[-1][1] == rows
+        assert all(a[1] == b[0] for a, b in zip(work.slices, work.slices[1:]))
+        assert all(k1 > k0 and k0 % fv.WG_BOX[1] == 0 and k1 % fv.WG_BOX[1] == 0
+                   for k0, k1 in work.slices)
+        big, small = _gradient_ranges(packed, forward_instance)
+        size = packed.w.numel() + packed.b.numel()
+        # each unit's segment names where its slices' partials lie
+        seg_of = {tuple(u): seg for u, seg in zip(work.units, work.segments)}
+        assert len(work.items) == len(work.units) * len(work.slices)
+        per_slice = {sl: [] for sl in work.slices}
+        for a, g, n, m, k0, k1, off, pad in work.items:
+            unit = next(u for u in work.units if u[:4] == (a, g, n, m)
+                        and seg_of[u][2] <= off < seg_of[u][2] + len(work.slices) * m * n)
+            dst, length, base, stride, n_parts = seg_of[unit]
+            sl = (off - base) // stride
+            assert (off - base) % stride == 0 and work.slices[sl] == (k0, k1) and pad == 0
+            per_slice[(k0, k1)].append((dst, m * n))
+        for ranges in per_slice.values():
+            hits = _cover(ranges, size)
+            assert (_cover(big, size)[hits > 0] == 1).all()
+            np.testing.assert_array_equal(hits, _cover(big, size))
+        # partials: disjoint, inside the buffer, apart from the sweep's
+        parts = _cover([(it[6], it[2] * it[3]) for it in work.items], plan.small_base)
+        assert parts.max() == 1 and parts.sum() == work.n_floats
+        # the reduction writes every returned gradient once
+        hits = _cover([(dst, length) for dst, length, _, _, _ in plan.segments], size)
+        np.testing.assert_array_equal(hits, _cover(big + small, size))
+        for dst, length, src, stride, n_parts in plan.segments[len(work.segments):]:
+            assert n_parts == plan.n_blocks and stride == plan.small_stride
+            assert plan.small_base <= src and src - plan.small_base + length <= stride
+        assert plan.n_parts == plan.small_base + plan.n_blocks * plan.small_stride
+
+
+@pytest.mark.parametrize("forward_instance", [True, False])
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_tma_boxes_meet_the_hardware_rules(voxel, forward_instance):
+    """The tensor map over the workspace and every box an item loads: global
+    strides 16-byte aligned, box dimensions within 256, the inner box extent
+    a multiple of 16 bytes and within the 128-byte swizzle span; each box
+    starts on a 128-byte row boundary, lies inside the workspace and inside
+    its own layout block; items fit the kernel's tile (at most 128 x 256)."""
+    for packed, plan in _plans(voxel, forward_instance):
+        lay = plan.layout
+        box_cols, box_rows = fv.WG_BOX
+        assert (2 * lay.cols) % 16 == 0 and lay.cols < 2 ** 32 and lay.rows < 2 ** 32
+        assert box_cols <= 256 and box_rows <= 256
+        assert (2 * box_cols) % 16 == 0 and 2 * box_cols <= fv.WG_SWIZZLE_BYTES
+        blocks = [(lay.x, lay.x_cols)]
+        for (act, fin, g, gfin, gdir), width in zip(lay.branches, fv.BRANCH_WIDTHS):
+            depth = (fin - act) // width
+            blocks += [(act, depth * width), (fin, width), (g, depth * width), (gfin, width),
+                       (gdir, width // 2)]
+        assert sum(w for _, w in blocks) == lay.cols
+        assert _cover(blocks, lay.cols).max() == 1
+        assert all(start % box_cols == 0 and w % box_cols == 0 for start, w in blocks)
+        for a, g, n, m, k0, k1, off, _ in plan.work.items:
+            assert m in (64, 128) and m <= fv.WG_M and n in (64, 128, 256) and n <= fv.WG_N
+            assert a % box_cols == 0 and g % box_cols == 0 and k0 % box_rows == 0
+            assert (k1 - k0) % box_rows == 0 and 0 <= k0 < k1 <= lay.rows
+            for start, width in ((a, m), (g, n)):
+                assert any(b <= start and start + width <= b + w for b, w in blocks)
+            assert off % 2 == 0  # the epilogue's float2 stores
+
+
+@pytest.mark.parametrize("forward_instance", [True, False])
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_sweep_weight_maps_meet_the_hardware_rules(voxel, forward_instance):
+    """The sweep's weight tensor maps: one per matrix it multiplies by, each
+    exactly that matrix of the packed weights (the weight-gradient kernel's
+    matrices, disjoint); the global address and row stride 16-byte aligned,
+    the inner box extent within the 128-byte swizzle span, box dimensions
+    within 256; rows and columns whole boxes, so every chunk the sweep loads
+    (64 rows of W, or 64 columns of 64-row blocks of W^T, from row 0 or from
+    a skip layer's k0, or the voxel input's 128-column chunks) lies inside its
+    map; the object branch's input rows hold the 128-row code product."""
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    packed = fm.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    maps = fv.sweep_weight_maps(packed, forward_instance)
+    assert len(maps) == 2 * fv.SWEEP_MAPS_PER_BRANCH
+    box_cols, box_rows = fv.SWEEP_BOX
+    assert box_cols <= 256 and box_rows <= 256 and 2 * box_cols == fv.WG_SWIZZLE_BYTES
+    big, _ = _gradient_ranges(packed, forward_instance)
+    used = [m for m in maps if m[1]]
+    assert sorted((off, rows * cols) for off, rows, cols in used) == sorted(big)
+    assert _cover([(off, rows * cols) for off, rows, cols in used], packed.w.numel()).max() == 1
+    for off, rows, cols in used:
+        assert (2 * off) % 16 == 0 and (2 * cols) % 16 == 0
+        assert rows % box_rows == 0 and cols % box_cols == 0 and cols <= 256
+        assert off + rows * cols <= packed.w.numel()
+    for bi, tab in enumerate([packed.scene] + ([packed.obj] if forward_instance else [])):
+        base, k0 = bi * fv.SWEEP_MAPS_PER_BRANCH, tab[fm.T_K0]
+        assert k0 % box_rows == 0 and k0 % 128 in (0, 64)
+        assert maps[base][1] == k0 and (bi == 0 or k0 >= 128)
+        for slot in range(tab[fm.T_DEPTH], 8):
+            assert maps[base + slot] == (0, 0, 0)
+    if not forward_instance:
+        assert all(m == (0, 0, 0) for m in maps[fv.SWEEP_MAPS_PER_BRANCH:])

@@ -154,6 +154,62 @@ def test_backward_kernel_is_deterministic_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(64, 64), (128, 256), (64, 128), (128, 64)])
+def test_weight_gradient_kernel_matches_torch_on_card(cuda_device, m, n):
+    """The wgmma / TMA GEMM alone on a random workspace: each item's partial
+    against torch in f32 on the same bf16 operands (exact products, f32
+    sums in another order), several slices of rows, boxes at column
+    offsets away from 0."""
+    rows, cols = 512, 640
+    g = torch.Generator().manual_seed(m + n)
+    ws = torch.randn(rows, cols, generator=g).bfloat16().to(cuda_device)
+    items, off = [], 0
+    for a, gc, k0, k1 in ((0, 320, 0, 64), (64, 384, 64, 320), (192, 128, 320, 512)):
+        items.append([a, gc, n, m, k0, k1, off, 0])
+        off += m * n
+    got = fv.wgrad_gemm(ws, torch.tensor(items, dtype=torch.int32, device=cuda_device), off)
+    want = fv.wgrad_gemm_plain(ws, items, off)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True])
+def test_backward_workspace_is_the_layouts_on_card(cuda_device, voxel):
+    """What one backward launch allocates at its peak: the workspace of
+    `bwd_workspace_layout` and the partials of `bwd_plan`, beside its
+    outputs (gradients, flat buffer, d_codes, d_voxel_raw) and nothing of
+    the size of a per-block stash."""
+    n, s = 256, 64
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    settings = RenderSettings(mlp=cfg)
+    models = init_params(torch.Generator().manual_seed(0), settings, {}, device=cuda_device)
+    model = models.nerf_fine
+    g = torch.Generator().manual_seed(2)
+    xyz = (torch.randn(n, s, 3, generator=g) * 0.5).to(cuda_device)
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1)
+    dir_pe = freq_encode(d, cfg.N_freq_dir).contiguous().to(cuda_device)
+    codes = torch.randn(n, cfg.N_obj_code_length, generator=g).to(cuda_device)
+    raw = ((torch.randn(n, s, 24, generator=g) * 0.5).to(cuda_device) if voxel else None)
+    cot = (torch.randn(n * s, 8, generator=g).abs() * 1e-4).to(cuda_device)
+    packed = fm.pack_kernel_weights(model, cfg, True)
+    fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, packed=packed, voxel_raw=raw)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fv.bwd_plan(packed, cfg, n * s, n_sm, min(n * s // 128, n_sm))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, packed=packed, voxel_raw=raw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    expected = plan.layout.nbytes + 4 * plan.n_parts
+    outputs = 8 * (packed.w.numel() + packed.b.numel()) + 4 * codes.numel() + (
+        4 * raw.numel() if voxel else 0)
+    assert plan.layout.nbytes == 2 * n * s * plan.layout.cols
+    assert expected <= peak <= expected + outputs + 2 ** 20
+
+
+@pytest.mark.cuda
 def test_autograd_function_launches_both_kernels_on_card(cuda_device):
     cfg, model, xyz, dir_pe, codes, cot = _train_inputs(cuda_device, 64, 64)
     codes.requires_grad_()
