@@ -21,20 +21,26 @@ pruned and subdivided, and its edit render:
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
 3. holds each eval kernel against its plain PyTorch version (bf16 operands,
    f32 sums: the kernels' own rounding points) on identical seeded inputs
-   at the chunk shape of the eval path, and times both;
+   at the chunk shape of the eval path (the render also against its own
+   relaunch, bit for bit), times both, prints the weight bytes the render's
+   forward chain copies from L2 per launch, and checks that the card's
+   `sincosf` gives `sinf`'s and `cosf`'s bits (the chain's encoding takes
+   both values of a pair from one `sincosf`);
 4. renders one 640x480 frame of the synthetic scene with `render_image`
    (chunk 7680) and checks that both eval kernels ran 40 times, that the
    frame is finite, and that four of its chunks agree with the f32 plain
    path;
 5. times the frame (median of a few, after a warm-up);
 6. holds the backward's weight-gradient GEMM alone (wgmma on TMA-loaded
-   operands) against torch on a random workspace, prints the registers,
-   spills, stack frames and wgmma serialization of the backward's kernels
-   (`-Xptxas -v`) and counts the wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in their machine code (`cuobjdump -sass`), then holds the
-   training kernels `fused_mlp_eval` and `fused_mlp_bwd` against their plain
-   versions at the training shapes (2048 rays x 64 and x 128 samples), the
-   backward on the cotangent of a real loss with a bit-equal relaunch, and
+   operands) against torch on a random workspace, holds the training kernels
+   `fused_mlp_eval` and `fused_mlp_bwd` against their plain versions at the
+   training shapes (2048 rays x 64 and x 128 samples), each with a bit-equal
+   relaunch, the backward on the cotangent of a real loss, prints the
+   registers, spills, stack frames and wgmma serialization (`-Xptxas -v`)
+   of the forward chain's four instantiations and the backward's kernels and
+   counts the wgmma (HGMMA) and TMA (UTMALDG) instructions in their machine
+   code (`cuobjdump -sass`; each must issue both, and ptxas must serialize
+   none of their wgmma), prints the forward's weight stream, and
    times them (the backward split into its sweep, its weight-gradient GEMM
    and its reduction by `torch.profiler`) and reads the memory one backward
    launch adds at its peak (held to its workspace and partials);
@@ -67,7 +73,9 @@ pruned and subdivided, and its edit render:
 12. holds `fused_coarse_weights`, `fused_render_tiles` and `fused_sigma_eval`
    with the voxel operand against their bf16 plain versions on identical
    seeded inputs (`voxel_raw` from the real lookup on the bench grid) at
-   7680 x 64, 7680 x 128 and 262,144 points (both branches), and times them;
+   7680 x 64, 7680 x 128 and 262,144 points (both branches; the render
+   against its relaunch, bit for bit), times them, and prints the render's
+   weight stream;
 13. renders one 640x480 voxel frame with `render_image` (chunk 7680; rays from
    mid-room, near 0.05, far 2.4): finite maps, exactly 40 + 40 kernel
    launches, 80 `gather_rows` launches and one corner-table build; four chunks
@@ -402,8 +410,10 @@ BWD_KERNELS = {"sweep": "mlp_bwd_kernel", "weight_gradient": "wgrad_kernel",
 
 def _ptxas_resources(names):
     """{piece of a kernel name: {"registers", "spill_stores", "spill_loads",
-    "stack_frame" (bytes), "wgmma_serialized" (ptxas's C7510: it serialized
-    the kernel's wgmma because their pipeline crosses a function call)}}
+    "stack_frame" (bytes), "wgmma_serialized" (ptxas's C7510 or C7515: it
+    serialized the kernel's wgmma because their pipeline crosses a function
+    call, or because other instructions define accumulator registers inside
+    it)}}
     from the `-Xptxas -v` report kept beside the built library."""
     import re
 
@@ -411,7 +421,7 @@ def _ptxas_resources(names):
 
     found, current = {}, None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "(C7510)" in line:
+        if "(C7510)" in line or "(C7515)" in line:
             for k in names:
                 if k in line:
                     found.setdefault(k, {})["wgmma_serialized"] = True
@@ -486,33 +496,60 @@ def _fmt_split(split) -> str:
                      for k, v in split.items())
 
 
-# the backward's kernels as the build names them: the sweep's two
-# instantiations, the weight-gradient GEMM and the reduction
-BWD_INSTANTIATIONS = {"sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
-                      "weight gradient": "wgrad_kernel", "reduction": "reduce_segments_kernel"}
+# the kernels that issue wgmma, as the build names them: the forward chain's
+# four instantiations (fused_mlp_eval and fused_render_tiles, classical and
+# voxel), the backward's sweep (two), its weight-gradient GEMM; then the
+# reduction, which has no product
+WGMMA_INSTANTIATIONS = {
+    "forward chain, fused_mlp_eval classical": "fwd_chain_kernelILb0ELb0",
+    "forward chain, fused_mlp_eval voxel": "fwd_chain_kernelILb1ELb0",
+    "forward chain, fused_render_tiles classical": "fwd_chain_kernelILb0ELb1",
+    "forward chain, fused_render_tiles voxel": "fwd_chain_kernelILb1ELb1",
+    "sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
+    "weight gradient": "wgrad_kernel"}
+BUILD_INSTANTIATIONS = {**WGMMA_INSTANTIATIONS, "reduction": "reduce_segments_kernel"}
 
 
-def _bwd_build_report():
+def _build_report():
     """Print the registers, spills, stack frame and wgmma serialization of
-    the backward's kernels and the tensor-core and TMA instructions in their
-    machine code; fail unless the weight-gradient kernel and both
-    instantiations of the sweep issue wgmma (HGMMA) and TMA loads (UTMALDG).
-    Returns both for the `kernels` line."""
-    res = _ptxas_resources(list(BWD_INSTANTIATIONS.values()))
-    sass = _sass_counts(list(BWD_INSTANTIATIONS.values()))
-    for label, key in BWD_INSTANTIATIONS.items():
+    the kernels on wgmma (and the backward's reduction), and the tensor-core
+    and TMA instructions in their machine code; fail unless each of them
+    issues wgmma (HGMMA) and TMA loads (UTMALDG) and ptxas serialized none of
+    their wgmma. Returns {label: ptxas figures}, {label: SASS counts}."""
+    res = _ptxas_resources(list(BUILD_INSTANTIATIONS.values()))
+    sass = _sass_counts(list(BUILD_INSTANTIATIONS.values()))
+    for label, key in BUILD_INSTANTIATIONS.items():
         r = res[key]
-        print(f"fused_mlp_bwd {label} ({key}): {r['registers']} registers, "
+        print(f"{label} ({key}): {r['registers']} registers, "
               f"{r.get('spill_stores', 0)} bytes spill stores, {r.get('spill_loads', 0)} bytes "
               f"spill loads, {r.get('stack_frame', 0)} bytes stack frame, wgmma serialized by "
               f"ptxas: {r['wgmma_serialized']}; SASS: "
               + ", ".join(f"{n} {op}" for op, n in sass[key].items()))
-    for label in ("weight gradient", "sweep, classical", "sweep, voxel"):
-        got = sass[BWD_INSTANTIATIONS[label]]
+    for label, key in WGMMA_INSTANTIATIONS.items():
+        got = sass[key]
         if not (got["HGMMA"] > 0 and got["UTMALDG"] > 0):
-            raise SystemExit(f"the backward's {label} issues no wgmma or no TMA load: {got}")
-    return {"ptxas": {k: res[v] for k, v in BWD_INSTANTIATIONS.items()},
-            "sass_counts": {k: sass[v] for k, v in BWD_INSTANTIATIONS.items()}}
+            raise SystemExit(f"{label} issues no wgmma or no TMA load: {got}")
+        if res[key]["wgmma_serialized"]:
+            raise SystemExit(f"ptxas serialized the wgmma of {label} (C7510 / C7515)")
+    return ({k: res[v] for k, v in BUILD_INSTANTIATIONS.items()},
+            {k: sass[v] for k, v in BUILD_INSTANTIATIONS.items()})
+
+
+def _weight_stream(packed, cfg, n_rows: int, ms: float, forward_instance: bool = True,
+                   compute_scene: bool = True) -> str:
+    """The forward chain's weight stream of one launch, for a printed line:
+    every block copies each chunk of the tile's chunk list from L2 into
+    shared memory once per tile (`forward_weight_bytes`), and the rate that
+    implies at the measured time. A figure of the design: the kernels line's
+    bound counts the packed weights once."""
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+
+    per_tile = fv.forward_weight_bytes(packed, forward_instance, compute_scene)
+    n_tiles = -(-n_rows // 128)
+    total = per_tile * n_tiles
+    return (f"weight stream: {n_tiles} tiles x {per_tile / 1e6:.3f} MB = {total / 1e9:.2f} GB "
+            f"copied from L2 into shared memory per launch, {total / ms / 1e9:.2f} TB/s at "
+            f"{ms:.3f} ms")
 
 
 def _bwd_launch_peak(run, plan, packed, inputs: int) -> int:
@@ -587,7 +624,8 @@ def _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch, loss_weigh
 
 def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     """Phases 6 and 7; returns the two training kernels' entries for the
-    `kernels` line and prints everything else."""
+    `kernels` line and the build report of `fused_render_tiles`, and prints
+    everything else."""
     import copy
 
     from object_nerf_torch.config import load_config
@@ -677,11 +715,15 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         with torch.no_grad():
             packed = fused_mlp.pack_kernel_weights(model, cfg, True)
             got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes)
+            again = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit("two launches of fused_mlp_eval on the same inputs differ")
             e = {k: (a - b).abs().max().item() for k, a, b in zip(names, got, want)}
             print(f"fused_mlp_eval {tuple(xyz.shape)}: max |kernel - plain bf16| "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g})")
+                  + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g}); "
+                  "relaunch bit-equal")
             errs["fused_mlp_eval"] = max(errs["fused_mlp_eval"], *e.values())
         g = real_cotangent(model, typ, xyz, z, noise, noise_inst)
         with torch.no_grad():
@@ -716,6 +758,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             ms["fused_mlp_eval"][s_] = _cuda_ms(
                 lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True),
                 TIMED_LAUNCHES)
+            print(f"fused_mlp_eval {tuple(xyz.shape)}: "
+                  + _weight_stream(packed, cfg, BATCH * s_, ms["fused_mlp_eval"][s_]))
             ms["fused_mlp_bwd"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
                 TIMED_LAUNCHES)
@@ -786,7 +830,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
                   f"{2 * macs * rows / ms[name][s_] / 1e9:.1f} TFLOP/s achieved{extra}")
         entries.append({
             "name": name, "route": "cuda",
-            "source": "object_nerf_torch/ops/csrc/fused_mlp_train.cu",
+            "source": ("object_nerf_torch/ops/csrc/fused_mlp_wg.cuh" if name == "fused_mlp_eval"
+                       else "object_nerf_torch/ops/csrc/fused_mlp_train.cu"),
             "replaces": ("object_nerf_tpu/ops/pallas_mlp.py:287" if name == "fused_mlp_eval"
                          else "object_nerf_tpu/ops/pallas_mlp_vjp.py:72"),
             "max_abs_err": errs[name], "tol": KERNEL_TOL if name == "fused_mlp_eval" else BWD_TOL,
@@ -799,7 +844,14 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         })
     entries[1]["split_ms_by_samples"] = split
     entries[1]["launch_peak_bytes_by_samples"] = launch_peak
-    entries[1].update(_bwd_build_report())
+    ptxas, sass = _build_report()
+    for entry, labels in ((entries[0], [k for k in ptxas if "fused_mlp_eval" in k]),
+                          (entries[1], ["sweep, classical", "sweep, voxel", "weight gradient",
+                                        "reduction"])):
+        entry["ptxas"] = {k: ptxas[k] for k in labels}
+        entry["sass_counts"] = {k: sass[k] for k in labels}
+    render_build = {key: {k: v for k, v in d.items() if "fused_render_tiles" in k}
+                    for key, d in (("ptxas", ptxas), ("sass_counts", sass))}
     print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
 
     # -- 7. the training path -----------------------------------------------------------
@@ -926,7 +978,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
               f"{wall_ms / n_prof:.2f} ms wall (with the profiler's own cost on the host): "
               f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
               f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
-    return entries
+    return entries, render_build
 
 
 def _branch_macs(cfg, instance: bool) -> int:
@@ -1454,6 +1506,11 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         vox = {}
         for name, (run, run_plain) in runs.items():
             got, want = run(), run_plain()
+            if name == "fused_render_tiles":
+                again = run()
+                if not all(torch.equal(again[k], got[k]) for k in got):
+                    raise SystemExit("two launches of the voxel fused_render_tiles differ")
+                del again
             torch.cuda.synchronize()
             if name == "fused_coarse_weights":
                 errs = {"weights": (got - want).abs().max().item()}
@@ -1475,6 +1532,9 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
                   f"{vox[name]['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
                   f"{flop / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), "
                   f"{flop / vox[name]['ms'] / 1e9:.1f} TFLOP/s achieved")
+            if name == "fused_render_tiles":
+                print(f"{name} voxel {tuple(xyz_f.shape)}: "
+                      + _weight_stream(pk_f, cfg, n_f, vox[name]["ms"]))
 
         # the density kernel at the sweep's chunk: points in and around the room,
         # features from the f32 table as the sweep looks them up
@@ -1927,11 +1987,15 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         with torch.no_grad():
             packed = fused_mlp.pack_kernel_weights(model, cfg, True)
             got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+            again = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit("two launches of the voxel fused_mlp_eval differ")
             e = {k: (a - b).abs().max().item() for k, a, b in zip(names, got, want)}
         print(f"fused_mlp_eval voxel {tuple(xyz.shape)}: max |kernel - plain bf16| "
-              + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g})")
+              + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + f" (tol {KERNEL_TOL:g}); "
+              "relaunch bit-equal")
         out["fused_mlp_eval"]["err"] = max(out["fused_mlp_eval"]["err"], *e.values())
         g = real_cotangent(model, typ, xyz, z, raw, noise, noise_inst)
         with torch.no_grad():
@@ -1971,6 +2035,8 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             out["fused_mlp_eval"]["ms"][s_] = _cuda_ms(
                 lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True, raw),
                 TIMED_LAUNCHES)
+            print(f"fused_mlp_eval voxel {tuple(xyz.shape)}: "
+                  + _weight_stream(packed, cfg, BATCH * s_, out["fused_mlp_eval"]["ms"][s_]))
             out["fused_mlp_bwd"]["ms"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
                                          voxel_raw=raw), TIMED_LAUNCHES)
@@ -2520,12 +2586,17 @@ def main() -> int:
               f"= {err_c:.3e} (tol {KERNEL_TOL:g}; weights sum to "
               f"{w_k.sum(-1).mean().item():.4f} per ray on average)")
         maps_k, maps_p = run_fine(), run_fine_plain()
+        again = run_fine()
         torch.cuda.synchronize()
+        if not all(torch.equal(again[k], maps_k[k]) for k in maps_k):
+            raise SystemExit("two launches of fused_render_tiles on the same inputs differ")
+        del again
         errs_f = {k: (maps_k[k] - maps_p[k]).abs().max().item() for k in maps_p}
         err_f = max(errs_f.values())
         print(f"fused_render_tiles {tuple(xyz_f.shape)}: max |kernel - plain bf16| "
               f"= {err_f:.3e} (tol {KERNEL_TOL:g}): "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs_f.items()))
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs_f.items())
+              + "; relaunch bit-equal")
         for name, err in (("fused_coarse_weights", err_c), ("fused_render_tiles", err_f)):
             if not err <= KERNEL_TOL:
                 raise SystemExit(f"{name} disagrees with its plain version: {err:.3e}")
@@ -2556,6 +2627,19 @@ def main() -> int:
         print(f"{k}: {ms[k]:.3f} ms/launch, plain {plain_ms[k]:.3f} ms, bound "
               f"{bound_ms[k]:.3f} ms ({bound_by[k]}: {flops[k] / 1e12:.3f} TFLOP, "
               f"{nbytes[k] / 1e6:.1f} MB), {flops[k] / ms[k] / 1e9:.1f} TFLOP/s achieved")
+    print(f"fused_render_tiles {tuple(xyz_f.shape)}: "
+          + _weight_stream(pk_f, cfg, n_f, ms["fused_render_tiles"]))
+    # the chain takes both values of an encoded pair from one sincosf: it must
+    # give sinf's and cosf's bits, here over arguments at the encodings' scale
+    # (xyz up to 2^9, voxel features up to 2^5 times a few units) and beyond
+    gen = torch.Generator().manual_seed(SEED + 3)
+    args = torch.cat([torch.randn(1 << 22, generator=gen) * s_
+                      for s_ in (1.0, 30.0, 600.0, 2e4)]).to(dev)
+    mism = fused_mlp.sincos_mismatches(args)
+    print(f"sincosf vs sinf / cosf on the card: {mism} of {args.numel()} arguments differ")
+    if mism:
+        raise SystemExit("sincosf differs from sinf / cosf: the chain's encoding would too")
+    del args
 
     # -- 4. one 640x480 frame through the main path -----------------------------
     fused_mlp.reset_launch_counts()
@@ -2604,8 +2688,8 @@ def main() -> int:
 
     # -- 6, 7. the training kernels and the training path ------------------------------
     torch.cuda.empty_cache()
-    train_entries = _train_phases(torch, dev, peak_flops, peak_bytes,
-                                  profile="--profile" in sys.argv[1:])
+    train_entries, render_build = _train_phases(torch, dev, peak_flops, peak_bytes,
+                                                profile="--profile" in sys.argv[1:])
 
     # -- 8, 9, 10. the density kernel, the edit frame and the mesh sweep ----------------
     torch.cuda.empty_cache()
@@ -2675,15 +2759,18 @@ def main() -> int:
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
     }
     errs = {"fused_coarse_weights": err_c, "fused_render_tiles": err_f}
+    sources = {"fused_coarse_weights": "object_nerf_torch/ops/csrc/fused_mlp.cu",
+               "fused_render_tiles": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh"}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "object_nerf_torch/ops/csrc/fused_mlp.cu",
+        {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k] + vox_eval_launches[k],
          "launches_by_path": {"eval": launches[k], "voxel_eval": vox_eval_launches[k]},
          "max_abs_err": max(errs[k], vox[k]["err"]),
          "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None,
          "voxel_ms": vox[k]["ms"], "voxel_plain_ms": vox[k]["plain_ms"],
-         "voxel_bound_ms": vox[k]["bound_ms"]}
+         "voxel_bound_ms": vox[k]["bound_ms"],
+         **(render_build if k == "fused_render_tiles" else {})}
         for k in replaces
     ] + train_entries + [sigma_entry, gather_entry] + probe_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,8 +8,8 @@ their shared headers and the flags, so an edited source is rebuilt and a
 stale library is never loaded. The library is bound with `ctypes`: every
 pointer and the stream pass as `c_void_p`, every launcher returns
 `cudaGetLastError()`. It links against the CUDA runtime alone: the TMA
-tensor maps of the backward's kernels (the sweep's weights, the weight-gradient
-kernel's workspace) are encoded by the
+tensor maps (the weights of the forward chain and of the backward's sweep, the
+weight-gradient kernel's workspace) are encoded by the
 driver's `cuTensorMapEncodeTiled`, which the runtime hands over at run time
 (`cudaGetDriverEntryPoint`), so the link line needs no `-lcuda`.
 
@@ -41,9 +41,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # name: argtypes (see the extern "C" blocks of csrc/*.cu)
     "onerf_coarse_weights": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "onerf_sincos_check": [_P, _L, _P, _P],
+    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                       _P, _I, _P, _P, _I, _P, _P, _P,

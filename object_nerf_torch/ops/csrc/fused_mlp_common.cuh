@@ -227,36 +227,6 @@ __device__ void head_rgb(const bf16* H, int K, const bf16* __restrict__ wr,
   }
 }
 
-// sigma -> rgb head of one branch after its trunk: the sigma head, `final`
-// (no activation), the view-direction layer (its direction part arrives
-// as the per-ray bias `dbias`, shape (R, N/2)) and the sigmoid rgb head.
-template <int N>
-__device__ void run_heads(const BranchTab& t, const bf16* __restrict__ w,
-                          const float* __restrict__ b, bf16* H, bf16* wst,
-                          float* scratch, const float* dbias, int S,
-                          float* sig, float* rgb) {
-  head_sigma(H, N, w + t.v[T_SIGW], b[t.v[T_SIGB]], sig);
-  {
-    Acc<N> acc;
-    acc_zero(acc);
-    gemm<N>(acc, H, LDH, w + t.v[T_FINW], N, wst);
-    const float* bl = b + t.v[T_FINB];
-    epilogue<N>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(v + bl[c]);
-    });
-  }
-  {
-    constexpr int ND = N / 2;
-    Acc<ND> acc;
-    acc_zero(acc);
-    gemm<ND>(acc, H, LDH, w + t.v[T_DIRWH], N, wst);
-    epilogue<ND>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(lrelu(v + dbias[(r / S) * ND + c]));
-    });
-  }
-  head_rgb(H, N / 2, w + t.v[T_RGBW], b + t.v[T_RGBB], rgb);
-}
-
 // Column c of a row of the input tile [PE(p) | code | 0], before rounding:
 // p is the row's xyz, pe = 3 (2 n_freq + 1) the width of its encoding in the
 // reference channel order, code_row the row's latent code (or nullptr).

@@ -2,7 +2,8 @@
 //
 // Hand-written replacements of two Pallas TPU kernels:
 //
-//   mlp_eval_kernel  replaces _mlp_kernel / fused_mlp_eval
+//   fwd_chain_kernel<VOX, false>
+//                    replaces _mlp_kernel / fused_mlp_eval
 //                    (object_nerf_tpu/ops/pallas_mlp.py:287, :495): xyz
 //                    positional encoding -> scene trunk -> sigma, `final`,
 //                    view-direction head, sigmoid rgb; the object branch
@@ -23,11 +24,12 @@
 // What bounds them: the tensor cores by count (0.70 M multiply-adds per row
 // forward, about 2.07 M backward, against 12 + 32 bytes of input per row).
 //
-// * The forward kernel is the eval render's tile (fused_mlp_common.cuh): one
-//   block of 8 warps owns 128 sample rows of whole rays, activations stay in
-//   shared memory as bf16, weights stream from L2 in 64-row chunks
-//   (nvcuda::wmma).
-// * The sweep keeps that tile but computes on wgmma: its two warpgroups own
+// * The forward is the chain of fused_mlp_wg.cuh, shared with the eval
+//   render: a persistent, warp-specialised grid (a TMA producer warp, two
+//   consumer warpgroups of 64 rows on wgmma), storing each row's outputs
+//   from the heads' registers.
+// * The sweep keeps the 128-row tile of whole rays and computes on wgmma: its
+//   two warpgroups own
 //   64 rows each; the A operand (input tile, activation or d_pre, padded
 //   row-major bf16 in shared memory) enters through ldmatrix as registers,
 //   B (a 64-row chunk of the weights, 32 KB at most) comes by TMA in the
@@ -73,8 +75,8 @@
 // forward and of the sweep: the raw voxel features (n*S, 16 + 8) are one more
 // operand and the input tile is the eval kernels' [svox | PE(svox) | xyz |
 // PE(xyz)] (271 columns, read as 320) followed by [ivox | PE(ivox) | code]
-// (439, read as 448). The forward takes the eval kernels' voxel layout
-// (fused_mlp_common.cuh). The sweep cannot: the 116,736-byte tile, H, G and
+// (439, read as 448). The forward takes the chain's voxel layout
+// (fused_mlp_wg.cuh). The sweep cannot: the 116,736-byte tile, H, G and
 // the weight stage exceed a block's shared memory. Its tile is built once per
 // tile into the tile's rows of the workspace (where wgrad_kernel reads it
 // too) and staged into the classical X buffer 128 columns at a time wherever
@@ -102,9 +104,7 @@
 // own element offset in an f32 buffer as long as the bf16 weight buffer, the
 // bias gradients after it at the bias offsets.
 
-#include "fused_mlp_common.cuh"
-
-#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
+#include "fused_mlp_wg.cuh"
 
 namespace {
 
@@ -174,145 +174,6 @@ WsTab to_ws(const int* v) {
 __device__ __forceinline__ BranchWs branch_ws(const WsTab& t, int branch) {
   const int o = W_BR + W_PER_BRANCH * branch;
   return {t.v[o], t.v[o + 1], t.v[o + 2], t.v[o + 3], t.v[o + 4]};
-}
-
-// The weight matrices the sweep multiplies by, as TMA tensor maps
-// (sweep_weight_maps in fused_mlp_vjp.py gives each one's element offset in
-// the packed weights, rows and columns): per branch, trunk layer i at slot
-// i, `final` at WM_FIN, the direction layer's hidden part at WM_DIR; each a
-// row-major bf16 view read in 64 x 64 boxes in the 128-byte swizzle.
-enum { WM_FIN = 8, WM_DIR = 9, WM_PER_BRANCH = 10, WM_LEN = 2 * WM_PER_BRANCH };
-struct SweepMaps {
-  CUtensorMap m[WM_LEN];
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory to shared memory without passing through
-// registers: a thread issues all its copies of a tile before it waits for
-// any, so a tile costs one round trip to L2, not one per copy.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// this thread's generic shared-memory accesses are ordered before those of
-// the async proxy (wgmma's reads, TMA's writes)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A wait that outlasts 2^26
-// polls (seconds, where a stage takes microseconds) traps: a protocol fault
-// ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0, polls = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++polls == (1u << 26)) __trap();
-  }
-}
-
-// a (64 rows, 64 columns) box at column c0, row c1 of the tensor map
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory descriptors of a bf16 wgmma operand in the 128-byte swizzle
-// (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes, and the sweep's
-// staging below): 128-byte rows, XOR-swizzled in groups of 8 rows that lie
-// 1024 bytes apart; the start address 1024-byte aligned but for the offset
-// of a K step inside a row.
-// MN-major (64 values along M or N per row, one row per K): each instruction
-// reads one 64-wide block, so only the 8-row-group stride is used; it goes
-// into both byte-offset fields (bits 16-29 and 32-45).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// K-major (64 values along K per row, one row per N): the 8-row groups along
-// N lie 1024 bytes apart (stride field); the leading field is unused.
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-template <int L>
-__device__ __forceinline__ void fence_acc(float (&d)[L]) {
-#pragma unroll
-  for (int r = 0; r < L; ++r) asm volatile("" : "+f"(d[r])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-#define WG_ACC32(d)                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define WG_REGS32                                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 x 64] += A^T B on one warpgroup: A (16 K rows x 64 M) and B (16 K
-// rows x 64 N) both MN-major in shared memory (transpose bits set)
-__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-               ", %32, %33, p, 1, 1, 1, 1;\n}\n"
-               : WG_ACC32(d)
-               : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 64] += A B on one warpgroup: A (64 x 16, K-major) in registers as
-// ldmatrix gives it, B (16 x 64) in shared memory, MN-major when TB is 1
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-               ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-               : WG_ACC32(d)
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
 }
 
 // ---- the sweep's products: wgmma, two warpgroups of 64 rows each ----------------
@@ -880,51 +741,6 @@ __device__ void branch_backward(int tile, int branch, const BranchTab& t, const 
   __syncthreads();
 }
 
-template <bool VOX>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_eval_kernel(const float* __restrict__ xyz, const float* __restrict__ dir_pe,
-                const float* __restrict__ codes, const float* __restrict__ vox, VoxDims vd,
-                const bf16* __restrict__ w, const float* __restrict__ b, BranchTab scene,
-                BranchTab obj, float* __restrict__ out, int n_rays, int S, int n_freq,
-                int c_dir, int code_len, int forward_instance, int compute_scene) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem s = VOX ? carve_vox(smem) : carve(smem);
-  constexpr int LD = VOX ? LDX_V : LDX;
-  const int R = ROWS / S;
-  if (VOX)
-    // the object branch reads the scene's columns too: built whenever it runs;
-    // the staging reuses the H buffer, free until the first layer's epilogue
-    load_inputs_vox(blockIdx.x, xyz, nullptr, vox, codes, (long long)n_rays * S, S, n_freq,
-                    vd, code_len, forward_instance != 0,
-                    forward_instance ? obj.v[T_K0] : scene.v[T_K0], s.X, nullptr,
-                    reinterpret_cast<float*>(s.H));
-  else
-    load_inputs(blockIdx.x, xyz, nullptr, forward_instance ? codes : nullptr, n_rays, S,
-                n_freq, code_len, s.X, nullptr, s.scratch);
-  if (compute_scene) {
-    dir_bias(blockIdx.x, scene, w, b, WS / 2, dir_pe, c_dir, n_rays, R, s.dbs);
-    run_trunk<WS, LD>(scene, w, b, s.X, s.H, s.wst, s.scratch);
-    run_heads<WS>(scene, w, b, s.H, s.wst, s.scratch, s.dbs, S, s.sig, s.rgb);
-  }
-  if (forward_instance) {
-    dir_bias(blockIdx.x, obj, w, b, WO / 2, dir_pe, c_dir, n_rays, R, s.dbo);
-    run_trunk<WO, LD>(obj, w, b, s.X, s.H, s.wst, s.scratch);
-    run_heads<WO>(obj, w, b, s.H, s.wst, s.scratch, s.dbo, S, s.isig, s.irgb);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < ROWS * 8; e += THREADS) {
-    const int r = e >> 3, c = e & 7;
-    if (blockIdx.x * R + r / S >= n_rays) continue;
-    float v = 0.f;
-    if (c < 4) {
-      if (compute_scene) v = c == 0 ? s.sig[r] : s.rgb[r * 3 + c - 1];
-    } else if (forward_instance) {
-      v = c == 4 ? s.isig[r] : s.irgb[r * 3 + c - 5];
-    }
-    out[(size_t)blockIdx.x * ROWS * 8 + e] = v;
-  }
-}
-
 // The tile sweep of the backward. `ws` is the workspace (rows of all tiles,
 // wt.v[W_COLS] bf16 columns each); `small` holds small_stride floats per
 // block: the block's bias and small-head gradients at the offsets of
@@ -1171,30 +987,6 @@ __global__ void reduce_segments_kernel(const float* __restrict__ parts,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the driver, fetched through the runtime, so the
-// library links against nothing but the CUDA runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // The weight-gradient kernel over a (rows, cols) bf16 workspace: the tensor
 // map of its 64 x 64 boxes, then one block per item.
 int launch_wgrad(const void* ws, int rows, int cols, const int* items, int n_items,
@@ -1214,48 +1006,6 @@ int launch_wgrad(const void* ws, int rows, int cols, const int* items, int n_ite
       cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (e != cudaSuccess) return (int)e;
   wgrad_kernel<<<n_items, WG_THREADS, WG_SMEM, st>>>(map, items, parts);
-  return (int)cudaGetLastError();
-}
-
-// The sweep's weight maps over the packed weights `w`: `tab` holds WM_LEN
-// (element offset, rows, columns) triples, rows 0 for a slot no matrix
-// takes (its map stays zero and is never read).
-int encode_sweep_maps(const void* w, const int* tab, SweepMaps* maps) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  memset(maps, 0, sizeof(*maps));
-  for (int i = 0; i < WM_LEN; ++i) {
-    const int off = tab[3 * i], rows = tab[3 * i + 1], cols = tab[3 * i + 2];
-    if (rows == 0) continue;
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-    const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
-    if (encode(&maps->m[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-               const_cast<bf16*>(static_cast<const bf16*>(w)) + off, dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaSuccess;
-}
-
-template <bool VOX>
-int launch_mlp_eval(const float* xyz, const float* dir_pe, const float* codes,
-                    const float* vox, VoxDims vd, const void* w, const float* b,
-                    const int* scene_tab, const int* obj_tab, float* out, int n_rays, int S,
-                    int n_freq, int c_dir, int code_len, int forward_instance,
-                    int compute_scene, void* stream) {
-  constexpr int BYTES = VOX ? SMEM_BYTES_V : SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_eval_kernel<VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int R = ROWS / S;
-  dim3 grid((n_rays + R - 1) / R);
-  mlp_eval_kernel<VOX><<<grid, THREADS, BYTES, (cudaStream_t)stream>>>(
-      xyz, dir_pe, codes, vox, vd, static_cast<const bf16*>(w), b, to_tab(scene_tab),
-      to_tab(obj_tab), out, n_rays, S, n_freq, c_dir, code_len, forward_instance,
-      compute_scene);
   return (int)cudaGetLastError();
 }
 
@@ -1296,20 +1046,21 @@ extern "C" {
 // Every launcher returns cudaGetLastError() after the launch (0 on success).
 // `vox` is the raw voxel feature operand (n_rays * S, c_svox + c_ivox) of a
 // voxel-conditioned model, or null for a classical one (then the three
-// widths are unused).
+// widths are unused). `wmap_tab` and `chunks`: the forward chain's weight
+// maps and the chunk order of one tile (fused_mlp_vjp.forward_launch_tables).
 int onerf_mlp_eval(const float* xyz, const float* dir_pe, const float* codes,
                    const float* vox, const void* w, const float* b, const int* scene_tab,
-                   const int* obj_tab, float* out, int n_rays, int S, int n_freq,
-                   int c_dir, int code_len, int forward_instance, int compute_scene,
-                   int c_svox, int c_ivox, int n_freq_vox, void* stream) {
-  const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
+                   const int* obj_tab, const int* wmap_tab, const int* chunks, int n_chunks,
+                   float* out, int n_rays, int S, int n_freq, int c_dir, int code_len,
+                   int forward_instance, int compute_scene, int c_svox, int c_ivox,
+                   int n_freq_vox, void* stream) {
+  FwdArgs a = {xyz, nullptr, dir_pe, codes, vox, static_cast<const bf16*>(w), b, out,
+               nullptr, nullptr, {c_svox, c_ivox, n_freq_vox}, n_rays, S, n_freq, c_dir,
+               code_len, forward_instance, compute_scene, 0};
+  const cudaStream_t st = (cudaStream_t)stream;
   if (vox != nullptr)
-    return launch_mlp_eval<true>(xyz, dir_pe, codes, vox, vd, w, b, scene_tab, obj_tab, out,
-                                 n_rays, S, n_freq, c_dir, code_len, forward_instance,
-                                 compute_scene, stream);
-  return launch_mlp_eval<false>(xyz, dir_pe, codes, vox, vd, w, b, scene_tab, obj_tab, out,
-                                n_rays, S, n_freq, c_dir, code_len, forward_instance,
-                                compute_scene, stream);
+    return launch_fwd_chain<true, false>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
+  return launch_fwd_chain<false, false>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
 }
 
 // The backward in three launches (fused_mlp_bwd in fused_mlp_vjp.py builds

@@ -22,9 +22,11 @@ model's own input order. The training kernels (`fused_mlp_vjp.py`) take the
 same operand and return its gradient.
 
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp.cu`, built by
-`_build.py`). Each wrapper checks device, dtype, shape and contiguity; on a
-CUDA tensor it launches its kernel or raises, and on a CPU tensor it runs
-its plain version, which sits beside it here. The wrappers are inference
+`_build.py`); the render runs on the forward chain of `csrc/fused_mlp_wg.cuh`
+that `fused_mlp_eval` shares (its weight-chunk order is
+`fused_mlp_vjp.forward_chunks`). Each wrapper checks device, dtype, shape and
+contiguity; on a CUDA tensor it launches its kernel or raises, and on a CPU
+tensor it runs its plain version, which sits beside it here. The wrappers are inference
 only (no autograd); the plain versions are differentiable. `launch_counts` counts the
 kernel launches and nothing else.
 
@@ -415,6 +417,7 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                                   white_back, dtype)
 
     from ._build import check, load_library
+    from .fused_mlp_vjp import forward_launch_tables
 
     if packed is None:
         packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
@@ -433,6 +436,7 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
                 _ptr(obj_codes) if forward_instance else None, _ptr(voxel_raw),
                 packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
                 _tab(packed.obj) if forward_instance else None,
+                *forward_launch_tables(packed, forward_instance, True),
                 maps.data_ptr(), _ptr(weights), n, s, cfg.N_freq_xyz,
                 cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
                 int(last_delta_inf), *_vox_args(cfg),
@@ -450,3 +454,21 @@ def fused_render_tiles(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     if want_weights:
         result["weights"] = weights
     return result
+
+
+def sincos_mismatches(x: torch.Tensor) -> int:
+    """The f32 arguments of `x` (a CUDA tensor) at which the card's
+    full-precision `sincosf` differs in any bit from its `sinf` / `cosf`: the
+    forward chain takes both values of an encoded pair from one `sincosf`,
+    where the reference order reads them as separate columns."""
+    from ._build import check, load_library
+
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 CUDA tensor")
+    lib = load_library()
+    count = torch.zeros(1, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.onerf_sincos_check(x.data_ptr(), x.numel(), count.data_ptr(),
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, rc, "sincos_mismatches")
+    return int(count.item())

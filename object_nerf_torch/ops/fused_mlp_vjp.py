@@ -32,7 +32,10 @@ row-major workspace (`bwd_workspace_layout`), a split-K GEMM over a work list
 (`wgrad_work_list`) that contracts them over all rows, and a reduction that
 adds the partial sums in a fixed order (`bwd_plan` puts the three together).
 The layout and the work list are built here, where the CPU tests reach them,
-and passed to the kernels as small tables.
+and passed to the kernels as small tables. So is the order of the weight
+chunks that the forward chain (`fused_mlp_eval`, and `fused_render_tiles` in
+`fused_mlp.py`) streams through its ring (`forward_chunks`), over the same
+tensor maps as the backward's sweep (`sweep_weight_maps`).
 
 A voxel-conditioned model takes `voxel_raw` (n, S, 16 + 8), the raw trilinear
 features of its samples, as the eval kernels do: the input row is
@@ -313,6 +316,73 @@ def sweep_weight_maps(packed: PackedWeights,
     return maps
 
 
+# The forward chain (csrc/fused_mlp_wg.cuh) of fused_mlp_eval and
+# fused_render_tiles: its producer streams these chunks through the weight ring
+FWD_MAX_CHUNKS = 320  # chunks of one tile at most (FWD_MAX_CHUNKS in the source)
+FWD_STAGE_BYTES = 16384  # one chunk, one stage of the ring (FWD_STAGE)
+
+
+def forward_chunk_rows(cols: int) -> int:
+    """K rows of one chunk of a matrix of `cols` columns: a row of 64-column
+    boxes across the matrix that fills one FWD_STAGE_BYTES stage (32 rows of
+    the 256-wide scene layers, 64 of the 128-wide ones, 128 of the object
+    branch's 64-wide direction layer)."""
+    return FWD_STAGE_BYTES // (2 * cols)
+
+
+def forward_chunks(packed: PackedWeights, forward_instance: bool = True,
+                   compute_scene: bool = True) -> List[Tuple[int, int, int]]:
+    """The weight chunks of one tile of the forward chain, in the order its
+    producer loads them and each consumer warpgroup reads them: `(slot, row,
+    boxes)`, rows [row, row + forward_chunk_rows(cols)) of the (rows, cols)
+    matrix of `sweep_weight_maps` slot `slot`, as `boxes` = cols / 64 TMA
+    boxes. Per branch that runs (the scene when `compute_scene`, the object
+    branch when `forward_instance`): trunk layer 0 (the input rows), each
+    later layer (a skip layer's input rows, then its hidden rows), `final`,
+    the direction layer's hidden part. The order does not depend on the
+    data, so the producer runs ahead across layers, branches and tiles."""
+    maps = sweep_weight_maps(packed, forward_instance)
+    out: List[Tuple[int, int, int]] = []
+    for bi, tab in enumerate(_run_branches(packed, forward_instance)):
+        if bi == 0 and not compute_scene:
+            continue
+        base, width, k0 = bi * SWEEP_MAPS_PER_BRANCH, BRANCH_WIDTHS[bi], tab[T_K0]
+
+        def rows(slot: int, r0: int, n: int) -> None:
+            cols = maps[base + slot][2]
+            out.extend((base + slot, r, cols // SWEEP_BOX[0])
+                       for r in range(r0, r0 + n, forward_chunk_rows(cols)))
+
+        for i in range(tab[T_DEPTH]):
+            skip = i > 0 and (tab[T_SKIPS] >> i) & 1
+            if i == 0 or skip:
+                rows(i, 0, k0)
+            if i > 0:
+                rows(i, k0 if skip else 0, width)
+        rows(8, 0, width)
+        rows(9, 0, width)
+    if len(out) > FWD_MAX_CHUNKS:
+        raise ValueError(f"{len(out)} weight chunks per tile exceed {FWD_MAX_CHUNKS}")
+    return out
+
+
+def forward_weight_bytes(packed: PackedWeights, forward_instance: bool = True,
+                         compute_scene: bool = True) -> int:
+    """Bytes of weights one tile of the forward chain copies from L2 into
+    shared memory (every block reads every chunk once per tile)."""
+    return FWD_STAGE_BYTES * len(forward_chunks(packed, forward_instance, compute_scene))
+
+
+def forward_launch_tables(packed: PackedWeights, forward_instance: bool, compute_scene: bool):
+    """The forward chain's tables as its launchers take them: the weight maps
+    (WM_LEN x 3 ints), the chunk order (n x 3 ints) and n."""
+    maps = sweep_weight_maps(packed, forward_instance)
+    chunks = forward_chunks(packed, forward_instance, compute_scene)
+    flat = [v for c in chunks for v in c]
+    return ((ctypes.c_int * (3 * len(maps)))(*(v for m in maps for v in m)),
+            (ctypes.c_int * max(1, len(flat)))(*flat), len(chunks))
+
+
 def bwd_workspace_layout(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int,
                          forward_instance: bool = True) -> BwdLayout:
     """The workspace of one backward launch over `n_rows` rows (a multiple of
@@ -538,7 +608,8 @@ def _check_inputs(cfg: ObjectNeRFConfig, xyz, dir_pe, codes, voxel_raw) -> Tuple
 def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, forward_instance: bool,
                  compute_scene: bool, voxel_raw: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """Launch `mlp_eval_kernel`; returns the (n*S, 8) f32 output."""
+    """Launch the forward chain for `fused_mlp_eval`; returns the (n*S, 8) f32
+    output."""
     from ._build import check, load_library
 
     n, s = xyz.shape[0], xyz.shape[1]
@@ -551,7 +622,9 @@ def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, forward_instanc
         rc = lib.onerf_mlp_eval(
             xyz.data_ptr(), dir_pe.data_ptr(), _ptr(codes) if forward_instance else None,
             _ptr(voxel_raw), packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
-            _tab(packed.obj) if forward_instance else None, out.data_ptr(), n, s,
+            _tab(packed.obj) if forward_instance else None,
+            *forward_launch_tables(packed, forward_instance, compute_scene),
+            out.data_ptr(), n, s,
             cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length,
             int(forward_instance), int(compute_scene), *_vox_args(cfg),
             torch.cuda.current_stream(device).cuda_stream,

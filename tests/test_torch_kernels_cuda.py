@@ -513,3 +513,113 @@ def test_scale_copy_doubles_on_card(cuda_device, shape):
     got = probes.scale_copy(x)
     torch.cuda.synchronize()
     assert torch.equal(got, probes.scale_copy_plain(x))
+
+
+# -- the forward chain of fused_mlp_eval and fused_render_tiles ---------------------
+
+
+def _chain_setup(device, voxel, n, s):
+    """A fine model (scene densities raised clear of 0), n rays of s samples,
+    their direction encoding, codes and, for the voxel model, the raw features
+    of the real lookup."""
+    if voxel:
+        cfg, models, xyz, z, dir_pe, codes, raw = _voxel_setup(device, n, s, seed=7)
+        return cfg, models.nerf_fine, xyz, z, dir_pe, codes, raw
+    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+    models = init_params(torch.Generator().manual_seed(0),
+                         RenderSettings(mlp=cfg, perturb=0.0, noise_std=0.0), {},
+                         device=device)
+    with torch.no_grad():
+        models.nerf_fine.sigma.bias += 1.0
+    g = torch.Generator().manual_seed(7)
+    z = torch.sort(0.5 + 4.0 * torch.rand(n, s, generator=g), -1).values
+    o, d = torch.randn(n, 3, generator=g) * 0.3, torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    xyz = (o[:, None] + d[:, None] * z[..., None]).contiguous().to(device)
+    dir_pe = freq_encode(d, cfg.N_freq_dir).contiguous().to(device)
+    codes = torch.randn(n, cfg.N_obj_code_length, generator=g).to(device)
+    return cfg, models.nerf_fine, xyz, z.contiguous().to(device), dir_pe, codes, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+@pytest.mark.parametrize("s,n", [(128, 1), (128, 3), (64, 301), (32, 4133)])
+def test_forward_chain_matches_plain_bf16_on_card(cuda_device, voxel, s, n):
+    """Both kernels on the chain against their bf16 plain versions: S = 128
+    (one ray over both consumer warpgroups), fewer rays than SMs (1 and 3
+    tiles), a ragged last tile over more tiles than SMs (151 and 1034 tiles,
+    several per block); `fused_mlp_eval` with both branches, the scene alone
+    and the object alone with weights packed beforehand (the edit call), the
+    render with and without the instance branch; relaunches bit-equal."""
+    cfg, model, xyz, z, dir_pe, codes, raw = _chain_setup(cuda_device, voxel, n, s)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        packed = fm.pack_kernel_weights(model, cfg, True)
+        for fi, cs in ((True, True), (False, True), (True, False)):
+            got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, fi, cs, packed=packed)
+            want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, fi, cs, voxel_raw=raw)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape
+                assert (a - b).abs().max().item() < FWD_TOL, (fi, cs)
+            again = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, fi, cs,
+                                      packed=packed)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for fi in (True, False):
+            got = fm.fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw, fi,
+                                        want_weights=True, packed=packed)
+            want = fm.render_tiles_plain(model, cfg, xyz, z, dir_pe, codes, raw, fi,
+                                         want_weights=True)
+            assert set(got) == set(want)
+            for k in want:
+                assert (got[k] - want[k]).abs().max().item() < FWD_TOL, (fi, k)
+            again = fm.fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw, fi,
+                                          want_weights=True, packed=packed)
+            assert all(torch.equal(got[k], again[k]) for k in got)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["fused_mlp_eval"] == 6
+    assert fm.launch_counts["fused_render_tiles"] == 4
+
+
+@pytest.mark.cuda
+def test_forward_chain_build_on_card(cuda_device):
+    """The chain's four instantiations (fused_mlp_eval and fused_render_tiles,
+    classical and voxel) issue wgmma (HGMMA) and TMA loads (UTMALDG) in their
+    machine code, and ptxas serialized none of their wgmma (C7510: the
+    pipeline crosses a call; C7515: other instructions define accumulator
+    registers inside it)."""
+    import shutil
+    import subprocess
+
+    from object_nerf_torch.ops import _build
+
+    _build.load_library()
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "(C7510)" in line or "(C7515)" in line:
+            assert "fwd_chain_kernel" not in line, line
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in ("fwd_chain_kernelILb0ELb0", "fwd_chain_kernelILb1ELb0",
+                                        "fwd_chain_kernelILb0ELb1", "fwd_chain_kernelILb1ELb1")
+                            if k in line), None)
+            if current is not None:
+                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+        elif current is not None:
+            for op in counts[current]:
+                counts[current][op] += op in line
+    assert len(counts) == 4, counts
+    for k, c in counts.items():
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (k, c)
+
+
+@pytest.mark.cuda
+def test_sincosf_is_sinf_and_cosf_on_card(cuda_device):
+    """The chain takes both values of an encoded pair from one full-precision
+    sincosf: it must give sinf's and cosf's bits, at the encodings' scale
+    (xyz times up to 2^9, voxel features times up to 2^5) and beyond."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.cat([torch.randn(1 << 20, generator=g) * s for s in (1.0, 30.0, 600.0, 2e4)])
+    assert fm.sincos_mismatches(x.to(cuda_device)) == 0
