@@ -21,8 +21,8 @@ pruned and subdivided, and its edit render:
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
 3. holds each eval kernel against its plain PyTorch version (bf16 operands,
    f32 sums: the kernels' own rounding points) on identical seeded inputs
-   at the chunk shape of the eval path (the render also against its own
-   relaunch, bit for bit), times both, prints the weight bytes the render's
+   at the chunk shape of the eval path (each also against its own
+   relaunch, bit for bit), times both, prints the weight bytes their
    forward chain copies from L2 per launch, and checks that the card's
    `sincosf` gives `sinf`'s and `cosf`'s bits (the chain's encoding takes
    both values of a pair from one `sincosf`);
@@ -37,7 +37,7 @@ pruned and subdivided, and its edit render:
    training shapes (2048 rays x 64 and x 128 samples), each with a bit-equal
    relaunch, the backward on the cotangent of a real loss, prints the
    registers, spills, stack frames and wgmma serialization (`-Xptxas -v`)
-   of the forward chain's four instantiations and the backward's kernels and
+   of the forward chain's ten instantiations and the backward's kernels and
    counts the wgmma (HGMMA) and TMA (UTMALDG) instructions in their machine
    code (`cuobjdump -sass`; each must issue both, and ptxas must serialize
    none of their wgmma), prints the forward's weight stream, and
@@ -52,7 +52,9 @@ pruned and subdivided, and its edit render:
    forward and two backward launches per step; times the step and reads its
    peak device memory;
 8. holds the point-wise density kernel `fused_sigma_eval` against its plain
-   version, both branches, at the edit chunk's 4096 x 64 points, and times it;
+   version, both branches, at the edit chunk's 4096 x 64 points (a code per
+   64, and one code for all of them as the mesh sweep calls it) and against
+   its relaunch, bit for bit, times it and prints its weight stream;
 9. renders one 320x240 edit frame with an `EditableRenderer` (background +
    object 1 moved, its original carved out of the background; chunk 4096):
    finite maps, the launch counts that the hit-compaction plan implies, two
@@ -73,9 +75,9 @@ pruned and subdivided, and its edit render:
 12. holds `fused_coarse_weights`, `fused_render_tiles` and `fused_sigma_eval`
    with the voxel operand against their bf16 plain versions on identical
    seeded inputs (`voxel_raw` from the real lookup on the bench grid) at
-   7680 x 64, 7680 x 128 and 262,144 points (both branches; the render
-   against its relaunch, bit for bit), times them, and prints the render's
-   weight stream;
+   7680 x 64, 7680 x 128 and 262,144 points (both branches, a code per 64
+   points and one for all; each against its relaunch, bit for bit), times
+   them, and prints their weight streams;
 13. renders one 640x480 voxel frame with `render_image` (chunk 7680; rays from
    mid-room, near 0.05, far 2.4): finite maps, exactly 40 + 40 kernel
    launches, 80 `gather_rows` launches and one corner-table build; four chunks
@@ -497,14 +499,15 @@ def _fmt_split(split) -> str:
 
 
 # the kernels that issue wgmma, as the build names them: the forward chain's
-# four instantiations (fused_mlp_eval and fused_render_tiles, classical and
-# voxel), the backward's sweep (two), its weight-gradient GEMM; then the
-# reduction, which has no product
+# ten instantiations (fwd_chain_kernel<VOX, MODE>: fused_mlp_eval,
+# fused_render_tiles, fused_coarse_weights and fused_sigma_eval's two
+# branches, classical and voxel), the backward's sweep (two), its
+# weight-gradient GEMM; then the reduction, which has no product
+CHAIN_MODES = {0: "fused_mlp_eval", 1: "fused_render_tiles", 2: "fused_coarse_weights",
+               3: "fused_sigma_eval scene", 4: "fused_sigma_eval object"}  # FWD_* in the source
 WGMMA_INSTANTIATIONS = {
-    "forward chain, fused_mlp_eval classical": "fwd_chain_kernelILb0ELb0",
-    "forward chain, fused_mlp_eval voxel": "fwd_chain_kernelILb1ELb0",
-    "forward chain, fused_render_tiles classical": "fwd_chain_kernelILb0ELb1",
-    "forward chain, fused_render_tiles voxel": "fwd_chain_kernelILb1ELb1",
+    **{f"forward chain, {name} {model}": f"fwd_chain_kernelILb{vox}ELi{mode}E"
+       for mode, name in CHAIN_MODES.items() for vox, model in ((0, "classical"), (1, "voxel"))},
     "sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
     "weight gradient": "wgrad_kernel"}
 BUILD_INSTANTIATIONS = {**WGMMA_INSTANTIATIONS, "reduction": "reduce_segments_kernel"}
@@ -536,7 +539,7 @@ def _build_report():
 
 
 def _weight_stream(packed, cfg, n_rows: int, ms: float, forward_instance: bool = True,
-                   compute_scene: bool = True) -> str:
+                   compute_scene: bool = True, sigma_only: bool = False) -> str:
     """The forward chain's weight stream of one launch, for a printed line:
     every block copies each chunk of the tile's chunk list from L2 into
     shared memory once per tile (`forward_weight_bytes`), and the rate that
@@ -544,7 +547,7 @@ def _weight_stream(packed, cfg, n_rows: int, ms: float, forward_instance: bool =
     bound counts the packed weights once."""
     from object_nerf_torch.ops import fused_mlp_vjp as fv
 
-    per_tile = fv.forward_weight_bytes(packed, forward_instance, compute_scene)
+    per_tile = fv.forward_weight_bytes(packed, forward_instance, compute_scene, sigma_only)
     n_tiles = -(-n_rows // 128)
     total = per_tile * n_tiles
     return (f"weight stream: {n_tiles} tiles x {per_tile / 1e6:.3f} MB = {total / 1e9:.2f} GB "
@@ -850,8 +853,10 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
                                         "reduction"])):
         entry["ptxas"] = {k: ptxas[k] for k in labels}
         entry["sass_counts"] = {k: sass[k] for k in labels}
-    render_build = {key: {k: v for k, v in d.items() if "fused_render_tiles" in k}
-                    for key, d in (("ptxas", ptxas), ("sass_counts", sass))}
+    # the forward chain's instantiations of the eval kernels, by kernel
+    chain_build = {name: {key: {k: v for k, v in d.items() if name in k}
+                          for key, d in (("ptxas", ptxas), ("sass_counts", sass))}
+                   for name in ("fused_render_tiles", "fused_coarse_weights", "fused_sigma_eval")}
     print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
 
     # -- 7. the training path -----------------------------------------------------------
@@ -978,7 +983,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
               f"{wall_ms / n_prof:.2f} ms wall (with the profiler's own cost on the host): "
               f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
               f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
-    return entries, render_build
+    return entries, chain_build
 
 
 def _branch_macs(cfg, instance: bool) -> int:
@@ -1018,15 +1023,24 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
             def run_plain(branch=branch):
                 return fs.sigma_eval_plain(model, cfg, pts, codes, branch, s)
 
-            got, want = run(), run_plain()
+            got, want, again = run(), run_plain(), run()
             torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                raise SystemExit(f"two launches of fused_sigma_eval ({branch}) differ")
             errs[branch] = (got - want).abs().max().item()
+            # the mesh sweep's call: the whole chunk shares one code
+            whole = fs.fused_sigma_eval(model, cfg, pts, codes[:1], branch, n, packed=packed)
+            err_whole = (whole - fs.sigma_eval_plain(model, cfg, pts, codes[:1], branch, n)
+                         ).abs().max().item()
             print(f"fused_sigma_eval {branch} ({n} points, {n_rows} code rows): max |kernel - "
-                  f"plain bf16| = {errs[branch]:.3e} (tol {KERNEL_TOL:g}; raw densities "
-                  f"{got.min().item():.4f} .. {got.max().item():.4f})")
-            if not errs[branch] <= KERNEL_TOL:
+                  f"plain bf16| = {errs[branch]:.3e}, with one code for the whole chunk "
+                  f"{err_whole:.3e} (tol {KERNEL_TOL:g}; raw densities "
+                  f"{got.min().item():.4f} .. {got.max().item():.4f}); relaunch bit-equal")
+            if not max(errs[branch], err_whole) <= KERNEL_TOL:
                 raise SystemExit(f"fused_sigma_eval ({branch}) disagrees with its plain "
-                                 f"version: {errs[branch]:.3e}")
+                                 f"version: {errs[branch]:.3e}, {err_whole:.3e}")
+            errs[branch] = max(errs[branch], err_whole)
+            del again, whole
             ms[branch] = _cuda_ms(run, TIMED_LAUNCHES)
             plain_ms[branch] = _cuda_ms(run_plain, 3)
             instance = branch == "instance"
@@ -1043,10 +1057,11 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
                   f"{plain_ms[branch]:.3f} ms, bound {bound[branch]:.3f} ms ({by[branch]}: "
                   f"{macs} multiply-adds per point, {2 * macs * n / 1e12:.3f} TFLOP, "
                   f"{nbytes / 1e6:.1f} MB), {2 * macs * n / ms[branch] / 1e9:.1f} TFLOP/s "
-                  f"achieved")
+                  f"achieved; " + _weight_stream(packed, cfg, n, ms[branch], instance,
+                                                 not instance, True))
     entry = {
         "name": "fused_sigma_eval", "route": "cuda",
-        "source": "object_nerf_torch/ops/csrc/fused_sigma.cu",
+        "source": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh",
         "replaces": "object_nerf_tpu/ops/pallas_mlp.py:971",
         "max_abs_err": max(errs.values()), "tol": KERNEL_TOL, "err_is": "max abs",
         # a mixed edit chunk launches each branch once: the sum is its cost
@@ -1505,12 +1520,14 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         }
         vox = {}
         for name, (run, run_plain) in runs.items():
-            got, want = run(), run_plain()
+            got, want, again = run(), run_plain(), run()
             if name == "fused_render_tiles":
-                again = run()
-                if not all(torch.equal(again[k], got[k]) for k in got):
-                    raise SystemExit("two launches of the voxel fused_render_tiles differ")
-                del again
+                same = all(torch.equal(again[k], got[k]) for k in got)
+            else:
+                same = torch.equal(again, got)
+            if not same:
+                raise SystemExit(f"two launches of the voxel {name} differ")
+            del again
             torch.cuda.synchronize()
             if name == "fused_coarse_weights":
                 errs = {"weights": (got - want).abs().max().item()}
@@ -1519,7 +1536,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
             err = max(errs.values())
             print(f"{name} voxel {tuple((xyz_c if name == 'fused_coarse_weights' else xyz_f).shape)}"
                   f": max |kernel - plain bf16| = {err:.3e} (tol {KERNEL_TOL:g}): "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "; relaunch bit-equal")
             if not err <= KERNEL_TOL:
                 raise SystemExit(f"{name} with the voxel operand disagrees with its plain "
                                  f"version: {err:.3e}")
@@ -1535,6 +1552,9 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
             if name == "fused_render_tiles":
                 print(f"{name} voxel {tuple(xyz_f.shape)}: "
                       + _weight_stream(pk_f, cfg, n_f, vox[name]["ms"]))
+            else:
+                print(f"{name} voxel {tuple(xyz_c.shape)}: "
+                      + _weight_stream(pk_c, cfg, n_c, vox[name]["ms"], False, True, True))
 
         # the density kernel at the sweep's chunk: points in and around the room,
         # features from the f32 table as the sweep looks them up
@@ -1557,15 +1577,26 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
                 return fs.sigma_eval_plain(models.nerf_fine, cfg, pts, code_rows, branch,
                                            per_row, voxel_raw=raw_p)
 
-            got, want = run(), run_plain()
+            got, want, again = run(), run_plain(), run()
             torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                raise SystemExit(f"two launches of the voxel fused_sigma_eval ({branch}) differ")
             err = (got - want).abs().max().item()
+            # the mesh sweep's call: the whole chunk shares one code
+            whole = fs.fused_sigma_eval(models.nerf_fine, cfg, pts, code_rows[:1], branch,
+                                        n_pts, voxel_raw=raw_p, packed=pk_s)
+            err_whole = (whole - fs.sigma_eval_plain(models.nerf_fine, cfg, pts, code_rows[:1],
+                                                     branch, n_pts, voxel_raw=raw_p)
+                         ).abs().max().item()
             print(f"fused_sigma_eval voxel {branch} ({n_pts} points): max |kernel - plain "
-                  f"bf16| = {err:.3e} (tol {KERNEL_TOL:g}; raw densities "
-                  f"{got.min().item():.4f} .. {got.max().item():.4f})")
-            if not err <= KERNEL_TOL:
+                  f"bf16| = {err:.3e}, with one code for the whole chunk {err_whole:.3e} (tol "
+                  f"{KERNEL_TOL:g}; raw densities {got.min().item():.4f} .. "
+                  f"{got.max().item():.4f}); relaunch bit-equal")
+            if not max(err, err_whole) <= KERNEL_TOL:
                 raise SystemExit(f"fused_sigma_eval ({branch}) with the voxel operand "
-                                 f"disagrees with its plain version: {err:.3e}")
+                                 f"disagrees with its plain version: {err:.3e}, {err_whole:.3e}")
+            err = max(err, err_whole)
+            del again, whole
             instance = branch == "instance"
             macs = _branch_macs(cfg, instance)
             depth, width = (cfg.inst_D, cfg.inst_W) if instance else (cfg.D, cfg.W)
@@ -1579,7 +1610,9 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
             print(f"fused_sigma_eval voxel {branch}: {sig['ms'][branch]:.3f} ms/launch, plain "
                   f"{sig['plain_ms'][branch]:.3f} ms, bound {sig['bound_ms'][branch]:.3f} ms "
                   f"({sig['bound_by'][branch]}: {macs} multiply-adds per point), "
-                  f"{2 * macs * n_pts / sig['ms'][branch] / 1e9:.1f} TFLOP/s achieved")
+                  f"{2 * macs * n_pts / sig['ms'][branch] / 1e9:.1f} TFLOP/s achieved; "
+                  + _weight_stream(pk_s, cfg, n_pts, sig["ms"][branch], instance, not instance,
+                                   True))
         vox["fused_sigma_eval"] = sig
         del pts, raw_p, got, want
 
@@ -2580,11 +2613,15 @@ def main() -> int:
                                                 codes)
 
         w_k = run_coarse()
+        again = run_coarse()
         torch.cuda.synchronize()
+        if not torch.equal(again, w_k):
+            raise SystemExit("two launches of fused_coarse_weights on the same inputs differ")
+        del again
         err_c = (w_k - w_plain).abs().max().item()
         print(f"fused_coarse_weights {tuple(xyz_c.shape)}: max |kernel - plain bf16| "
               f"= {err_c:.3e} (tol {KERNEL_TOL:g}; weights sum to "
-              f"{w_k.sum(-1).mean().item():.4f} per ray on average)")
+              f"{w_k.sum(-1).mean().item():.4f} per ray on average); relaunch bit-equal")
         maps_k, maps_p = run_fine(), run_fine_plain()
         again = run_fine()
         torch.cuda.synchronize()
@@ -2629,6 +2666,8 @@ def main() -> int:
               f"{nbytes[k] / 1e6:.1f} MB), {flops[k] / ms[k] / 1e9:.1f} TFLOP/s achieved")
     print(f"fused_render_tiles {tuple(xyz_f.shape)}: "
           + _weight_stream(pk_f, cfg, n_f, ms["fused_render_tiles"]))
+    print(f"fused_coarse_weights {tuple(xyz_c.shape)}: "
+          + _weight_stream(pk_c, cfg, n_c, ms["fused_coarse_weights"], False, True, True))
     # the chain takes both values of an encoded pair from one sincosf: it must
     # give sinf's and cosf's bits, here over arguments at the encodings' scale
     # (xyz up to 2^9, voxel features up to 2^5 times a few units) and beyond
@@ -2688,7 +2727,7 @@ def main() -> int:
 
     # -- 6, 7. the training kernels and the training path ------------------------------
     torch.cuda.empty_cache()
-    train_entries, render_build = _train_phases(torch, dev, peak_flops, peak_bytes,
+    train_entries, chain_build = _train_phases(torch, dev, peak_flops, peak_bytes,
                                                 profile="--profile" in sys.argv[1:])
 
     # -- 8, 9, 10. the density kernel, the edit frame and the mesh sweep ----------------
@@ -2696,6 +2735,7 @@ def main() -> int:
     sigma_entry, sigma_ms = _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes)
     edit_launches, edit_mlp_err = _edit_phase(torch, dev, models, cfg, sigma_ms)
     mesh_launches = _mesh_phase(torch, dev, models, settings)
+    sigma_entry.update(chain_build["fused_sigma_eval"])
     sigma_entry["launches_by_path"] = {"edit": edit_launches["fused_sigma_eval"],
                                        "mesh": mesh_launches}
     sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
@@ -2759,7 +2799,7 @@ def main() -> int:
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
     }
     errs = {"fused_coarse_weights": err_c, "fused_render_tiles": err_f}
-    sources = {"fused_coarse_weights": "object_nerf_torch/ops/csrc/fused_mlp.cu",
+    sources = {"fused_coarse_weights": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh",
                "fused_render_tiles": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
@@ -2770,7 +2810,7 @@ def main() -> int:
          "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None,
          "voxel_ms": vox[k]["ms"], "voxel_plain_ms": vox[k]["plain_ms"],
          "voxel_bound_ms": vox[k]["bound_ms"],
-         **(render_build if k == "fused_render_tiles" else {})}
+         **chain_build[k]}
         for k in replaces
     ] + train_entries + [sigma_entry, gather_entry] + probe_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

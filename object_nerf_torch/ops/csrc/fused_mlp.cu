@@ -1,13 +1,14 @@
 // Fused ObjectNeRF eval kernels for Hopper (sm_90a), bf16 tensor cores.
 //
-// Two kernels, each a hand-written replacement of a Pallas TPU kernel of
-// object_nerf_tpu/ops/pallas_mlp.py:
+// Two modes of the forward chain (fused_mlp_wg.cuh), each a hand-written
+// replacement of a Pallas TPU kernel of object_nerf_tpu/ops/pallas_mlp.py:
 //
-//   coarse_weights_kernel  replaces _weights_kernel / fused_coarse_weights
+//   fwd_chain_kernel<VOX, FWD_WEIGHTS>
+//                          replaces _weights_kernel / fused_coarse_weights
 //                          (pallas_mlp.py:845, :874): xyz positional
 //                          encoding -> scene trunk -> sigma head ->
 //                          alpha -> exclusive transmittance -> weights.
-//   fwd_chain_kernel<VOX, true>
+//   fwd_chain_kernel<VOX, FWD_RENDER>
 //                          replaces _render_kernel / fused_render_tiles
 //                          (pallas_mlp.py:639, :705): both MLP branches
 //                          (trunk, sigma, final, view-direction head,
@@ -19,21 +20,18 @@
 // xyz read from device memory, so the work is three orders of magnitude
 // past the card's operations-per-byte balance point.
 //
-// The render is the forward chain of fused_mlp_wg.cuh (a persistent grid, a
-// TMA producer warp streaming the weights through a ring, two consumer
-// warpgroups on wgmma; its file comment says how), shared with
-// fused_mlp_eval; after a tile's products one warp per (ray, branch)
-// composites S samples: a multiplicative exclusive scan over S/32 samples
-// per lane with __shfl_up_sync.
-//
-// The coarse kernel is still the first, simple design: nvcuda::wmma
-// 16x16x16 on one block of 8 warps per tile of 128 sample rows made of whole
-// rays, activations in shared memory as bf16, weights staged from device
-// memory in 64-row K chunks (fused_mlp_common.cuh).
+// Both run on the forward chain that fused_mlp_eval shares (a persistent
+// grid, a TMA producer warpgroup streaming the weights through a ring, two
+// consumer warpgroups on wgmma; its file comment says how). After a tile's
+// products one warp per (ray, branch) composites S samples: a multiplicative
+// exclusive scan over S/32 samples per lane with __shfl_up_sync. The coarse
+// mode runs the scene trunk and its sigma head alone: its input tile holds
+// the scene branch's columns only, which leaves room for a deeper weight
+// ring, and its scan writes the weights and reads no rgb.
 //
 // A voxel-conditioned model (`vox` given) gets the VOX instantiation of each
-// kernel: the raw voxel features (n, S, 16 + 8) are one more operand, the
-// block frequency-encodes them itself (sinf/cosf in f32, then bf16) and its
+// mode: the raw voxel features (n, S, 16 + 8) are one more operand, the
+// block frequency-encodes them itself (sincosf in f32, then bf16) and its
 // input tile is [svox | PE(svox) | xyz | PE(xyz)] for the scene branch (271
 // columns, read as 320 with zero weight rows) and that followed by
 // [ivox | PE(ivox) | code] for the object branch (439, read as 448).
@@ -42,7 +40,8 @@
 // (object_nerf_torch/ops/fused_mlp.py): every matmul operand is rounded
 // to bf16 and accumulated in f32; bias and LeakyReLU run in f32 before the
 // cast to bf16 for the next layer; sigmoid, the positional encoding
-// (sinf/cosf, reference channel order) and the compositing run in f32.
+// (full-precision sincosf, reference channel order) and the compositing run
+// in f32.
 //
 // Built with nvcc for sm_90a by object_nerf_torch/ops/_build.py and bound
 // with ctypes: plain C entry points, every pointer a device pointer, the
@@ -51,55 +50,6 @@
 #include "fused_mlp_wg.cuh"
 
 namespace {
-
-template <bool VOX>
-__global__ void __launch_bounds__(THREADS, 1)
-coarse_weights_kernel(const float* __restrict__ xyz, const float* __restrict__ z,
-                      const float* __restrict__ vox, VoxDims vd,
-                      const bf16* __restrict__ w, const float* __restrict__ b,
-                      BranchTab scene, float* __restrict__ weights, int n_rays,
-                      int S, int n_freq, int last_delta_inf) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem s = VOX ? carve_vox(smem) : carve(smem);
-  const int R = ROWS / S;
-  if (VOX) {
-    // the staging reuses the H buffer, free until the first layer's epilogue
-    load_inputs_vox(blockIdx.x, xyz, z, vox, nullptr, (long long)n_rays * S, S, n_freq, vd,
-                    0, false, scene.v[T_K0], s.X, s.zs, reinterpret_cast<float*>(s.H));
-    run_trunk<WS, LDX_V>(scene, w, b, s.X, s.H, s.wst, s.scratch);
-  } else {
-    // the xyz staging reuses the scratch tile (384 floats of its 2048)
-    load_inputs(blockIdx.x, xyz, z, nullptr, n_rays, S, n_freq, 0, s.X, s.zs, s.scratch);
-    run_trunk<WS>(scene, w, b, s.X, s.H, s.wst, s.scratch);
-  }
-  head_sigma(s.H, WS, w + scene.v[T_SIGW], b[scene.v[T_SIGB]], s.sig);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  if (warp < R) {
-    const int ray = blockIdx.x * R + warp;
-    if (ray < n_rays) {
-      float out[5];
-      composite_ray(s.sig + warp * S, s.rgb + warp * S * 3, s.zs + warp * S, S,
-                    last_delta_inf ? 1e10f : 0.f, weights + (size_t)ray * S, out);
-    }
-  }
-}
-
-template <bool VOX>
-int launch_coarse(const float* xyz, const float* z, const float* vox, VoxDims vd,
-                  const void* w, const float* b, const int* scene_tab, float* weights,
-                  int n_rays, int S, int n_freq, int last_delta_inf, void* stream) {
-  constexpr int BYTES = VOX ? SMEM_BYTES_V : SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      coarse_weights_kernel<VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int R = ROWS / S;
-  dim3 grid((n_rays + R - 1) / R);
-  coarse_weights_kernel<VOX><<<grid, THREADS, BYTES, (cudaStream_t)stream>>>(
-      xyz, z, vox, vd, static_cast<const bf16*>(w), b, to_tab(scene_tab), weights, n_rays,
-      S, n_freq, last_delta_inf);
-  return (int)cudaGetLastError();
-}
 
 // sincosf against sinf and cosf, bit for bit: mism[0] += the arguments where
 // either value differs (the chain's input build takes both from one sincosf).
@@ -125,18 +75,24 @@ const char* onerf_error_string(int code) {
 
 // `vox` is the raw voxel feature operand (n_rays, S, c_svox + c_ivox) of a
 // voxel-conditioned model, or null for a classical one (then the three widths
-// are unused). Returns cudaGetLastError() after the launch (0 on success).
+// are unused). `wmap_tab` and `chunks`: the chain's weight maps and the
+// sigma-only chunk order of one tile (fused_mlp_vjp.forward_launch_tables).
+// Returns cudaGetLastError() after the launch (0 on success).
 int onerf_coarse_weights(const float* xyz, const float* z, const float* vox,
                          const void* w, const float* b, const int* scene_tab,
+                         const int* wmap_tab, const int* chunks, int n_chunks,
                          float* weights, int n_rays, int S, int n_freq,
                          int last_delta_inf, int c_svox, int c_ivox, int n_freq_vox,
                          void* stream) {
-  const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
+  FwdArgs a = {xyz, z, nullptr, nullptr, vox, static_cast<const bf16*>(w), b, nullptr,
+               nullptr, weights, {c_svox, c_ivox, n_freq_vox}, n_rays, S, n_freq, 0, 0, 0, 1,
+               last_delta_inf};
+  const cudaStream_t st = (cudaStream_t)stream;
   if (vox != nullptr)
-    return launch_coarse<true>(xyz, z, vox, vd, w, b, scene_tab, weights, n_rays, S,
-                               n_freq, last_delta_inf, stream);
-  return launch_coarse<false>(xyz, z, vox, vd, w, b, scene_tab, weights, n_rays, S,
-                              n_freq, last_delta_inf, stream);
+    return launch_fwd_chain<true, FWD_WEIGHTS>(wmap_tab, chunks, n_chunks, scene_tab, nullptr,
+                                               a, st);
+  return launch_fwd_chain<false, FWD_WEIGHTS>(wmap_tab, chunks, n_chunks, scene_tab, nullptr,
+                                              a, st);
 }
 
 // `wmap_tab` and `chunks`: the chain's weight maps and the chunk order of
@@ -154,8 +110,10 @@ int onerf_render_tiles(const float* xyz, const float* z, const float* dir_pe,
                forward_instance, 1, last_delta_inf};
   const cudaStream_t st = (cudaStream_t)stream;
   if (vox != nullptr)
-    return launch_fwd_chain<true, true>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
-  return launch_fwd_chain<false, true>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
+    return launch_fwd_chain<true, FWD_RENDER>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab,
+                                              a, st);
+  return launch_fwd_chain<false, FWD_RENDER>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a,
+                                             st);
 }
 
 // mism[0] += the n arguments x (device pointers) at which sincosf differs from

@@ -1,9 +1,10 @@
-// Device functions shared by the port's fused MLP kernels (fused_mlp.cu,
-// fused_mlp_train.cu, fused_sigma.cu): the 128-row tile, the tensor-core products over it
-// (nvcuda::wmma 16x16x16 bf16, f32 accumulators), the branch trunk and heads,
-// the input tile (classical, and the wider voxel-conditioned one), the per-ray
-// direction bias and the compositing scan. The file comments of the sources
-// say what each kernel does with them.
+// Device functions shared by the port's fused MLP kernels (fused_mlp_wg.cuh,
+// fused_mlp_train.cu, probes.cu): the 128-row tile and its widths, the packed
+// weights' offset table, the nvcuda::wmma products (16x16x16 bf16, f32
+// accumulators) of the PE probe, the backward sweep's rgb head, input tile
+// (classical, and the wider voxel-conditioned one) and per-ray direction
+// bias, and the compositing scan of the forward chain. The file comments of
+// the sources say what each kernel does with them.
 
 #pragma once
 
@@ -46,34 +47,11 @@ enum {
 };
 struct BranchTab { int v[T_LEN]; };
 
-// dynamic shared memory layout (bytes; every offset a multiple of 128)
-constexpr int SM_X = 0;
-constexpr int SM_H = SM_X + ROWS * LDX * 2;
-constexpr int SM_W = SM_H + ROWS * LDH * 2;
-constexpr int SM_SCR = SM_W + KC * LDWST * 2;
-constexpr int SM_ROW = SM_SCR + (THREADS / 32) * 256 * 4;  // 9 floats per row
-constexpr int SM_DB = SM_ROW + ROWS * 9 * 4;                // dir biases
-constexpr int SMEM_BYTES = SM_DB + MAX_R * (WS / 2 + WO / 2) * 4;
-
-// The voxel-conditioned eval kernels' layout. Their input tile is wider:
-// [svox | PE(svox) | xyz | PE(xyz)] is 271 columns at the default widths and
-// the object branch appends [ivox | PE(ivox) | code] to 439, padded to 448.
-// With that tile the classical layout would need 233,984 bytes, more than
-// the 232,448 a block may have, so here the epilogue's f32 staging tile
-// shares the weight stage: every product ends before the epilogue's first
-// barrier and the next product starts with one, so the two are never live
-// together. The classical kernels keep their own layout above.
+// The voxel-conditioned model's input tile is wider: [svox | PE(svox) | xyz
+// | PE(xyz)] is 271 columns at the default widths and the object branch
+// appends [ivox | PE(ivox) | code] to 439, padded to 448.
 constexpr int XCOLS_V = 448;
-constexpr int LDX_V = XCOLS_V + 8;
 constexpr int MAX_VOX = 32;   // raw voxel channels per sample (16 + 8 by default)
-constexpr int SV_X = 0;
-constexpr int SV_H = SV_X + ROWS * LDX_V * 2;
-constexpr int SV_W = SV_H + ROWS * LDH * 2;      // weight stage and scratch
-constexpr int SV_ROW = SV_W + KC * LDWST * 2;
-constexpr int SV_DB = SV_ROW + ROWS * 9 * 4;
-constexpr int SMEM_BYTES_V = SV_DB + MAX_R * (WS / 2 + WO / 2) * 4;
-static_assert(SMEM_BYTES_V <= 232448, "voxel layout exceeds a block's shared memory");
-static_assert((THREADS / 32) * 256 * 4 <= KC * LDWST * 2, "scratch exceeds the stage");
 static_assert(ROWS * (3 + MAX_VOX) * 4 <= ROWS * LDH * 2, "input staging exceeds H");
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
@@ -163,46 +141,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The branch trunk: H[0:128, 0:N] = the output of the last trunk layer. LD is
-// the input tile's leading dimension (LDX, or LDX_V for the voxel tile).
-template <int N, int LD = LDX>
-__device__ void run_trunk(const BranchTab& t, const bf16* __restrict__ w,
-                          const float* __restrict__ b, const bf16* X, bf16* H,
-                          bf16* wst, float* scratch) {
-  const int k0 = t.v[T_K0];
-  for (int i = 0; i < t.v[T_DEPTH]; ++i) {
-    Acc<N> acc;
-    acc_zero(acc);
-    const bf16* wl = w + t.v[T_TW + i];
-    if (i == 0) {
-      gemm<N>(acc, X, LD, wl, k0, wst);
-    } else if ((t.v[T_SKIPS] >> i) & 1) {  // [input, h] @ W
-      gemm<N>(acc, X, LD, wl, k0, wst);
-      gemm<N>(acc, H, LDH, wl + (size_t)k0 * N, N, wst);
-    } else {
-      gemm<N>(acc, H, LDH, wl, N, wst);
-    }
-    const float* bl = b + t.v[T_TB + i];
-    epilogue<N>(acc, scratch, [&](int r, int c, float v) {
-      H[r * LDH + c] = __float2bfloat16(lrelu(v + bl[c]));
-    });
-  }
-}
-
-// out[r] = H[r, 0:K] . wv[0:K] + bias for the 128 rows; one warp per 16 rows.
-__device__ void head_sigma(const bf16* H, int K, const bf16* __restrict__ wv,
-                           float bias, float* out) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32)
-      s += __bfloat162float(H[r * LDH + k]) * __bfloat162float(wv[k]);
-    s = warp_sum(s);
-    if (lane == 0) out[r] = s + bias;
-  }
-}
-
 // out[r, c] = sigmoid(H[r, 0:K] . wr[c, 0:K] + bias[c]) for c < 3.
 __device__ void head_rgb(const bf16* H, int K, const bf16* __restrict__ wr,
                          const float* __restrict__ bias, float* out) {
@@ -243,25 +181,17 @@ __device__ __forceinline__ float input_value(const float* p, int c, int pe,
   return 0.f;
 }
 
-// Fill the input tile of tile number `tile`: z values (when z is given), and
-// X = [PE(xyz) | code | 0] as bf16. Rows of rays past n_rays are zero.
+// Fill the input tile of tile number `tile`: X = [PE(xyz) | code | 0] as
+// bf16. Rows of rays past n_rays are zero.
 __device__ void load_inputs(int tile, const float* __restrict__ xyz,
-                            const float* __restrict__ z,
                             const float* __restrict__ codes, int n_rays, int S,
-                            int n_freq, int code_len, bf16* X, float* zs,
-                            float* xyz_s) {
+                            int n_freq, int code_len, bf16* X, float* xyz_s) {
   const int R = ROWS / S;
   const int ray0 = tile * R;
   for (int e = threadIdx.x; e < ROWS * 3; e += THREADS) {
     const int r = e / 3;
     const int ray = ray0 + r / S;
     xyz_s[e] = ray < n_rays ? xyz[(size_t)ray0 * S * 3 + e] : 0.f;
-  }
-  if (z != nullptr) {
-    for (int r = threadIdx.x; r < ROWS; r += THREADS) {
-      const int ray = ray0 + r / S;
-      zs[r] = ray < n_rays ? z[(size_t)ray0 * S + r] : 0.f;
-    }
   }
   __syncthreads();
   const int pe = 3 * (2 * n_freq + 1);
@@ -322,15 +252,12 @@ __device__ __forceinline__ float voxel_input_value(
 // code row g / per_code (per_code = S for a tile of whole rays). Columns
 // [0, ncols) of X (leading dimension ldx) are written; `stage` is
 // ROWS * (3 + c_s + c_i) floats that nothing else uses until the tile is
-// built (the H buffer). z values go to zs when z is given. `ldx`: X's
-// leading dimension when X is not a shared-memory tile.
+// built (the H buffer).
 __device__ void load_inputs_vox(int tile, const float* __restrict__ xyz,
-                                const float* __restrict__ z,
                                 const float* __restrict__ vox,
                                 const float* __restrict__ codes, long long n_rows,
                                 int per_code, int n_freq, VoxDims d, int code_len,
-                                bool inst, int ncols, bf16* X, float* zs, float* stage,
-                                int ldx = LDX_V) {
+                                bool inst, int ncols, bf16* X, float* stage, int ldx) {
   const long long g0 = (long long)tile * ROWS;
   const int cv = d.c_s + d.c_i;
   float* xyz_s = stage;
@@ -339,9 +266,6 @@ __device__ void load_inputs_vox(int tile, const float* __restrict__ xyz,
     xyz_s[e] = g0 + e / 3 < n_rows ? xyz[g0 * 3 + e] : 0.f;
   for (int e = threadIdx.x; e < ROWS * cv; e += THREADS)
     vox_s[e] = g0 + e / cv < n_rows ? vox[g0 * cv + e] : 0.f;
-  if (z != nullptr)
-    for (int r = threadIdx.x; r < ROWS; r += THREADS)
-      zs[r] = g0 + r < n_rows ? z[g0 + r] : 0.f;
   __syncthreads();
   for (int e = threadIdx.x; e < ROWS * ncols; e += THREADS) {
     const int r = e / ncols, c = e % ncols;
@@ -379,8 +303,10 @@ __device__ void dir_bias(int tile, const BranchTab& t, const bf16* __restrict__ 
 
 // One warp composites one ray of S samples (S/32 consecutive samples per
 // lane): alpha = 1 - exp(-delta relu(sigma)), exclusive transmittance
-// T_i = prod_{j<i} (1 - alpha_j + 1e-10), w_i = alpha_i T_i. Returns
-// (rgb, depth, opacity) in lane 0; writes w to w_out when it is given.
+// T_i = prod_{j<i} (1 - alpha_j + 1e-10), w_i = alpha_i T_i. Writes w to
+// w_out when it is given. With RGB, returns (rgb, depth, opacity) in lane 0;
+// without, it computes the weights alone and reads no rgb.
+template <bool RGB = true>
 __device__ void composite_ray(const float* sig, const float* rgb, const float* zs,
                               int S, float last_delta, float* w_out, float out[5]) {
   const int lane = threadIdx.x & 31;
@@ -412,58 +338,23 @@ __device__ void composite_ray(const float* sig, const float* rgb, const float* z
       const int i = lane * P + p;
       const float wi = a[p] * T;
       T *= t[p];
-      op += wi;
-      dep += wi * zs[i];
-      r0 += wi * rgb[i * 3 + 0];
-      r1 += wi * rgb[i * 3 + 1];
-      r2 += wi * rgb[i * 3 + 2];
+      if constexpr (RGB) {
+        op += wi;
+        dep += wi * zs[i];
+        r0 += wi * rgb[i * 3 + 0];
+        r1 += wi * rgb[i * 3 + 1];
+        r2 += wi * rgb[i * 3 + 2];
+      }
       if (w_out != nullptr) w_out[i] = wi;
     }
   }
-  out[0] = warp_sum(r0);
-  out[1] = warp_sum(r1);
-  out[2] = warp_sum(r2);
-  out[3] = warp_sum(dep);
-  out[4] = warp_sum(op);
-}
-
-struct Smem {
-  bf16 *X, *H, *wst;
-  float *scratch, *sig, *rgb, *isig, *irgb, *zs, *dbs, *dbo;
-};
-
-__device__ Smem carve(unsigned char* base) {
-  Smem s;
-  s.X = reinterpret_cast<bf16*>(base + SM_X);
-  s.H = reinterpret_cast<bf16*>(base + SM_H);
-  s.wst = reinterpret_cast<bf16*>(base + SM_W);
-  s.scratch = reinterpret_cast<float*>(base + SM_SCR);
-  float* row = reinterpret_cast<float*>(base + SM_ROW);
-  s.sig = row;
-  s.rgb = row + ROWS;
-  s.isig = row + 4 * ROWS;
-  s.irgb = row + 5 * ROWS;
-  s.zs = row + 8 * ROWS;
-  s.dbs = reinterpret_cast<float*>(base + SM_DB);
-  s.dbo = s.dbs + MAX_R * (WS / 2);
-  return s;
-}
-
-__device__ Smem carve_vox(unsigned char* base) {
-  Smem s;
-  s.X = reinterpret_cast<bf16*>(base + SV_X);
-  s.H = reinterpret_cast<bf16*>(base + SV_H);
-  s.wst = reinterpret_cast<bf16*>(base + SV_W);
-  s.scratch = reinterpret_cast<float*>(base + SV_W);  // shared with the stage
-  float* row = reinterpret_cast<float*>(base + SV_ROW);
-  s.sig = row;
-  s.rgb = row + ROWS;
-  s.isig = row + 4 * ROWS;
-  s.irgb = row + 5 * ROWS;
-  s.zs = row + 8 * ROWS;
-  s.dbs = reinterpret_cast<float*>(base + SV_DB);
-  s.dbo = s.dbs + MAX_R * (WS / 2);
-  return s;
+  if constexpr (RGB) {
+    out[0] = warp_sum(r0);
+    out[1] = warp_sum(r1);
+    out[2] = warp_sum(r2);
+    out[3] = warp_sum(dep);
+    out[4] = warp_sum(op);
+  }
 }
 
 BranchTab to_tab(const int* v) {

@@ -2,7 +2,7 @@
 //
 // Hand-written replacements of two Pallas TPU kernels:
 //
-//   fwd_chain_kernel<VOX, false>
+//   fwd_chain_kernel<VOX, FWD_EVAL>
 //                    replaces _mlp_kernel / fused_mlp_eval
 //                    (object_nerf_tpu/ops/pallas_mlp.py:287, :495): xyz
 //                    positional encoding -> scene trunk -> sigma, `final`,
@@ -819,16 +819,16 @@ mlp_bwd_kernel(const __grid_constant__ SweepMaps maps, const float* __restrict__
       // the tile into the workspace (staged through H, free until the first
       // epilogue); the object branch reads the scene's columns too
       vt.xg = wsr + wt.v[W_X];
-      load_inputs_vox(tile, xyz, nullptr, vox, codes, (long long)n_rays * S, S, n_freq, vd,
-                      code_len, forward_instance != 0, wt.v[W_XC], wsr + wt.v[W_X], nullptr,
+      load_inputs_vox(tile, xyz, vox, codes, (long long)n_rays * S, S, n_freq, vd, code_len,
+                      forward_instance != 0, wt.v[W_XC], wsr + wt.v[W_X],
                       reinterpret_cast<float*>(s.H), ld);
       vt.raw = vox + (size_t)tile * ROWS * cv;
       for (int e = threadIdx.x; e < ROWS * MAX_VOX; e += THREADS) s.dv[e] = 0.f;
       for (int e = threadIdx.x; e < MAX_R * XCOLS; e += THREADS) s.P[e] = 0.f;
     } else {
       // xyz staged through H, free until the first epilogue
-      load_inputs(tile, xyz, nullptr, forward_instance ? codes : nullptr, n_rays, S, n_freq,
-                  code_len, s.X, nullptr, reinterpret_cast<float*>(s.H));
+      load_inputs(tile, xyz, forward_instance ? codes : nullptr, n_rays, S, n_freq, code_len,
+                  s.X, reinterpret_cast<float*>(s.H));
       tile_store(s.X, LDX, wsr + wt.v[W_X], ld, wt.v[W_XC]);
     }
     branch_backward<WS, VOX>(tile, 0, scene, gscene, &maps.m[0], w, b, dir_pe, g, gp, wsr, ld,
@@ -1059,8 +1059,9 @@ int onerf_mlp_eval(const float* xyz, const float* dir_pe, const float* codes,
                code_len, forward_instance, compute_scene, 0};
   const cudaStream_t st = (cudaStream_t)stream;
   if (vox != nullptr)
-    return launch_fwd_chain<true, false>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
-  return launch_fwd_chain<false, false>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
+    return launch_fwd_chain<true, FWD_EVAL>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a,
+                                            st);
+  return launch_fwd_chain<false, FWD_EVAL>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
 }
 
 // The backward in three launches (fused_mlp_bwd in fused_mlp_vjp.py builds

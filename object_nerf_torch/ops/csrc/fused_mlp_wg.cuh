@@ -1,31 +1,39 @@
 // Hopper building blocks of the port's fused MLP kernels, and the forward
-// chain that fused_mlp_eval (fused_mlp_train.cu) and fused_render_tiles
-// (fused_mlp.cu) share.
+// chain that fused_mlp_eval (fused_mlp_train.cu), fused_render_tiles and
+// fused_coarse_weights (fused_mlp.cu) and fused_sigma_eval (fused_sigma.cu)
+// share.
 //
 // The building blocks (the backward's sweep and weight-gradient kernel use
 // them too): the TMA tensor maps of the packed weight matrices, mbarriers,
 // shared-memory descriptors of wgmma operands in the 128-byte swizzle, and
 // the wgmma instructions.
 //
-// The forward chain. Both kernels compute, per sample row, both MLP branches
-// (trunk, sigma head, `final`, view-direction layer, sigmoid rgb head) on the
-// bf16 tensor cores; fused_render_tiles then composites the rows of each ray.
-// What bounds them is the tensor cores (0.70 M multiply-adds per row against
-// 12 bytes of xyz). The design:
+// The forward chain, in five modes (FWD_*, below). fused_mlp_eval and
+// fused_render_tiles compute, per sample row, both MLP branches (trunk,
+// sigma head, `final`, view-direction layer, sigmoid rgb head) on the bf16
+// tensor cores; fused_render_tiles then composites the rows of each ray.
+// fused_coarse_weights computes the scene trunk and sigma head, then the
+// pdf weights of each ray; fused_sigma_eval one branch's trunk and sigma
+// head per point. What bounds them is the tensor cores (0.49-0.70 M
+// multiply-adds per row against 12 bytes of xyz). The design:
 // * A persistent grid: one block per SM walks 128-row tiles blockIdx.x,
-//   blockIdx.x + gridDim.x, ... (whole rays: S in {32, 64, 128}).
+//   blockIdx.x + gridDim.x, ... (whole rays: S in {32, 64, 128}; in the
+//   point-wise modes consecutive points).
 // * Warp-specialised: warpgroup 0 is the producer. Lane 0 of up to four of
 //   its warps (chunks in turn: one thread alone issued too slowly) streams
 //   the weights by TMA through a ring of 16 KB stages (full / empty mbarrier
 //   per stage) in a fixed chunk order that does not depend on the data
 //   (fused_mlp_vjp.forward_chunks builds it: per branch, layer 0, the trunk
-//   with each skip layer's input rows and hidden rows, `final`, the
-//   direction layer), so it runs ahead across layers, branches and tiles. A
-//   chunk is 32 K rows of a 256-column matrix, 64 of a 128-column one, 128
-//   of the object's 64-column direction layer; 7 stages fit beside the
-//   classical tiles, 2 beside the voxel model's 112 KB input tile (a
+//   with each skip layer's input rows and hidden rows, then, unless the mode
+//   stops at the sigma head, `final` and the direction layer), so it runs
+//   ahead across layers, branches and tiles. A chunk is 32 K rows of a
+//   256-column matrix, 64 of a 128-column one, 128 of the object's 64-column
+//   direction layer. The ring takes what shared memory leaves beside the
+//   tiles (FwdCfg): 7 stages beside the classical tiles, 2 beside the voxel
+//   model's 112 KB input tile; the scene-only modes hold the scene's columns
+//   alone (the voxel coarse pass 4 stages, the voxel scene density 5). A
 //   measured trade: 8 KB chunks ran slower, and waiting with a deeper
-//   wait_group did not help).
+//   wait_group did not help.
 //   Warpgroups 1 and 2 consume the same chunks, each for its own 64 rows of
 //   the tile, with its own input tile X and activation buffer H; they meet
 //   only at the ring's barriers (a stage is refilled when the 8 consumer
@@ -47,19 +55,21 @@
 //   direction layer, whose accumulators start from the per-ray biases) are
 //   dot products over each thread's accumulator columns, reduced over the
 //   four lanes of a row by shuffles; the direction layer's output never
-//   reaches shared memory.
+//   reaches shared memory, nor does the last trunk layer's in the modes
+//   that stop at the sigma head.
 // * The input tile is built per warpgroup before its first product: every
 //   input it reads is staged with all of a thread's loads in flight, the
 //   direction biases are 32-term dot products with all loads issued first,
 //   and each (value, octave) pair's sine and cosine come from one
 //   full-precision sincosf. Classical: 128 columns [PE(xyz) | code | 0];
 //   voxel: 448 columns [svox | PE(svox) | xyz | PE(xyz) | ivox | PE(ivox) |
-//   code | 0].
-// * The render's compositing: one warp per (ray, branch), by the second
-//   consumer warpgroup once the first has signalled (an mbarrier per tile
-//   parity) that its rows are written; the row buffers alternate by tile
-//   parity, and the ring keeps the first warpgroup less than a tile ahead.
-// Rows of rays past n_rays are zero on input and never stored.
+//   code | 0]; the scene-only modes stop at the scene's 64 / 320 columns.
+// * The compositing (render, coarse weights): one warp per (ray, branch),
+//   by the second consumer warpgroup once the first has signalled (an
+//   mbarrier per tile parity) that its rows are written; the row buffers
+//   alternate by tile parity, and the ring keeps the first warpgroup less
+//   than a tile ahead.
+// Rows past the launch's end are zero on input and never stored.
 //
 // Numerics as the plain versions: bf16 operands, f32 sums; bias, LeakyReLU,
 // sigmoid, the encoding and the compositing in f32.
@@ -274,7 +284,21 @@ constexpr int MAX_DIR = 32;           // direction-encoding channels at most
 // two rays' codes and direction encodings
 static_assert(64 * (3 + MAX_VOX) + 2 * XCOLS_V + 2 * MAX_DIR <= 64 * WS / 2,
               "the staged inputs exceed H");
+// the point-wise mode stages the codes of up to 64 runs of points in H
+// after xyz and the raw voxel features: this many floats
+constexpr int FWD_CODE_FLOATS = 64 * WS / 2 - 64 * (3 + MAX_VOX);
 constexpr int FWD_DB = 2 * (WS / 2 + WO / 2);  // a warpgroup's direction biases (<= 2 rays)
+
+// The chain's modes, what one launch computes:
+// * FWD_EVAL (fused_mlp_eval): both branches with their heads, per row
+//   [sigma, rgb, sigma_inst, rgb_inst];
+// * FWD_RENDER (fused_render_tiles): the same, composited per ray into maps;
+// * FWD_WEIGHTS (fused_coarse_weights): the scene trunk and sigma head, then
+//   the per-ray scan into the pdf weights; no direction input, no maps;
+// * FWD_SIGMA_SCENE, FWD_SIGMA_OBJ (fused_sigma_eval): one branch's trunk and
+//   sigma head, the raw density of each point. Rows are points, not whole
+//   rays: a "ray" of this mode is a run of S points that share a code.
+enum { FWD_EVAL = 0, FWD_RENDER = 1, FWD_WEIGHTS = 2, FWD_SIGMA_SCENE = 3, FWD_SIGMA_OBJ = 4 };
 
 // The producer's work: the weight maps of both branches (slots as
 // SweepMaps; a map of C columns is read in boxes of 64 columns x
@@ -300,27 +324,37 @@ struct FwdArgs {
   int n_rays, S, n_freq, c_dir, code_len, forward_instance, compute_scene, last_delta_inf;
 };
 
-// Per model: STAGES stages of FWD_STAGE bytes (what shared memory leaves
-// beside the tiles), XKB 64-column blocks of the input tile.
-template <bool VOX>
+// Per model and mode: STAGES stages of FWD_STAGE bytes (what shared memory
+// leaves beside the tiles), XKB 64-column blocks of the input tile (the
+// columns the launch's branches read: the scene branch's alone in the
+// scene-only modes). The ring's depth follows, a design choice measured on
+// the card (PERF.md): classical 7 stages (EVAL, RENDER), 8 (WEIGHTS), 9
+// (SIGMA_SCENE), 8 (SIGMA_OBJ); voxel 2, 4, 5, 3.
+template <bool VOX, int MODE>
 struct FwdCfg {
-  static constexpr int XKB = VOX ? XCOLS_V / 64 : XCOLS / 64;
+  // both heads (and the direction layer), or the sigma head alone
+  static constexpr bool HEADS = MODE == FWD_EVAL || MODE == FWD_RENDER;
   // input columns of the scene and the object branch (input_tile_columns in
   // fused_mlp.py)
   static constexpr int K0S = VOX ? 320 : 64, K0O = VOX ? 448 : 128;
+  static constexpr int XKB = (MODE == FWD_WEIGHTS || MODE == FWD_SIGMA_SCENE ? K0S : K0O) / 64;
   static constexpr int STAGE = FWD_STAGE;
+  // floats of a tile parity's row buffer (the point-wise modes store from
+  // registers) and of a warpgroup's direction biases
+  static constexpr int NROW = MODE == FWD_SIGMA_SCENE || MODE == FWD_SIGMA_OBJ ? 0 : FWD_ROWBUF;
+  static constexpr int NDB = HEADS ? FWD_DB : 0;
   // as many stages as shared memory holds beside the tiles, the row buffers,
   // the direction biases, the two rows barriers and the alignment slack
   static constexpr int STAGES =
-      (232448 - 2 * XKB * 8192 - 2 * 4 * 8192 - 2 * FWD_ROWBUF * 4 - 2 * FWD_DB * 4 - 16 - 1024) /
+      (232448 - 2 * XKB * 8192 - 2 * 4 * 8192 - 2 * NROW * 4 - 2 * NDB * 4 - 16 - 1024) /
       (FWD_STAGE + 16);
   // dynamic shared memory (bytes from a 1024-byte aligned base)
   static constexpr int RING = 0;
   static constexpr int X = RING + STAGES * STAGE;       // 2 warpgroups x XKB x 8 KB
   static constexpr int H = X + 2 * XKB * 8192;          // 2 warpgroups x 4 x 8 KB
-  static constexpr int ROW = H + 2 * 4 * 8192;          // 2 tile parities x FWD_ROWBUF
-  static constexpr int DB = ROW + 2 * FWD_ROWBUF * 4;   // 2 warpgroups x FWD_DB
-  static constexpr int BAR = DB + 2 * FWD_DB * 4;       // full, empty per stage; rows x 2
+  static constexpr int ROW = H + 2 * 4 * 8192;          // 2 tile parities x NROW
+  static constexpr int DB = ROW + 2 * NROW * 4;         // 2 warpgroups x NDB
+  static constexpr int BAR = DB + 2 * NDB * 4;          // full, empty per stage; rows x 2
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 2) + 1024;  // + alignment
   // producer threads, each issuing every PRODUCERS-th chunk. A thread waits
   // for a stage's release by the parity of its phase, which also passes on
@@ -330,11 +364,9 @@ struct FwdCfg {
   // a warpgroup still holds the stage of the chunk before when it waits for
   // the next one
   static_assert(STAGES >= 2, "the ring needs a stage beyond the one in use");
+  static_assert(BYTES <= 232448, "the forward chain exceeds a block's shared memory");
+  static_assert(X % 1024 == 0, "the swizzled tiles need 1024-byte alignment");
 };
-static_assert(FwdCfg<false>::BYTES <= 232448, "classical forward exceeds a block's shared memory");
-static_assert(FwdCfg<true>::BYTES <= 232448, "voxel forward exceeds a block's shared memory");
-static_assert(FwdCfg<true>::X % 1024 == 0 && FwdCfg<false>::X % 1024 == 0,
-              "the swizzled tiles need 1024-byte alignment");
 
 // the rows of a tile's row buffer
 enum { RB_SIG = 0, RB_RGB = ROWS, RB_ISIG = 4 * ROWS, RB_IRGB = 5 * ROWS, RB_Z = 8 * ROWS };
@@ -417,9 +449,9 @@ __device__ __forceinline__ void wgmma_kn(float (&d)[32], uint64_t da, uint64_t d
                : "l"(da), "l"(db), "r"(1));
 }
 
-// A consumer warpgroup's end of the weight ring: the stage and parity of the
-// next chunk.
-template <bool VOX>
+// A consumer warpgroup's end of the weight ring (C: the launch's FwdCfg): the
+// stage and parity of the next chunk.
+template <class C>
 struct FwdPipe {
   uint32_t ring, full, empty;
   int stage, phase;
@@ -428,10 +460,10 @@ struct FwdPipe {
   __device__ __forceinline__ uint32_t next() {
     mbar_wait(full + 8 * stage, phase);
     __syncwarp();  // converged again for the warpgroup-wide instructions
-    return ring + stage * FwdCfg<VOX>::STAGE;
+    return ring + stage * C::STAGE;
   }
   __device__ __forceinline__ void advance() {
-    if (++stage == FwdCfg<VOX>::STAGES) {
+    if (++stage == C::STAGES) {
       stage = 0;
       phase ^= 1;
     }
@@ -451,8 +483,8 @@ struct FwdPipe {
 // product ends with wait_group 0. No loop carries a product in flight, so
 // ptxas keeps the wgmma pipeline (a loop-carried accumulator made it
 // serialize them, C7515).
-template <bool VOX, int K, int L>
-__device__ __forceinline__ void fwd_gemm(float (&acc)[L], uint32_t a, FwdPipe<VOX>& p) {
+template <class C, int K, int L>
+__device__ __forceinline__ void fwd_gemm(float (&acc)[L], uint32_t a, FwdPipe<C>& p) {
   constexpr int KCH = FWD_STAGE / 2 / (2 * L), NCH = K / KCH;
   static_assert(K % KCH == 0 && KCH % 16 == 0, "a product is whole chunks of whole K steps");
   int prev = 0;  // the stage of the chunk before
@@ -507,26 +539,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One branch over the warpgroup's 64 rows: the trunk, the sigma head,
-// `final`, the direction layer (direction part from the per-ray biases
-// `db`, ND per ray) and the sigmoid rgb head. X and H are the warpgroup's
-// tiles (shared addresses). The epilogues add the bias and apply LeakyReLU
-// in f32, round to bf16 and store by stmatrix; the direction layer's
-// accumulators start from the per-ray biases.
-template <int N, bool VOX>
+// One branch over the warpgroup's 64 rows: the trunk, the sigma head and,
+// when C::HEADS, `final`, the direction layer (direction part from the
+// per-ray biases `db`, ND per ray) and the sigmoid rgb head. X and H are the
+// warpgroup's tiles (shared addresses). The epilogues add the bias and apply
+// LeakyReLU in f32, round to bf16 and store by stmatrix; the direction
+// layer's accumulators start from the per-ray biases. Without the heads the
+// last trunk layer feeds the sigma head alone: it is not stored to H.
+template <int N, class C>
 __device__ __forceinline__ void fwd_branch(const BranchTab& t, const bf16* __restrict__ w,
                                            const float* __restrict__ b, uint32_t X, uint32_t Hs,
-                                           const float* db, int S, FwdPipe<VOX>& p, int bar,
+                                           const float* db, int S, FwdPipe<C>& p, int bar,
                                            HeadOut ho) {
   constexpr int L = N / 2, ND = N / 2;
-  constexpr int K0 = N == WS ? FwdCfg<VOX>::K0S : FwdCfg<VOX>::K0O;
+  constexpr int K0 = N == WS ? C::K0S : C::K0O;
   const int lane = threadIdx.x & 31;
   const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c0 = 2 * (lane & 3);
   const int depth = t.v[T_DEPTH];
   const bf16* ws = w + t.v[T_SIGW];
   float acc[L];
-  for (int i = 0; i <= depth; ++i) {  // the trunk, then `final` (i == depth)
+  // the trunk, then `final` (i == depth) when the heads follow
+  for (int i = 0; i < (C::HEADS ? depth + 1 : depth); ++i) {
     const bool fin = i == depth, last = i == depth - 1;
+    const bool store = C::HEADS || !last;  // H is read after this layer
     // the layer's bias, loaded now and added after the product: its L2
     // round trip overlaps the product instead of preceding it
     const float* bl = b + (fin ? t.v[T_FINB] : t.v[T_TB + i]);
@@ -539,9 +574,9 @@ __device__ __forceinline__ void fwd_branch(const BranchTab& t, const bf16* __res
 #pragma unroll
     for (int r = 0; r < L; ++r) acc[r] = 0.f;
     // layer 0 and a skip layer read the input rows, every later layer H
-    if (i == 0 || (i < depth && ((t.v[T_SKIPS] >> i) & 1))) fwd_gemm<VOX, K0>(acc, X, p);
-    if (i > 0) fwd_gemm<VOX, N>(acc, Hs, p);
-    wg_bar(bar);  // every warp's products have read H
+    if (i == 0 || (i < depth && ((t.v[T_SKIPS] >> i) & 1))) fwd_gemm<C, K0>(acc, X, p);
+    if (i > 0) fwd_gemm<C, N>(acc, Hs, p);
+    if (store) wg_bar(bar);  // every warp's products have read H
     float s[2] = {0.f, 0.f};
 #pragma unroll
     for (int n8 = 0; n8 < N / 8; n8 += 2) {
@@ -564,7 +599,7 @@ __device__ __forceinline__ void fwd_branch(const BranchTab& t, const bf16* __res
                     __high2float(hv) * __bfloat162float(ws[c + 1]);
           }
         }
-      store_pairs(Hs, n8, q);
+      if (store) store_pairs(Hs, n8, q);
     }
     if (last) {
       const float bs = __ldg(b + t.v[T_SIGB]);
@@ -577,47 +612,52 @@ __device__ __forceinline__ void fwd_branch(const BranchTab& t, const bf16* __res
         if ((lane & 3) == 0 && r < ho.valid) ho.sig[r * ho.stride] = v + bs;
       }
     }
-    fence_proxy_async();  // H is complete for the next product's reads
-    wg_bar(bar);
-  }
-  // the direction layer (from the per-ray biases) and the rgb head, from registers
-  float accd[ND / 2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float* dr = db + ((r0 + 8 * h) / S) * ND;
-#pragma unroll
-    for (int n8 = 0; n8 < ND / 8; ++n8) {
-      accd[4 * n8 + 2 * h] = dr[8 * n8 + c0];
-      accd[4 * n8 + 2 * h + 1] = dr[8 * n8 + c0 + 1];
+    if (store) {
+      fence_proxy_async();  // H is complete for the next product's reads
+      wg_bar(bar);
     }
   }
-  fwd_gemm<VOX, N>(accd, Hs, p);
-  const bf16* wr = w + t.v[T_RGBW];
-  float q[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int n8 = 0; n8 < ND / 8; ++n8) {
-    const int c = 8 * n8 + c0;
+  if constexpr (C::HEADS) {
+    // the direction layer (from the per-ray biases) and the rgb head, from registers
+    float accd[ND / 2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat162 dv = __floats2bfloat162_rn(lrelu(accd[4 * n8 + 2 * h]),
-                                                      lrelu(accd[4 * n8 + 2 * h + 1]));
-      const float d0 = __low2float(dv), d1 = __high2float(dv);
+      const float* dr = db + ((r0 + 8 * h) / S) * ND;
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        q[h][k] += d0 * __bfloat162float(wr[k * ND + c]) + d1 * __bfloat162float(wr[k * ND + c + 1]);
+      for (int n8 = 0; n8 < ND / 8; ++n8) {
+        accd[4 * n8 + 2 * h] = dr[8 * n8 + c0];
+        accd[4 * n8 + 2 * h + 1] = dr[8 * n8 + c0 + 1];
+      }
     }
-  }
-  const float* br = b + t.v[T_RGBB];
+    fwd_gemm<C, N>(accd, Hs, p);
+    const bf16* wr = w + t.v[T_RGBW];
+    float q[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
+    for (int n8 = 0; n8 < ND / 8; ++n8) {
+      const int c = 8 * n8 + c0;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float v = q[h][k];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if ((lane & 3) == 0 && r < ho.valid)
-        ho.rgb[r * ho.rgb_stride + k] = 1.f / (1.f + expf(-(v + __ldg(br + k))));
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 dv = __floats2bfloat162_rn(lrelu(accd[4 * n8 + 2 * h]),
+                                                        lrelu(accd[4 * n8 + 2 * h + 1]));
+        const float d0 = __low2float(dv), d1 = __high2float(dv);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          q[h][k] += d0 * __bfloat162float(wr[k * ND + c]) +
+                     d1 * __bfloat162float(wr[k * ND + c + 1]);
+      }
+    }
+    const float* br = b + t.v[T_RGBB];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float v = q[h][k];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if ((lane & 3) == 0 && r < ho.valid)
+          ho.rgb[r * ho.rgb_stride + k] = 1.f / (1.f + expf(-(v + __ldg(br + k))));
+      }
     }
   }
 }
@@ -675,37 +715,49 @@ struct EncPiece {
 // launch, `valid` of them real). First every input the tile reads is staged
 // into `stage` (floats; the warpgroup's H, free until the first epilogue)
 // with all loads of a thread in flight together: xyz, the raw voxel
-// features, the rays' codes and direction encodings, and the z values into
-// `zrow` when it is given. Then the per-ray direction biases of the branches
-// that run, and X: the encoded pieces (one item per column, or per
-// (octave, channel) pair, whose sine and cosine come from one
-// full-precision sincosf), the code (when `inst`) and zeros up to XKB * 64
-// columns, as bf16 in the swizzle.
-template <bool VOX>
+// features, the codes (per ray; in the point-wise modes those of the up to
+// 64 runs of S points that the rows span), the rays' direction encodings
+// when the heads follow, and the z values into `zrow` when it is given.
+// Then the per-ray direction biases of the branches that run (with the
+// heads), and X: the encoded pieces (one item per column, or per (octave,
+// channel) pair, whose sine and cosine come from one full-precision
+// sincosf), the code (when `inst`) and zeros up to XKB * 64 columns, as
+// bf16 in the swizzle.
+template <bool VOX, int MODE>
 __device__ __forceinline__ void fwd_build(const FwdArgs& a, const BranchTab& scene,
                                           const BranchTab& obj, long long g0, int valid,
                                           bool inst, unsigned char* Xg, float* stage,
                                           float* zrow, float* db, int bar) {
+  using C = FwdCfg<VOX, MODE>;
   const int cv = VOX ? a.vd.c_s + a.vd.c_i : 0;
-  const int ray0 = (int)(g0 / a.S), nr = a.S >= 64 ? 1 : 64 / a.S;
-  const int rays = max(0, min(nr, a.n_rays - ray0));  // real rays of the warpgroup
   float* xyzs = stage;                  // (64, 3)
   float* voxs = xyzs + 64 * 3;          // (64, cv)
-  float* codes = voxs + 64 * MAX_VOX;   // (nr, code_len)
+  float* codes = voxs + 64 * MAX_VOX;   // (nr, code_len), or (runs, code_len)
   float* dirs = codes + 2 * XCOLS_V;    // (nr, MAX_DIR)
+  // the first row's ray, or in the point-wise modes its run of S points
+  const long long run0 = g0 / a.S;
+  const int ray0 = (int)run0, nr = a.S >= 64 ? 1 : 64 / a.S;
   stage_copy<2>(xyzs, a.xyz + g0 * 3, 64 * 3, valid * 3);
   if constexpr (VOX) stage_copy<8>(voxs, a.vox + g0 * cv, 64 * cv, valid * cv);
-  if (inst)
-    stage_copy<1>(codes, a.codes + (size_t)ray0 * a.code_len, nr * a.code_len,
-                  rays * a.code_len);
-  for (int e = threadIdx.x & 127; e < nr * MAX_DIR; e += 128) {  // padded to MAX_DIR
-    const int lr = e / MAX_DIR, c = e % MAX_DIR;
-    dirs[e] = lr < rays && c < a.c_dir ? a.dir_pe[(size_t)(ray0 + lr) * a.c_dir + c] : 0.f;
+  if constexpr (C::HEADS) {
+    const int rays = max(0, min(nr, a.n_rays - ray0));  // real rays of the warpgroup
+    if (inst)
+      stage_copy<1>(codes, a.codes + (size_t)ray0 * a.code_len, nr * a.code_len,
+                    rays * a.code_len);
+    for (int e = threadIdx.x & 127; e < nr * MAX_DIR; e += 128) {  // padded to MAX_DIR
+      const int lr = e / MAX_DIR, c = e % MAX_DIR;
+      dirs[e] = lr < rays && c < a.c_dir ? a.dir_pe[(size_t)(ray0 + lr) * a.c_dir + c] : 0.f;
+    }
+  } else if (inst && valid > 0) {  // the runs of the real rows (the launcher checks they fit)
+    const int n = (int)((g0 + valid - 1) / a.S - run0 + 1) * a.code_len;
+    stage_copy<8>(codes, a.codes + run0 * a.code_len, n, n);
   }
   if (zrow != nullptr) stage_copy<1>(zrow, a.z + g0, 64, valid);
   wg_bar(bar);
-  if (a.compute_scene) fwd_dir_bias<WS / 2>(scene, a.w, a.b, dirs, nr, db);
-  if (inst) fwd_dir_bias<WO / 2>(obj, a.w, a.b, dirs, nr, db + 2 * (WS / 2));
+  if constexpr (C::HEADS) {
+    if (a.compute_scene) fwd_dir_bias<WS / 2>(scene, a.w, a.b, dirs, nr, db);
+    if (inst) fwd_dir_bias<WO / 2>(obj, a.w, a.b, dirs, nr, db + 2 * (WS / 2));
+  }
 
   // X: lane l of warps 2 h and 2 h + 1 takes row 32 h + l, each warp every
   // other item of the row in turn (an item is a column, or an (octave,
@@ -754,23 +806,26 @@ __device__ __forceinline__ void fwd_build(const FwdArgs& a, const BranchTab& sce
     }
   }
   if (inst) {
-    const float* cr = codes + (r / a.S) * a.code_len;
+    const float* cr = C::HEADS ? codes + (r / a.S) * a.code_len
+                               : codes + (int)((g0 + r) / a.S - run0) * a.code_len;
     for (; it < a.code_len; it += 2) put(col_end + it, cr[it]);
     it -= a.code_len;
     col_end += a.code_len;
   }
-  for (int col = col_end + it; col < FwdCfg<VOX>::XKB * 64; col += 2) put(col, 0.f);
+  for (int col = col_end + it; col < C::XKB * 64; col += 2) put(col, 0.f);
   fence_proxy_async();  // X is complete for the products' reads
   wg_bar(bar);
 }
 
-// The forward chain over the launch's tiles (see the file comment). RENDER:
-// fused_render_tiles (composited maps); else fused_mlp_eval (raw rows).
-template <bool VOX, bool RENDER>
+// The forward chain over the launch's tiles (see the file comment), in mode
+// MODE (FWD_*).
+template <bool VOX, int MODE>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTab obj,
                  FwdArgs a) {
-  using C = FwdCfg<VOX>;
+  using C = FwdCfg<VOX, MODE>;
+  constexpr bool RENDER = MODE == FWD_RENDER, WEIGHTS = MODE == FWD_WEIGHTS;
+  constexpr bool POINTS = MODE == FWD_SIGMA_SCENE || MODE == FWD_SIGMA_OBJ;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   const uint32_t raw = smem_u32(fwd_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle needs 1 KB alignment
@@ -822,74 +877,87 @@ fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTa
     const uint32_t Xs = base + C::X + wg * C::XKB * 8192, Hs = base + C::H + wg * 4 * 8192;
     unsigned char* Xg = sm + C::X + wg * C::XKB * 8192;
     unsigned char* Hg = sm + C::H + wg * 4 * 8192;
-    float* db = reinterpret_cast<float*>(sm + C::DB) + wg * FWD_DB;
-    const bool inst = a.forward_instance != 0;
-    FwdPipe<VOX> p{base + C::RING, full, empty, 0, 0};
+    float* db = reinterpret_cast<float*>(sm + C::DB) + wg * C::NDB;
+    // the tile holds the object branch's columns (its code included)
+    const bool inst = MODE == FWD_SIGMA_OBJ || (C::HEADS && a.forward_instance != 0);
+    FwdPipe<C> p{base + C::RING, full, empty, 0, 0};
     int iter = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++iter) {
-      float* rb = reinterpret_cast<float*>(sm + C::ROW) + (iter & 1) * FWD_ROWBUF;
+      float* rb = reinterpret_cast<float*>(sm + C::ROW) + (iter & 1) * C::NROW;
       const long long g0 = (long long)tile * ROWS + 64 * wg;
       const int valid = (int)max(0LL, min(64LL, n_rows - g0));
       wg_bar(bar);  // the previous tile's readers of X, H and the biases are done
-      fwd_build<VOX>(a, scene, obj, g0, valid, inst, Xg, reinterpret_cast<float*>(Hg),
-                     RENDER ? rb + RB_Z + 64 * wg : nullptr, db, bar);
-      HeadOut ho;
-      if (RENDER) {
-        ho = {rb + RB_SIG + 64 * wg, rb + RB_RGB + 3 * 64 * wg, 1, 3, 64};
+      fwd_build<VOX, MODE>(a, scene, obj, g0, valid, inst, Xg, reinterpret_cast<float*>(Hg),
+                           RENDER || WEIGHTS ? rb + RB_Z + 64 * wg : nullptr, db, bar);
+      if constexpr (POINTS) {  // the raw density of each real row
+        const HeadOut ho = {a.out + g0, nullptr, 1, 0, valid};
+        if constexpr (MODE == FWD_SIGMA_SCENE)
+          fwd_branch<WS, C>(scene, a.w, a.b, Xs, Hs, nullptr, a.S, p, bar, ho);
+        else
+          fwd_branch<WO, C>(obj, a.w, a.b, Xs, Hs, nullptr, a.S, p, bar, ho);
       } else {
-        ho = {a.out + g0 * 8, a.out + g0 * 8 + 1, 8, 8, valid};
-      }
-      if (a.compute_scene) fwd_branch<WS, VOX>(scene, a.w, a.b, Xs, Hs, db, a.S, p, bar, ho);
-      if (inst) {
-        if (RENDER) {
-          ho.sig = rb + RB_ISIG + 64 * wg;
-          ho.rgb = rb + RB_IRGB + 3 * 64 * wg;
+        HeadOut ho;
+        if (RENDER || WEIGHTS) {
+          ho = {rb + RB_SIG + 64 * wg, rb + RB_RGB + 3 * 64 * wg, 1, 3, 64};
         } else {
-          ho.sig += 4;
-          ho.rgb += 4;
+          ho = {a.out + g0 * 8, a.out + g0 * 8 + 1, 8, 8, valid};
         }
-        fwd_branch<WO, VOX>(obj, a.w, a.b, Xs, Hs, db + 2 * (WS / 2), a.S, p, bar, ho);
-      }
-      if (!RENDER) {  // zeros for a branch that is off
-        const int tid = threadIdx.x & 127;
-        for (int e = tid; e < valid * 4; e += 128) {
-          float* o = a.out + (g0 + e / 4) * 8 + e % 4;
-          if (!a.compute_scene) o[0] = 0.f;
-          if (!inst) o[4] = 0.f;
-        }
-        continue;
-      }
-      wg_bar(bar);  // the warpgroup's rows are written
-      if (wg == 0) {
-        if (threadIdx.x == 128) mbar_arrive(rows_bar + 8 * (iter & 1));
-        continue;
-      }
-      mbar_wait(rows_bar + 8 * (iter & 1), (iter >> 1) & 1);  // and the other's
-      const int S = a.S, R = ROWS / S;
-      const int n_tasks = inst ? 2 * R : R;
-      for (int task = w4; task < n_tasks; task += 4) {
-        const int rho = task % R, is_inst = task / R;
-        const int ray = tile * R + rho;
-        if (ray >= a.n_rays) continue;
-        float out[5];
-        float* m = a.maps + (size_t)ray * 16;
-        const float* zs = rb + RB_Z + rho * S;
-        if (!is_inst) {
-          composite_ray(rb + RB_SIG + rho * S, rb + RB_RGB + rho * S * 3, zs, S,
-                        a.last_delta_inf ? 1e10f : 0.f,
-                        a.weights != nullptr ? a.weights + (size_t)ray * S : nullptr, out);
-          if (lane == 0) {
-            for (int c = 0; c < 5; ++c) m[c] = out[c];
-            for (int c = inst ? 10 : 5; c < 16; ++c) m[c] = 0.f;
+        if (a.compute_scene) fwd_branch<WS, C>(scene, a.w, a.b, Xs, Hs, db, a.S, p, bar, ho);
+        if (inst) {
+          if (RENDER) {
+            ho.sig = rb + RB_ISIG + 64 * wg;
+            ho.rgb = rb + RB_IRGB + 3 * 64 * wg;
+          } else {
+            ho.sig += 4;
+            ho.rgb += 4;
           }
-        } else {
-          // instance pass: last delta 0, rgb always white-backed
-          composite_ray(rb + RB_ISIG + rho * S, rb + RB_IRGB + rho * S * 3, zs, S, 0.f,
-                        nullptr, out);
-          if (lane == 0) {
-            for (int c = 0; c < 3; ++c) m[5 + c] = out[c] + (1.f - out[4]);
-            m[8] = out[3];
-            m[9] = out[4];
+          fwd_branch<WO, C>(obj, a.w, a.b, Xs, Hs, db + 2 * (WS / 2), a.S, p, bar, ho);
+        }
+        if (!RENDER && !WEIGHTS) {  // zeros for a branch that is off
+          const int tid = threadIdx.x & 127;
+          for (int e = tid; e < valid * 4; e += 128) {
+            float* o = a.out + (g0 + e / 4) * 8 + e % 4;
+            if (!a.compute_scene) o[0] = 0.f;
+            if (!inst) o[4] = 0.f;
+          }
+          continue;
+        }
+        wg_bar(bar);  // the warpgroup's rows are written
+        if (wg == 0) {
+          if (threadIdx.x == 128) mbar_arrive(rows_bar + 8 * (iter & 1));
+          continue;
+        }
+        mbar_wait(rows_bar + 8 * (iter & 1), (iter >> 1) & 1);  // and the other's
+        const int S = a.S, R = ROWS / S;
+        const int n_tasks = inst ? 2 * R : R;
+        for (int task = w4; task < n_tasks; task += 4) {
+          const int rho = task % R, is_inst = task / R;
+          const int ray = tile * R + rho;
+          if (ray >= a.n_rays) continue;
+          float out[5];
+          float* m = a.maps + (size_t)ray * 16;
+          const float* zs = rb + RB_Z + rho * S;
+          if (WEIGHTS) {  // the pdf weights alone
+            composite_ray<false>(rb + RB_SIG + rho * S, nullptr, zs, S,
+                                 a.last_delta_inf ? 1e10f : 0.f, a.weights + (size_t)ray * S,
+                                 out);
+          } else if (!is_inst) {
+            composite_ray(rb + RB_SIG + rho * S, rb + RB_RGB + rho * S * 3, zs, S,
+                          a.last_delta_inf ? 1e10f : 0.f,
+                          a.weights != nullptr ? a.weights + (size_t)ray * S : nullptr, out);
+            if (lane == 0) {
+              for (int c = 0; c < 5; ++c) m[c] = out[c];
+              for (int c = inst ? 10 : 5; c < 16; ++c) m[c] = 0.f;
+            }
+          } else {
+            // instance pass: last delta 0, rgb always white-backed
+            composite_ray(rb + RB_ISIG + rho * S, rb + RB_IRGB + rho * S * 3, zs, S, 0.f,
+                          nullptr, out);
+            if (lane == 0) {
+              for (int c = 0; c < 3; ++c) m[5 + c] = out[c] + (1.f - out[4]);
+              m[8] = out[3];
+              m[9] = out[4];
+            }
           }
         }
       }
@@ -909,17 +977,23 @@ int sm_count() {
   return n;
 }
 
-// Launch the forward chain: the weight maps of `wmap_tab` (WM_LEN x 3 ints,
-// as encode_sweep_maps takes them) in boxes of FWD_STAGE bytes per row of
-// boxes, the chunk order `chunks` (n_chunks x 3 ints: slot, first row, boxes),
-// one block per SM or per tile, whichever is fewer.
-template <bool VOX, bool RENDER>
+// Launch the forward chain in mode MODE: the weight maps of `wmap_tab`
+// (WM_LEN x 3 ints, as encode_sweep_maps takes them) in boxes of FWD_STAGE
+// bytes per row of boxes, the chunk order `chunks` (n_chunks x 3 ints: slot,
+// first row, boxes), one block per SM or per tile, whichever is fewer. The
+// branch tables the mode runs must be given (the scene's always).
+template <bool VOX, int MODE>
 int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
                      const int* scene_tab, const int* obj_tab, const FwdArgs& a,
                      cudaStream_t st) {
-  using C = FwdCfg<VOX>;
-  if (n_chunks < 0 || n_chunks > FWD_MAX_CHUNKS || scene_tab[T_K0] != C::K0S ||
-      (obj_tab != nullptr && obj_tab[T_K0] != C::K0O))
+  using C = FwdCfg<VOX, MODE>;
+  if (n_chunks < 0 || n_chunks > FWD_MAX_CHUNKS || scene_tab == nullptr ||
+      scene_tab[T_K0] != C::K0S || (obj_tab != nullptr && obj_tab[T_K0] != C::K0O) ||
+      (MODE == FWD_SIGMA_OBJ && obj_tab == nullptr) || a.n_rays < 0 || a.S < 1)
+    return (int)cudaErrorInvalidValue;
+  // the point-wise object mode stages the codes of the runs of S points that a
+  // warpgroup's 64 rows span: at most 63 / S + 2 of them
+  if (MODE == FWD_SIGMA_OBJ && (long long)min(64, 63 / a.S + 2) * a.code_len > FWD_CODE_FLOATS)
     return (int)cudaErrorInvalidValue;
   FwdPlan plan;
   cudaError_t e = (cudaError_t)encode_sweep_maps(a.w, wmap_tab, &plan.maps, FWD_STAGE);
@@ -936,13 +1010,13 @@ int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
       return (int)cudaErrorInvalidValue;
     plan.chunk[j] = (unsigned short)(slot | row / 16 << 5);
   }
-  e = cudaFuncSetAttribute(fwd_chain_kernel<VOX, RENDER>,
+  e = cudaFuncSetAttribute(fwd_chain_kernel<VOX, MODE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (e != cudaSuccess) return (int)e;
   const long long n_rows = (long long)a.n_rays * a.S;
   const int n_tiles = (int)((n_rows + ROWS - 1) / ROWS), n_sm = sm_count();
   if (n_sm == 0) return (int)cudaErrorNoDevice;
-  fwd_chain_kernel<VOX, RENDER><<<min(n_tiles, n_sm), FWD_THREADS, C::BYTES, st>>>(
+  fwd_chain_kernel<VOX, MODE><<<min(n_tiles, n_sm), FWD_THREADS, C::BYTES, st>>>(
       plan, to_tab(scene_tab), to_tab(obj_tab), a);
   return (int)cudaGetLastError();
 }

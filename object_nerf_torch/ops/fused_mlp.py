@@ -22,9 +22,11 @@ model's own input order. The training kernels (`fused_mlp_vjp.py`) take the
 same operand and return its gradient.
 
 The kernels are CUDA C++ for Hopper (`csrc/fused_mlp.cu`, built by
-`_build.py`); the render runs on the forward chain of `csrc/fused_mlp_wg.cuh`
-that `fused_mlp_eval` shares (its weight-chunk order is
-`fused_mlp_vjp.forward_chunks`). Each wrapper checks device, dtype, shape and
+`_build.py`): two modes of the forward chain of `csrc/fused_mlp_wg.cuh` that
+`fused_mlp_eval` and `fused_sigma_eval` share (its weight-chunk order is
+`fused_mlp_vjp.forward_chunks`; the coarse pass reads the sigma-only order of
+a `sigma_only` packing, cached per layout by
+`fused_mlp_vjp.forward_launch_tables`). Each wrapper checks device, dtype, shape and
 contiguity; on a CUDA tensor it launches its kernel or raises, and on a CPU
 tensor it runs its plain version, which sits beside it here. The wrappers are inference
 only (no autograd); the plain versions are differentiable. `launch_counts` counts the
@@ -364,6 +366,7 @@ def fused_coarse_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
         return coarse_weights_plain(model, cfg, xyz, z_vals, voxel_raw, last_delta_inf, dtype)
 
     from ._build import check, load_library
+    from .fused_mlp_vjp import forward_launch_tables
 
     if packed is None:
         packed = pack_kernel_weights(model, cfg, forward_instance=False, sigma_only=True)
@@ -375,8 +378,9 @@ def fused_coarse_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     with torch.cuda.device(device):
         rc = lib.onerf_coarse_weights(
             xyz.data_ptr(), z_vals.data_ptr(), _ptr(voxel_raw), packed.w.data_ptr(),
-            packed.b.data_ptr(), _tab(packed.scene), weights.data_ptr(), n, s,
-            cfg.N_freq_xyz, int(last_delta_inf), *_vox_args(cfg),
+            packed.b.data_ptr(), _tab(packed.scene),
+            *forward_launch_tables(packed, False, True, sigma_only=True),
+            weights.data_ptr(), n, s, cfg.N_freq_xyz, int(last_delta_inf), *_vox_args(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_coarse_weights")

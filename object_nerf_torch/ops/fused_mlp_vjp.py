@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -302,8 +303,9 @@ def sweep_weight_maps(packed: PackedWeights,
     of its weight ring: per branch slot (trunk layer i at i, `final` at 8,
     the direction layer's hidden part at 9) the matrix's (element offset in
     the packed weights, rows, columns), row-major bf16; (0, 0, 0) for a slot
-    that no matrix takes. A skip layer is one map: its input rows, then its
-    hidden rows."""
+    that no matrix takes, among them `final` and the direction layer of a
+    `sigma_only` packing, which holds neither. A skip layer is one map: its
+    input rows, then its hidden rows."""
     maps = [(0, 0, 0)] * (2 * SWEEP_MAPS_PER_BRANCH)
     for bi, tab in enumerate(_run_branches(packed, forward_instance)):
         width, k0, base = BRANCH_WIDTHS[bi], tab[T_K0], bi * SWEEP_MAPS_PER_BRANCH
@@ -311,13 +313,15 @@ def sweep_weight_maps(packed: PackedWeights,
             skip = i > 0 and (tab[T_SKIPS] >> i) & 1
             rows = k0 if i == 0 else (k0 + width if skip else width)
             maps[base + i] = (tab[T_TW + i], rows, width)
-        maps[base + 8] = (tab[T_FINW], width, width)
-        maps[base + 9] = (tab[T_DIRWH], width, width // 2)
+        if not packed.sigma_only:
+            maps[base + 8] = (tab[T_FINW], width, width)
+            maps[base + 9] = (tab[T_DIRWH], width, width // 2)
     return maps
 
 
-# The forward chain (csrc/fused_mlp_wg.cuh) of fused_mlp_eval and
-# fused_render_tiles: its producer streams these chunks through the weight ring
+# The forward chain (csrc/fused_mlp_wg.cuh) of fused_mlp_eval, fused_render_tiles,
+# fused_coarse_weights and fused_sigma_eval: its producer streams these chunks
+# through the weight ring
 FWD_MAX_CHUNKS = 320  # chunks of one tile at most (FWD_MAX_CHUNKS in the source)
 FWD_STAGE_BYTES = 16384  # one chunk, one stage of the ring (FWD_STAGE)
 
@@ -331,16 +335,21 @@ def forward_chunk_rows(cols: int) -> int:
 
 
 def forward_chunks(packed: PackedWeights, forward_instance: bool = True,
-                   compute_scene: bool = True) -> List[Tuple[int, int, int]]:
+                   compute_scene: bool = True,
+                   sigma_only: bool = False) -> List[Tuple[int, int, int]]:
     """The weight chunks of one tile of the forward chain, in the order its
     producer loads them and each consumer warpgroup reads them: `(slot, row,
     boxes)`, rows [row, row + forward_chunk_rows(cols)) of the (rows, cols)
     matrix of `sweep_weight_maps` slot `slot`, as `boxes` = cols / 64 TMA
     boxes. Per branch that runs (the scene when `compute_scene`, the object
     branch when `forward_instance`): trunk layer 0 (the input rows), each
-    later layer (a skip layer's input rows, then its hidden rows), `final`,
-    the direction layer's hidden part. The order does not depend on the
-    data, so the producer runs ahead across layers, branches and tiles."""
+    later layer (a skip layer's input rows, then its hidden rows), then,
+    unless `sigma_only` (the chain's modes that stop at the sigma head:
+    `fused_coarse_weights`, `fused_sigma_eval`), `final` and the direction
+    layer's hidden part. The order does not depend on the data, so the
+    producer runs ahead across layers, branches and tiles."""
+    if packed.sigma_only and not sigma_only:
+        raise ValueError("a sigma_only packing holds no `final` or direction layer")
     maps = sweep_weight_maps(packed, forward_instance)
     out: List[Tuple[int, int, int]] = []
     for bi, tab in enumerate(_run_branches(packed, forward_instance)):
@@ -359,25 +368,37 @@ def forward_chunks(packed: PackedWeights, forward_instance: bool = True,
                 rows(i, 0, k0)
             if i > 0:
                 rows(i, k0 if skip else 0, width)
-        rows(8, 0, width)
-        rows(9, 0, width)
+        if not sigma_only:
+            rows(8, 0, width)
+            rows(9, 0, width)
     if len(out) > FWD_MAX_CHUNKS:
         raise ValueError(f"{len(out)} weight chunks per tile exceed {FWD_MAX_CHUNKS}")
     return out
 
 
 def forward_weight_bytes(packed: PackedWeights, forward_instance: bool = True,
-                         compute_scene: bool = True) -> int:
+                         compute_scene: bool = True, sigma_only: bool = False) -> int:
     """Bytes of weights one tile of the forward chain copies from L2 into
     shared memory (every block reads every chunk once per tile)."""
-    return FWD_STAGE_BYTES * len(forward_chunks(packed, forward_instance, compute_scene))
+    return FWD_STAGE_BYTES * len(forward_chunks(packed, forward_instance, compute_scene,
+                                                sigma_only))
 
 
-def forward_launch_tables(packed: PackedWeights, forward_instance: bool, compute_scene: bool):
+def forward_launch_tables(packed: PackedWeights, forward_instance: bool, compute_scene: bool,
+                          sigma_only: bool = False):
     """The forward chain's tables as its launchers take them: the weight maps
-    (WM_LEN x 3 ints), the chunk order (n x 3 ints) and n."""
-    maps = sweep_weight_maps(packed, forward_instance)
-    chunks = forward_chunks(packed, forward_instance, compute_scene)
+    (WM_LEN x 3 ints), the chunk order (n x 3 ints) and n. They depend on the
+    packing's offset tables alone, so they are built once per layout."""
+    return _launch_tables(tuple(packed.scene), None if packed.obj is None else tuple(packed.obj),
+                          packed.sigma_only, forward_instance, compute_scene, sigma_only)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_tables(scene, obj, packed_sigma_only, forward_instance, compute_scene, sigma_only):
+    layout = PackedWeights(None, None, list(scene), None if obj is None else list(obj),
+                           packed_sigma_only)
+    maps = sweep_weight_maps(layout, forward_instance)
+    chunks = forward_chunks(layout, forward_instance, compute_scene, sigma_only)
     flat = [v for c in chunks for v in c]
     return ((ctypes.c_int * (3 * len(maps)))(*(v for m in maps for v in m)),
             (ctypes.c_int * max(1, len(flat)))(*flat), len(chunks))

@@ -8,7 +8,10 @@ the object trunk + sigma head with one latent code per pseudo-row of
 mesh-extraction sweep and the coarse pass of the multi-object edit render.
 
 The kernel is CUDA C++ for Hopper (`csrc/fused_sigma.cu`, built by
-`_build.py`). On a CUDA tensor the wrapper launches it or raises; on a CPU
+`_build.py`): the point-wise modes of the forward chain of
+`csrc/fused_mlp_wg.cuh`, one per branch, over the branch's sigma-only chunk
+order (`fused_mlp_vjp.forward_launch_tables`, cached per packing layout). On
+a CUDA tensor the wrapper launches it or raises; on a CPU
 tensor it runs `sigma_eval_plain`, which sits beside it here and rounds the
 matmul operands to `matmul_dtype` where the kernel rounds. `launch_counts`
 (shared with `fused_mlp.py`) counts kernel launches and nothing else.
@@ -88,6 +91,7 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
         return sigma_eval_plain(model, cfg, pts, obj_codes, branch, s, voxel_raw, dtype)
 
     from ._build import check, load_library
+    from .fused_mlp_vjp import forward_launch_tables
 
     if packed is None:
         packed = pack_kernel_weights(model, cfg, forward_instance=instance, sigma_only=True)
@@ -99,9 +103,11 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
     with torch.cuda.device(device):
         rc = lib.onerf_sigma_eval(
             pts.data_ptr(), obj_codes.data_ptr() if instance else None, _ptr(voxel_raw),
-            packed.w.data_ptr(), packed.b.data_ptr(),
-            _tab(packed.obj if instance else packed.scene), sigma.data_ptr(), n, s,
-            cfg.N_freq_xyz, cfg.N_obj_code_length, int(instance), *_vox_args(cfg),
+            packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
+            _tab(packed.obj) if instance else None,
+            *forward_launch_tables(packed, instance, not instance, sigma_only=True),
+            sigma.data_ptr(), n, s, cfg.N_freq_xyz, cfg.N_obj_code_length, int(instance),
+            *_vox_args(cfg),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_sigma_eval")

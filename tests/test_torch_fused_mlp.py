@@ -121,7 +121,8 @@ def test_wrappers_check_their_inputs():
 
 
 def _emulate(packed, cfg, xyz, z, dir_pe=None, codes=None):
-    """The kernels' dataflow over the packed buffers (csrc/fused_mlp.cu):
+    """The dataflow over the packed buffers that the kernels' forward chain
+    reads (csrc/fused_mlp_wg.cuh; its chunk order in test_torch_fwd_chain.py):
     input tile [PE | code | 0] in bf16, trunk layers as (K, N) blocks with
     the skip's input rows padded to K0, the direction input as a per-ray
     bias, heads stored (out, in)."""

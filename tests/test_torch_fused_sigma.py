@@ -101,7 +101,8 @@ def test_sigma_wrapper_checks_its_inputs():
 
 
 def _emulate_sigma(packed, cfg, pts, codes, branch, s):
-    """The kernel's dataflow over the packed buffers (csrc/fused_sigma.cu):
+    """The dataflow over the packed buffers that the chain's point-wise modes
+    read (csrc/fused_mlp_wg.cuh; their chunk order in test_torch_fwd_chain.py):
     input tile [PE | code of the point's pseudo-row | 0] in bf16, trunk layers
     as (K, N) blocks with the skip's input rows padded to K0, then the sigma
     head stored (1, width)."""

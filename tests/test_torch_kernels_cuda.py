@@ -581,12 +581,48 @@ def test_forward_chain_matches_plain_bf16_on_card(cuda_device, voxel, s, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+@pytest.mark.parametrize("s,n", [(128, 1), (64, 301), (32, 4133)])
+def test_forward_chain_sigma_modes_match_plain_bf16_on_card(cuda_device, voxel, s, n):
+    """The chain's modes that stop at the sigma head against their bf16
+    plain versions at the render test's shapes: `fused_coarse_weights` (the
+    last delta 1e10 and 0), and `fused_sigma_eval` on the same n * s points,
+    both branches, a code per 1, 5, 64 and all of them (runs that straddle
+    the warpgroups' 64 rows and the tiles); relaunches bit-equal."""
+    cfg, model, xyz, z, _, _, raw = _chain_setup(cuda_device, voxel, n, s)
+    pts, n_pts = xyz.reshape(-1, 3), n * s
+    raw_p = None if raw is None else raw.reshape(n_pts, -1)
+    g = torch.Generator().manual_seed(3)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        for last in (True, False):
+            got = fm.fused_coarse_weights(model, cfg, xyz, z, raw, last)
+            want = fm.coarse_weights_plain(model, cfg, xyz, z, raw, last)
+            assert (got - want).abs().max().item() < FWD_TOL, last
+            assert torch.equal(got, fm.fused_coarse_weights(model, cfg, xyz, z, raw, last))
+        for per_row in (1, 5, 64, n_pts):
+            if n_pts % per_row:
+                continue
+            codes = torch.randn(n_pts // per_row, cfg.N_obj_code_length, generator=g)
+            codes = codes.to(cuda_device)
+            for branch in fs.BRANCHES:
+                got = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row, raw_p)
+                want = fs.sigma_eval_plain(model, cfg, pts, codes, branch, per_row, raw_p)
+                assert (got - want).abs().max().item() < FWD_TOL, (per_row, branch)
+                again = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row, raw_p)
+                assert torch.equal(got, again), (per_row, branch)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["fused_coarse_weights"] == 4
+
+
+@pytest.mark.cuda
 def test_forward_chain_build_on_card(cuda_device):
-    """The chain's four instantiations (fused_mlp_eval and fused_render_tiles,
-    classical and voxel) issue wgmma (HGMMA) and TMA loads (UTMALDG) in their
-    machine code, and ptxas serialized none of their wgmma (C7510: the
-    pipeline crosses a call; C7515: other instructions define accumulator
-    registers inside it)."""
+    """The chain's ten instantiations (fwd_chain_kernel<VOX, MODE>, MODE 0-4:
+    fused_mlp_eval, fused_render_tiles, fused_coarse_weights and
+    fused_sigma_eval's scene and object branch, classical and voxel) issue
+    wgmma (HGMMA) and TMA loads (UTMALDG) in their machine code, and ptxas
+    serialized none of their wgmma (C7510: the pipeline crosses a call;
+    C7515: other instructions define accumulator registers inside it)."""
     import shutil
     import subprocess
 
@@ -599,18 +635,17 @@ def test_forward_chain_build_on_card(cuda_device):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    names = [f"fwd_chain_kernelILb{vox}ELi{mode}E" for vox in (0, 1) for mode in range(5)]
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in ("fwd_chain_kernelILb0ELb0", "fwd_chain_kernelILb1ELb0",
-                                        "fwd_chain_kernelILb0ELb1", "fwd_chain_kernelILb1ELb1")
-                            if k in line), None)
+            current = next((k for k in names if k in line), None)
             if current is not None:
                 counts[current] = {"HGMMA": 0, "UTMALDG": 0}
         elif current is not None:
             for op in counts[current]:
                 counts[current][op] += op in line
-    assert len(counts) == 4, counts
+    assert len(counts) == len(names), counts
     for k, c in counts.items():
         assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (k, c)
 
