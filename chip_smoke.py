@@ -87,12 +87,16 @@ pruned and subdivided, and its edit render:
 14. sweeps the room's density grid at 128^3 through the voxel lookup and
    `fused_sigma_eval`, scene branch and one object, each against the plain f32
    sweep, and times the 512^3 voxel sweep (under the same budget rule);
-15. holds `pe_probe` (each of its eight modes, a few tiles) and `scale_copy`
-   against their plain versions, drives them once as the probe scripts do, and
+15. prints `pe_probe`'s registers, spills, stack frame and HGMMA / UTMALDG
+   counts, holds it (each of its eight modes, a few tiles) and `scale_copy`
+   against their plain versions and `pe_probe` against its relaunch at
+   983,040 rows, bit for bit, drives them once as the probe scripts do, and
    holds four modes at 983,040 rows against the plain version over every row
-   before it times them; times `scale_copy` against `torch.mul` in turns
-   (library, kernel, kernel, library; 5 rounds of 200 launches, the L2 flushed
-   before each turn) and prints both medians and their spread;
+   (and the same function as plain torch calls, the torch bf16 chain of
+   `scripts/profile_pe_micro.py`) before it times them: `pe_probe` against
+   that chain in turns (library, kernel, kernel, library; 3 rounds of 5
+   launches), `scale_copy` against `torch.mul` (5 rounds of 200), the L2
+   flushed before each turn, and prints both medians and their turns;
 16. holds `fused_mlp_eval` and `fused_mlp_bwd` with the voxel operand against
    their plain versions at the training shapes (2048 x 64 and x 128, raw
    features from the step's bf16 corner table at real sample addresses), the
@@ -234,9 +238,10 @@ VOX_MESH_RANGES = {"x_range": [-1.2, 1.2], "y_range": [-1.2, 1.2], "z_range": [-
 VOX_MESH_F32_TOL = 5e-3
 # probes: shapes of the JAX package's scripts
 PROBE_ROWS, PROBE_TABLE_ROWS, PROBE_CHANNELS = 983040, 890000, 192
-# scale_copy against torch.mul: rounds of four turns, launches a turn, and the
-# buffer written before each turn to flush the 50 MB L2
-SC_ROUNDS, SC_LAUNCHES, SC_FLUSH_BYTES = 5, 200, 256 * 2 ** 20
+# scale_copy against torch.mul: rounds of four turns (library, kernel, kernel,
+# library) and launches a turn, the 50 MB L2 flushed before each turn
+# (pe_probe against the torch bf16 chain: profile_pe_micro's ROUNDS, LAUNCHES)
+SC_ROUNDS, SC_LAUNCHES = 5, 200
 PROBE_CHECK_ROWS = 128 * 5 + 17  # a few tiles and a ragged one
 PROBE_TIMED_MODES = ("none", "combined", "combined_polysin", "split_polysin")
 # pe_probe vs its plain version, max abs over the rows relative to the largest
@@ -502,15 +507,24 @@ def _fmt_split(split) -> str:
 # ten instantiations (fwd_chain_kernel<VOX, MODE>: fused_mlp_eval,
 # fused_render_tiles, fused_coarse_weights and fused_sigma_eval's two
 # branches, classical and voxel), the backward's sweep (two), its
-# weight-gradient GEMM; then the reduction, which has no product
+# weight-gradient GEMM, pe_probe's kernel; then the reduction, which has no
+# product
 CHAIN_MODES = {0: "fused_mlp_eval", 1: "fused_render_tiles", 2: "fused_coarse_weights",
                3: "fused_sigma_eval scene", 4: "fused_sigma_eval object"}  # FWD_* in the source
 WGMMA_INSTANTIATIONS = {
     **{f"forward chain, {name} {model}": f"fwd_chain_kernelILb{vox}ELi{mode}E"
        for mode, name in CHAIN_MODES.items() for vox, model in ((0, "classical"), (1, "voxel"))},
     "sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
-    "weight gradient": "wgrad_kernel"}
+    "weight gradient": "wgrad_kernel", "pe_probe": "pe_probe_wg_kernel"}
 BUILD_INSTANTIATIONS = {**WGMMA_INSTANTIATIONS, "reduction": "reduce_segments_kernel"}
+
+
+def _build_line(label, key, r, counts) -> str:
+    """One kernel's line of the build report: ptxas figures `r`, SASS `counts`."""
+    return (f"{label} ({key}): {r['registers']} registers, {r.get('spill_stores', 0)} bytes "
+            f"spill stores, {r.get('spill_loads', 0)} bytes spill loads, "
+            f"{r.get('stack_frame', 0)} bytes stack frame, wgmma serialized by ptxas: "
+            f"{r['wgmma_serialized']}; SASS: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
 
 
 def _build_report():
@@ -522,12 +536,7 @@ def _build_report():
     res = _ptxas_resources(list(BUILD_INSTANTIATIONS.values()))
     sass = _sass_counts(list(BUILD_INSTANTIATIONS.values()))
     for label, key in BUILD_INSTANTIATIONS.items():
-        r = res[key]
-        print(f"{label} ({key}): {r['registers']} registers, "
-              f"{r.get('spill_stores', 0)} bytes spill stores, {r.get('spill_loads', 0)} bytes "
-              f"spill loads, {r.get('stack_frame', 0)} bytes stack frame, wgmma serialized by "
-              f"ptxas: {r['wgmma_serialized']}; SASS: "
-              + ", ".join(f"{n} {op}" for op, n in sass[key].items()))
+        print(_build_line(label, key, res[key], sass[key]))
     for label, key in WGMMA_INSTANTIATIONS.items():
         got = sass[key]
         if not (got["HGMMA"] > 0 and got["UTMALDG"] > 0):
@@ -856,7 +865,8 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     # the forward chain's instantiations of the eval kernels, by kernel
     chain_build = {name: {key: {k: v for k, v in d.items() if name in k}
                           for key, d in (("ptxas", ptxas), ("sass_counts", sass))}
-                   for name in ("fused_render_tiles", "fused_coarse_weights", "fused_sigma_eval")}
+                   for name in ("fused_render_tiles", "fused_coarse_weights", "fused_sigma_eval",
+                                "pe_probe")}
     print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
 
     # -- 7. the training path -----------------------------------------------------------
@@ -1767,12 +1777,18 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     return gather_entry, vox, eval_launches, mesh_launches
 
 
-def _probe_phase(torch, dev, peak_flops, peak_bytes):
+def _probe_phase(torch, dev, peak_flops, peak_bytes, build):
     """Phase 15: the two probe kernels; returns their entries for the
-    `kernels` line."""
+    `kernels` line. `build`: pe_probe's figures of the build report."""
     from object_nerf_torch.ops import probes
     from object_nerf_torch.scripts._fixtures import probe_inputs
+    from object_nerf_torch.scripts._timing import turns_ms
+    from object_nerf_torch.scripts.profile_pe_micro import (
+        LAUNCHES, ROUNDS, chain_operands, torch_chain,
+    )
 
+    print(_build_line("pe_probe", WGMMA_INSTANTIATIONS["pe_probe"], build["ptxas"]["pe_probe"],
+                      build["sass_counts"]["pe_probe"]))
     with torch.no_grad():
         x, s, trunk = probe_inputs(PROBE_ROWS, dev, seed=SEED)
         packed = probes.pack_probe_trunk(trunk)
@@ -1790,6 +1806,14 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
         if not errs[worst] <= PROBE_REL_TOL:
             raise SystemExit(f"pe_probe ({worst}) disagrees with its plain version: "
                              f"{errs[worst]:.3e}")
+        first = probes.pe_probe(x, *s, trunk, "combined", packed=packed)
+        again = probes.pe_probe(x, *s, trunk, "combined", packed=packed)
+        torch.cuda.synchronize()
+        print(f"pe_probe combined ({PROBE_ROWS} rows): relaunch bit-equal "
+              f"{torch.equal(first, again)}")
+        if not torch.equal(first, again):
+            raise SystemExit("pe_probe's relaunch differs")
+        del first, again
         y = x[:, :24].contiguous()
         got, want = probes.scale_copy(y), probes.scale_copy_plain(y)
         torch.cuda.synchronize()
@@ -1817,48 +1841,49 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
         pe_macs = {"none": 0, "combined": 27 * 348, "combined_polysin": 27 * 348,
                    "split_polysin": 3 * 60 + 16 * 192 + 8 * 96}
         weights = 2 * (375 * 256 + 7 * 256 * 256) + 4 * 2 * 27 * 348
-        ms, plain_ms, bound, full_errs = {}, {}, {}, {}
+        ms, plain_ms, bound, full_errs, lib_ms, lib_errs = {}, {}, {}, {}, {}, {}
         for mode in PROBE_TIMED_MODES:
+            ops = chain_operands(s, trunk, mode)
             got = probes.pe_probe(x, *s, trunk, mode, packed=packed)
             want = probes.pe_probe_plain(x, *s, trunk, mode)
+            lib = torch_chain(x, *ops)
             torch.cuda.synchronize()
-            full_errs[mode] = _rel(got, want)
+            full_errs[mode], lib_errs[mode] = _rel(got, want), _rel(lib, want)
             if not full_errs[mode] <= PROBE_REL_TOL:
                 raise SystemExit(f"pe_probe ({mode}) at {PROBE_ROWS} rows disagrees with its "
                                  f"plain version: {full_errs[mode]:.3e}")
-            del got, want
-            ms[mode] = _cuda_ms(lambda: probes.pe_probe(x, *s, trunk, mode, packed=packed),
-                                TIMED_LAUNCHES)
+            if not lib_errs[mode] <= PROBE_REL_TOL:
+                raise SystemExit(f"the torch bf16 chain ({mode}) disagrees with pe_probe's "
+                                 f"plain version: {lib_errs[mode]:.3e}")
+            del got, want, lib
+            # the kernel against the torch bf16 chain in turns, the L2 flushed
+            # before each turn; ms per launch of each turn
+            turns = turns_ms({"kernel": lambda: probes.pe_probe(x, *s, trunk, mode,
+                                                                packed=packed),
+                              "torch": lambda: torch_chain(x, *ops)},
+                             ("torch", "kernel", "kernel", "torch"), ROUNDS, LAUNCHES)
+            ms[mode] = statistics.median(turns["kernel"])
+            lib_ms[mode] = statistics.median(turns["torch"])
             plain_ms[mode] = _cuda_ms(lambda: probes.pe_probe_plain(x, *s, trunk, mode), 2)
             flop = 2 * (chain + pe_macs[mode]) * PROBE_ROWS
             bound[mode], by = _bound(flop, PROBE_ROWS * (27 * 4 + 4) + weights, peak_flops,
                                      peak_bytes)
             print(f"pe_probe {mode} ({PROBE_ROWS} rows): {ms[mode]:.3f} ms/launch "
-                  f"({ms[mode] - ms['none']:+.3f} ms over none), plain {plain_ms[mode]:.3f} ms, "
-                  f"bound {bound[mode]:.3f} ms ({by}: {flop / 1e12:.3f} TFLOP), "
-                  f"{flop / ms[mode] / 1e9:.1f} TFLOP/s achieved; max |kernel - plain| / max "
-                  f"|plain| over all rows {full_errs[mode]:.2e} (tol {PROBE_REL_TOL:g})")
+                  f"({ms[mode] - ms['none']:+.3f} ms over none; turns "
+                  + " ".join(f"{t:.3f}" for t in turns["kernel"])
+                  + f"), torch bf16 chain {lib_ms[mode]:.3f} ms (turns "
+                  + " ".join(f"{t:.3f}" for t in turns["torch"])
+                  + f"; max |chain - plain| / max |plain| {lib_errs[mode]:.2e}), plain "
+                  f"{plain_ms[mode]:.3f} ms, bound {bound[mode]:.3f} ms ({by}: "
+                  f"{flop / 1e12:.3f} TFLOP), {flop / ms[mode] / 1e9:.1f} TFLOP/s achieved, "
+                  f"{100 * bound[mode] / ms[mode]:.1f} % of the bound; max |kernel - plain| / "
+                  f"max |plain| over all rows {full_errs[mode]:.2e} (tol {PROBE_REL_TOL:g})")
         nbytes = 2 * 4 * y.numel()
         sc_plain = _cuda_ms(lambda: probes.scale_copy_plain(y), 50)
-        # scale_copy against torch.mul in turns (library, kernel, kernel,
-        # library), SC_LAUNCHES launches a turn between two CUDA events, the
-        # L2 flushed before each turn; ms per launch of each turn
-        flush = torch.empty(SC_FLUSH_BYTES // 4, device=dev)
-        turns = {"kernel": [], "torch.mul": []}
-        fns = {"kernel": lambda: probes.scale_copy(y), "torch.mul": lambda: torch.mul(y, 2.0)}
-        for fn in fns.values():
-            fn()
-        for _ in range(SC_ROUNDS):
-            for name in ("torch.mul", "kernel", "kernel", "torch.mul"):
-                flush.zero_()
-                ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                ev[0].record()
-                for _ in range(SC_LAUNCHES):
-                    fns[name]()
-                ev[1].record()
-                torch.cuda.synchronize()
-                turns[name].append(ev[0].elapsed_time(ev[1]) / SC_LAUNCHES)
-        del flush
+        # scale_copy against torch.mul in turns
+        turns = turns_ms({"kernel": lambda: probes.scale_copy(y),
+                          "torch.mul": lambda: torch.mul(y, 2.0)},
+                         ("torch.mul", "kernel", "kernel", "torch.mul"), SC_ROUNDS, SC_LAUNCHES)
         sc_ms, sc_lib = statistics.median(turns["kernel"]), statistics.median(turns["torch.mul"])
         spread = {k: max(v) - min(v) for k, v in turns.items()}
         slower = sc_ms - sc_lib > max(spread.values())
@@ -1883,8 +1908,12 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes):
                     "tiles and of the four timed modes at every row"),
          # the mode that encodes all 27 channels at once with the built-in sine
          "ms": ms["combined"], "plain_ms": plain_ms["combined"],
-         "bound_ms": bound["combined"], "bound_by": "operations", "library_ms": None,
-         "ms_by_mode": ms, "plain_ms_by_mode": plain_ms, "bound_ms_by_mode": bound},
+         "bound_ms": bound["combined"], "bound_by": "operations",
+         "library_ms": lib_ms["combined"],
+         "library": "torch bf16 chain: bf16(x) @ E into f32, activation, bf16, "
+                    "8 x (bf16 mm, relu_), row sum (22 calls)",
+         "ms_by_mode": ms, "plain_ms_by_mode": plain_ms, "bound_ms_by_mode": bound,
+         "library_ms_by_mode": lib_ms, "library_max_abs_err_by_mode": lib_errs, **build},
         {"name": "scale_copy", "route": "cuda",
          "source": "object_nerf_torch/ops/csrc/probes.cu",
          "replaces": "scripts/profile_voxel_split.py:130", "launches": launches["scale_copy"],
@@ -2752,7 +2781,7 @@ def main() -> int:
     gather_entry, vox, vox_eval_launches, vox_mesh_launches = _voxel_phases(
         torch, dev, peak_flops, peak_bytes)
     torch.cuda.empty_cache()
-    probe_entries = _probe_phase(torch, dev, peak_flops, peak_bytes)
+    probe_entries = _probe_phase(torch, dev, peak_flops, peak_bytes, chain_build["pe_probe"])
     sigma_entry["launches_by_path"]["voxel_mesh"] = vox_mesh_launches["fused_sigma_eval"]
     sigma_entry["max_abs_err"] = max(sigma_entry["max_abs_err"], vox["fused_sigma_eval"]["err"])
     for key in ("ms", "plain_ms", "bound_ms"):

@@ -1,33 +1,29 @@
 // Device functions shared by the port's fused MLP kernels (fused_mlp_wg.cuh,
-// fused_mlp_train.cu, probes.cu): the 128-row tile and its widths, the packed
-// weights' offset table, the nvcuda::wmma products (16x16x16 bf16, f32
-// accumulators) of the PE probe, the backward sweep's rgb head, input tile
-// (classical, and the wider voxel-conditioned one) and per-ray direction
-// bias, and the compositing scan of the forward chain. The file comments of
-// the sources say what each kernel does with them.
+// fused_mlp_train.cu, and through fused_mlp_wg.cuh probes.cu): the 128-row
+// tile and its widths, the packed weights' offset table, the backward
+// sweep's rgb head, input tile (classical, and the wider voxel-conditioned
+// one) and per-ray direction bias, and the compositing scan of the forward
+// chain. The file comments of the sources say what each kernel does with
+// them.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int ROWS = 128;     // sample rows per block (R whole rays x S samples)
 constexpr int THREADS = 256;  // 8 warps
-constexpr int KC = 64;        // K rows of a weight matrix staged per step
 constexpr int WS = 256;       // scene width
 constexpr int WO = 128;       // object width
 constexpr int XCOLS = 128;    // input tile columns: [PE | code | 0 pad]
 constexpr int LDX = XCOLS + 8;
 constexpr int LDH = WS + 8;
-constexpr int LDWST = WS + 8;
 constexpr int MAX_R = 4;      // rays per block (S >= 32)
 constexpr float LEAKY = 0.01f;
 constexpr float T_EPS = 1e-10f;
@@ -53,85 +49,6 @@ struct BranchTab { int v[T_LEN]; };
 constexpr int XCOLS_V = 448;
 constexpr int MAX_VOX = 32;   // raw voxel channels per sample (16 + 8 by default)
 static_assert(ROWS * (3 + MAX_VOX) * 4 <= ROWS * LDH * 2, "input staging exceeds H");
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-// A warp's share of a 128 x N layer output: rows [64*wr, 64*wr + 64),
-// columns [N/4*wc, N/4*wc + N/4) with wr = warp / 4, wc = warp % 4.
-template <int N>
-struct Acc {
-  FragC f[4][N / 64];
-};
-
-template <int N>
-__device__ __forceinline__ void acc_zero(Acc<N>& a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) wmma::fill_fragment(a.f[i][j], 0.0f);
-}
-
-// acc += A[0:128, 0:K] @ Wg[0:K, 0:N]. A is bf16 in shared memory (leading
-// dimension lda); Wg is bf16 row-major (K, N) in device memory, staged
-// through `wst` KC rows at a time. K must be a multiple of KC.
-template <int N>
-__device__ __forceinline__ void gemm(Acc<N>& acc, const bf16* A, int lda,
-                                     const bf16* __restrict__ Wg, int K,
-                                     bf16* wst) {
-  constexpr int LDW = N + 8;
-  constexpr int FN = N / 64;
-  constexpr int VPR = N / 8;  // 16-byte vectors per weight row
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the previous chunk (and any earlier reader) is done
-    for (int v = threadIdx.x; v < KC * VPR; v += THREADS) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      *reinterpret_cast<uint4*>(wst + r * LDW + c) =
-          __ldg(reinterpret_cast<const uint4*>(Wg + (size_t)(k0 + r) * N + c));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      FragA a[4];
-      FragB b[FN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], A + (wr * 64 + i * 16) * lda + k0 + kk, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], wst + kk * LDW + wc * (N / 4) + j * 16, LDW);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc.f[i][j], a[i], b[j], acc.f[i][j]);
-    }
-  }
-}
-
-// f(row, col, value) over the warp's accumulators, through a per-warp f32
-// staging tile. Starts with a block barrier, so f may overwrite the A
-// operand of the product that produced `acc`.
-template <int N, typename F>
-__device__ __forceinline__ void epilogue(Acc<N>& acc, float* scratch_all, F f) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  float* scratch = scratch_all + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) {
-      wmma::store_matrix_sync(scratch, acc.f[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        f(wr * 64 + i * 16 + (e >> 4), wc * (N / 4) + j * 16 + (e & 15), scratch[e]);
-      __syncwarp();
-    }
-  }
-}
 
 __device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : LEAKY * x; }
 

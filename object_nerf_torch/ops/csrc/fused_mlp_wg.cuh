@@ -6,7 +6,9 @@
 // The building blocks (the backward's sweep and weight-gradient kernel use
 // them too): the TMA tensor maps of the packed weight matrices, mbarriers,
 // shared-memory descriptors of wgmma operands in the 128-byte swizzle, and
-// the wgmma instructions.
+// the wgmma instructions. pe_probe (probes.cu) runs on the chain's own parts
+// as well: its plan (fwd_plan), producer (fwd_produce), ring (FwdPipe),
+// products (fwd_gemm) and stmatrix stores.
 //
 // The forward chain, in five modes (FWD_*, below). fused_mlp_eval and
 // fused_render_tiles compute, per sample row, both MLP branches (trunk,
@@ -817,6 +819,37 @@ __device__ __forceinline__ void fwd_build(const FwdArgs& a, const BranchTab& sce
   wg_bar(bar);
 }
 
+// The producer warpgroup's work (C: the launch's FwdCfg or another layout with
+// STAGES stages of STAGE bytes at RING and PRODUCERS lanes): lane 0 of its
+// first C::PRODUCERS warps, chunks in turn, streams the plan's chunk order
+// once per tile of the block by TMA into the ring, each chunk into the next
+// stage once the 8 consumer warps have released it.
+template <class C>
+__device__ __forceinline__ void fwd_produce(const FwdPlan& plan, int n_tiles, uint32_t base,
+                                            uint32_t full, uint32_t empty) {
+  const int pw = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0 || pw >= C::PRODUCERS) return;
+  for (int i = 0; i < WM_LEN; ++i)
+    if (plan.cols[i] > 0)
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&plan.maps.m[i]))
+                   : "memory");
+  int gj = 0;  // the block's chunks so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int j = 0; j < plan.n_chunks; ++j, ++gj) {
+      if (gj % C::PRODUCERS != pw) continue;
+      const int c = plan.chunk[j];
+      const int slot = c & 31, row = (c >> 5) * 16;
+      const int cols = plan.cols[slot], box = 64 * (FWD_STAGE / 2 / cols) * 2;
+      const int stage = gj % C::STAGES, phase = (gj / C::STAGES) & 1;
+      mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes
+      const uint32_t dst = base + C::RING + stage * C::STAGE, bar = full + 8 * stage;
+      mbar_expect_tx(bar, FWD_STAGE);
+      for (int x = 0; x < cols / 64; ++x)
+        tma_load_2d(dst + x * box, &plan.maps.m[slot], 64 * x, row, bar);
+    }
+  }
+}
+
 // The forward chain over the launch's tiles (see the file comment), in mode
 // MODE (FWD_*).
 template <bool VOX, int MODE>
@@ -845,31 +878,9 @@ fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTa
   const long long n_rows = (long long)a.n_rays * a.S;
   const int n_tiles = (int)((n_rows + ROWS - 1) / ROWS);
 
-  if (threadIdx.x < 128) {  // the producer: lane 0 of its warps, chunks in turn
+  if (threadIdx.x < 128) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    const int pw = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0 && pw < C::PRODUCERS) {
-      for (int i = 0; i < WM_LEN; ++i)
-        if (plan.cols[i] > 0)
-          asm volatile("prefetch.tensormap [%0];" ::"l"(
-                           reinterpret_cast<uint64_t>(&plan.maps.m[i]))
-                       : "memory");
-      int gj = 0;  // the block's chunks so far
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        for (int j = 0; j < plan.n_chunks; ++j, ++gj) {
-          if (gj % C::PRODUCERS != pw) continue;
-          const int c = plan.chunk[j];
-          const int slot = c & 31, row = (c >> 5) * 16;
-          const int cols = plan.cols[slot], box = 64 * (FWD_STAGE / 2 / cols) * 2;
-          const int stage = gj % C::STAGES, phase = (gj / C::STAGES) & 1;
-          mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes
-          const uint32_t dst = base + C::RING + stage * C::STAGE, bar = full + 8 * stage;
-          mbar_expect_tx(bar, FWD_STAGE);
-          for (int x = 0; x < cols / 64; ++x)
-            tma_load_2d(dst + x * box, &plan.maps.m[slot], 64 * x, row, bar);
-        }
-      }
-    }
+    fwd_produce<C>(plan, n_tiles, base, full, empty);
   } else {  // two consumer warpgroups of 64 rows each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int wg = (threadIdx.x >> 7) - 1, bar = 1 + wg;
@@ -977,6 +988,30 @@ int sm_count() {
   return n;
 }
 
+// The producer's plan over the packed weights `w`: the weight maps of
+// `wmap_tab` (WM_LEN x 3 ints, as encode_sweep_maps takes them) in boxes of
+// FWD_STAGE bytes per row of boxes, and the chunk order `chunks` (n_chunks x
+// 3 ints: slot, first row, boxes), each chunk checked to lie inside its map.
+int fwd_plan(const void* w, const int* wmap_tab, const int* chunks, int n_chunks,
+             FwdPlan* plan) {
+  if (n_chunks < 0 || n_chunks > FWD_MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  const int e = encode_sweep_maps(w, wmap_tab, &plan->maps, FWD_STAGE);
+  if (e != (int)cudaSuccess) return e;
+  for (int i = 0; i < WM_LEN; ++i) plan->cols[i] = (unsigned short)wmap_tab[3 * i + 2];
+  plan->n_chunks = n_chunks;
+  for (int j = 0; j < n_chunks; ++j) {
+    const int slot = chunks[3 * j], row = chunks[3 * j + 1], boxes = chunks[3 * j + 2];
+    if (slot < 0 || slot >= WM_LEN) return (int)cudaErrorInvalidValue;
+    const int rows = wmap_tab[3 * slot + 1], cols = wmap_tab[3 * slot + 2];
+    const int k_rows = cols > 0 ? FWD_STAGE / 2 / cols : 0;
+    if (cols <= 0 || cols % 64 != 0 || boxes != cols / 64 || k_rows % 16 != 0 || row < 0 ||
+        row % k_rows != 0 || row + k_rows > rows || row / 16 >= 2048)
+      return (int)cudaErrorInvalidValue;
+    plan->chunk[j] = (unsigned short)(slot | row / 16 << 5);
+  }
+  return (int)cudaSuccess;
+}
+
 // Launch the forward chain in mode MODE: the weight maps of `wmap_tab`
 // (WM_LEN x 3 ints, as encode_sweep_maps takes them) in boxes of FWD_STAGE
 // bytes per row of boxes, the chunk order `chunks` (n_chunks x 3 ints: slot,
@@ -987,7 +1022,7 @@ int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
                      const int* scene_tab, const int* obj_tab, const FwdArgs& a,
                      cudaStream_t st) {
   using C = FwdCfg<VOX, MODE>;
-  if (n_chunks < 0 || n_chunks > FWD_MAX_CHUNKS || scene_tab == nullptr ||
+  if (scene_tab == nullptr ||
       scene_tab[T_K0] != C::K0S || (obj_tab != nullptr && obj_tab[T_K0] != C::K0O) ||
       (MODE == FWD_SIGMA_OBJ && obj_tab == nullptr) || a.n_rays < 0 || a.S < 1)
     return (int)cudaErrorInvalidValue;
@@ -996,20 +1031,8 @@ int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
   if (MODE == FWD_SIGMA_OBJ && (long long)min(64, 63 / a.S + 2) * a.code_len > FWD_CODE_FLOATS)
     return (int)cudaErrorInvalidValue;
   FwdPlan plan;
-  cudaError_t e = (cudaError_t)encode_sweep_maps(a.w, wmap_tab, &plan.maps, FWD_STAGE);
+  cudaError_t e = (cudaError_t)fwd_plan(a.w, wmap_tab, chunks, n_chunks, &plan);
   if (e != cudaSuccess) return (int)e;
-  for (int i = 0; i < WM_LEN; ++i) plan.cols[i] = (unsigned short)wmap_tab[3 * i + 2];
-  plan.n_chunks = n_chunks;
-  for (int j = 0; j < n_chunks; ++j) {
-    const int slot = chunks[3 * j], row = chunks[3 * j + 1], boxes = chunks[3 * j + 2];
-    if (slot < 0 || slot >= WM_LEN) return (int)cudaErrorInvalidValue;
-    const int rows = wmap_tab[3 * slot + 1], cols = wmap_tab[3 * slot + 2];
-    const int k_rows = cols > 0 ? FWD_STAGE / 2 / cols : 0;
-    if (cols <= 0 || cols % 64 != 0 || boxes != cols / 64 || k_rows % 16 != 0 || row < 0 ||
-        row % k_rows != 0 || row + k_rows > rows || row / 16 >= 2048)
-      return (int)cudaErrorInvalidValue;
-    plan.chunk[j] = (unsigned short)(slot | row / 16 << 5);
-  }
   e = cudaFuncSetAttribute(fwd_chain_kernel<VOX, MODE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (e != cudaSuccess) return (int)e;

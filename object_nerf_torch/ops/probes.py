@@ -12,17 +12,29 @@ voxel-conditioned render, not to render:
   `o = 2 x`): a trivial kernel to launch next to a gather.
 
 The kernels are CUDA C++ for Hopper (`csrc/probes.cu`, built by `_build.py`).
-On CUDA tensors the wrappers launch them or raise; on CPU tensors they run
-the plain versions beside them here. `launch_counts` counts kernel launches
-and nothing else. The scripts that ask the questions are
-`object_nerf_torch/scripts/profile_pe_micro.py` and `profile_voxel_split.py`.
+`pe_probe`'s runs on the forward chain's building blocks: a producer
+warpgroup streams the packed trunk (`pack_probe_trunk`) by TMA in the chunk
+order of `probe_chunks` over the tensor maps of `probe_weight_maps`, and the
+encoding is one more tensor-core product, by the mode's
+`pack_probe_encoding` matrix `[I_27 | S_mode | 0]`, whose epilogue applies the
+mode's activation (`probe_activation`). On CUDA tensors the wrappers launch
+the kernels or raise; on CPU tensors they run the plain versions beside them
+here. `launch_counts` counts kernel launches and nothing else. The scripts
+that ask the questions are `object_nerf_torch/scripts/profile_pe_micro.py` and
+`profile_voxel_split.py`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import ctypes
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from .fused_mlp_vjp import (
+    FWD_MAX_CHUNKS, SWEEP_BOX, SWEEP_MAPS_PER_BRANCH, forward_chunk_rows,
+)
 
 launch_counts: Dict[str, int] = {"pe_probe": 0, "scale_copy": 0}
 
@@ -31,7 +43,10 @@ MODES = ("none", "xyz_only", "split", "split_nosin", "split_polysin",
          "combined", "combined_nosin", "combined_polysin")
 N_RAW, N_PE, WIDTH, DEPTH = 27, 348, 256, 8
 K0 = 384  # the first layer's 375 input rows, zero-padded for the kernel
+ENC_K = 32  # the encoding product's K: the raw channels, zero-padded
 _PIECES = ((0, 3), (3, 19), (19, 27))  # xyz, scene voxel, instance voxel channels
+# the kernel's activations of the encoded columns (ACT_* in the source)
+ACTIVATIONS = ("sin", "none", "polysin")
 
 
 def reset_launch_counts() -> None:
@@ -60,10 +75,10 @@ def sin_turns(u: torch.Tensor) -> torch.Tensor:
     return p * z
 
 
-def pe_probe_plain(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
-                   s_ivox: torch.Tensor, s_all: torch.Tensor,
-                   trunk: Sequence[torch.Tensor], mode: str) -> torch.Tensor:
-    """Plain version of `pe_probe`: (N, 1) f32."""
+def probe_input_row(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
+                    s_ivox: torch.Tensor, s_all: torch.Tensor, mode: str) -> torch.Tensor:
+    """The plain version's first-layer input `[x | PE]`, (N, 375) f32 (the
+    first layer rounds it to bf16)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     n = x.shape[0]
@@ -78,7 +93,14 @@ def pe_probe_plain(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
                         for (a, b), s in zip(_PIECES, (s_xyz, s_svox, s_ivox))], dim=-1)
     else:
         pe = act[mode[len("combined"):]](_dot(x, s_all))
-    h = torch.cat([x, pe], dim=-1)
+    return torch.cat([x, pe], dim=-1)
+
+
+def pe_probe_plain(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
+                   s_ivox: torch.Tensor, s_all: torch.Tensor,
+                   trunk: Sequence[torch.Tensor], mode: str) -> torch.Tensor:
+    """Plain version of `pe_probe`: (N, 1) f32."""
+    h = probe_input_row(x, s_xyz, s_svox, s_ivox, s_all, mode)
     for w in trunk:
         h = _bf(torch.relu(_dot(h, w)))
     return h.sum(dim=-1, keepdim=True)
@@ -91,6 +113,79 @@ def pack_probe_trunk(trunk: Sequence[torch.Tensor]) -> torch.Tensor:
     first[:N_RAW + N_PE] = trunk[0]
     return torch.cat([first.reshape(-1)] + [w.reshape(-1) for w in trunk[1:]]) \
         .to(torch.bfloat16).contiguous()
+
+
+def probe_activation(mode: str) -> int:
+    """The kernel's activation of the encoded columns in `mode`, an index of
+    ACTIVATIONS: the sine (`xyz_only`, `split`, `combined`), the polynomial
+    sine (`*_polysin`), or none (`*_nosin`, and `none`, whose encoded columns
+    are the product's exact zeros)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode.endswith("_polysin"):
+        return ACTIVATIONS.index("polysin")
+    if mode in ("xyz_only", "split", "combined"):
+        return ACTIVATIONS.index("sin")
+    return ACTIVATIONS.index("none")
+
+
+def pack_probe_encoding(s_xyz: torch.Tensor, s_svox: torch.Tensor, s_ivox: torch.Tensor,
+                        s_all: torch.Tensor, mode: str) -> torch.Tensor:
+    """The encoding of `mode` as one matrix E, (ENC_K, K0) bf16 (rows the raw
+    channels, zero-padded to 32): the identity in columns 0-26, then the S
+    entries the mode multiplies by in columns 27-374 (`s_all`; the three pieces'
+    blocks on the diagonal; the xyz block alone; none), zeros elsewhere. Then
+    `bf16(x) @ E` with the mode's activation (`probe_activation`) in the
+    columns from 27 on is the mode's `[x | PE]` up to the order of the f32
+    sums: a raw channel times 1 is itself, a zero entry adds exactly 0, and
+    every activation maps 0 to 0."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    e = s_all.new_zeros(ENC_K, K0)
+    e.diagonal()[:N_RAW] = 1.0
+    if mode.startswith("combined"):
+        e[:N_RAW, N_RAW:N_RAW + N_PE] = s_all
+    elif mode != "none":
+        col = N_RAW
+        for (a, b), s in zip(_PIECES, (s_xyz, s_svox, s_ivox)):
+            e[a:b, col:col + s.shape[1]] = s
+            col += s.shape[1]
+            if mode == "xyz_only":
+                break
+    return e.to(torch.bfloat16)
+
+
+def probe_weight_maps() -> List[Tuple[int, int, int]]:
+    """The tensor maps of the packed trunk as the kernel's producer reads it
+    (the forward chain's weight-map slots): layer i in slot i, its (element
+    offset, rows, columns); (0, 0, 0) for the slots no layer takes."""
+    maps, off = [(0, 0, 0)] * (2 * SWEEP_MAPS_PER_BRANCH), 0
+    for i in range(DEPTH):
+        rows = K0 if i == 0 else WIDTH
+        maps[i] = (off, rows, WIDTH)
+        off += rows * WIDTH
+    return maps
+
+
+def probe_chunks() -> List[Tuple[int, int, int]]:
+    """The weight chunks of one tile, in the order the producer loads them and
+    each consumer warpgroup reads them: `(slot, row, boxes)`, rows [row, row +
+    forward_chunk_rows(256)) = 32 rows of layer `slot`, as 4 boxes of 64
+    columns. Layer 0's 384 rows are 12 chunks, each later layer's 256 rows 8:
+    68 a tile."""
+    out = [(slot, row, cols // SWEEP_BOX[0])
+           for slot, (_, rows, cols) in enumerate(probe_weight_maps()[:DEPTH])
+           for row in range(0, rows, forward_chunk_rows(cols))]
+    assert len(out) <= FWD_MAX_CHUNKS
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _launch_tables():
+    """`probe_weight_maps` and `probe_chunks` as the launcher takes them."""
+    maps, chunks = probe_weight_maps(), probe_chunks()
+    return ((ctypes.c_int * (3 * len(maps)))(*(v for m in maps for v in m)),
+            (ctypes.c_int * (3 * len(chunks)))(*(v for c in chunks for v in c)), len(chunks))
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -107,7 +202,7 @@ def pe_probe(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
     """x (N, 27); S matrices (3, 60), (16, 192), (8, 96), (27, 348); trunk
     [(375, 256), 7 x (256, 256)], all float32 -> (N, 1) float32. bf16
     products, f32 sums. `packed`: `pack_probe_trunk(trunk)`, packed here when
-    not given."""
+    not given. The mode's encoding matrix is packed at every call."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     n, device = x.shape[0], x.device
@@ -123,19 +218,24 @@ def pe_probe(x: torch.Tensor, s_xyz: torch.Tensor, s_svox: torch.Tensor,
         return pe_probe_plain(x, s_xyz, s_svox, s_ivox, s_all, trunk, mode)
     if device.type != "cuda":
         raise ValueError(f"pe_probe runs on CUDA or (plain version) CPU tensors, got {device}")
+    if n >= 2 ** 31:
+        raise ValueError(f"N={n} rows exceed one launch")
 
     from ._build import check, load_library
 
     if packed is None:
         packed = pack_probe_trunk(trunk)
+    if packed.dtype != torch.bfloat16 or packed.device != device or not packed.is_contiguous() \
+            or packed.numel() != K0 * WIDTH + (DEPTH - 1) * WIDTH * WIDTH:
+        raise ValueError("packed must be pack_probe_trunk(trunk) on the inputs' device")
     out = torch.empty((n, 1), dtype=torch.float32, device=device)
     if n == 0:
         return out
+    enc = pack_probe_encoding(s_xyz, s_svox, s_ivox, s_all, mode)
     lib = load_library()
     with torch.cuda.device(device):
-        rc = lib.onerf_pe_probe(x.data_ptr(), s_xyz.data_ptr(), s_svox.data_ptr(),
-                                s_ivox.data_ptr(), s_all.data_ptr(), packed.data_ptr(),
-                                out.data_ptr(), n, MODES.index(mode),
+        rc = lib.onerf_pe_probe(x.data_ptr(), enc.data_ptr(), packed.data_ptr(),
+                                *_launch_tables(), out.data_ptr(), n, probe_activation(mode),
                                 torch.cuda.current_stream(device).cuda_stream)
     check(lib, rc, "pe_probe")
     launch_counts["pe_probe"] += 1

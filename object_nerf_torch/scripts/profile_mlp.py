@@ -1,7 +1,7 @@
 """Compare the fused MLP kernels across checkouts: their time at the main
 path's shapes, and the memory the backward takes.
 
-    python -m object_nerf_torch.scripts.profile_mlp [--launches N] [--rows 1,2,3,4,5]
+    python -m object_nerf_torch.scripts.profile_mlp [--launches N] [--rows 1,2,3,4,5,6]
         [--step-peak]
 
 For the classical-PE model and the voxel-conditioned one (16 + 8 voxel
@@ -16,7 +16,9 @@ each kernel of PERF.md's table at the shapes of its rows:
 4. `fused_mlp_bwd` at 2048 x 64 and x 128 (one-sign cotangents of a
    mean-reduced loss's size), with the device memory one launch adds at its
    peak (`max_memory_allocated` over what was allocated before it);
-5. `fused_sigma_eval` at 262,144 points, scene and object branch.
+5. `fused_sigma_eval` at 262,144 points, scene and object branch;
+6. `pe_probe` at 983,040 rows (7680 rays x 128 samples) in the four modes
+   that `profile_pe_micro.py` times, on the inputs it draws.
 `--step-peak` adds the peak device memory of one training step (batch 2048,
 64 + 64 samples, the synthetic scene's rays; the voxel model on the
 ScanNet-scale room's grid of `_fixtures.py`). Prints the card's name and
@@ -44,11 +46,12 @@ from ..data import dataset_dict
 from ..data.ply_io import write_ply
 from ..models.embedding import freq_encode
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
+from ..ops import probes
 from ..ops.fused_mlp import fused_coarse_weights, fused_render_tiles, pack_kernel_weights
 from ..ops.fused_mlp_vjp import fused_mlp_bwd, fused_mlp_eval
 from ..ops.fused_sigma import fused_sigma_eval
 from ..train.system import ObjectNeRFSystem
-from ._fixtures import SCENE, scannet_scale_pcd
+from ._fixtures import SCENE, probe_inputs, scannet_scale_pcd
 from ._timing import card_line, median_ms, require_cuda
 
 BATCH = 2048
@@ -56,6 +59,8 @@ SAMPLES = (64, 128)
 CHUNK = 7680  # rays of an eval chunk
 EDIT_CHUNK = 4096  # rays of an edit chunk
 SIGMA_POINTS = 4096 * 64
+PROBE_ROWS = 7680 * 128
+PROBE_MODES = ("none", "combined", "combined_polysin", "split_polysin")
 SEED = 0
 
 
@@ -127,7 +132,7 @@ def _time(out, key, fn, launches, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--launches", type=int, default=10)
-    ap.add_argument("--rows", default="1,2,3,4,5", help="rows of PERF.md's table to time")
+    ap.add_argument("--rows", default="1,2,3,4,5,6", help="rows of PERF.md's table to time")
     ap.add_argument("--step-peak", action="store_true")
     args = ap.parse_args(argv)
     rows = {int(r) for r in args.rows.split(",")}
@@ -195,6 +200,13 @@ def main(argv=None) -> int:
                       f"its peak; {card}")
                 del xyz, dir_pe, codes, raw, g
         del model, packed, coarse
+    if 6 in rows:
+        x, s, trunk = probe_inputs(PROBE_ROWS, dev)
+        ptrunk = probes.pack_probe_trunk(trunk)
+        for mode in PROBE_MODES:
+            _time(out, f"pe_probe {mode} {PROBE_ROWS} rows",
+                  lambda: probes.pe_probe(x, *s, trunk, mode, packed=ptrunk), args.launches, card)
+        del x, s, trunk, ptrunk
     if args.step_peak:
         out["step_peak_bytes"] = {}
         for voxel in (False, True):

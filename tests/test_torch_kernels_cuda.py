@@ -507,6 +507,24 @@ def test_pe_probe_matches_plain_on_card(cuda_device, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 129, 132 * 128 + 5])
+@pytest.mark.parametrize("mode", ["combined", "split_polysin"])
+def test_pe_probe_ragged_rows_on_card(cuda_device, mode, n):
+    """Fewer rows than a warpgroup (its other warpgroup and the rest of the
+    grid empty), one tile and a row, more tiles than SMs and a tail; a
+    relaunch is bit-equal."""
+    x, s, trunk = _probe_inputs(cuda_device, n, seed=6)
+    packed = probes.pack_probe_trunk(trunk)
+    got = probes.pe_probe(x, *s, trunk, mode, packed=packed)
+    again = probes.pe_probe(x, *s, trunk, mode, packed=packed)
+    want = probes.pe_probe_plain(x, *s, trunk, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 1) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel(got, want) < PROBE_REL_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(983040, 24), (1001,), (3, 5)])
 def test_scale_copy_doubles_on_card(cuda_device, shape):
     x = torch.randn(*shape, device=cuda_device)

@@ -7,7 +7,10 @@ Those kernels take no `interpret` flag, so here they run with the module's
 itself at a small size; `dummy_pallas` is a closure of its `main()` and cannot
 be imported: `scale_copy_plain` is held to its written definition, `o = 2 x`
 (scripts/profile_voxel_split.py:127-128). The CUDA kernels run only on the card
-(tests/test_torch_kernels_cuda.py).
+(tests/test_torch_kernels_cuda.py); the dataflow of `pe_probe`'s kernel over
+its packed buffers (the encoding matrix, the trunk's chunks in the producer's
+order, 64-row warpgroups with a ragged tail, the row sum in the kernel's
+order) is emulated here and held to both.
 """
 
 import functools
@@ -26,6 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import scripts.profile_dma_gather as jdg  # noqa: E402
 import scripts.profile_pe_micro as jpe  # noqa: E402
 
+from object_nerf_torch.ops import fused_mlp_vjp as fv  # noqa: E402
 from object_nerf_torch.ops import gather, probes  # noqa: E402
 from object_nerf_torch.scripts._fixtures import probe_inputs  # noqa: E402
 
@@ -131,3 +135,124 @@ def test_scale_copy_is_two_x(shape):
     got = probes.scale_copy(x)
     assert probes.launch_counts["scale_copy"] == 0
     assert torch.equal(got, 2.0 * x) and torch.equal(probes.scale_copy_plain(x), got)
+
+
+def _activate(u, mode):
+    """The kernel's activation of the encoded columns in `mode`."""
+    return (torch.sin, lambda t: t, probes.sin_turns)[probes.probe_activation(mode)](u)
+
+
+@pytest.mark.parametrize("mode", probes.MODES)
+def test_encoding_matrix_gives_the_plain_input_row(mode):
+    """act(bf16(x) @ E_mode) in the columns from 27 on is the plain version's
+    `[x | PE]`: the raw channels bf16(x) bit for bit, the encoded columns to
+    1e-6 (the same bf16 operands, the f32 sums in another order), zero past
+    column 375."""
+    x, s, _ = probe_inputs(200, "cpu", seed=3)
+    enc = probes.pack_probe_encoding(*s, mode)
+    assert enc.dtype == torch.bfloat16 and enc.shape == (probes.ENC_K, probes.K0)
+    xb = x.bfloat16().float()
+    u = torch.nn.functional.pad(xb, (0, probes.ENC_K - probes.N_RAW)) @ enc.float()
+    want = probes.probe_input_row(x, *s, mode)
+    assert want.shape == (200, probes.N_RAW + probes.N_PE)
+    assert torch.equal(u[:, :probes.N_RAW], xb)
+    enc_cols = _activate(u[:, probes.N_RAW:375], mode)
+    assert (enc_cols - want[:, probes.N_RAW:]).abs().max() <= 1e-6
+    assert (u[:, 375:] == 0).all()
+    if mode != "none":
+        assert want[:, probes.N_RAW:].abs().max() > 0.5
+
+
+def test_probe_chunks_cover_each_layer_once_in_order():
+    """68 chunks of 32 rows (4 boxes of 64 columns: one 16 KB ring stage):
+    layer 0's 384 rows, then each later layer's 256, each row once, inside
+    the tensor maps, which tile the packed trunk."""
+    maps, chunks = probes.probe_weight_maps(), probes.probe_chunks()
+    assert len(chunks) == 68 <= fv.FWD_MAX_CHUNKS
+    assert len(maps) == 2 * fv.SWEEP_MAPS_PER_BRANCH
+    off = 0
+    for i, (o, rows, cols) in enumerate(maps[:probes.DEPTH]):
+        assert (o, rows, cols) == (off, probes.K0 if i == 0 else probes.WIDTH, probes.WIDTH)
+        off += rows * cols
+    assert off == probes.pack_probe_trunk(probe_inputs(1, "cpu")[2]).numel()
+    assert all(m == (0, 0, 0) for m in maps[probes.DEPTH:])
+    want = [(i, r, 4) for i in range(probes.DEPTH)
+            for r in range(0, maps[i][1], 32)]
+    assert chunks == want
+    assert 2 * 32 * probes.WIDTH == fv.FWD_STAGE_BYTES == 2 * fv.forward_chunk_rows(256) * 256
+
+
+WG_ROWS = 64  # rows of a consumer warpgroup
+
+
+def _bf(t):
+    return t.bfloat16().float()
+
+
+def _emulate_probe(x, s, trunk, mode):
+    """pe_probe's kernel on the CPU: per 128-row tile, two warpgroups of 64
+    rows (rows past the end zero, never stored) stage bf16(x) padded to 32
+    channels, take the encoding product by 64-column slices of E with the
+    mode's activation on columns 27-374 (0 beyond), round to bf16, then run
+    the trunk from the packed buffer: each layer's matrix is assembled from
+    the chunks it consumes, each checked to be the next of the producer's
+    order, and multiplied in one f32 product (the order of the sums inside
+    the tensor cores is the hardware's; summing chunk by chunk here instead
+    flips a bf16 rounding in a few rows, 3e-4 of the largest output), then
+    ReLU and bf16; each row of the last layer is summed as the kernel does:
+    each of a row's four lanes over its column pairs (8 n8 + c0, + 1), then
+    the lanes by two shuffle steps."""
+    packed = probes.pack_probe_trunk(trunk).float()
+    enc = probes.pack_probe_encoding(*s, mode).float()
+    maps, chunks = probes.probe_weight_maps(), probes.probe_chunks()
+    n = x.shape[0]
+    out = torch.full((n, 1), float("nan"))
+    for tile in range(-(-n // 128)):
+        for wg in range(2):
+            g0 = tile * 128 + WG_ROWS * wg
+            valid = max(0, min(WG_ROWS, n - g0))
+            raw = torch.zeros(WG_ROWS, probes.ENC_K)
+            raw[:valid, :probes.N_RAW] = _bf(x[g0:g0 + valid])
+            h = torch.zeros(WG_ROWS, probes.K0)
+            for c in range(0, probes.K0, 64):
+                e = raw @ enc[:, c:c + 64]
+                cols = torch.arange(c, c + 64)
+                h[:, c:c + 64] = _bf(torch.where(
+                    cols < probes.N_RAW, e,
+                    torch.where(cols < 375, _activate(e, mode), torch.zeros(()))))
+            cursor = 0
+            for layer, (off, rows, cols) in enumerate(maps[:probes.DEPTH]):
+                w = packed[off:off + rows * cols].reshape(rows, cols)
+                parts = []
+                for kc in range(0, rows, 32):
+                    assert chunks[cursor][:2] == (layer, kc)
+                    parts.append(w[kc:kc + 32])
+                    cursor += 1
+                h = _bf(torch.relu(h[:, :rows] @ torch.cat(parts)))
+            assert cursor == len(chunks)
+            hv = h.numpy()
+            lanes = []
+            for c0 in (0, 2, 4, 6):
+                t = np.zeros(WG_ROWS, np.float32)
+                for n8 in range(probes.WIDTH // 8):
+                    t = t + (hv[:, 8 * n8 + c0] + hv[:, 8 * n8 + c0 + 1])
+                lanes.append(t)
+            total = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+            out[g0:g0 + valid, 0] = torch.from_numpy(total[:valid])
+    return out
+
+
+@pytest.mark.parametrize("mode", probes.MODES)
+def test_kernel_dataflow_matches_plain_and_make_kernel(mode):
+    """133 rows: a whole tile and a ragged one whose second warpgroup is
+    empty. Against the plain version to 1e-5 of the largest output (the same
+    bf16 operands and products; the row sums in the kernel's order), and
+    against the JAX package's `make_kernel` (interpret mode, on the first 128
+    rows) to PROBE_REL_TOL."""
+    x, s, trunk = probe_inputs(133, "cpu", seed=4)
+    got = _emulate_probe(x, s, trunk, mode)
+    assert torch.isfinite(got).all()
+    want = probes.pe_probe_plain(x, *s, trunk, mode)
+    assert (got - want).abs().max() / want.abs().max() < 1e-5
+    ref = _jax_probe(mode, x[:128], s, trunk)
+    assert np.abs(got[:128].numpy() - ref).max() / np.abs(ref).max() < PROBE_REL_TOL
