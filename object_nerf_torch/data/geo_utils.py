@@ -1,6 +1,6 @@
 """Geometry utilities: pose averaging/centering and ray-AABB intersection.
 
-Own copy of `object_nerf_tpu/data/geo_utils.py:20-104` (numpy, host side);
+Own copy of `object_nerf_tpu/data/geo_utils.py:20-111` (numpy, host side);
 the device-side twin there is not needed: the edit renderer intersects rays
 on the host, once per frame.
 
@@ -90,3 +90,15 @@ def center_pose_from_avg(pose_avg: np.ndarray, pose: np.ndarray) -> np.ndarray:
     pose_homo = np.eye(4)
     pose_homo[:3] = pose[:3]
     return np.linalg.inv(pose_avg_homo) @ pose_homo
+
+
+def observe_angle_distance(pose: np.ndarray, obj_center: np.ndarray):
+    """View angle (deg) and distance from a c2w pose to a point (JAX
+    `data/geo_utils.py:104-111`): the angle between the camera's +z axis and
+    the direction to the point."""
+    view_dir = pose[:3, :3] @ np.array([0.0, 0.0, 1.0])
+    c2o = obj_center - pose[:3, 3]
+    distance = np.linalg.norm(c2o)
+    c2o = c2o / distance
+    angle = np.arccos(np.clip(c2o.dot(view_dir), -1.0, 1.0)) * 180.0 / np.pi
+    return angle, distance

@@ -8,7 +8,8 @@ contract, test/demo_editable_render.py:16-108). Per frame it sets per-object
 (and per-duplication) pose transforms along a spiral camera path, renders the
 edited scene with `EditableRenderer` on `device` (default `cuda`;
 `device=cpu` runs the kernels' plain versions) and writes
-`debug/rendered_view/render_<time>_<prefix>/render_%04d.png`. `edit_type`:
+`debug/rendered_view/render_<time>_<prefix>/render_%04d.png` (through the
+port's own PNG codec, `data/png_io.py`). `edit_type`:
 "duplication" (offset copies) or "pure_rotation" (z spin). The checkpoint's
 `run_config_snapshot.yaml` must lie beside it, as the training CLI leaves it.
 """
@@ -59,6 +60,7 @@ def get_transformation_with_duplication_offset(progress, duplication_id: int):
 
 def main(argv) -> str:
     """Render the demo frames; returns the directory they were written to."""
+    from ..data.png_io import write_png
     from .editable_renderer import EditableRenderer, read_testing_config
 
     config = read_testing_config(cli_args=argv)
@@ -99,10 +101,8 @@ def main(argv) -> str:
             fovx_deg=getattr(renderer, "fov_x_deg_dataset", 60), chunk=chunk)
         typ = "fine" if renderer.settings.N_importance > 0 else "coarse"
         img = np.asarray(results[f"rgb_{typ}"]).reshape(H, W, 3)
-        import imageio  # only where a PNG is written
-
-        imageio.imwrite(f"{render_path}/render_{idx:04d}.png",
-                        (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        write_png(f"{render_path}/render_{idx:04d}.png",
+                  (np.clip(img, 0, 1) * 255).astype(np.uint8))
         print(f"frame {idx + 1}/{total_frames} -> {render_path}")
         renderer.reset_active_object_ids()
     return render_path

@@ -1,19 +1,24 @@
 """Evaluation: render frames from a checkpoint and report PSNR/SSIM.
 
-    python -m object_nerf_torch.eval dataset_config=config/synthetic.yml \\
+    python -m object_nerf_torch.eval dataset_config=config/toy_desk_2.yml \\
         ckpt_path=<reference .ckpt> [device=cuda] [split=val] [n_frames=1] \\
-        [chunk=7680]
+        [chunk=7680] [save_images=<dir>] [dtype=float32]
 
 Counterpart of `scripts/eval.py`: loads a reference Lightning checkpoint
 (or a state dict in its schema, or one of the port's checkpoints; a
 voxel-conditioned one brings its grid along), renders whole frames through the fused
 eval path (the CUDA kernels on `device=cuda`, the default; their plain
-versions on `device=cpu`) and prints per-frame and mean masked PSNR and
-SSIM.
+versions on `device=cpu`, in bf16 as the kernels compute unless
+`dtype=float32`) and prints per-frame and mean masked PSNR and SSIM. A
+dataset whose rays are bounded by the instance box (`is_rays_in_bbox`, a
+ScanNet config under `use_bbox`) renders on the `rays_in_bbox` route, as the
+JAX script's `ObjectNeRFSystem(val_dataset=ds)` does. `save_images=<dir>`
+writes each frame as `eval_<i>.png`.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -23,6 +28,7 @@ import torch
 def main(argv) -> None:
     from .config import load_config
     from .data import dataset_dict
+    from .data.png_io import write_png
     from .device import resolve_device
     from .render.renderer import RenderSettings
     from .train.convert import load_reference_ckpt, voxel_grid_from_ckpt
@@ -33,16 +39,23 @@ def main(argv) -> None:
     if not config.get("ckpt_path"):
         raise SystemExit("ckpt_path not set")
     if config.dataset_name not in dataset_dict:
-        raise SystemExit(f"dataset {config.dataset_name!r} is not ported yet "
+        raise SystemExit(f"unknown dataset {config.dataset_name!r} "
                          f"(have: {sorted(dataset_dict)})")
     device = resolve_device(config.get("device", "cuda"))
     split = config.get("split", "val")
     n_frames = int(config.get("n_frames", 1))
     chunk = int(config.get("chunk", 7680))
+    save_dir = config.get("save_images")
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    dtype = str(config.get("dtype", "bfloat16"))
+    if dtype not in dtypes:
+        raise SystemExit(f"dtype={dtype}: bfloat16 or float32")
 
     ds = dataset_dict[config.dataset_name](
         split=split, img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
-    settings = RenderSettings.from_config(config, white_back=ds.white_back, is_eval=True)
+    in_bbox = bool(getattr(ds, "is_rays_in_bbox", lambda: False)())
+    settings = RenderSettings.from_config(config, white_back=ds.white_back, is_eval=True,
+                                          rays_in_bbox=in_bbox, matmul_dtype=dtypes[dtype])
     sd, voxel = load_reference_ckpt(config.ckpt_path, with_voxel=True)
     if (voxel is not None) != settings.mlp.use_voxel_embedding:
         raise SystemExit(f"{config.ckpt_path} holds {'a' if voxel is not None else 'no'} "
@@ -58,7 +71,7 @@ def main(argv) -> None:
     w, h = tuple(config.img_wh)
     typ = "fine" if settings.N_importance > 0 else "coarse"
     psnrs, ssims = [], []
-    count = min(n_frames, len(ds.poses))
+    count = min(n_frames, len(ds.frames) if hasattr(ds, "frames") else len(ds.poses))
     for i in range(count):
         batch = ds.whole_image_batch(i)
         out = render_image(models, settings, batch, chunk=chunk, device=device,
@@ -73,6 +86,11 @@ def main(argv) -> None:
         psnrs.append(p)
         ssims.append(s)
         print(f"frame {i}: psnr {p:.3f}  ssim {s:.4f}")
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+            img = np.clip(out[f"rgb_{typ}"].reshape(h, w, 3), 0, 1)
+            write_png(os.path.join(save_dir, f"eval_{i:04d}.png"),
+                      (img * 255).astype(np.uint8))
     print(f"mean: psnr {np.mean(psnrs):.3f}  ssim {np.mean(ssims):.4f}")
 
 

@@ -28,8 +28,16 @@ of both passes is one segment-sum and one transpose of the build. With
 `plain=True` the lookup and the MLP are the plain versions under autograd
 (`voxel_grid.PlainCornerTable`).
 
-The `rays_in_bbox` route (instance-weight pdf) is not ported yet; this
-module raises on it.
+The `rays_in_bbox` route (JAX `renderer.py:214-215`, `:324-331`, `:346`,
+`:386-432`; reference rendering.py:228-229): rays bounded by one object's
+box take their importance samples from the instance branch's compositing
+weights, not the scene's. In `render_rays` (training) `weights_{typ}` is
+then the instance compositing's weights. In the eval chunk the coarse pass
+runs `fused_mlp_eval` on both branches (with the frame's `packed` inference
+weights on the card), the compositing glue of `_composite_pass` runs on its
+raw outputs without noise, and `sample_pdf` and `fused_render_tiles` follow
+as on the plain route. A model without an instance branch takes the plain
+route (JAX `:346`).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from ..ops.fused_mlp import (
     PackedWeights, coarse_weights_plain, fused_coarse_weights,
     fused_render_tiles, render_tiles_plain,
 )
-from ..ops.fused_mlp_vjp import fused_mlp_eval, mlp_eval_plain
+from ..ops.fused_mlp_vjp import MLPOut, fused_mlp_eval, mlp_eval_plain
 from ..ops.sampling import merge_z_vals, sample_pdf, stratified_sample
 
 
@@ -128,17 +136,20 @@ def _embed_points(xyz_flat: torch.Tensor, settings: RenderSettings, voxel_ctx: V
                        ct=ct)
 
 
+def bbox_route(settings: RenderSettings) -> bool:
+    """Whether the importance samples follow the instance weights: the
+    `rays_in_bbox` route, which needs an instance branch."""
+    return settings.rays_in_bbox and settings.forward_instance
+
+
 def _check_eval(settings: RenderSettings) -> None:
     if settings.perturb != 0 or settings.noise_std != 0:
         raise ValueError("fused render is the deterministic eval path "
                          "(perturb=0, noise_std=0)")
-    if settings.rays_in_bbox:
-        raise ValueError("rays_in_bbox (instance-weight pdf, reference "
-                         "rendering.py:228-229) is not ported yet")
 
 
 def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
-                  codes: Optional[torch.Tensor], coarse_fn, tiles_fn,
+                  codes: Optional[torch.Tensor], coarse_fn, mlp_fn, tiles_fn,
                   packed: Dict[str, PackedWeights],
                   voxel_ctx: VoxelCtx = None) -> Dict[str, torch.Tensor]:
     _check_eval(settings)
@@ -152,10 +163,18 @@ def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSetting
 
     xyz_c = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).contiguous()
     if settings.N_importance > 0:
-        # only the pdf weights survive the coarse pass: scene density only
-        weights = coarse_fn(models.nerf_coarse, cfg, xyz_c, z_vals,
-                            voxel_raw=lookup_voxel_raw(settings, voxel_ctx, xyz_c),
-                            packed=packed.get("coarse"))
+        vox_c = lookup_voxel_raw(settings, voxel_ctx, xyz_c)
+        if bbox_route(settings):
+            # both branches' raw outputs, composited: the instance weights
+            raw = mlp_fn(models.nerf_coarse, cfg, xyz_c, dir_pe, codes, vox_c,
+                         packed.get("coarse"))
+            coarse: Dict[str, torch.Tensor] = {}
+            _composite_pass(coarse, settings, "coarse", raw, z_vals, None, None, None)
+            weights = coarse["weights_coarse"]
+        else:
+            # only the pdf weights survive the coarse pass: scene density only
+            weights = coarse_fn(models.nerf_coarse, cfg, xyz_c, z_vals, voxel_raw=vox_c,
+                                packed=packed.get("coarse"))
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         z_fine = sample_pdf(z_mid, weights[:, 1:-1], settings.N_importance, det=True)
         z_final = merge_z_vals(z_vals, z_fine).contiguous()
@@ -182,19 +201,26 @@ def render_rays_fused_eval(models: nn.Module, rays: torch.Tensor,
     far] through the two fused kernels (their plain versions on CPU
     tensors). `models` holds `nerf_coarse` (and `nerf_fine` when
     N_importance > 0); `embedding_instance` (N, C_code) are the rays' object
-    codes; `packed` maps "coarse"/"fine" to weights packed once per frame;
-    `voxel_ctx` is the voxel grid of a voxel-conditioned model (one lookup per
-    pass). Emits only the final pass's maps."""
+    codes; `packed` maps "coarse"/"fine" to weights packed once per frame
+    (the coarse model's in full, `forward_instance=True`, on the
+    `rays_in_bbox` route, its sigma-only weights otherwise); `voxel_ctx` is
+    the voxel grid of a voxel-conditioned model (one lookup per pass). Emits
+    only the final pass's maps."""
 
     def coarse_fn(model, cfg, xyz, z, voxel_raw=None, packed=None):
         return fused_coarse_weights(model, cfg, xyz, z, voxel_raw=voxel_raw,
                                     dtype=settings.matmul_dtype, packed=packed)
 
+    def mlp_fn(model, cfg, xyz, dir_pe, codes, voxel_raw, packed) -> MLPOut:
+        return fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=voxel_raw,
+                              forward_instance=True, dtype=settings.matmul_dtype,
+                              packed=packed)
+
     def tiles_fn(model, cfg, xyz, z, dir_pe, packed=None, **kw):
         return fused_render_tiles(model, cfg, xyz, z, dir_pe, dtype=settings.matmul_dtype,
                                   packed=packed, **kw)
 
-    return _render_chunk(models, rays, settings, embedding_instance, coarse_fn,
+    return _render_chunk(models, rays, settings, embedding_instance, coarse_fn, mlp_fn,
                          tiles_fn, packed or {}, voxel_ctx)
 
 
@@ -212,10 +238,14 @@ def render_rays_plain(models: nn.Module, rays: torch.Tensor, settings: RenderSet
         return coarse_weights_plain(model, cfg, xyz, z, voxel_raw=voxel_raw,
                                     matmul_dtype=matmul_dtype)
 
+    def mlp_fn(model, cfg, xyz, dir_pe, codes, voxel_raw, packed=None) -> MLPOut:
+        return mlp_eval_plain(model, cfg, xyz, dir_pe, codes, forward_instance=True,
+                              matmul_dtype=matmul_dtype, voxel_raw=voxel_raw)
+
     def tiles_fn(model, cfg, xyz, z, dir_pe, packed=None, **kw):
         return render_tiles_plain(model, cfg, xyz, z, dir_pe, matmul_dtype=matmul_dtype, **kw)
 
-    return _render_chunk(models, rays, settings, embedding_instance, coarse_fn,
+    return _render_chunk(models, rays, settings, embedding_instance, coarse_fn, mlp_fn,
                          tiles_fn, {}, voxel_ctx)
 
 
@@ -316,6 +346,8 @@ def _composite_pass(results: Dict[str, torch.Tensor], settings: RenderSettings, 
         results[f"rgb_instance_{typ}"] = inst.rgb
         results[f"depth_instance_{typ}"] = inst.depth
         results[f"opacity_instance_{typ}"] = inst.opacity
+        if settings.rays_in_bbox:  # the pdf follows the object (rendering.py:228-229)
+            results[f"weights_{typ}"] = inst.weights
 
 
 def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
@@ -336,10 +368,8 @@ def render_rays(models: nn.Module, rays: torch.Tensor, settings: RenderSettings,
     corner table]); without the table one is built here, once for both
     passes (`train_voxel_ctx`). Returns both passes' maps under the
     reference's keys (`rgb_fine`, `opacity_instance_coarse`, `weights_coarse`,
-    ...)."""
-    if settings.rays_in_bbox:
-        raise ValueError("rays_in_bbox (instance-weight pdf, reference "
-                         "rendering.py:228-229) is not ported yet")
+    ...); on the `rays_in_bbox` route `weights_{typ}` are the instance
+    compositing's weights, which the importance samples follow."""
     cfg = settings.mlp
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]

@@ -1,17 +1,23 @@
 """Training CLI.
 
-    python -m object_nerf_torch.train dataset_config=config/synthetic.yml \
+    python -m object_nerf_torch.train dataset_config=config/toy_desk_2.yml \
         exp_name=desk [device=cuda] ["img_wh=[640,480]"] [train.batch_size=2048]
 
 Counterpart of the JAX package's `train.py:20-140`, with the same dotted
 overrides (`default_conf.yml < dataset yaml < key=value arguments`): builds
-the datasets and an `ObjectNeRFSystem` on `device` (default `cuda`;
-`device=cpu` runs the kernels' plain versions), writes the run-config
-snapshot, trains with `fit`, saves a checkpoint whenever validation PSNR
-improves, one per epoch (`train.save_top_k`: -1 keeps all, k > 0 the best k
-by the epoch's own validation PSNR, 0 none) and a `last`, under
-`logs/<time>_<exp_name>/`. `ckpt_path=<file>` resumes from one of these
-checkpoints, or starts from a reference checkpoint's weights.
+the datasets (a scan on disk through `GenericDataset` for the ScanNet and
+ToyDesk configs, or the procedural `config/synthetic.yml`) and an
+`ObjectNeRFSystem` on `device` (default `cuda`; `device=cpu` runs the
+kernels' plain versions), writes the run-config snapshot and a copy of the
+source tree (`snapshot_source`, default on), trains with `fit`, saves a
+checkpoint whenever validation PSNR improves, one per epoch
+(`train.save_top_k`: -1 keeps all, k > 0 the best k by the epoch's own
+validation PSNR, 0 none) and a `last`, under `logs/<time>_<exp_name>/`.
+Validation scalars and the 7-panel validation image go to TensorBoard when
+`tensorboardX` imports (best effort, as in the JAX CLI); `tpu.profile_dir`
+records a few steps with `torch.profiler` (`ObjectNeRFSystem.fit`).
+`ckpt_path=<file>` resumes from one of these checkpoints, or starts from a
+reference checkpoint's weights.
 """
 
 from __future__ import annotations
@@ -28,10 +34,14 @@ def main(argv) -> None:
     from .system import ObjectNeRFSystem
 
     config = load_config(cli_args=argv)
-    if config.dataset_name not in dataset_dict:
+    if "root_dir" not in config.dataset_extra and config.dataset_name != "synthetic":
         raise SystemExit(
-            f"dataset {config.dataset_name!r} is not ported yet (have: "
-            f"{sorted(dataset_dict)}): pass dataset_config=config/synthetic.yml")
+            "error: no scene selected: pass dataset_config=config/<scene>.yml "
+            "(e.g. config/toy_desk_2.yml, or config/synthetic.yml for the "
+            "built-in test scene)")
+    if config.dataset_name not in dataset_dict:
+        raise SystemExit(f"unknown dataset {config.dataset_name!r} (have: "
+                         f"{sorted(dataset_dict)})")
     log_path = os.path.join("logs", time.strftime("%Y-%m-%d_%H-%M-%S") + "_" + config.exp_name)
     config["log_path"] = log_path
     print("-" * 40)
@@ -44,12 +54,24 @@ def main(argv) -> None:
                               val_dataset=dataset_cls(split="val", **kwargs),
                               device=config.get("device", "cuda"))
     save_config_snapshot(log_path, config)
+    if config.get("snapshot_source", True):
+        from ..utils.snapshot import make_source_code_snapshot
+
+        make_source_code_snapshot(log_path)
+    writer = _summary_writer(log_path)
 
     best_psnr = float("-inf")
     epoch_psnr = float("-inf")  # the best val/psnr seen within the current epoch
 
     def on_val(epoch, it, metrics, sys_):
         nonlocal best_psnr, epoch_psnr
+        if writer is not None:
+            step = sys_.global_step
+            for k, v in metrics.items():
+                writer.add_scalar(k, float(v), step)
+            panel = sys_.val_image_panel()
+            if panel is not None:
+                writer.add_images("val/GT_pred_depth", panel, step, dataformats="NHWC")
         vp = metrics.get("val/psnr", float("-inf"))
         epoch_psnr = max(epoch_psnr, vp)
         if vp > best_psnr:
@@ -75,7 +97,20 @@ def main(argv) -> None:
 
     system.fit(callbacks=[on_val], epoch_end_callbacks=[on_epoch_end])
     save_checkpoint(log_path, system)
+    if writer is not None:
+        writer.close()
     print(f"Done. Logs + checkpoints in {log_path}")
+
+
+def _summary_writer(log_path):
+    """A tensorboardX `SummaryWriter` on the run directory, or None (said
+    once) when tensorboardX does not import: logging, not the device path."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        print(f"TensorBoard logging off: tensorboardX does not import ({e})")
+        return None
+    return SummaryWriter(log_path)
 
 
 if __name__ == "__main__":

@@ -27,12 +27,20 @@ both in one segment-sum (`render.renderer.train_voxel_ctx`). Under
 `train.progressive_train` the epoch hooks prune (every epoch > 2) and
 subdivide (epoch 5) the grid (`on_epoch_start`).
 
-Not ported: multi-device meshes (one device), the profiler hook, TensorBoard
-scalars and the validation image panel.
+A dataset whose `is_rays_in_bbox()` holds (a ScanNet config's validation
+frames under `use_bbox`) puts the render settings on the `rays_in_bbox` route
+(JAX `:279-294`): the importance samples follow the instance weights, and the
+eval render packs the coarse model in full for its coarse `fused_mlp_eval`.
+`validation` keeps its batch and maps for `val_image_panel` (the reference's
+7-panel image); `fit` runs `torch.profiler` over a few steps when
+`tpu.profile_dir` is set.
+
+Not ported: multi-device meshes (one device).
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Callable, Dict, Mapping, Optional
@@ -48,7 +56,7 @@ from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
 from ..ops.fused_mlp import pack_kernel_weights
 from ..ops.fused_sigma import fused_sigma_eval
 from ..render.renderer import (
-    RenderDraws, RenderSettings, render_rays, render_rays_fused_eval,
+    RenderDraws, RenderSettings, bbox_route, render_rays, render_rays_fused_eval,
 )
 from .losses import total_loss
 from .metrics import psnr, ssim
@@ -115,7 +123,9 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
 
     A voxel-conditioned model (`voxel_static` given, `voxel_topo` at call
     time) gets its corner table built once per frame too, not per chunk, in
-    bf16 when the kernels compute in bf16. A grid whose table would exceed
+    bf16 when the kernels compute in bf16. On the `rays_in_bbox` route the
+    coarse model is packed in full: its pass is `fused_mlp_eval` on both
+    branches. A grid whose table would exceed
     `DENSE_CELL_TABLE_LIMIT_BYTES` renders through the per-corner gathers
     instead, with a warning."""
     cfg = settings.mlp
@@ -145,8 +155,11 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
         packed = {}
         if rays.device.type == "cuda":
             if settings.N_importance > 0:
-                packed["coarse"] = pack_kernel_weights(
-                    models.nerf_coarse, cfg, forward_instance=False, sigma_only=True)
+                packed["coarse"] = (
+                    pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
+                    if bbox_route(settings) else
+                    pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=False,
+                                        sigma_only=True))
                 packed["fine"] = pack_kernel_weights(
                     models.nerf_fine, cfg, settings.forward_instance)
             else:
@@ -275,9 +288,12 @@ class ObjectNeRFSystem:
         self.use_voxel = bool(config.model.get("use_voxel_embedding", True))
         self.train_dataset = dataset
         self.val_dataset = val_dataset
-        for ds in (dataset, val_dataset):
-            if ds is not None and getattr(ds, "is_rays_in_bbox", lambda: False)():
-                raise NotImplementedError("rays_in_bbox datasets are not ported yet")
+        self._last_val = None
+
+        def in_bbox(ds) -> bool:
+            # bbox-bounded rays route the instance weights into the importance
+            # sampling (reference train.py:156-160 -> rendering.py:228-229)
+            return bool(getattr(ds, "is_rays_in_bbox", lambda: False)())
 
         seed = int(config.train.get("seed", 42))
         # the CUDA kernels compute in bf16; the CPU path is the exact f32 one
@@ -285,10 +301,10 @@ class ObjectNeRFSystem:
                         else torch.float32)
         self.settings = RenderSettings.from_config(
             config, white_back=getattr(dataset, "white_back", False), is_eval=False,
-            **dtype_kw)
+            rays_in_bbox=in_bbox(dataset), **dtype_kw)
         self.eval_settings = RenderSettings.from_config(
             config, white_back=getattr(val_dataset or dataset, "white_back", False),
-            is_eval=True, **dtype_kw)
+            is_eval=True, rays_in_bbox=in_bbox(val_dataset or dataset), **dtype_kw)
 
         # voxel grid, from the scene's point cloud (the reference builds it from
         # dataset_extra.pcd_path; its features have a generator of their own,
@@ -410,7 +426,8 @@ class ObjectNeRFSystem:
 
     def validation(self, frame: int = 0, chunk: int = 4096, img_wh=None):
         """PSNR (over valid pixels of the frame's instance) and SSIM of one
-        validation frame through the eval render: (metrics, maps)."""
+        validation frame through the eval render: (metrics, maps). Keeps the
+        batch and the maps for `val_image_panel`."""
         batch = self.val_dataset.whole_image_batch(frame)
         out = self.render_image(batch, chunk)
         typ = "fine" if self.eval_settings.N_importance > 0 else "coarse"
@@ -424,7 +441,21 @@ class ObjectNeRFSystem:
         if img_wh is not None:
             w, h = img_wh
             metrics["val/ssim"] = float(ssim(pred.reshape(h, w, 3), gt.reshape(h, w, 3)))
+        self._last_val = (img_wh, batch, out, typ)
         return metrics, out
+
+    def val_image_panel(self) -> Optional[np.ndarray]:
+        """(N_panels, H, W, 3) image stack of the last validation (GT rgb |
+        instance rgb | rgb | instance depth | depth | GT depth | instance
+        opacity): the reference's val/GT_pred_depth image (JAX
+        `system.py:520-532`, reference utils/train_helper.py:24-55). None
+        before any validation."""
+        if self._last_val is None or self._last_val[0] is None:
+            return None
+        from ..utils.train_helper import visualize_val_image
+
+        img_wh, batch, out, typ = self._last_val
+        return visualize_val_image(img_wh, batch, out, typ=typ)
 
     def fit(self, callbacks=None, epoch_end_callbacks=None):
         """The training loop, from `global_step` (0, or a resumed step) to
@@ -432,15 +463,19 @@ class ObjectNeRFSystem:
 
         `callbacks` fire after each validation: cb(epoch, it, metrics, self);
         `epoch_end_callbacks` once per epoch after its last step: cb(epoch,
-        self). Validation runs every `train.val_check_interval` of an epoch.
+        self). Validation runs every `train.val_check_interval` of an epoch,
+        its frame in chunks of the config's `chunk` rays (default 4096).
         `train.nan_guard` (default on) raises when the loss is not finite; it
         looks every `train.nan_check_every` steps (default 50), and that
         host fetch is the only synchronisation of the loop besides
         validation. `on_epoch_start` runs before the first step of each epoch
         that the loop begins from its step 0; a run resumed in the middle of
         an epoch skips it for that epoch, since the checkpoint already holds
-        the grid as that epoch's hook left it (pruned or subdivided). Returns
-        the metrics of every validation."""
+        the grid as that epoch's hook left it (pruned or subdivided). With
+        `tpu.profile_dir` set (the scene configs' key), `torch.profiler`
+        records steps 2 to 2 + `tpu.profile_steps` (default 5) of this call
+        and writes them as a Chrome trace, `<profile_dir>/trace.json`.
+        Returns the metrics of every validation."""
         callbacks = callbacks or []
         cfg = self.config.train
         batch_size = int(cfg.batch_size)
@@ -449,6 +484,11 @@ class ObjectNeRFSystem:
                                   * float(cfg.get("val_check_interval", 0.25))))
         nan_guard = bool(cfg.get("nan_guard", True))
         nan_check_every = max(1, int(cfg.get("nan_check_every", 50)))
+        val_chunk = int(self.config.get("chunk", 4096))
+        tpu = self.config.get("tpu") or {}
+        profile_dir = tpu.get("profile_dir")
+        profile_steps = int(tpu.get("profile_steps", 5))
+        prof, steps_taken = None, 0
 
         def check_finite(loss_value, epoch, it):
             if nan_guard and not np.isfinite(float(loss_value)):
@@ -465,12 +505,17 @@ class ObjectNeRFSystem:
             t0 = time.time()
             metrics = None
             for it in range(start, self.steps_per_epoch):
+                if profile_dir and steps_taken == 2 and prof is None:
+                    prof = self._start_profiler()
                 np_batch = self.train_dataset.sample_batch(batch_size, self.batch_rng)
                 metrics = self.training_step(np_batch)
+                steps_taken += 1
+                if prof is not None and steps_taken == 2 + profile_steps:
+                    self._stop_profiler(prof, profile_dir)
                 if nan_guard and self.global_step % nan_check_every == 0:
                     check_finite(metrics["train/loss"], epoch, it)
                 if (it + 1) % val_interval == 0 and self.val_dataset is not None:
-                    val_metrics, _ = self.validation()
+                    val_metrics, _ = self.validation(chunk=val_chunk)
                     metrics = {**_fetch(metrics), **val_metrics}
                     check_finite(metrics["train/loss"], epoch, it)
                     history.append(metrics)
@@ -485,4 +530,23 @@ class ObjectNeRFSystem:
             rays_per_sec = (self.steps_per_epoch - start) * batch_size / dt
             print(f"epoch {epoch}: loss={m['train/loss']:.4f} "
                   f"psnr={m['train/psnr']:.2f} ({rays_per_sec:,.0f} rays/s)")
+        if prof is not None and steps_taken < 2 + profile_steps:
+            self._stop_profiler(prof, profile_dir)  # the run ended first
         return history
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, profile_dir) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")

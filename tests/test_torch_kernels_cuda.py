@@ -676,3 +676,78 @@ def test_sincosf_is_sinf_and_cosf_on_card(cuda_device):
     g = torch.Generator().manual_seed(11)
     x = torch.cat([torch.randn(1 << 20, generator=g) * s for s in (1.0, 30.0, 600.0, 2e4)])
     assert fm.sincos_mismatches(x.to(cuda_device)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_route_coarse_pass_matches_plain_bf16_on_card(cuda_device, voxel):
+    """`fused_mlp_eval` as the rays_in_bbox eval chunk calls it: 7680 rays x
+    64 samples, both branches, the frame's packed inference weights."""
+    n, s = 7680, 64
+    if voxel:
+        cfg, models, xyz, _, dir_pe, codes, raw = _voxel_setup(cuda_device, n, s)
+    else:
+        cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+        models = init_params(torch.Generator().manual_seed(0),
+                             RenderSettings(mlp=cfg, perturb=0.0, noise_std=0.0), {},
+                             device=cuda_device)
+        g = torch.Generator().manual_seed(5)
+        z = torch.sort(0.5 + 4.0 * torch.rand(n, s, generator=g), -1).values
+        o, d = torch.randn(n, 3, generator=g) * 0.3, torch.randn(n, 3, generator=g)
+        d = d / d.norm(dim=-1, keepdim=True)
+        xyz = (o[:, None] + d[:, None] * z[..., None]).contiguous().to(cuda_device)
+        dir_pe = freq_encode(d, cfg.N_freq_dir).contiguous().to(cuda_device)
+        codes = torch.randn(n, cfg.N_obj_code_length, generator=g).to(cuda_device)
+        raw = None
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        packed = fm.pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
+        got = fv.fused_mlp_eval(models.nerf_coarse, cfg, xyz, dir_pe, codes, voxel_raw=raw,
+                                packed=packed)
+        want = fv.mlp_eval_plain(models.nerf_coarse, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["fused_mlp_eval"] == 1
+    for name, a, b in zip(("sigma", "rgb", "inst_sigma", "inst_rgb"), got, want):
+        assert a.abs().max().item() > 0, name
+        assert (a - b).abs().max().item() < FWD_TOL, name
+
+
+@pytest.mark.cuda
+def test_route_eval_chunk_matches_plain_on_card(cuda_device):
+    """The rays_in_bbox eval chunk through the kernels (`fused_mlp_eval` for
+    the coarse pass, `fused_render_tiles` for the fine) against
+    `render_rays_plain` with bf16 operands; no `fused_coarse_weights`."""
+    from object_nerf_torch.render.renderer import render_rays_fused_eval, render_rays_plain
+    from object_nerf_torch.train.metrics import psnr
+
+    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
+    settings = RenderSettings(mlp=cfg, perturb=0.0, noise_std=0.0, is_eval=True,
+                              rays_in_bbox=True)
+    models = init_params(torch.Generator().manual_seed(0), settings, {}, device=cuda_device)
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += 1.0  # densities clear of the last sample's step at 0
+            m.instance_sigma.bias += 1.0  # the route's pdf is the object's
+    g = torch.Generator().manual_seed(2)
+    n = 4096
+    o, d = torch.randn(n, 3, generator=g) * 0.2, torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    near = 0.3 + torch.rand(n, 1, generator=g)
+    rays = torch.cat([o, d, near, near + 1.0 + torch.rand(n, 1, generator=g)], -1)
+    rays[:100, 6:] = 0.0  # rays that miss the box: near = far = 0
+    rays = rays.to(cuda_device)
+    codes = models.code_library(torch.randint(0, 64, (n,), generator=g).to(cuda_device))
+    packed = {"coarse": fm.pack_kernel_weights(models.nerf_coarse, cfg, True),
+              "fine": fm.pack_kernel_weights(models.nerf_fine, cfg, True)}
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        got = render_rays_fused_eval(models, rays, settings, codes, packed)
+    torch.cuda.synchronize()
+    assert fm.launch_counts == {"fused_coarse_weights": 0, "fused_render_tiles": 1,
+                                "fused_mlp_eval": 1, "fused_mlp_bwd": 0, "fused_sigma_eval": 0}
+    with torch.no_grad():
+        want = render_rays_plain(models, rays, settings, codes, matmul_dtype=torch.bfloat16)
+    for k, v in got.items():
+        assert torch.isfinite(v).all(), k
+    assert psnr(got["rgb_fine"], want["rgb_fine"]).item() >= 70.0
+    assert (got["opacity_instance_fine"] - want["opacity_instance_fine"]).abs().max() < 5e-3

@@ -86,12 +86,25 @@ def test_render_fn_equals_plain_reference_on_cpu():
 
 
 def test_eval_render_rejects_what_is_not_ported():
-    models = port_models(jax_params())
-    r = torch.from_numpy(rays(8))
+    """The eval render is deterministic and refuses a perturbed setting; the
+    rays_in_bbox route, ported now, renders a chunk as the JAX package's XLA
+    eval path does (instance-weight pdf, reference rendering.py:228-229)."""
+    params = jax_params()
+    models = port_models(params)
+    r = rays(8)
     with pytest.raises(ValueError, match="deterministic"):
-        render_rays_fused_eval(models, r, settings(perturb=1.0))
-    with pytest.raises(ValueError, match="rays_in_bbox"):
-        render_rays_fused_eval(models, r, settings(rays_in_bbox=True))
+        render_rays_fused_eval(models, torch.from_numpy(r), settings(perturb=1.0))
+    ids = np.arange(8) % N_OBJS
+    jset = JaxSettings(mlp=CFG_JAX, N_samples=16, N_importance=8, perturb=0.0,
+                       noise_std=0.0, forward_instance=True, is_eval=True, rays_in_bbox=True)
+    want = jax_make_render_fn(jset, None, chunk=8)(
+        params, jnp.asarray(r), jax.random.PRNGKey(0), jnp.asarray(ids), None)
+    with torch.no_grad():
+        got = render_rays_fused_eval(models, torch.from_numpy(r), settings(rays_in_bbox=True),
+                                     models.code_library(torch.from_numpy(ids)))
+    for k in MAPS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=FINE_ATOL,
+                                   rtol=RTOL, err_msg=k)
 
 
 def test_no_hidden_cpu_fallback():

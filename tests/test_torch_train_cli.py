@@ -77,8 +77,20 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main([a for a in ARGS if a != "device=cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
+    # a generic_dataset config needs a scene on disk; given one, it trains
+    with pytest.raises(SystemExit, match="no scene selected"):
         train_cli.main(_with(ARGS, dataset_name="generic_dataset"))
+    from object_nerf_torch.scripts.make_synthetic_dataset import make_dataset
+
+    scene = make_dataset(tmp_path / "desk", img_wh=(48, 44), n_frames=4)
+    train_cli.main(_with(ARGS, **{
+        "dataset_config": ROOT / "config/synthetic_desk.yml", "exp_name": "deskcli",
+        "img_wh": "[48,44]", "model.use_voxel_embedding": "false",
+        "snapshot_source": "false", "dataset_extra.root_dir": scene,
+        "dataset_extra.split": f"{scene}/split", "dataset_extra.validate_idx": 3}))
+    run = next(p for p in (tmp_path / "logs").iterdir() if p.name.endswith("deskcli"))
+    ckpt = torch.load(latest_checkpoint(run), map_location="cpu", weights_only=False)
+    assert ckpt["step"] == 33  # 2 train frames x 2112 rays / 64, half of them
     cfg = load_config(cli_args=[a for a in ARGS if a != "device=cpu"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ObjectNeRFSystem(cfg)  # no device given: cuda

@@ -6,6 +6,8 @@ six draws of the JAX key split are made with `jax.random` and handed to the
 port as a `RenderDraws` record. Everything runs in f32 on the CPU.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,8 +117,15 @@ def test_render_rays_randomness_sources():
     assert not torch.equal(a["rgb_fine"], c["rgb_fine"])
     assert not torch.equal(a["rgb_coarse"], quiet["rgb_coarse"])  # the noise matters
     assert none["z_vals_coarse"].shape == (N_RAYS, NS)
-    with pytest.raises(ValueError, match="rays_in_bbox"):
-        render_rays(models, r, settings(rays_in_bbox=True), codes)
+    # the rays_in_bbox route on the same draws: the scene maps of the coarse
+    # pass stay, its emitted weights and the fine samples follow the object
+    with torch.no_grad():
+        bbox = render_rays(models, r, dataclasses.replace(st, rays_in_bbox=True), codes,
+                           draws=d)
+    for k in ("rgb_coarse", "depth_coarse", "opacity_coarse", "z_vals_coarse"):
+        assert torch.equal(bbox[k], e[k]), k
+    assert not torch.equal(bbox["weights_coarse"], e["weights_coarse"])
+    assert not torch.equal(bbox["z_vals_fine"], e["z_vals_fine"])
 
 
 def test_render_rays_is_differentiable_and_detaches_the_pdf():
