@@ -18,7 +18,8 @@ trained on the room (the JAX package's voxel train step, bench.py:73-134),
 pruned and subdivided, and its edit render. Phases 20 to 25: the shipped scene
 configs (`config/synthetic_desk.yml`, `config/scannet_base_0113_multi.yml`)
 through the train, eval and edit CLIs on a desk scene written to disk, the
-`rays_in_bbox` route among them:
+`rays_in_bbox` route among them. Phases 26 and 27: data parallel over a
+`torch.distributed` group (`object_nerf_torch/parallel/`), on the one card:
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
@@ -148,8 +149,26 @@ through the train, eval and edit CLIs on a desk scene written to disk, the
    the PNG;
 25. runs `edit.__main__.main` for two frames on phase 21's checkpoint and
    re-reads the PNGs;
-26. prints one JSON line describing all eight kernels (launch counts by
-   path), and, last, one JSON line naming the device.
+26. runs phase 21's train CLI under `torchrun --standalone --nproc_per_node=1`
+   with `tpu.distributed=true`: NCCL at world size 1 (a real all-reduce a
+   step, a real all-gather on the validation frame); one run directory (rank
+   0's), the loss below phase 21's start, its wall time beside phase 21's;
+27. starts two gloo ranks on the one card (`--dp-worker`; gloo stages the
+   CUDA tensors of a collective through the host; two processes on one card
+   measure correctness and overhead, not scaling): phase 7's system at batch
+   2048 (1024 rays a rank) for three steps, its first step against phase 7's
+   single-process kernel step (the loss to LOSS_TOL, every summed gradient to
+   BWD_TOL of its largest entry), then phase 17's voxel system for three
+   steps; the ranks' parameters, the table included, bit-equal; 2 + 2
+   launches a step on each rank (2 gathers and 1 table build for the voxel
+   model); the epoch-3 prune on both ranks against the single process's on
+   the same weights, grid and draws; phases 4 and 13's 640x480 frames and
+   phase 9's edit frame chunk-sharded, against the single process's frames
+   (bit-equal, else phase 4's PSNR floor); prints each rank's step times and
+   the gradient all-reduce's bytes and time;
+28. prints one JSON line describing all eight kernels (launch counts by
+   path, the data-parallel runs' among them), and, last, one JSON line
+   naming the device.
 
 `--profile` adds a `torch.profiler` table of the device time of three
 training steps by kernel, classical and voxel.
@@ -352,6 +371,16 @@ SCENE_EDIT_FRAMES = 2
 # 0.06 to 0.20 of that distance (measured on an H100 over three batches,
 # `python -m object_nerf_torch.scripts.profile_route_step`)
 ROUTE_TABLE_GRAD = 0.25
+
+# data parallel (phases 26-27): the card's machine has one card and NCCL takes
+# one rank per card, so phase 26 runs the train CLI on NCCL at world size 1 and
+# phase 27 runs two gloo ranks on the one card (gloo stages the CUDA tensors of
+# a collective through the host): they check the semantics and show the
+# overhead, not scaling
+DP_RANKS = 2
+DP_STEPS = 3
+DP_TIMEOUT_S = 600
+DP_ALLREDUCE_TIMED = 5
 
 # dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
 PEAKS = (  # (name substring, TFLOP/s, TB/s)
@@ -680,26 +709,56 @@ def _loss_cotangent(outs, typ, z, noise, noise_inst, settings, batch, loss_weigh
                      dim=-1).contiguous()
 
 
-def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
-    """Phases 6 and 7; returns the two training kernels' entries for the
-    `kernels` line and the build report of `fused_render_tiles`, and prints
-    everything else."""
-    import copy
+def _eval_model(torch, dev, voxel: bool):
+    """The eval paths' model, random from SEED with the raised scene
+    densities (DENSITY_BIAS): the classical one of phases 3-10, or the
+    voxel-conditioned one (the reference's default) on the room's grid of
+    phases 11-15. Returns (eval settings, models, (topology, static) or
+    None)."""
+    from object_nerf_torch.models.mlp import ObjectNeRFConfig
+    from object_nerf_torch.render.renderer import RenderSettings
+    from object_nerf_torch.scripts._fixtures import bench_grid
+    from object_nerf_torch.train.system import init_params
 
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    settings = RenderSettings(mlp=cfg, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                              perturb=0.0, noise_std=0.0, is_eval=True, forward_instance=True)
+    features, grid = None, None
+    if voxel:
+        features, topo, static = bench_grid(cfg, dev, seed=SEED + 2)
+        grid = (topo, static)
+    models = init_params(torch.Generator().manual_seed(SEED), settings, {"N_max_objs": 64},
+                         device=dev, voxel_features=features)
+    with torch.no_grad():
+        for m in (models.nerf_coarse, models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    return settings, models, grid
+
+
+def _frame_batch(voxel: bool):
+    """The 640x480 frame's rays and instance ids: the synthetic scene's first
+    validation view (phase 4), or rays from mid-room (phase 13)."""
+    import numpy as np
+
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.scripts._fixtures import bench_rays
+
+    if not voxel:
+        return dataset_dict["synthetic"]("val", img_wh=(W, H)).whole_image_batch(0)
+    return {"rays": bench_rays(W * H, seed=0),
+            "instance_ids": np.random.RandomState(SEED).randint(0, 64, W * H)}
+
+
+def _train_system(torch, dev):
+    """Phase 7's `ObjectNeRFSystem` (the synthetic scene, batch 2048, 64 + 64
+    samples, perturbation and noise on, Adam, poly schedule) with the raised
+    scene densities."""
     from object_nerf_torch.config import load_config
     from object_nerf_torch.data import dataset_dict
-    from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp
-    from object_nerf_torch.ops import fused_mlp_vjp as fv
-    from object_nerf_torch.ops.compositing import composite
-    from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
-    from object_nerf_torch.render.renderer import RenderDraws
-    from object_nerf_torch.train.optim import make_optimizer
-    from object_nerf_torch.train.system import ObjectNeRFSystem, make_train_step
+    from object_nerf_torch.train.system import ObjectNeRFSystem
 
-    root = _repo_root()
     config = load_config(cli_args=[
-        f"dataset_config={os.path.join(root, 'config', 'synthetic.yml')}",
+        f"dataset_config={os.path.join(_repo_root(), 'config', 'synthetic.yml')}",
         f"train.batch_size={BATCH}", f"model.N_samples={N_SAMPLES}",
         f"model.N_importance={N_IMPORTANCE}", "model.perturb=1", "model.noise_std=1",
         "train.optimizer=adam", "train.lr_scheduler=poly", f"train.seed={SEED}",
@@ -707,10 +766,64 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     kw = dict(img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
     system = ObjectNeRFSystem(config, dataset=dataset_dict["synthetic"]("train", **kw),
                               val_dataset=dataset_dict["synthetic"]("val", **kw), device=dev)
-    models, settings, cfg = system.models, system.settings, system.settings.mlp
     with torch.no_grad():
-        for m in (models.nerf_coarse, models.nerf_fine):
+        for m in (system.models.nerf_coarse, system.models.nerf_fine):
             m.sigma.bias += DENSITY_BIAS
+    return system
+
+
+def _voxel_train_system(torch, dev, tmp):
+    """Phase 17's voxel-conditioned `ObjectNeRFSystem` on the room (its point
+    cloud written under `tmp`; progressive training on) with the raised
+    scene densities."""
+    from object_nerf_torch.config import load_config
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.data.ply_io import write_ply
+    from object_nerf_torch.scripts._fixtures import SCENE, scannet_scale_pcd
+    from object_nerf_torch.train.system import ObjectNeRFSystem
+
+    pcd = os.path.join(tmp, "room.ply")
+    write_ply(pcd, scannet_scale_pcd())
+    config = load_config(cli_args=[
+        f"dataset_config={os.path.join(_repo_root(), 'config', 'synthetic.yml')}",
+        "img_wh=[64,48]", f"train.batch_size={BATCH}", f"model.N_samples={N_SAMPLES}",
+        f"model.N_importance={N_IMPORTANCE}", "model.perturb=1", "model.noise_std=1",
+        "model.use_voxel_embedding=true", "model.N_max_voxels=800000",
+        "train.optimizer=adam", "train.lr_scheduler=poly", f"train.seed={SEED}",
+        "train.num_epochs=6", "train.nan_check_every=1000000",
+        "train.progressive_train=true", f"dataset_extra.pcd_path={pcd}",
+        f"dataset_extra.scale_factor={SCENE['scale_factor']}",
+        "dataset_extra.scene_center=[" + ",".join(map(str, SCENE["scene_center"])) + "]",
+        f"dataset_extra.voxel_size={SCENE['voxel_size_world']}",
+        f"dataset_extra.neighbor_marks={SCENE['neighbor_marks']}",
+        "dataset_extra.near=0.05", "dataset_extra.far=2.4"])
+    kw = dict(img_wh=(64, 48), dataset_extra=config.dataset_extra)
+    system = ObjectNeRFSystem(config, dataset=dataset_dict["synthetic"]("train", n_frames=2,
+                                                                        **kw), device=dev)
+    with torch.no_grad():
+        for m in (system.models.nerf_coarse, system.models.nerf_fine):
+            m.sigma.bias += DENSITY_BIAS
+    return system
+
+
+def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
+    """Phases 6 and 7; returns the two training kernels' entries for the
+    `kernels` line, the build report of the forward chain's kernels and the
+    first step's loss and gradients, and prints everything else."""
+    import copy
+
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.ops.compositing import composite
+    from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
+    from object_nerf_torch.render.renderer import RenderDraws
+    from object_nerf_torch.train.optim import make_optimizer
+    from object_nerf_torch.train.system import make_train_step
+
+    system = _train_system(torch, dev)
+    config = system.config
+    models, settings, cfg = system.models, system.settings, system.settings.mlp
     rng = system.batch_rng
     batch = system._device_batch(system.train_dataset.sample_batch(BATCH, rng))
     draws = RenderDraws.sample(settings, BATCH, dev, system.generator)
@@ -950,6 +1063,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     if not moved.max().item() <= 2.001 * lr:
         raise SystemExit("the kernel-path step's updated parameters disagree")
     del twin, plain_step
+    # phase 27 holds the first data-parallel step to this one
+    first_step = {"loss": loss_k, "grads": {k: p.grad.detach().cpu().clone()
+                                            for k, p in models.named_parameters()}}
 
     losses = [m_k["train/loss"]]
     for _ in range(TRAIN_STEPS):
@@ -1039,7 +1155,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
               f"{wall_ms / n_prof:.2f} ms wall (with the profiler's own cost on the host): "
               f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
               f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
-    return entries, chain_build
+    return entries, chain_build, first_step
 
 
 def _branch_macs(cfg, instance: bool) -> int:
@@ -1128,13 +1244,11 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
     return entry, ms
 
 
-def _edit_phase(torch, dev, models, cfg, sigma_ms):
-    """Phase 9: one edit frame through `EditableRenderer`; returns the
-    frame's launch counts and the largest error of `fused_mlp_eval` against
-    its plain version at the edit chunk's shape and flags."""
-    import dataclasses
+def _edit_setup(torch, dev, models, tmp):
+    """Phase 9's `EditableRenderer` on `models` (the synthetic scene's spheres
+    as ToyDesk boxes, written under `tmp`; object 1 moved and carved out)
+    and the keywords of its frame."""
     import math
-    import tempfile
 
     import numpy as np
 
@@ -1142,13 +1256,7 @@ def _edit_phase(torch, dev, models, cfg, sigma_ms):
     from object_nerf_torch.data import dataset_dict
     from object_nerf_torch.data.synthetic import _default_spheres
     from object_nerf_torch.edit.__main__ import get_transformation_with_duplication_offset
-    from object_nerf_torch.edit.bbox import boxes_to_arrays
     from object_nerf_torch.edit.editable_renderer import EditableRenderer
-    from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp
-    from object_nerf_torch.ops import fused_mlp_vjp as fv
-    from object_nerf_torch.render.multi import compact_hit_order, render_rays_multi
-    from object_nerf_torch.train.metrics import psnr
 
     root = _repo_root()
     ckpt = load_config(cli_args=[
@@ -1158,24 +1266,45 @@ def _edit_phase(torch, dev, models, cfg, sigma_ms):
     Twc = np.eye(4)
     Twc[:3] = np.asarray(ds.poses[0])[:3]
     fovx = math.degrees(2 * math.atan(0.5 / 0.7))  # the dataset's focal is 0.7 w
-    with tempfile.TemporaryDirectory() as tmp:
-        # the scene's spheres as ToyDesk oriented boxes (json only)
-        bbox_path = os.path.join(tmp, "bbox.json")
-        with open(bbox_path, "w") as f:
-            json.dump({"labels": [
-                {"id": int(s.instance_id),
-                 "data": {"position": [float(x) for x in s.center],
-                          "quaternion": [0.0, 0.0, 0.0, 1.0],
-                          "scale": [float(2.2 * s.radius)] * 3}}
-                for s in _default_spheres()]}, f)
-        ckpt["dataset_name"] = "toydesk"
-        ckpt["dataset_extra"]["bbox_dir"] = bbox_path
-        renderer = EditableRenderer(Config({"ckpt_config": ckpt, "chunk": EDIT_CHUNK}),
-                                    models=models, device=dev)
-        renderer.remove_scene_object_by_ids([EDIT_OBJ])
-        renderer.set_object_pose_transform(
-            EDIT_OBJ, get_transformation_with_duplication_offset(EDIT_PROGRESS, 0), 0)
+    # the scene's spheres as ToyDesk oriented boxes (json only)
+    bbox_path = os.path.join(tmp, "bbox.json")
+    with open(bbox_path, "w") as f:
+        json.dump({"labels": [
+            {"id": int(s.instance_id),
+             "data": {"position": [float(x) for x in s.center],
+                      "quaternion": [0.0, 0.0, 0.0, 1.0],
+                      "scale": [float(2.2 * s.radius)] * 3}}
+            for s in _default_spheres()]}, f)
+    ckpt["dataset_name"] = "toydesk"
+    ckpt["dataset_extra"]["bbox_dir"] = bbox_path
+    renderer = EditableRenderer(Config({"ckpt_config": ckpt, "chunk": EDIT_CHUNK}),
+                                models=models, device=dev)
+    renderer.remove_scene_object_by_ids([EDIT_OBJ])
+    renderer.set_object_pose_transform(
+        EDIT_OBJ, get_transformation_with_duplication_offset(EDIT_PROGRESS, 0), 0)
     kw = dict(h=EDIT_H, w=EDIT_W, camera_pose_Twc=Twc, fovx_deg=fovx, chunk=EDIT_CHUNK)
+    return renderer, kw
+
+
+def _edit_phase(torch, dev, models, cfg, sigma_ms):
+    """Phase 9: one edit frame through `EditableRenderer`; returns the
+    frame's launch counts, the largest error of `fused_mlp_eval` against
+    its plain version at the edit chunk's shape and flags, and the frame."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.edit.bbox import boxes_to_arrays
+    from object_nerf_torch.models.embedding import freq_encode
+    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.render.multi import compact_hit_order, render_rays_multi
+    from object_nerf_torch.train.metrics import psnr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        renderer, kw = _edit_setup(torch, dev, models, tmp)
+    Twc, fovx = kw["camera_pose_Twc"], kw["fovx_deg"]
 
     fused_mlp.reset_launch_counts()
     frame = renderer.render_edit(**kw)
@@ -1311,7 +1440,7 @@ def _edit_phase(torch, dev, models, cfg, sigma_ms):
           f"generation + box tests + chunk plan on the host (numpy, timed alone) "
           f"{host_ms:.1f} ms, glue + packing + copies (by subtraction) "
           f"{frame_ms - k_scene - k_obj - host_ms:.1f} ms")
-    return launches, mlp_err
+    return launches, mlp_err, frame
 
 
 def _mesh_phase(torch, dev, models, settings):
@@ -1485,34 +1614,23 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     from object_nerf_torch.config import Config
     from object_nerf_torch.models import voxel_grid as vg
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.models.mlp import ObjectNeRFConfig
     from object_nerf_torch.ops import fused_mlp, gather
     from object_nerf_torch.ops import fused_sigma as fs
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
-    from object_nerf_torch.render.renderer import (
-        RenderSettings, lookup_voxel_raw, render_rays_plain,
-    )
-    from object_nerf_torch.scripts._fixtures import bench_grid, bench_rays
+    from object_nerf_torch.render.renderer import lookup_voxel_raw, render_rays_plain
     from object_nerf_torch.tools.extract_mesh import extract_sigma_grid
     from object_nerf_torch.train.metrics import psnr
-    from object_nerf_torch.train.system import init_params, render_image
+    from object_nerf_torch.train.system import render_image
 
-    cfg = ObjectNeRFConfig()  # the reference's default: voxel conditioning on
-    settings = RenderSettings(mlp=cfg, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
-                              perturb=0.0, noise_std=0.0, is_eval=True, forward_instance=True)
     t0 = time.perf_counter()
-    features, topo, static = bench_grid(cfg, dev, seed=SEED + 2)
-    print(f"voxel grid: shape {static.shape}, {int(topo.n_occupied)} occupied voxels, feature "
-          f"table {tuple(features.shape)}, built on the host in {time.perf_counter() - t0:.1f} s")
-    models = init_params(torch.Generator().manual_seed(SEED), settings, {"N_max_objs": 64},
-                         device=dev, voxel_features=features)
-    with torch.no_grad():
-        for m in (models.nerf_coarse, models.nerf_fine):
-            m.sigma.bias += DENSITY_BIAS
+    settings, models, (topo, static) = _eval_model(torch, dev, voxel=True)
+    cfg = settings.mlp
     features = models.voxel_features.detach()
+    print(f"voxel grid: shape {static.shape}, {int(topo.n_occupied)} occupied voxels, feature "
+          f"table {tuple(features.shape)}, built on the host (with the models) in "
+          f"{time.perf_counter() - t0:.1f} s")
     n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
-    batch = {"rays": bench_rays(W * H, seed=0),
-             "instance_ids": np.random.RandomState(SEED).randint(0, 64, W * H)}
+    batch = _frame_batch(voxel=True)
 
     with torch.no_grad():
         tables = {"bf16": vg.CornerTable(features, topo, static, lowp=True),
@@ -1747,6 +1865,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
           f"8-corner sums {l_ms:.1f} ms, table build {build_ms:.2f} ms, glue + packing + "
           f"copies (by subtraction) {frame_ms - k_ms - g_ms - l_ms - build_ms:.1f} ms; kernel "
           f"bound {n_chunks * (vox['fused_coarse_weights']['bound_ms'] + vox['fused_render_tiles']['bound_ms']):.1f} ms")
+    eval_launches["frame"] = out  # phase 27 holds its sharded frame to this one
     del out
 
     # -- 14. the voxel density sweep ---------------------------------------------------------
@@ -1983,9 +2102,6 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
 
     import numpy as np
 
-    from object_nerf_torch.config import load_config
-    from object_nerf_torch.data import dataset_dict
-    from object_nerf_torch.data.ply_io import write_ply
     from object_nerf_torch.models import voxel_grid as vg
     from object_nerf_torch.models.embedding import freq_encode
     from object_nerf_torch.ops import fused_mlp, gather
@@ -1994,9 +2110,8 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     from object_nerf_torch.ops.compositing import composite
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import RenderDraws
-    from object_nerf_torch.scripts._fixtures import SCENE, scannet_scale_pcd
     from object_nerf_torch.train.optim import make_optimizer
-    from object_nerf_torch.train.system import ObjectNeRFSystem, make_train_step
+    from object_nerf_torch.train.system import make_train_step
 
     def reset_counts():
         fused_mlp.reset_launch_counts()
@@ -2007,36 +2122,16 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
         return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
                 vg.build_counts["corner_table"])
 
-    root = _repo_root()
     with tempfile.TemporaryDirectory() as tmp:
-        pcd = os.path.join(tmp, "room.ply")
-        write_ply(pcd, scannet_scale_pcd())
-        config = load_config(cli_args=[
-            f"dataset_config={os.path.join(root, 'config', 'synthetic.yml')}",
-            "img_wh=[64,48]", f"train.batch_size={BATCH}", f"model.N_samples={N_SAMPLES}",
-            f"model.N_importance={N_IMPORTANCE}", "model.perturb=1", "model.noise_std=1",
-            "model.use_voxel_embedding=true", "model.N_max_voxels=800000",
-            "train.optimizer=adam", "train.lr_scheduler=poly", f"train.seed={SEED}",
-            "train.num_epochs=6", "train.nan_check_every=1000000",
-            "train.progressive_train=true", f"dataset_extra.pcd_path={pcd}",
-            f"dataset_extra.scale_factor={SCENE['scale_factor']}",
-            "dataset_extra.scene_center=[" + ",".join(map(str, SCENE["scene_center"])) + "]",
-            f"dataset_extra.voxel_size={SCENE['voxel_size_world']}",
-            f"dataset_extra.neighbor_marks={SCENE['neighbor_marks']}",
-            "dataset_extra.near=0.05", "dataset_extra.far=2.4"])
-        kw = dict(img_wh=(64, 48), dataset_extra=config.dataset_extra)
         t0 = time.perf_counter()
-        system = ObjectNeRFSystem(config, dataset=dataset_dict["synthetic"]("train", n_frames=2,
-                                                                            **kw), device=dev)
+        system = _voxel_train_system(torch, dev, tmp)
+    config = system.config
     models, settings, cfg = system.models, system.settings, system.settings.mlp
     topo, static = system.voxel_topo, system.voxel_static
     print(f"voxel training: grid {static.shape}, {int(topo.n_occupied)} occupied voxels, table "
           f"{tuple(models.voxel_features.shape)}, system built in {time.perf_counter() - t0:.1f} s")
     if static.shape != VOX_ROOM_GRID:
         raise SystemExit(f"the room's grid should be {VOX_ROOM_GRID}, got {static.shape}")
-    with torch.no_grad():
-        for m in (models.nerf_coarse, models.nerf_fine):
-            m.sigma.bias += DENSITY_BIAS
     rng = system.batch_rng
     batch = system._device_batch(system.train_dataset.sample_batch(BATCH, rng))
     draws = RenderDraws.sample(settings, BATCH, dev, system.generator)
@@ -2602,15 +2697,23 @@ def _voxel_edit_phase(torch, dev):
     return {"fused_mlp_eval": expect, "fused_sigma_eval": expect, "gather_rows": 2 * expect}
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def _expect(ok: bool, message: str) -> None:
     if not ok:
         raise SystemExit(message)
 
 
 def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
-    """Phases 20 to 25: the shipped scene configs through the entry points a
-    user calls, on a desk scene this phase writes to disk. Returns the launch
-    counts of these paths by kernel and path, and row 3 at the route's shape."""
+    """Phases 20 to 26: the shipped scene configs through the entry points a
+    user calls, on a desk scene this phase writes to disk (phase 26: the train
+    CLI under torchrun). Returns the launch counts of these paths by kernel
+    and path, and row 3 at the route's shape."""
     import copy
     import dataclasses
     import glob
@@ -3065,12 +3168,324 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
                 "the edit CLI's PNGs do not read back as 96x72 RGB")
         _expect(launched["fused_sigma_eval"] > 0 and launched["fused_mlp_eval"] > 0,
                 "the edit CLI ran no density or MLP kernel")
+
+        # -- 26. phase 21's run under torchrun: NCCL, world size 1 ----------------------------
+        import re
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join([root] + [q for q in env.get("PYTHONPATH", "")
+                                                      .split(os.pathsep) if q])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+             "-m", "object_nerf_torch.train", *desk_args, "exp_name=desk_nccl", "device=cuda",
+             f"train.batch_size={BATCH}", "train.num_epochs=1",
+             f"train.limit_train_batches={SCENE_STEPS}", "train.val_check_interval=1.0",
+             f"chunk={CHUNK}", f"train.seed={SEED}", "tpu.distributed=true"],
+            cwd=work, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        t_nccl = time.perf_counter() - t0
+        _expect(proc.returncode == 0, f"the train CLI under torchrun failed:\n"
+                                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        epoch = re.search(r"epoch 0: loss=([0-9.]+) psnr=([-0-9.inf]+)", proc.stdout)
+        val = re.findall(r"\[val\] epoch 0 it (\d+): psnr", proc.stdout)
+        _expect("distributed: rank 0 of 1, backend nccl" in proc.stdout and epoch is not None
+                and val == [str(SCENE_STEPS - 1)],
+                f"the torchrun run should say rank 0 of 1 on NCCL, one epoch line and one "
+                f"validation after step {SCENE_STEPS}:\n{proc.stdout[-3000:]}")
+        runs = glob.glob(os.path.join(work, "logs", "*_desk_nccl"))
+        _expect(len(runs) == 1, f"one run directory expected from rank 0: {runs}")
+        for f in ("last.ckpt", "epoch_0.ckpt", "run_config_snapshot.yaml"):
+            _expect(os.path.isfile(os.path.join(runs[0], f)), f"the torchrun run lacks {f}")
+        loss_nccl = float(epoch.group(1))
+        print(f"{_card()}: train CLI under torchrun, NCCL, world size 1, "
+              f"config/synthetic_desk.yml at {W}x{H}, batch {BATCH}: {SCENE_STEPS} steps and "
+              f"one validation in {t_nccl:.1f} s wall (torchrun, interpreter start and the "
+              f"built library's load included) against phase 21's {t_cli:.1f} s in process; "
+              f"last loss {loss_nccl:.4f} (phase 21: {losses[-1]:.4f}; its first five "
+              f"{head:.4f}); one run directory: {', '.join(sorted(os.listdir(runs[0])))}")
+        _expect(loss_nccl < head, "the loss under torchrun did not fall below phase 21's start")
     finally:
         os.chdir(cwd)
     shutil.rmtree(work, ignore_errors=True)
     return paths, {"err": route_err, "ms": route_ms, "plain_ms": route_plain_ms,
                    "bound_ms": route_bound, "bound_by": route_by,
                    "frame_ms": route_frame_ms, "scene_pdf_frame_ms": scene_pdf_ms}
+
+
+def _prune_crossing(torch, system) -> None:
+    """Move the fine sigma head's bias of a voxel `system` so that the
+    epoch-3 hook has voxels to keep and to drop: the median over the occupied
+    voxels of the largest density at PRUNE_CHECK_SPV jittered points of the
+    voxel's cube (the hook's statistic, over fewer points) goes to ln 2, the
+    density of the hook's alpha threshold (0.5). With DENSITY_BIAS the hook
+    drops nothing on the room (phase 18)."""
+    import math
+
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.ops.fused_sigma import fused_sigma_eval
+
+    topo, static = system.voxel_topo, system.voxel_static
+    dev = topo.occupancy.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        cells = torch.nonzero(topo.occupancy).squeeze(1)
+        idx = torch.stack([cells // (static.shape[1] * static.shape[2]),
+                           cells // static.shape[2] % static.shape[1],
+                           cells % static.shape[2]], 1)
+        centres = idx.float() * topo.voxel_size - topo.voxel_offset
+        peaks = []
+        for batch in centres.split(1024):
+            u = torch.rand(batch.shape[0], PRUNE_CHECK_SPV, 3, generator=gen, device=dev)
+            pts = (batch[:, None] + (u - 0.5) * topo.voxel_size).reshape(-1, 3).contiguous()
+            raw, _ = vg.voxel_lookup_raw(system.models.voxel_features, topo, static, pts)
+            sigma = fused_sigma_eval(system.models.nerf_fine, system.settings.mlp, pts, None,
+                                     "scene", PRUNE_CHECK_SPV, voxel_raw=raw.contiguous())
+            peaks.append(sigma.reshape(-1, PRUNE_CHECK_SPV).amax(1))
+        system.models.nerf_fine.sigma.bias += math.log(2.0) - torch.cat(peaks).median()
+
+
+def _dp_worker(out_dir: str) -> int:
+    """One rank of phase 27, started by `_dp_phase` as `chip_smoke.py
+    --dp-worker DIR` with RANK, WORLD_SIZE and LOCAL_RANK set: joins the gloo
+    group at `DIR/rendezvous` on the card, and saves to `DIR/rank<r>.pt` what
+    it ran: phase 7's system for DP_STEPS steps (the first step's summed
+    gradients, every step's time, the parameters after, launch counts, the
+    gradient all-reduce alone timed), phase 4's frame, phase 9's edit frame,
+    phase 17's voxel system for DP_STEPS steps, the epoch-3 prune (its inputs
+    on rank 0, for the single-process prune) and phase 13's voxel frame, the
+    frames sharded by chunk; before the prune, `_prune_crossing`."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, _repo_root())
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.parallel import mesh
+    from object_nerf_torch.train.system import render_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.initialize_distributed("file://" + os.path.join(out_dir, "rendezvous"),
+                                backend="gloo", device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {}
+
+    def reset():
+        fused_mlp.reset_launch_counts()
+        gather.reset_launch_counts()
+        vg.build_counts["corner_table"] = 0
+
+    def counts():
+        return {**fused_mlp.launch_counts, "gather_rows": gather.launch_counts["gather_rows"],
+                "corner_table": vg.build_counts["corner_table"]}
+
+    def host(t):
+        return t.detach().cpu().clone()
+
+    def train(system):
+        before = {k: host(v) for k, v in system.models.state_dict().items()}
+        times, losses, grads = [], [], None
+        reset()
+        for i in range(DP_STEPS):
+            np_batch = system.train_dataset.sample_batch(BATCH, system.batch_rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = system.training_step(np_batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["train/loss"]))
+            if i == 0:
+                grads = {k: host(q.grad) for k, q in system.models.named_parameters()}
+        launched = counts()
+        after = {k: host(v) for k, v in system.models.state_dict().items()}
+        params = [q for g in system.optimizer.param_groups for q in g["params"]]
+        reduce_ms = []
+        for _ in range(DP_ALLREDUCE_TIMED):  # the step's all-reduce alone, on its gradients
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = mesh.all_reduce_grads(params)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"times": times, "losses": losses, "grads1": grads, "after": after,
+                "moved": {k: not torch.equal(after[k], before[k]) for k in after},
+                "launches": launched, "allreduce_ms": reduce_ms, "allreduce_bytes": nbytes}
+
+    def frame(fn):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = fn()
+        torch.cuda.synchronize()
+        return {"maps": maps, "ms": (time.perf_counter() - t0) * 1e3, "launches": counts()}
+
+    # a rank that raises exits at once (no barrier): `launch` then stops the other
+    system = _train_system(torch, dev)
+    res["classical"] = train(system)
+    del system
+    torch.cuda.empty_cache()
+    settings, models, _ = _eval_model(torch, dev, voxel=False)
+    batch = _frame_batch(voxel=False)
+    res["frame"] = frame(lambda: render_image(models, settings, batch, chunk=CHUNK,
+                                              device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        renderer, kw = _edit_setup(torch, dev, models, tmp)
+    res["edit"] = frame(lambda: renderer.render_edit(**kw))
+    res["edit"]["plan"] = dict(renderer.last_chunk_plan)
+    del models, renderer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        system = _voxel_train_system(torch, dev, tmp)
+    res["voxel"] = train(system)
+    _prune_crossing(torch, system)
+    if mesh.rank() == 0:
+        res["prune_in"] = {"state": {k: host(v) for k, v in
+                                     system.models.state_dict().items()},
+                           "topo": vg.topology_to_dict(system.voxel_topo),
+                           "generator": system.generator.get_state()}
+    n_before = int(system.voxel_topo.n_occupied)
+    res["prune"] = frame(lambda: system.on_epoch_start(3))
+    res["prune"].update(topo=vg.topology_to_dict(system.voxel_topo), before=n_before)
+    del system
+    torch.cuda.empty_cache()
+    settings, models, (topo, static) = _eval_model(torch, dev, voxel=True)
+    batch = _frame_batch(voxel=True)
+    res["voxel_frame"] = frame(lambda: render_image(
+        models, settings, batch, chunk=CHUNK, device=dev, voxel_topo=topo,
+        voxel_static=static))
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank()}.pt"))
+    mesh.barrier()
+    mesh.destroy()
+    return 0
+
+
+def _dp_phase(torch, dev, first_step, frames, edit_launches):
+    """Phase 27: DP_RANKS gloo ranks on the one card (`_dp_worker`), held to
+    the single process: the first classical step to phase 7's kernel step,
+    the ranks' parameters to each other bit for bit after DP_STEPS classical
+    and voxel steps, the epoch-3 prune to the single process's on the same
+    weights, grid and draws, and the sharded frames to phases 4, 9 and 13.
+    Returns the launches of both ranks by kernel."""
+    import tempfile
+
+    import numpy as np
+
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.parallel.dryrun import launch
+    from object_nerf_torch.train.metrics import psnr
+
+    card = _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch([os.path.abspath(__file__), "--dp-worker", tmp], DP_RANKS, DP_TIMEOUT_S, tmp)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+    print(f"{card}: {DP_RANKS} gloo ranks on one card ran phase 27 in {wall:.1f} s wall "
+          f"(process start and the library's load included). Two processes that share one "
+          f"card measure correctness and overhead, not scaling.")
+    r0 = ranks[0]
+    total = {}
+    for res in ranks:
+        for part in ("classical", "frame", "edit", "voxel", "prune", "voxel_frame"):
+            for k, v in res[part]["launches"].items():
+                total[k] = total.get(k, 0) + v
+
+    # -- the training steps: the first against phase 7's, the ranks bit-equal
+    for name in ("classical", "voxel"):
+        for r, res in enumerate(ranks[1:], 1):
+            _expect(res[name]["losses"] == r0[name]["losses"],
+                    f"{name}: rank {r}'s losses differ from rank 0's")
+            for k, v in r0[name]["after"].items():
+                _expect(torch.equal(res[name]["after"][k], v),
+                        f"{name}: rank {r}'s {k} differs from rank 0's after {DP_STEPS} steps")
+            for k, v in r0[name]["grads1"].items():
+                _expect(torch.equal(res[name]["grads1"][k], v),
+                        f"{name}: rank {r}'s summed gradient {k} differs from rank 0's")
+        want = {"fused_coarse_weights": 0, "fused_render_tiles": 0,
+                "fused_mlp_eval": 2 * DP_STEPS, "fused_mlp_bwd": 2 * DP_STEPS,
+                "fused_sigma_eval": 0, "gather_rows": 2 * DP_STEPS if name == "voxel" else 0,
+                "corner_table": DP_STEPS if name == "voxel" else 0}
+        for r, res in enumerate(ranks):
+            _expect(res[name]["launches"] == want,
+                    f"{name}: rank {r} launched {res[name]['launches']}, expected {want}")
+        _expect(all(r0[name]["moved"].values()),
+                f"{name}: parameters that did not move: "
+                f"{[k for k, v in r0[name]['moved'].items() if not v]}")
+        for r, res in enumerate(ranks):
+            d = res[name]
+            print(f"{card}: rank {r}, {name} step at batch {BATCH} ({BATCH // DP_RANKS} rays "
+                  f"a rank): {', '.join(f'{t:.2f}' for t in d['times'])} ms (steps 1-"
+                  f"{DP_STEPS}); gradient all-reduce alone {d['allreduce_bytes'] / 1e6:.2f} MB "
+                  f"in {statistics.median(d['allreduce_ms']):.2f} ms (median of "
+                  f"{DP_ALLREDUCE_TIMED}: {', '.join(f'{t:.2f}' for t in d['allreduce_ms'])}); "
+                  f"launches {d['launches']}; losses "
+                  + " ".join(f"{x:.5f}" for x in d["losses"]))
+    loss1 = r0["classical"]["losses"][0]
+    e_loss = abs(loss1 - first_step["loss"]) / abs(first_step["loss"])
+    e = {k: _rel(r0["classical"]["grads1"][k], v) for k, v in first_step["grads"].items()}
+    worst = max(e, key=e.get)
+    print(f"data-parallel step 1 vs phase 7's single-process kernel step (same weights, batch "
+          f"and draws): loss {loss1:.6f} vs {first_step['loss']:.6f} (rel {e_loss:.2e}, tol "
+          f"{LOSS_TOL:g}); summed gradients: worst {e[worst]:.2e} at {worst} (tol {BWD_TOL:g}), "
+          f"median {statistics.median(e.values()):.2e}; after {DP_STEPS} steps the ranks' "
+          f"parameters (the voxel table's included) are bit-equal")
+    _expect(e_loss <= LOSS_TOL, "the data-parallel step's loss disagrees with phase 7's")
+    _expect(e[worst] <= BWD_TOL, f"the data-parallel step's gradients disagree: {worst}")
+
+    # -- the epoch-3 prune: the ranks' grid, and the single process's on the same inputs
+    for r, res in enumerate(ranks[1:], 1):
+        for k, v in r0["prune"]["topo"].items():
+            _expect(torch.equal(res["prune"]["topo"][k], v), f"prune: rank {r}'s {k} differs")
+    with tempfile.TemporaryDirectory() as tmp:
+        single = _voxel_train_system(torch, dev, tmp)
+    single.models.load_state_dict(r0["prune_in"]["state"])
+    single.voxel_topo = vg.topology_from_dict(
+        r0["prune_in"]["topo"], single.models.voxel_features.shape[0], device=dev)
+    single.generator.set_state(r0["prune_in"]["generator"])
+    single.on_epoch_start(3)
+    want = vg.topology_to_dict(single.voxel_topo)
+    del single
+    for k, v in want.items():
+        _expect(torch.equal(r0["prune"]["topo"][k], v),
+                f"prune: the ranks' {k} differs from the single process's")
+    print(f"{card}: epoch-3 prune on {DP_RANKS} ranks: {r0['prune']['before']} -> "
+          f"{int(r0['prune']['topo']['n_occupied'])} voxels, "
+          + ", ".join(f"rank {r} {res['prune']['ms']:.1f} ms" for r, res in enumerate(ranks))
+          + "; the ranks' grids are bit-equal to each other and to the single process's")
+
+    # -- the sharded frames against the single process's
+    n_chunks = (W * H) // CHUNK
+    for part, want, shape in (("frame", frames["frame"], (W, H)),
+                              ("voxel_frame", frames["voxel_frame"], (W, H)),
+                              ("edit", frames["edit"], (EDIT_W, EDIT_H))):
+        for r, res in enumerate(ranks):
+            got = res[part]["maps"]
+            _expect(set(got) == set(want), f"{part}: rank {r}'s maps {sorted(got)}")
+            same = all(np.array_equal(got[k], want[k]) for k in want)
+            diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+            p = psnr(torch.from_numpy(got[[k for k in want if k.startswith("rgb")][0]]),
+                     torch.from_numpy(want[[k for k in want if k.startswith("rgb")][0]])).item()
+            print(f"{card}: rank {r}, sharded {part} {shape[0]}x{shape[1]}: "
+                  f"{res[part]['ms']:.1f} ms; launches {res[part]['launches']}; "
+                  f"{'bit-equal to' if same else 'differs from'} the single process's frame "
+                  f"(max abs {diff:.2e}, rgb {p:.1f} dB)")
+            _expect(same or p >= PSNR_FLOOR_DB,
+                    f"{part}: rank {r}'s frame is {p:.1f} dB from the single process's")
+    for r, res in enumerate(ranks):
+        for part, extra in (("frame", {}), ("voxel_frame", {"gather_rows": n_chunks,
+                                                            "corner_table": 1})):
+            got = res[part]["launches"]
+            _expect(got["fused_coarse_weights"] == got["fused_render_tiles"] == n_chunks // DP_RANKS
+                    and all(got[k] == v for k, v in extra.items()),
+                    f"{part}: rank {r} launched {got}, expected {n_chunks // DP_RANKS} chunks")
+    edit_sum = {k: sum(res["edit"]["launches"][k] for res in ranks) for k in edit_launches}
+    _expect(edit_sum == edit_launches and r0["edit"]["plan"] == ranks[1]["edit"]["plan"],
+            f"the sharded edit frame launched {edit_sum} over its ranks, phase 9 {edit_launches}")
+    return total
 
 
 def main() -> int:
@@ -3081,14 +3496,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, _repo_root())
 
-    from object_nerf_torch.data import dataset_dict
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.models.mlp import ObjectNeRFConfig
     from object_nerf_torch.ops import _build, fused_mlp
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
-    from object_nerf_torch.render.renderer import RenderSettings, render_rays_plain
+    from object_nerf_torch.render.renderer import render_rays_plain
     from object_nerf_torch.train.metrics import psnr
-    from object_nerf_torch.train.system import init_params, render_image
+    from object_nerf_torch.train.system import render_image
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3116,16 +3529,9 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     # -- 3. each kernel against its plain version ------------------------------
-    cfg = ObjectNeRFConfig(use_voxel_embedding=False)
-    settings = RenderSettings(mlp=cfg, N_samples=64, N_importance=64, perturb=0.0,
-                              noise_std=0.0, is_eval=True, forward_instance=True)
-    models = init_params(torch.Generator().manual_seed(SEED), settings,
-                         {"N_max_objs": 64}, device=dev)
-    with torch.no_grad():
-        for m in (models.nerf_coarse, models.nerf_fine):
-            m.sigma.bias += DENSITY_BIAS
-    ds = dataset_dict["synthetic"]("val", img_wh=(W, H))
-    batch = ds.whole_image_batch(0)
+    settings, models, _ = _eval_model(torch, dev, voxel=False)
+    cfg = settings.mlp
+    batch = _frame_batch(voxel=False)
 
     gen = torch.Generator().manual_seed(SEED + 1)
     rays = torch.from_numpy(batch["rays"][:CHUNK]).to(dev)
@@ -3274,13 +3680,13 @@ def main() -> int:
 
     # -- 6, 7. the training kernels and the training path ------------------------------
     torch.cuda.empty_cache()
-    train_entries, chain_build = _train_phases(torch, dev, peak_flops, peak_bytes,
-                                                profile="--profile" in sys.argv[1:])
+    train_entries, chain_build, first_step = _train_phases(
+        torch, dev, peak_flops, peak_bytes, profile="--profile" in sys.argv[1:])
 
     # -- 8, 9, 10. the density kernel, the edit frame and the mesh sweep ----------------
     torch.cuda.empty_cache()
     sigma_entry, sigma_ms = _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes)
-    edit_launches, edit_mlp_err = _edit_phase(torch, dev, models, cfg, sigma_ms)
+    edit_launches, edit_mlp_err, frame9 = _edit_phase(torch, dev, models, cfg, sigma_ms)
     mesh_launches = _mesh_phase(torch, dev, models, settings)
     sigma_entry.update(chain_build["fused_sigma_eval"])
     sigma_entry["launches_by_path"] = {"edit": edit_launches["fused_sigma_eval"],
@@ -3294,11 +3700,13 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], edit_mlp_err)
 
     # -- 11 to 15. the voxel-conditioned model and the probes -----------------------------
+    frame4 = frame
     del models, frame
     torch.cuda.empty_cache()
     gather_entry, vox, vox_eval_launches, vox_mesh_launches = _voxel_phases(
         torch, dev, peak_flops, peak_bytes)
     frame13_ms = vox_eval_launches.pop("frame_ms")
+    frame13 = vox_eval_launches.pop("frame")
     torch.cuda.empty_cache()
     probe_entries = _probe_phase(torch, dev, peak_flops, peak_bytes, chain_build["pe_probe"])
     sigma_entry["launches_by_path"]["voxel_mesh"] = vox_mesh_launches["fused_sigma_eval"]
@@ -3356,7 +3764,15 @@ def main() -> int:
                 entry[f"route_{key}"] = route[key]
             entry["route_shape"] = [CHUNK, N_SAMPLES]
 
-    # -- 26. the kernels ------------------------------------------------------------
+    # -- 27. data parallel: two gloo ranks on the one card ------------------------------
+    torch.cuda.empty_cache()
+    dp = _dp_phase(torch, dev, first_step, {"frame": frame4, "voxel_frame": frame13,
+                                            "edit": frame9}, edit_launches)
+    for entry in train_entries + [sigma_entry, gather_entry]:
+        entry["launches_by_path"]["data_parallel"] = dp[entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+    # -- 28. the kernels ------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
@@ -3367,9 +3783,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k],
-         "launches": launches[k] + vox_eval_launches[k] + sum(scene_paths[k].values()),
+         "launches": (launches[k] + vox_eval_launches[k] + sum(scene_paths[k].values())
+                      + dp[k]),
          "launches_by_path": {"eval": launches[k], "voxel_eval": vox_eval_launches[k],
-                              **scene_paths[k]},
+                              **scene_paths[k], "data_parallel": dp[k]},
          "max_abs_err": max(errs[k], vox[k]["err"]),
          "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None,
@@ -3384,4 +3801,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(_dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -5,14 +5,18 @@ The JAX package reads frames with PIL and cv2 (`data/generic_dataset.py:
 dependency of the port. This module covers what the datasets and the CLIs
 meet:
 
-* non-interlaced 8-bit grey, grey + alpha, RGB and RGBA, and the same at 16
-  bits (samples are big-endian in the file, native `uint16` in memory);
+* 8-bit grey, grey + alpha, RGB and RGBA, and the same at 16 bits (samples
+  are big-endian in the file, native `uint16` in memory), plain or Adam7
+  interlaced (seven passes, each a small image of its own rows, filtered
+  on its own; a pass that an image smaller than 8 x 8 leaves empty holds no
+  bytes);
 * all five row filters on read (None, Sub, Up, Average, Paeth);
 * on write, one fixed filter (default Up) or a sequence cycled row by row,
   so every decode path can be exercised.
 
-Interlaced files, palette images and bit depths below 8 raise a
-`PNGError` naming the file.
+Palette images and bit depths below 8 raise a `PNGError` naming the file
+(PIL opens a palette PNG as its indices, which the JAX package would read as
+grey).
 
 Decoding is vectorised. Rows whose filters are None, Sub or Up are undone a
 row at a time (Sub as a running sum mod 256 per byte lane). A file with
@@ -40,6 +44,9 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
+# Adam7 passes: (x0, y0, dx, dy) of the pixels each one carries
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 class PNGError(ValueError):
@@ -121,6 +128,17 @@ def _unfilter_wavefront(ftypes, filt, bpp):
     return q[rr + xx, rr + 1].astype(np.uint8).reshape(h, stride)
 
 
+def _unfilter(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
+    """(h, stride + 1) filtered rows, each led by its filter type, -> the
+    (h, stride) bytes they encode."""
+    ftypes, filt = rows[:, 0], rows[:, 1:]
+    if (ftypes > 4).any():
+        raise PNGError(f"{name}: unknown row filter {int(ftypes.max())}")
+    if (ftypes >= 3).any():
+        return _unfilter_wavefront(ftypes, filt, bpp)
+    return _unfilter_rows(ftypes, filt, bpp)
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Decode the bytes of a PNG file (see `read_png`)."""
     header, idat = None, []
@@ -139,24 +157,26 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise PNGError(f"{name}: {kind} PNGs are not supported")
     if depth not in (8, 16):
         raise PNGError(f"{name}: bit depth {depth} is not supported (8 or 16)")
-    if interlace != 0:
-        raise PNGError(f"{name}: interlaced PNGs are not supported")
+    if interlace not in (0, 1):
+        raise PNGError(f"{name}: unknown interlace method {interlace}")
     if compression != 0 or filter_method != 0:
         raise PNGError(f"{name}: unknown compression or filter method")
     channels = _CHANNELS[ctype]
     bpp = channels * depth // 8
-    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise PNGError(f"{name}: image data holds {raw.size} bytes, expected {h * (stride + 1)}")
-    raw = raw.reshape(h, stride + 1)
-    ftypes, filt = raw[:, 0], raw[:, 1:]
-    if (ftypes > 4).any():
-        raise PNGError(f"{name}: unknown row filter {int(ftypes.max())}")
-    if (ftypes >= 3).any():
-        pix = _unfilter_wavefront(ftypes, filt, bpp)
-    else:
-        pix = _unfilter_rows(ftypes, filt, bpp)
+    # (x0, y0, dx, dy, pass width, pass height) of each non-empty pass
+    passes = [(x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+              for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    expected = sum(ph * (pw * bpp + 1) for *_, pw, ph in passes)
+    if raw.size != expected:
+        raise PNGError(f"{name}: image data holds {raw.size} bytes, expected {expected}")
+    pix = np.empty((h, w, bpp), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        rows = raw[pos:pos + ph * (pw * bpp + 1)].reshape(ph, pw * bpp + 1)
+        pos += rows.size
+        pix[y0::dy, x0::dx] = _unfilter(rows, bpp, name).reshape(ph, pw, bpp)
     if depth == 16:
         pix = np.ascontiguousarray(pix).reshape(-1).view(">u2").astype(np.uint16)
     img = pix.reshape(h, w, channels)

@@ -12,6 +12,8 @@ edited scene with `EditableRenderer` on `device` (default `cuda`;
 port's own PNG codec, `data/png_io.py`). `edit_type`:
 "duplication" (offset copies) or "pure_rotation" (z spin). The checkpoint's
 `run_config_snapshot.yaml` must lie beside it, as the training CLI leaves it.
+With `tpu.distributed=true` under `torchrun` the ranks share each frame's
+chunks (`parallel/mesh.py`) and rank 0 writes the PNGs.
 """
 
 from __future__ import annotations
@@ -61,12 +63,16 @@ def get_transformation_with_duplication_offset(progress, duplication_id: int):
 def main(argv) -> str:
     """Render the demo frames; returns the directory they were written to."""
     from ..data.png_io import write_png
+    from ..parallel import mesh
     from .editable_renderer import EditableRenderer, read_testing_config
 
     config = read_testing_config(cli_args=argv)
+    mesh.initialize_from_config(config)
+    lead = mesh.rank() == 0
     stamp = time.strftime("%Y-%m-%d_%H-%M-%S")
     render_path = f"debug/rendered_view/render_{stamp}_{config.get('prefix', 'demo')}/"
-    os.makedirs(render_path, exist_ok=True)
+    if lead:
+        os.makedirs(render_path, exist_ok=True)
 
     renderer = EditableRenderer(config=config, device=config.get("device", "cuda"))
     renderer.load_frame_meta()
@@ -101,10 +107,13 @@ def main(argv) -> str:
             fovx_deg=getattr(renderer, "fov_x_deg_dataset", 60), chunk=chunk)
         typ = "fine" if renderer.settings.N_importance > 0 else "coarse"
         img = np.asarray(results[f"rgb_{typ}"]).reshape(H, W, 3)
-        write_png(f"{render_path}/render_{idx:04d}.png",
-                  (np.clip(img, 0, 1) * 255).astype(np.uint8))
-        print(f"frame {idx + 1}/{total_frames} -> {render_path}")
+        if lead:
+            write_png(f"{render_path}/render_{idx:04d}.png",
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            print(f"frame {idx + 1}/{total_frames} -> {render_path}")
         renderer.reset_active_object_ids()
+    mesh.barrier()
+    mesh.destroy()
     return render_path
 
 

@@ -24,8 +24,10 @@ last tile themselves, so the tail chunk is not padded. A voxel-conditioned
 model brings its grid (from a port checkpoint's `voxel_topo` /
 `voxel_static`, or a reference `.ckpt`'s buffers; JAX: editable_renderer.py:
 150-190); its corner table is built once per frame, in bf16 on the card,
-and every chunk's lookups read it (:271-291). Multi-device rendering is not
-ported.
+and every chunk's lookups read it (:271-291). Under a `torch.distributed`
+process group (JAX: the renderer's `mesh`, :70-142, :385-388) each rank
+renders the chunks `r, r + W, ...` of the compacted order, so the mixed
+chunks spread over the ranks, and one all-gather gives every rank the frame.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..data.geo_utils import center_pose_from_avg
 from ..data.ray_utils import get_ray_directions, get_rays
 from ..device import resolve_device
 from ..models import voxel_grid as vg
+from ..parallel import mesh
 from ..render.multi import compact_hit_order, pack_multi_weights, render_multi_fused_eval
 from ..render.renderer import RenderSettings
 from .bbox import BBoxRayHelper, boxes_to_arrays
@@ -240,15 +243,16 @@ class EditableRenderer:
         n_chunks = -(-n // chunk)
         self.last_chunk_plan = {"chunks": n_chunks,
                                 "mixed": n_chunks if plan is None else plan[1]}
-        outs = []
-        for ci, i in enumerate(range(0, n, chunk)):
+
+        def render_chunk(ci):
             mixed = plan is None or ci < plan[1]
-            ids_c = list(obj_ids) if mixed else [0]
             sets = rays_dev if mixed else rays_dev[:1]
-            outs.append(render_multi_fused_eval(
-                self.models, [r[i:i + chunk] for r in sets], ids_c, settings,
-                skip_boxes=skip_boxes, packed=packed, voxel_ctx=voxel_ctx))
-        merged = {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+            return render_multi_fused_eval(
+                self.models, [r[ci * chunk:(ci + 1) * chunk] for r in sets],
+                list(obj_ids) if mixed else [0], settings, skip_boxes=skip_boxes,
+                packed=packed, voxel_ctx=voxel_ctx)
+
+        merged = mesh.render_chunks(n, chunk, render_chunk)
         if plan is not None:
             # scatter back to pixel order: row j carries ray perm[j]
             perm = torch.from_numpy(plan[0]).to(dev)

@@ -13,7 +13,9 @@ versions on `device=cpu`, in bf16 as the kernels compute unless
 dataset whose rays are bounded by the instance box (`is_rays_in_bbox`, a
 ScanNet config under `use_bbox`) renders on the `rays_in_bbox` route, as the
 JAX script's `ObjectNeRFSystem(val_dataset=ds)` does. `save_images=<dir>`
-writes each frame as `eval_<i>.png`.
+writes each frame as `eval_<i>.png`. With `tpu.distributed=true` under
+`torchrun` every rank renders every W-th chunk of each frame
+(`parallel/mesh.py`) and rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -30,12 +32,15 @@ def main(argv) -> None:
     from .data import dataset_dict
     from .data.png_io import write_png
     from .device import resolve_device
+    from .parallel import mesh
     from .render.renderer import RenderSettings
     from .train.convert import load_reference_ckpt, voxel_grid_from_ckpt
     from .train.metrics import psnr, ssim
     from .train.system import init_params, render_image
 
     config = load_config(cli_args=argv)
+    mesh.initialize_from_config(config)
+    lead = mesh.rank() == 0
     if not config.get("ckpt_path"):
         raise SystemExit("ckpt_path not set")
     if config.dataset_name not in dataset_dict:
@@ -85,13 +90,18 @@ def main(argv) -> None:
         s = float(ssim(pred.reshape(h, w, 3), gt.reshape(h, w, 3)))
         psnrs.append(p)
         ssims.append(s)
+        if not lead:
+            continue
         print(f"frame {i}: psnr {p:.3f}  ssim {s:.4f}")
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
             img = np.clip(out[f"rgb_{typ}"].reshape(h, w, 3), 0, 1)
             write_png(os.path.join(save_dir, f"eval_{i:04d}.png"),
                       (img * 255).astype(np.uint8))
-    print(f"mean: psnr {np.mean(psnrs):.3f}  ssim {np.mean(ssims):.4f}")
+    if lead:
+        print(f"mean: psnr {np.mean(psnrs):.3f}  ssim {np.mean(ssims):.4f}")
+    mesh.barrier()
+    mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -286,6 +286,11 @@ class RenderDraws:
         return cls(u(n_rays, s_c), nrm(n_rays, s_c), nrm(n_rays, s_c),
                    u(n_rays, settings.N_importance), nrm(n_rays, s_f), nrm(n_rays, s_f))
 
+    def rows(self, sl: slice) -> "RenderDraws":
+        """The draws of rows `sl` (a data-parallel rank's share of the
+        global batch's draws)."""
+        return RenderDraws(*(getattr(self, f.name)[sl] for f in dataclasses.fields(self)))
+
 
 def _eval_models(model: nn.Module, settings: RenderSettings, xyz: torch.Tensor,
                  dir_pe: torch.Tensor, codes: Optional[torch.Tensor], plain: bool,

@@ -18,6 +18,19 @@ Validation scalars and the 7-panel validation image go to TensorBoard when
 records a few steps with `torch.profiler` (`ObjectNeRFSystem.fit`).
 `ckpt_path=<file>` resumes from one of these checkpoints, or starts from a
 reference checkpoint's weights.
+
+Data parallel (`train.py:29-33`): with `tpu.distributed=true` the process
+joins a `torch.distributed` group (`parallel/mesh.initialize_distributed`:
+`RANK`, `WORLD_SIZE`, `LOCAL_RANK` from `torchrun`, the rendezvous at
+`tpu.coordinator` = `host:port` or torchrun's; NCCL on `device=cuda`, gloo on
+`device=cpu`) and raises if it cannot. One process per GPU:
+
+    torchrun --nproc_per_node=8 -m object_nerf_torch.train \
+        dataset_config=config/toy_desk_2.yml tpu.distributed=true
+
+`train.batch_size` is the global batch (each rank trains on its share).
+Only rank 0 prints the config and writes the run directory, TensorBoard and
+checkpoints; the others wait for it.
 """
 
 from __future__ import annotations
@@ -30,10 +43,13 @@ import time
 def main(argv) -> None:
     from ..config import load_config
     from ..data import dataset_dict
+    from ..parallel import mesh
     from .checkpoint import save_checkpoint, save_config_snapshot
     from .system import ObjectNeRFSystem
 
     config = load_config(cli_args=argv)
+    mesh.initialize_from_config(config)
+    lead = mesh.rank() == 0
     if "root_dir" not in config.dataset_extra and config.dataset_name != "synthetic":
         raise SystemExit(
             "error: no scene selected: pass dataset_config=config/<scene>.yml "
@@ -44,21 +60,24 @@ def main(argv) -> None:
                          f"{sorted(dataset_dict)})")
     log_path = os.path.join("logs", time.strftime("%Y-%m-%d_%H-%M-%S") + "_" + config.exp_name)
     config["log_path"] = log_path
-    print("-" * 40)
-    print(config.to_yaml())
-    print("-" * 40)
+    if lead:
+        print("-" * 40)
+        print(config.to_yaml())
+        print("-" * 40)
 
     dataset_cls = dataset_dict[config.dataset_name]
     kwargs = dict(img_wh=tuple(config.img_wh), dataset_extra=config.dataset_extra)
     system = ObjectNeRFSystem(config, dataset=dataset_cls(split="train", **kwargs),
                               val_dataset=dataset_cls(split="val", **kwargs),
                               device=config.get("device", "cuda"))
-    save_config_snapshot(log_path, config)
-    if config.get("snapshot_source", True):
-        from ..utils.snapshot import make_source_code_snapshot
+    writer = None
+    if lead:
+        save_config_snapshot(log_path, config)
+        if config.get("snapshot_source", True):
+            from ..utils.snapshot import make_source_code_snapshot
 
-        make_source_code_snapshot(log_path)
-    writer = _summary_writer(log_path)
+            make_source_code_snapshot(log_path)
+        writer = _summary_writer(log_path)
 
     best_psnr = float("-inf")
     epoch_psnr = float("-inf")  # the best val/psnr seen within the current epoch
@@ -69,9 +88,12 @@ def main(argv) -> None:
             step = sys_.global_step
             for k, v in metrics.items():
                 writer.add_scalar(k, float(v), step)
-            panel = sys_.val_image_panel()
-            if panel is not None:
-                writer.add_images("val/GT_pred_depth", panel, step, dataformats="NHWC")
+            try:  # best effort: tensorboardX draws images with PIL, which it does not require
+                panel = sys_.val_image_panel()
+                if panel is not None:
+                    writer.add_images("val/GT_pred_depth", panel, step, dataformats="NHWC")
+            except ImportError as e:
+                print(f"  [val] image panel skipped: {e}")
         vp = metrics.get("val/psnr", float("-inf"))
         epoch_psnr = max(epoch_psnr, vp)
         if vp > best_psnr:
@@ -96,10 +118,13 @@ def main(argv) -> None:
         epoch_psnr = float("-inf")
 
     system.fit(callbacks=[on_val], epoch_end_callbacks=[on_epoch_end])
-    save_checkpoint(log_path, system)
-    if writer is not None:
-        writer.close()
-    print(f"Done. Logs + checkpoints in {log_path}")
+    if lead:
+        save_checkpoint(log_path, system)
+        if writer is not None:
+            writer.close()
+        print(f"Done. Logs + checkpoints in {log_path}")
+    mesh.barrier()
+    mesh.destroy()
 
 
 def _summary_writer(log_path):

@@ -20,12 +20,15 @@ import torch.nn.functional as F
 
 
 def mse(pred: torch.Tensor, gt: torch.Tensor,
-        valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        valid_mask: Optional[torch.Tensor] = None,
+        count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared error over the mask's elements; `count` replaces the
+    mask's own count as the divisor (a data-parallel step's global count)."""
     err = (pred - gt) ** 2
     if valid_mask is None:
         return err.mean()
     m = valid_mask.to(err.dtype).reshape(err.shape[0], -1).expand(err.shape)
-    return (err * m).sum() / m.sum().clamp(min=1.0)
+    return (err * m).sum() / (m.sum() if count is None else count).clamp(min=1.0)
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor,

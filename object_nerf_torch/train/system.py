@@ -35,7 +35,17 @@ eval render packs the coarse model in full for its coarse `fused_mlp_eval`.
 7-panel image); `fit` runs `torch.profiler` over a few steps when
 `tpu.profile_dir` is set.
 
-Not ported: multi-device meshes (one device).
+Data parallel (JAX `:251-278`, `:331-337`, `:440-444`, `:470-486`): under a
+`torch.distributed` process group (`parallel/mesh.py`) the models are
+replicated (rank 0's initial weights broadcast), every rank draws the same
+global batch and the global batch's draws from identically seeded
+generators and keeps its rows, the loss divides by the global mask counts,
+the gradients are summed over the ranks before the optimizer's step (so the
+parameters stay bit-identical across ranks), the logged metrics are the
+global batch's, the pruned grid is rank 0's, and the eval render gives each
+rank every W-th chunk and gathers the frame on every rank. `fit` runs its
+callbacks (logs, checkpoints) on rank 0 only; the other ranks wait for it.
+Without a group nothing of this runs.
 """
 
 from __future__ import annotations
@@ -55,11 +65,12 @@ from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
 from ..ops.fused_mlp import pack_kernel_weights
 from ..ops.fused_sigma import fused_sigma_eval
+from ..parallel import mesh
 from ..render.renderer import (
     RenderDraws, RenderSettings, bbox_route, render_rays, render_rays_fused_eval,
 )
-from .losses import total_loss
-from .metrics import psnr, ssim
+from .losses import term_counts, total_loss
+from .metrics import mse, psnr, ssim
 from .optim import make_lr_schedule, make_optimizer, set_lr
 
 
@@ -127,7 +138,8 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
     coarse model is packed in full: its pass is `fused_mlp_eval` on both
     branches. A grid whose table would exceed
     `DENSE_CELL_TABLE_LIMIT_BYTES` renders through the per-corner gathers
-    instead, with a warning."""
+    instead, with a warning. Under a process group each rank renders the
+    chunks `r, r + W, ...` and every rank returns the whole frame."""
     cfg = settings.mlp
     use_voxel = voxel_static is not None
     if use_voxel != cfg.use_voxel_embedding:
@@ -165,12 +177,13 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
             else:
                 packed["coarse"] = pack_kernel_weights(
                     models.nerf_coarse, cfg, settings.forward_instance)
-        outs = []
-        for i in range(0, rays.shape[0], chunk):
-            codes_c = codes[i:i + chunk] if codes is not None else None
-            outs.append(render_rays_fused_eval(models, rays[i:i + chunk], settings,
-                                               codes_c, packed, voxel_ctx))
-        return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+        def render_chunk(c):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            return render_rays_fused_eval(models, rays[sl], settings,
+                                          codes[sl] if codes is not None else None, packed,
+                                          voxel_ctx)
+
+        return mesh.render_chunks(rays.shape[0], chunk, render_chunk)
 
     return render
 
@@ -214,7 +227,14 @@ class TrainStep:
     learning-rate schedule (set it when resuming). A voxel-conditioned
     model's step takes its grid (`voxel_topo`, `voxel_static`) at call time:
     pruning changes the topology, subdivision both. Metrics stay on the
-    device: nothing here synchronises."""
+    device: nothing here synchronises.
+
+    Under a process group (found when the step is built) `batch` is this
+    rank's rows of the global batch, `draws` are the global batch's (every
+    rank passes the same; each keeps its rows) or are drawn for the global
+    batch from `generator`; each loss term divides by its global mask count,
+    the gradients are summed over the ranks in one all-reduce before the
+    optimizer's step, and the metrics are the global batch's."""
 
     def __init__(self, settings: RenderSettings, loss_weights: Mapping[str, float],
                  optimizer: torch.optim.Optimizer,
@@ -226,6 +246,8 @@ class TrainStep:
         self.lr_schedule = lr_schedule
         self.plain = plain
         self.global_step = 0
+        self.distributed = mesh.is_distributed()
+        self.rank, self.world = mesh.rank(), mesh.world_size()
 
     def __call__(self, models: ObjectNeRFModels, batch, generator=None,
                  draws: Optional[RenderDraws] = None,
@@ -239,6 +261,17 @@ class TrainStep:
         if self.lr_schedule is not None:
             metrics["lr"] = self.lr_schedule(self.global_step)
             set_lr(self.optimizer, metrics["lr"])
+        counts = None
+        if self.distributed:
+            n = batch["rays"].shape[0]
+            if draws is None and generator is not None:
+                draws = RenderDraws.sample(st, n * self.world, batch["rays"].device, generator)
+            if draws is not None:
+                if draws.perturb.shape[0] != n * self.world:
+                    raise ValueError(f"draws for {draws.perturb.shape[0]} rays; the global "
+                                     f"batch has {n * self.world}")
+                draws = draws.rows(slice(self.rank * n, (self.rank + 1) * n))
+            counts = mesh.all_reduce_sum(term_counts(batch, st.forward_instance))
         codes = None
         if st.forward_instance:
             codes = models.code_library(batch["instance_ids"])
@@ -249,16 +282,28 @@ class TrainStep:
                               pass_through_mask=batch.get("pass_through_mask"),
                               generator=generator, draws=draws, plain=self.plain,
                               voxel_ctx=voxel_ctx)
-        loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance)
+        loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance, counts)
         typ = "fine" if st.N_importance > 0 else "coarse"
         with torch.no_grad():
-            train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
-                              batch["valid_mask"][:, None])
+            if self.distributed:  # the colour term's count is psnr's too
+                err = mse(results[f"rgb_{typ}"], batch["rgbs"], batch["valid_mask"][:, None],
+                          counts[0])
+            else:
+                train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
+                                  batch["valid_mask"][:, None])
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.distributed:
+            mesh.all_reduce_grads(p for g in self.optimizer.param_groups for p in g["params"])
         self.optimizer.step()
         self.global_step += 1
-        metrics.update({"train/loss": loss.detach(), "train/psnr": train_psnr})
+        loss = loss.detach()
+        if self.distributed:  # the global batch's loss, terms and psnr
+            names = list(logs)
+            glob = mesh.all_reduce_sum(torch.stack([loss, err] + [logs[k] for k in names]))
+            loss, train_psnr = glob[0], -10.0 * torch.log10(glob[1])
+            logs = dict(zip(names, glob[2:]))
+        metrics.update({"train/loss": loss, "train/psnr": train_psnr})
         metrics.update({f"train/{k}": v for k, v in logs.items()})
         return metrics
 
@@ -328,6 +373,7 @@ class ObjectNeRFSystem:
         self.batch_rng = np.random.RandomState(seed)
 
         batch_size = int(config.train.batch_size)
+        mesh.shard_rows(batch_size)  # raises unless the ranks split the batch evenly
         if dataset is not None:
             self.steps_per_epoch = max(1, self._steps_per_epoch(dataset, batch_size))
         else:
@@ -338,6 +384,10 @@ class ObjectNeRFSystem:
             from .checkpoint import restore_system
 
             restore_system(self, config.ckpt_path)
+        # every rank starts from rank 0's weights and grid
+        mesh.broadcast_tensors([t.detach() for t in self.models.state_dict().values()])
+        if self.voxel_topo is not None:
+            mesh.broadcast_tensors(self.voxel_topo)
 
     def _build_optimizer(self) -> None:
         self.optimizer = make_optimizer(self.config.train, self.models.parameters())
@@ -369,6 +419,10 @@ class ObjectNeRFSystem:
 
     # -- public API ---------------------------------------------------------------
     def training_step(self, np_batch) -> Dict[str, object]:
+        """One step on a global host batch (under a process group this rank
+        takes its rows)."""
+        if mesh.is_distributed():
+            np_batch = mesh.shard_batch(np_batch)
         return self.train_step(self.models, self._device_batch(np_batch),
                                generator=self.generator, voxel_topo=self.voxel_topo,
                                voxel_static=self.voxel_static)
@@ -377,7 +431,9 @@ class ObjectNeRFSystem:
         """Progressive voxel training (reference train.py:140-145; the JAX
         package's `on_epoch_start`, system.py:534-583): under
         `train.progressive_train`, prune the grid at every epoch > 2 and
-        subdivide it at epoch 5.
+        subdivide it at epoch 5. Under a process group every rank sweeps (the
+        generators agree) and then takes rank 0's pruned topology, so that the
+        ranks cannot diverge; the subdivision follows from identical inputs.
 
         The prune sweeps `train.prune_samples_per_voxel` jittered points
         (default 16^3) per voxel, `train.prune_voxel_batch` voxels (default
@@ -412,6 +468,7 @@ class ObjectNeRFSystem:
                 features.detach(), self.voxel_topo, self.voxel_static, sigma_fn,
                 generator=self.generator, samples_per_voxel=spv,
                 voxel_batch=int(cfg.get("prune_voxel_batch", 256)))
+            mesh.broadcast_tensors(self.voxel_topo)
         if epoch == 5:
             feats, self.voxel_topo, self.voxel_static = vg.subdivide_voxels(
                 features.detach(), self.voxel_topo, self.voxel_static)
@@ -474,7 +531,10 @@ class ObjectNeRFSystem:
         the grid as that epoch's hook left it (pruned or subdivided). With
         `tpu.profile_dir` set (the scene configs' key), `torch.profiler`
         records steps 2 to 2 + `tpu.profile_steps` (default 5) of this call
-        and writes them as a Chrome trace, `<profile_dir>/trace.json`.
+        and writes them as a Chrome trace, `<profile_dir>/trace.json`. Under
+        a process group every rank validates (the render is collective); the
+        callbacks, the epoch line and the profiler run on rank 0 only, and the
+        other ranks wait for it.
         Returns the metrics of every validation."""
         callbacks = callbacks or []
         cfg = self.config.train
@@ -486,7 +546,8 @@ class ObjectNeRFSystem:
         nan_check_every = max(1, int(cfg.get("nan_check_every", 50)))
         val_chunk = int(self.config.get("chunk", 4096))
         tpu = self.config.get("tpu") or {}
-        profile_dir = tpu.get("profile_dir")
+        lead = mesh.rank() == 0
+        profile_dir = tpu.get("profile_dir") if lead else None
         profile_steps = int(tpu.get("profile_steps", 5))
         prof, steps_taken = None, 0
 
@@ -519,17 +580,20 @@ class ObjectNeRFSystem:
                     metrics = {**_fetch(metrics), **val_metrics}
                     check_finite(metrics["train/loss"], epoch, it)
                     history.append(metrics)
-                    for cb in callbacks:
+                    for cb in callbacks if lead else []:
                         cb(epoch, it, metrics, self)
+                    mesh.barrier()
             if metrics is None:
                 continue
             m = _fetch(metrics)  # waits for the epoch's last step
             dt = time.time() - t0  # epoch timing excludes checkpoint writes
-            for cb in (epoch_end_callbacks or []):
+            for cb in (epoch_end_callbacks or []) if lead else []:
                 cb(epoch, self)
+            mesh.barrier()
             rays_per_sec = (self.steps_per_epoch - start) * batch_size / dt
-            print(f"epoch {epoch}: loss={m['train/loss']:.4f} "
-                  f"psnr={m['train/psnr']:.2f} ({rays_per_sec:,.0f} rays/s)")
+            if lead:
+                print(f"epoch {epoch}: loss={m['train/loss']:.4f} "
+                      f"psnr={m['train/psnr']:.2f} ({rays_per_sec:,.0f} rays/s)")
         if prof is not None and steps_taken < 2 + profile_steps:
             self._stop_profiler(prof, profile_dir)  # the run ended first
         return history

@@ -751,3 +751,18 @@ def test_route_eval_chunk_matches_plain_on_card(cuda_device):
         assert torch.isfinite(v).all(), k
     assert psnr(got["rgb_fine"], want["rgb_fine"]).item() >= 70.0
     assert (got["opacity_instance_fine"] - want["opacity_instance_fine"]).abs().max() < 5e-3
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_match_one_process_on_card(cuda_device, tmp_path, capsys):
+    """`python -m object_nerf_torch.parallel.dryrun --nprocs 2 --device cuda
+    --backend gloo`: two ranks on the card, at the kernels' widths, against
+    one process, to chip_smoke.py phase 27's limits (`dryrun.LIMITS["cuda"]`:
+    the first step's loss within 1e-3 and every summed gradient within 5e-3
+    of its largest entry, frames bit-equal or 40 dB; grids equal), both ranks
+    bit-equal in everything they return."""
+    from object_nerf_torch.parallel import dryrun
+
+    assert dryrun.main(["--nprocs", "2", "--device", "cuda", "--backend", "gloo",
+                        "--out", str(tmp_path)]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("dryrun(2): OK")

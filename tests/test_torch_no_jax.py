@@ -1,6 +1,7 @@
 """The port imports nothing of JAX, of the JAX package or of its `scripts/`
-(its training, edit, mesh and voxel modules, its probe scripts and
-`python -m object_nerf_torch.train`, `.edit` and `.tools.extract_mesh`
+(its training, edit, mesh, voxel and data-parallel modules, its probe scripts,
+`python -m object_nerf_torch.train`, `.edit` and `.tools.extract_mesh`, and
+the rank processes of `python -m object_nerf_torch.parallel.dryrun`
 included), `chip_smoke.py` refuses to run without a card, and so do the probe
 scripts."""
 
@@ -54,7 +55,8 @@ def test_every_port_module_imports_without_jax():
             "object_nerf_torch.ops.probes", "object_nerf_torch.scripts._fixtures",
             "object_nerf_torch.scripts.profile_dma_gather",
             "object_nerf_torch.scripts.profile_pe_micro",
-            "object_nerf_torch.scripts.profile_voxel_split"} <= walked
+            "object_nerf_torch.scripts.profile_voxel_split",
+            "object_nerf_torch.parallel.mesh", "object_nerf_torch.parallel.dryrun"} <= walked
     assert (PORT / "native" / "__init__.py").exists() and (PORT / "tools" / "__init__.py").exists()
 
 
@@ -113,6 +115,27 @@ def test_mesh_cli_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "sigma grid" in out.stdout and "marching backend" in out.stdout
+
+
+def test_dryrun_ranks_run_without_jax(tmp_path):
+    """`python -m object_nerf_torch.parallel.dryrun` and the rank processes it
+    starts run with JAX, the JAX package and `scripts` unimportable: modules
+    of those names that raise on import come first on their PYTHONPATH."""
+    blocked = tmp_path / "blocked"
+    blocked.mkdir()
+    for name in ("jax", "jaxlib", "object_nerf_tpu", "scripts"):
+        (blocked / f"{name}.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    env = _env()
+    env["PYTHONPATH"] = os.pathsep.join([str(blocked), str(ROOT)])
+    out = subprocess.run([sys.executable, "-m", "object_nerf_torch.parallel.dryrun",
+                          "--nprocs", "2", "--scenarios", "eval_render,indivisible_batch",
+                          "--timeout", "240"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1].startswith("dryrun(2): OK, eval_render ")
+    probe = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path, env=env,
+                           capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "jax is blocked" in probe.stderr
 
 
 def test_no_jax_import_in_port_sources():

@@ -2,6 +2,7 @@
 png_io.py`, `data/image_utils.py`) against cv2 and PIL, which the JAX
 package's dataset reads frames with."""
 
+import struct
 import zlib
 
 import cv2
@@ -87,18 +88,88 @@ def _idat_rows(path, img):
     return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(img.shape[0], -1)
 
 
+# Adam7 passes: (x0, y0, dx, dy) of the pixels each carries (PNG spec, 8.2)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _adam7_png(img):
+    """An Adam7-interlaced PNG of `img` (PIL and cv2 write none): each pass's
+    rows filtered on their own, the filter types cycling 0-4 over all rows
+    of all passes, empty passes left out. Returns (bytes, filters used)."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    bpp = c * img.dtype.itemsize
+    pix = np.ascontiguousarray(img.astype(">u2") if img.dtype == np.uint16 else img)
+    pix = pix.view(np.uint8).reshape(h, w, bpp)
+    raw, used, k = [], set(), 0
+    for x0, y0, dx, dy in ADAM7:
+        sub = pix[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        ftypes = (np.arange(k, k + ph) % 5).astype(np.uint8)
+        k += ph
+        used |= set(ftypes.tolist())
+        rows = png_io._filter_rows(sub.reshape(ph, pw * bpp), ftypes, bpp)
+        raw.append(np.concatenate([ftypes[:, None], rows], 1).tobytes())
+
+    def chunk(t, body):
+        return (struct.pack(">I", len(body)) + t + body
+                + struct.pack(">I", zlib.crc32(t + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * img.dtype.itemsize, {1: 0, 2: 4, 3: 2, 4: 6}[c],
+                       0, 0, 1)
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(b"".join(raw))) + chunk(b"IEND", b""))
+    return data, used
+
+
+@pytest.mark.parametrize("size", [(H, W), (1, 1), (3, 5), (7, 2), (9, 13)])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_reads_adam7_interlaced_files_bit_equal(tmp_path, size, channels, dtype):
+    """Every colour type at 8 and 16 bits, images smaller than 8 x 8 (empty
+    passes), every row filter inside the passes: bit-equal to the image,
+    to `cv2.imread(..., IMREAD_UNCHANGED)` and (where PIL keeps the depth)
+    to `PIL.Image.open` of the same bytes."""
+    shape = size if channels == 1 else (*size, channels)
+    img = _image(shape, dtype, seed=channels)
+    data, used = _adam7_png(img)
+    if size == (H, W):
+        assert used == {0, 1, 2, 3, 4}
+    path = tmp_path / "adam7.png"
+    path.write_bytes(data)
+    got = png_io.read_png(path)
+    assert got.dtype == dtype and got.shape == img.shape
+    np.testing.assert_array_equal(got, img)
+    ref = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if channels == 2:  # cv2 reads grey + alpha as BGRA
+        ref = ref[..., [0, 3]]
+    np.testing.assert_array_equal(got, _bgr(ref) if channels > 2 else ref)
+    if dtype == np.uint8 or channels == 1:
+        with Image.open(path) as pil:
+            assert pil.info.get("interlace") == 1
+            np.testing.assert_array_equal(got, np.asarray(pil))
+
+
 def test_interlaced_palette_and_low_depth_files_raise(tmp_path):
+    """An interlaced file now decodes (it used to raise); palette and
+    low-depth files still raise, naming the file."""
     img = _image((H, W, 3))
-    # an Adam7 header (PIL writes no interlaced PNG): IHDR's last byte, new CRC
+    inter = tmp_path / "interlaced.png"
+    inter.write_bytes(_adam7_png(img)[0])
+    np.testing.assert_array_equal(png_io.read_png(inter), img)
+    np.testing.assert_array_equal(png_io.read_png(inter), np.asarray(Image.open(inter)))
+    # an Adam7 header over plain scanlines is malformed
     data = bytearray(png_io.encode_png(img))
-    ihdr = bytes(data[12:29])
+    assert bytes(data[12:16]) == b"IHDR"
     data[28] = 1
     data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
-    assert ihdr[:4] == b"IHDR"
-    inter = tmp_path / "interlaced.png"
-    inter.write_bytes(bytes(data))
-    with pytest.raises(png_io.PNGError, match=f"{inter}.*interlaced"):
-        png_io.read_png(inter)
+    with pytest.raises(png_io.PNGError, match="image data holds"):
+        png_io.decode_png(bytes(data), "forged.png")
     pal = tmp_path / "palette.png"
     Image.fromarray(img).convert("P").save(pal)
     with pytest.raises(png_io.PNGError, match=f"{pal}.*palette"):

@@ -3,6 +3,9 @@ synthetic scene with `device=cpu`: artefacts, checkpoint retention, and a
 resume that repeats the uninterrupted run bit for bit. Modelled on
 tests/test_train_cli.py and tests/test_resume.py of the JAX package."""
 
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -172,3 +175,33 @@ def test_fit_resumes_mid_run_and_guards_nan(tmp_path):
     sys3.train_step.global_step = 0
     with pytest.raises(FloatingPointError, match="non-finite loss"):
         sys3.fit()
+
+
+_NO_PIL = r"""
+import sys
+sys.modules["PIL"] = None  # tensorboardX imports, its image summaries do not
+from object_nerf_torch.train import __main__ as train_cli
+train_cli.main(sys.argv[1:])
+"""
+
+
+def test_image_panel_is_best_effort_without_pil(tmp_path):
+    """With tensorboardX importable and PIL blocked (tensorboardX does not
+    require Pillow, but draws images with it), the CLI finishes: it writes
+    the validation scalars, says once per validation that the image panel was
+    skipped, and writes no image."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", _NO_PIL, *ARGS], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "Done." in out.stdout and "TensorBoard logging off" not in out.stdout
+    assert out.stdout.count("[val] image panel skipped") == out.stdout.count("[val] epoch")
+    assert out.stdout.count("[val] epoch") == 2
+    run = next((tmp_path / "logs").iterdir())
+    events = EventAccumulator(str(run))
+    events.Reload()
+    assert {"val/psnr", "val/ssim", "train/loss"} <= set(events.Tags()["scalars"])
+    assert events.Tags()["images"] == []
