@@ -19,7 +19,9 @@ pruned and subdivided, and its edit render. Phases 20 to 25: the shipped scene
 configs (`config/synthetic_desk.yml`, `config/scannet_base_0113_multi.yml`)
 through the train, eval and edit CLIs on a desk scene written to disk, the
 `rays_in_bbox` route among them. Phases 26 and 27: data parallel over a
-`torch.distributed` group (`object_nerf_torch/parallel/`), on the one card:
+`torch.distributed` group (`object_nerf_torch/parallel/`), on the one card.
+Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
+21's checkpoint, the scene viewer with that mesh, data preparation):
 
 1. prints the card's name and power limit (`nvidia-smi`);
 2. builds the CUDA kernels from `object_nerf_torch/ops/csrc/` (`nvcc`);
@@ -27,7 +29,11 @@ through the train, eval and edit CLIs on a desk scene written to disk, the
    f32 sums: the kernels' own rounding points) on identical seeded inputs
    at the chunk shape of the eval path (each also against its own
    relaunch, bit for bit), times both, prints the weight bytes their
-   forward chain copies from L2 per launch, and checks that the card's
+   forward chain copies from L2 per launch, times each in turns against the
+   same function as a chain of torch calls (`scripts/profile_mlp.py`: per
+   layer a bf16 `mm` on cuBLAS into f32, the bias and the activation, the
+   skip concatenation, the heads and the compositing; first held to the
+   plain version), and checks that the card's
    `sincosf` gives `sinf`'s and `cosf`'s bits (the chain's encoding takes
    both values of a pair from one `sincosf`);
 4. renders one 640x480 frame of the synthetic scene with `render_image`
@@ -46,8 +52,10 @@ through the train, eval and edit CLIs on a desk scene written to disk, the
    code (`cuobjdump -sass`; each must issue both, and ptxas must serialize
    none of their wgmma), prints the forward's weight stream, and
    times them (the backward split into its sweep, its weight-gradient GEMM
-   and its reduction by `torch.profiler`) and reads the memory one backward
-   launch adds at its peak (held to its workspace and partials);
+   and its reduction by `torch.profiler`), reads the memory one backward
+   launch adds at its peak (held to its workspace and partials), and times
+   both in turns against their torch chains (the backward's: `torch.autograd`
+   of the forward chain on the same cotangent);
 7. trains: an `ObjectNeRFSystem` on the synthetic scene (batch 2048, 64 + 64
    samples, perturbation and density noise on, Adam, poly schedule) takes
    one step through the kernels and the same step through the plain bf16
@@ -58,7 +66,8 @@ through the train, eval and edit CLIs on a desk scene written to disk, the
 8. holds the point-wise density kernel `fused_sigma_eval` against its plain
    version, both branches, at the edit chunk's 4096 x 64 points (a code per
    64, and one code for all of them as the mesh sweep calls it) and against
-   its relaunch, bit for bit, times it and prints its weight stream;
+   its relaunch, bit for bit, times it (and in turns against its torch
+   chain) and prints its weight stream;
 9. renders one 320x240 edit frame with an `EditableRenderer` (background +
    object 1 moved, its original carved out of the background; chunk 4096):
    finite maps, the launch counts that the hit-compaction plan implies, two
@@ -166,8 +175,26 @@ through the train, eval and edit CLIs on a desk scene written to disk, the
    phase 9's edit frame chunk-sharded, against the single process's frames
    (bit-equal, else phase 4's PSNR floor); prints each rank's step times and
    the gradient all-reduce's bytes and time;
-28. prints one JSON line describing all eight kernels (launch counts by
-   path, the data-parallel runs' among them), and, last, one JSON line
+28. runs the mesh CLI (`tools.extract_mesh.main`) on phase 21's desk
+   checkpoint as a user would: first at 64^3 to read its densities and
+   choose `sigma_threshold` (a high quantile of the positive ones), then at
+   256^3 with it: one `fused_sigma_eval` launch, one `gather_rows` launch a
+   chunk of 262,144 points and one table build, counted exactly; two
+   x-slices of its grid against the plain bf16 path; a non-empty mesh. Then
+   the scene viewer CLI (`tools.scene_visualizer.main`) with that mesh, the
+   desk's poses and boxes, to HTML and to PLY: the point, line and mesh
+   layers' counts, the labels `obj 1` to `obj 3`, the PLY's point count;
+   prints the sweep's ms and the viewer's host seconds;
+29. (host only, no image library) writes a `.sens` capture of the desk's 12
+   frames (its poses, depth from a seed, intrinsics from its focal length,
+   colour bytes that nothing decodes), loads it and exports depth (native and
+   halved), poses and intrinsics, each bit-equal to what was written; runs
+   the label export (`data_prep.scannet_labels.main`) on a scan of the
+   desk's point cloud with one segment a sphere: one box per instance, each
+   containing its vertices; prints the seconds of each;
+30. prints one JSON line describing all eight kernels (launch counts by
+   path, the data-parallel runs' and the desk mesh's among them; for rows
+   1-5 the torch chain's ms as `library_ms`), and, last, one JSON line
    naming the device.
 
 `--profile` adds a `torch.profiler` table of the device time of three
@@ -182,6 +209,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -363,6 +391,10 @@ SCENE_FRAMES = 12
 SCENE_STEPS = 30  # train CLI steps of phase 21, one validation after the last
 SCENE_ID = "scene0113_00"
 SCENE_EDIT_FRAMES = 2
+# phase 28: the mesh CLI's grid on the desk checkpoint, and the coarse grid
+# whose densities choose its sigma_threshold
+DESK_MESH_GRID, DESK_MESH_PROBE_GRID = 256, 64
+DESK_MESH_QUANTILE = 0.99
 # the scannet-keyed step's table gradient, kernels vs plain bf16, relative to
 # its largest entry: within this fraction of the plain bf16 step's own
 # distance to the plain f32 step (phase 17's relative limit). Phase 17's
@@ -818,6 +850,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     from object_nerf_torch.ops.compositing import composite
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import RenderDraws
+    from object_nerf_torch.scripts import profile_mlp as pm
     from object_nerf_torch.train.optim import make_optimizer
     from object_nerf_torch.train.system import make_train_step
 
@@ -877,6 +910,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     names = ("sigma", "rgb", "inst_sigma", "inst_rgb")
     ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
     plain_ms = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}
+    library = {"fused_mlp_eval": {}, "fused_mlp_bwd": {}}  # the torch chains, in turns
     errs = {"fused_mlp_eval": 0.0, "fused_mlp_bwd": 0.0}
     split = {}  # samples per ray -> the backward's ms by kernel
     launch_peak = {}  # samples per ray -> the bytes one backward launch adds at its peak
@@ -947,6 +981,20 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
             plain_ms["fused_mlp_bwd"][s_] = _cuda_ms(
                 lambda: fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g), 3)
             pack_ms = _cuda_ms(lambda: fused_mlp.pack_kernel_weights(model, cfg, True), 10)
+            chain = pm.chain_layers(model)[0]
+            library["fused_mlp_eval"][s_] = _library_turns(
+                f"fused_mlp_eval {tuple(xyz.shape)}",
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True),
+                lambda: pm.torch_mlp_eval(chain, cfg, xyz, dir_pe, codes), want)
+            chain, leaves = pm.chain_layers(model, grad=True)
+            library["fused_mlp_bwd"][s_] = _library_turns(
+                f"fused_mlp_bwd {tuple(xyz.shape)} (the chain: torch.autograd, same cotangent)",
+                lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
+                lambda: pm.torch_mlp_bwd(chain, leaves, cfg, xyz, dir_pe, codes, g),
+                (want_g, want_c), BWD_TOL,
+                lambda got, w: max(max(_rel(got[0][k], w[0][k]) for k in w[0]),
+                                   _rel(got[1], w[1])))
+            del chain, leaves
     with torch.no_grad():  # a ragged last tile, and each branch alone
         model, _, xyz, _, _, _ = shapes[N_SAMPLES]
         n_small = 37
@@ -1010,7 +1058,14 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
                        else "max abs / largest reference entry, per gradient tensor"),
             # one step launches each kernel once per shape: the sum is its cost
             "ms": sum(ms[name].values()), "plain_ms": sum(plain_ms[name].values()),
-            "bound_ms": sum(bound.values()), "bound_by": by[N_SAMPLES], "library_ms": None,
+            "bound_ms": sum(bound.values()), "bound_by": by[N_SAMPLES],
+            "library_ms": sum(v["library_ms"] for v in library[name].values()),
+            "library": (pm.LIBRARY if name == "fused_mlp_eval" else
+                        f"torch.autograd of the {pm.LIBRARY} (its products' backward on cuBLAS "
+                        "in bf16 with f32 sums)"),
+            "ms_in_turns": sum(v["ms_in_turns"] for v in library[name].values()),
+            "library_max_abs_err": max(v["library_max_abs_err"] for v in library[name].values()),
+            "library_ms_by_samples": {k: v["library_ms"] for k, v in library[name].items()},
             "ms_by_samples": ms[name], "bound_ms_by_samples": bound,
         })
     entries[1]["split_ms_by_samples"] = split
@@ -1175,6 +1230,7 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
     its launches) and its ms per launch by branch."""
     from object_nerf_torch.ops import fused_mlp
     from object_nerf_torch.ops import fused_sigma as fs
+    from object_nerf_torch.scripts import profile_mlp as pm
 
     if _branch_macs(cfg, False) != _macs_per_sample(cfg, True):
         raise SystemExit("the scene branch's operation count disagrees with the coarse pass's")
@@ -1184,10 +1240,11 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
     pts = (torch.rand(n, 3, generator=gen) * 3.0 - 1.5).to(dev)
     ids = torch.randint(0, 64, (n_rows,), generator=gen).to(dev)
     model = models.nerf_coarse
-    ms, plain_ms, bound, by, errs = {}, {}, {}, {}, {}
+    ms, plain_ms, bound, by, errs, library = {}, {}, {}, {}, {}, {}
     with torch.no_grad():
         codes = models.code_library(ids).contiguous()
         packed = fused_mlp.pack_kernel_weights(model, cfg, True, sigma_only=True)
+        chain = pm.chain_layers(model)[0]
         for branch in fs.BRANCHES:
             def run(branch=branch):
                 return fs.fused_sigma_eval(model, cfg, pts, codes, branch, s, packed=packed)
@@ -1215,6 +1272,10 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
             del again, whole
             ms[branch] = _cuda_ms(run, TIMED_LAUNCHES)
             plain_ms[branch] = _cuda_ms(run_plain, 3)
+            library[branch] = _library_turns(
+                f"fused_sigma_eval {branch}", run,
+                lambda branch=branch: pm.torch_sigma_eval(chain, cfg, pts, codes, branch, s),
+                want)
             instance = branch == "instance"
             macs = _branch_macs(cfg, instance)
             depth, width = (cfg.inst_D, cfg.inst_W) if instance else (cfg.D, cfg.W)
@@ -1238,7 +1299,11 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
         "max_abs_err": max(errs.values()), "tol": KERNEL_TOL, "err_is": "max abs",
         # a mixed edit chunk launches each branch once: the sum is its cost
         "ms": sum(ms.values()), "plain_ms": sum(plain_ms.values()),
-        "bound_ms": sum(bound.values()), "bound_by": by["scene"], "library_ms": None,
+        "bound_ms": sum(bound.values()), "bound_by": by["scene"],
+        "library_ms": sum(v["library_ms"] for v in library.values()), "library": pm.LIBRARY,
+        "ms_in_turns": sum(v["ms_in_turns"] for v in library.values()),
+        "library_max_abs_err": max(v["library_max_abs_err"] for v in library.values()),
+        "library_ms_by_branch": {k: v["library_ms"] for k, v in library.items()},
         "ms_by_branch": ms, "plain_ms_by_branch": plain_ms, "bound_ms_by_branch": bound,
     }
     return entry, ms
@@ -1528,6 +1593,35 @@ def _mesh_phase(torch, dev, models, settings):
     print(f"sigma sweep {n_timed}^3 ({n_timed ** 3} points, scene branch, chunk {MESH_CHUNK}): "
           f"{dt * 1e3:.1f} ms, {n_launch} launches, {n_timed ** 3 / dt / 1e6:.1f} M points/s")
     return launches
+
+
+def _library_turns(name, kernel, chain, want, tol=KERNEL_TOL, err=None):
+    """The kernel against the same function as a chain of torch calls
+    (`scripts/profile_mlp.py`), in turns (library, kernel, kernel, library;
+    the L2 flushed before each turn). The chain is first held to the kernel's
+    plain version `want` (max abs, or `err(got, want)`). Returns the entries'
+    library keys: its ms, the kernel's ms in the same turns, its error."""
+    from object_nerf_torch.scripts import profile_mlp as pm
+
+    got = chain()
+    if err is None:
+        pairs = ([(got[k], want[k]) for k in want] if isinstance(want, dict)
+                 else list(zip(got, want)) if isinstance(want, (tuple, list)) else [(got, want)])
+        e = max((a - b).abs().max().item() for a, b in pairs)
+    else:
+        e = err(got, want)
+    del got
+    if not e <= tol:
+        raise SystemExit(f"the torch chain of {name} disagrees with its plain version: {e:.3e}")
+    ms, lib, turns = pm.library_turns(kernel, chain)
+    print(f"{_card()}: {name}: kernel {ms:.3f} ms, torch chain {lib:.3f} ms in turns "
+          f"(library, kernel, "
+          f"kernel, library; {pm.LIBRARY_ROUNDS} rounds of {pm.LIBRARY_LAUNCHES} calls; turns "
+          "kernel " + " ".join(f"{t:.3f}" for t in turns["kernel"]) + ", torch "
+          + " ".join(f"{t:.3f}" for t in turns["torch"]) + f"); the chain vs the plain "
+          f"version: {e:.2e} (tol {tol:g})")
+    return {"library_ms": lib, "library": pm.LIBRARY, "ms_in_turns": ms,
+            "library_max_abs_err": e}
 
 
 def _bound(flop, nbytes, peak_flops, peak_bytes):
@@ -3206,10 +3300,242 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
         _expect(loss_nccl < head, "the loss under torchrun did not fall below phase 21's start")
     finally:
         os.chdir(cwd)
-    shutil.rmtree(work, ignore_errors=True)
+    # phases 28 and 29 work on the same desk and phase 21's run; main removes `work`
+    desk = {"work": work, "scene": scene, "args": desk_args, "run": run_b}
     return paths, {"err": route_err, "ms": route_ms, "plain_ms": route_plain_ms,
                    "bound_ms": route_bound, "bound_by": route_by,
-                   "frame_ms": route_frame_ms, "scene_pdf_frame_ms": scene_pdf_ms}
+                   "frame_ms": route_frame_ms, "scene_pdf_frame_ms": scene_pdf_ms}, desk
+
+
+def _desk_mesh_phase(torch, dev, desk):
+    """Phase 28: the mesh CLI on phase 21's desk checkpoint, then the scene
+    viewer CLI with that mesh, the desk's poses and boxes, as a user runs
+    them. Returns the sweep's launches of `fused_sigma_eval` and
+    `gather_rows`."""
+    import re
+
+    import numpy as np
+
+    from object_nerf_torch.data.ply_io import read_ply
+    from object_nerf_torch.models import voxel_grid as vg
+    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops.fused_sigma import sigma_eval_plain
+    from object_nerf_torch.tools import extract_mesh, scene_visualizer
+
+    work, args = desk["work"], desk["args"]
+    out_dir = os.path.join(work, "desk_mesh")
+    mesh_args = args + [f"ckpt_path={desk['run']}/last.ckpt", f"device={dev.type}",
+                        f"out_dir={out_dir}", "prefix=desk"]
+    sweep = extract_mesh.extract_sigma_grid
+    seen = []
+
+    def recording_sweep(*a, **k):  # the CLI's own call, its arguments and grid kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = sweep(*a, **k)
+        seen.append((a, k, grid, time.perf_counter() - t0))
+        return grid
+
+    extract_mesh.extract_sigma_grid = recording_sweep
+    try:
+        # a first look at the checkpoint's densities on a coarse grid (not
+        # counted) gives the threshold: a high quantile of the positive ones
+        extract_mesh.main(mesh_args + [f"N_grid={DESK_MESH_PROBE_GRID}"])
+        coarse = seen.pop()[2]
+        _expect((coarse > 0).any(), "the desk checkpoint has no positive density on the grid")
+        level = float(np.quantile(coarse[coarse > 0], DESK_MESH_QUANTILE))
+        print(f"desk checkpoint, {DESK_MESH_PROBE_GRID}^3 densities: "
+              f"{100 * (coarse > 0).mean():.2f} % above 0, max {coarse.max():.3f}; "
+              f"sigma_threshold={level!r} (the {DESK_MESH_QUANTILE:g} quantile of the positive "
+              f"ones)")
+        fused_mlp.reset_launch_counts()
+        gather.reset_launch_counts()
+        vg.build_counts["corner_table"] = 0
+        extract_mesh.main(mesh_args + [f"N_grid={DESK_MESH_GRID}", f"sigma_threshold={level!r}"])
+        torch.cuda.synchronize()
+        launched = dict(fused_mlp.launch_counts)
+        n_gather, n_build = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
+    finally:
+        extract_mesh.extract_sigma_grid = sweep
+    (models, settings, config, obj_id), kw, grid, t_sweep = seen.pop()
+    n = DESK_MESH_GRID
+    expect = -(-n ** 3 // extract_mesh.CUDA_CHUNK)
+    print(f"{_card()}: mesh CLI, phase 21's desk checkpoint, N_grid={n}: sweep "
+          f"{t_sweep * 1e3:.1f} ms "
+          f"(host clock around the CLI's sweep, the grid's copy to the host included); "
+          f"launches {launched}, gather_rows {n_gather}, table builds {n_build} (expect "
+          f"{expect} of fused_sigma_eval and of gather_rows, one chunk of "
+          f"{extract_mesh.CUDA_CHUNK} points each, and 1 build)")
+    _expect(launched == {**dict.fromkeys(launched, 0), "fused_sigma_eval": expect}
+            and n_gather == expect and n_build == 1,
+            "the desk mesh sweep's launch counts are not those of its path")
+    # two x-slices of the CLI's grid against the plain bf16 path on the same
+    # points and the same f32 corner table as the sweep's (and, for scale, the
+    # plain f32 path). Phase 14's limit, relative to the grid's largest
+    # density: the trained desk's densities reach about 10, the room's random
+    # model's about 1, and two bf16 computations differ in proportion
+    features, topo, static = kw["voxel_ctx"][:3]
+    model = models.nerf_fine
+    scale = float(grid.max())
+    errs, errs32 = {}, {}
+    with torch.no_grad():
+        ct = vg.make_corner_table(features, topo, static)
+        for i in (n // 2, (3 * n) // 5):
+            pts = extract_mesh.grid_points(config, i * n * n, n * n, dev)
+            raw, _ = vg.voxel_lookup_raw(features, topo, static, pts, ct=ct)
+            got = torch.from_numpy(grid[i]).to(dev).reshape(-1)
+            for out, dt in ((errs, torch.bfloat16), (errs32, torch.float32)):
+                want = sigma_eval_plain(model, settings.mlp, pts, None, "scene", n * n, raw,
+                                        dt).clamp_(min=0.0)
+                out[i] = (got - want).abs().max().item() / scale
+        del ct
+    print(f"mesh CLI grid vs the plain bf16 path on x-slices {list(errs)}: max abs / largest "
+          f"density ({scale:.4f}) " + ", ".join(f"{v:.3e}" for v in errs.values())
+          + f" (tol {VOX_MESH_F32_TOL:g}, phase 14's limit); vs the plain f32 path "
+          + ", ".join(f"{v:.3e}" for v in errs32.values())
+          + f" (not gated); densities {grid.min():.4f} .. {scale:.4f}")
+    _expect(np.isfinite(grid).all() and scale > 0 and max(errs.values()) <= VOX_MESH_F32_TOL,
+            "the desk mesh CLI's grid disagrees with the plain bf16 path")
+    ply = os.path.join(out_dir, "extracted_mesh_desk.ply")
+    mesh = read_ply(ply)
+    n_faces = 0 if mesh["faces"] is None else len(mesh["faces"])
+    _expect(n_faces > 0, "the desk mesh is empty")
+
+    # the scene viewer with that mesh, the desk's poses and boxes
+    with open(os.path.join(desk["scene"], "transforms_full.json")) as f:
+        n_cams = len(json.load(f)["frames"][::10])
+    n_pcd = len(read_ply(os.path.join(desk["scene"], "pcd.ply"))["points"])
+    n_lines = 12 * 3 + 4 * n_cams + (n_cams - 1)  # boxes, frusta, trajectory
+    secs = {}
+    for out in ("desk.html", "desk.ply"):
+        t0 = time.perf_counter()
+        scene_visualizer.main(args + [f"mesh={ply}", f"out={os.path.join(work, out)}"])
+        secs[out] = time.perf_counter() - t0
+    html = open(os.path.join(work, "desk.html")).read()
+    layers = {d["name"]: d for d in json.loads(
+        re.search(r"const DATA=(\[.*?\]), LABELS", html).group(1))}
+    labels = [d["t"] for d in json.loads(re.search(r"LABELS=(\[.*?\]), CENTER", html).group(1))]
+    got = {k: layers[k]["n"] for k in ("points", "lines", "mesh_0")}
+    want = {"points": n_pcd, "lines": 2 * n_lines, "mesh_0": 3 * n_faces}
+    back = read_ply(os.path.join(work, "desk.ply"))["points"]
+    mb = os.path.getsize(os.path.join(work, "desk.html")) / 1e6
+    print(f"{_card()}: scene viewer CLI, the desk with its {len(mesh['points'])}-vertex, "
+          f"{n_faces}-face mesh: desk.html in {secs['desk.html']:.3f} s host ({mb:.2f} MB; "
+          f"layers {got}, expected {want}; labels {labels}), desk.ply in "
+          f"{secs['desk.ply']:.3f} s host ({len(back)} points read back)")
+    _expect(got == want and labels == ["obj 1", "obj 2", "obj 3"],
+            "the viewer's layers or labels are not the desk's")
+    _expect(len(back) == n_pcd + 32 * n_lines + len(mesh["points"]),
+            "the viewer's PLY does not read back with the expected point count")
+    return {"fused_sigma_eval": launched["fused_sigma_eval"], "gather_rows": n_gather}
+
+
+def _data_prep_phase(desk):
+    """Phase 29 (host only, no image library): a `.sens` capture of the
+    desk's frames written, loaded and exported (depth, poses, intrinsics),
+    and a labelled scan of the desk's spheres through the label export."""
+    import zlib
+
+    import numpy as np
+
+    from object_nerf_torch.data.ply_io import read_ply, write_ply
+    from object_nerf_torch.data.png_io import read_png
+    from object_nerf_torch.data_prep import scannet_labels, sens_reader
+
+    root = os.path.join(desk["work"], "data_prep")
+    with open(os.path.join(desk["scene"], "transforms_full.json")) as f:
+        frames = json.load(f)["frames"]
+    focal = 0.7 * W  # the desk writer's focal length
+    k = np.array([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                 np.float32)
+    rng = np.random.RandomState(SEED)
+    depths = [(rng.rand(H, W) * 5000).astype(np.uint16) for _ in frames]
+    sd = sens_reader.SensorData(
+        sensor_name="chip_smoke desk", intrinsic_color=k, extrinsic_color=np.eye(4),
+        intrinsic_depth=k, extrinsic_depth=np.eye(4), color_width=W, color_height=H,
+        depth_width=W, depth_height=H)
+    for i, (fr, d) in enumerate(zip(frames, depths)):
+        sd.frames.append(sens_reader.RGBDFrame(
+            np.array(fr["transform_matrix"], np.float32), i, i,
+            b"colour bytes that nothing decodes %d" % i, zlib.compress(d.tobytes())))
+    sens = os.path.join(root, "desk.sens")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    sens_reader.write_sens(sens, sd)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = sens_reader.SensorData.load(sens)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded.export_depth_images(os.path.join(root, "depth"))
+    loaded.export_depth_images(os.path.join(root, "depth_half"), image_size=(H // 2, W // 2))
+    loaded.export_poses(os.path.join(root, "pose"))
+    loaded.export_intrinsics(os.path.join(root, "intrinsic"))
+    t_export = time.perf_counter() - t0
+
+    def text(mat):  # np.savetxt(fmt="%f") of what was written, formatted here
+        return "".join(" ".join(f"{v:f}" for v in row) + "\n" for row in np.asarray(mat))
+
+    for i, (fr, d) in enumerate(zip(frames, depths)):
+        _expect(np.array_equal(read_png(os.path.join(root, "depth", f"{i}.png")), d)
+                and np.array_equal(read_png(os.path.join(root, "depth_half", f"{i}.png")),
+                                   d[::2, ::2]),
+                f"frame {i}: the exported depth is not the depth written")
+        with open(os.path.join(root, "pose", f"{i}.txt")) as f:
+            _expect(f.read() == text(np.array(fr["transform_matrix"], np.float32)),
+                    f"frame {i}: the exported pose is not the pose written")
+    for name, mat in (("intrinsic_color", k), ("intrinsic_depth", k),
+                      ("extrinsic_color", np.eye(4)), ("extrinsic_depth", np.eye(4))):
+        with open(os.path.join(root, "intrinsic", f"{name}.txt")) as f:
+            _expect(f.read() == text(mat.astype(np.float32)), f"{name}.txt differs")
+    print(f"{_card()} (host only): .sens capture of the desk's {len(frames)} frames ({W}x{H} "
+          f"depth, "
+          f"{os.path.getsize(sens) / 1e6:.2f} MB): written in {t_write:.3f} s, loaded in "
+          f"{t_load:.3f} s; depth (native and {W // 2}x{H // 2}), poses and intrinsics exported "
+          f"in {t_export:.2f} s, bit-equal to what was written")
+
+    # a labelled scan of the desk's spheres: the point cloud's vertices, one
+    # segment per sphere (the plane's unlabelled), an identity axisAlignment
+    pts = read_ply(os.path.join(desk["scene"], "pcd.ply"))["points"]
+    seg = np.zeros(len(pts), np.int64)  # make_dataset: 1500 plane points, then 600 a sphere
+    seg[1500:] = 1 + np.arange(len(pts) - 1500) // 600
+    scan_id = "scene0113_00"
+    scan = os.path.join(root, "scans", scan_id)
+    os.makedirs(scan)
+    write_ply(os.path.join(scan, f"{scan_id}_vh_clean_2.ply"), pts)
+    with open(os.path.join(scan, f"{scan_id}_vh_clean_2.0.010000.segs.json"), "w") as f:
+        json.dump({"segIndices": seg.tolist()}, f)
+    with open(os.path.join(scan, f"{scan_id}.aggregation.json"), "w") as f:
+        json.dump({"segGroups": [{"objectId": j - 1, "label": "ball" if j < 3 else "bowl",
+                                   "segments": [j]} for j in (1, 2, 3)]}, f)
+    with open(os.path.join(scan, f"{scan_id}.txt"), "w") as f:
+        f.write("axisAlignment = " + " ".join(f"{v:g}" for v in np.eye(4).reshape(-1)) + "\n")
+    tsv = os.path.join(root, "labels.tsv")
+    with open(tsv, "w") as f:
+        f.write("raw_category\tnyu40id\nball\t40\nbowl\t39\n")
+    t0 = time.perf_counter()
+    scannet_labels.main(["--scannet_dir", os.path.join(root, "scans"), "--label_map_file", tsv,
+                         "--output_dir", os.path.join(root, "labels")])
+    t_labels = time.perf_counter() - t0
+    out = os.path.join(root, "labels", scan_id)
+    boxes = np.load(out + "_bbox.npy")
+    verts, inst = np.load(out + "_vert.npy"), np.load(out + "_ins_label.npy")
+    sem = np.load(out + "_sem_label.npy")
+    _expect(boxes.shape == (3, 7) and np.array_equal(verts[:, :3], pts.astype(np.float64))
+            and np.array_equal(inst, seg) and np.array_equal(sem, np.select(
+                [seg == 0, seg < 3], [0, 40], 39).astype(np.uint32)),
+            "the label export's vertices, instances or labels are not the scan's")
+    for row in boxes:  # centre and size are float32 sums of the vertices: 1e-6 of slack
+        j = int(row[6])
+        p = verts[inst == j, :3]
+        lo, hi = row[:3] - row[3:6] / 2, row[:3] + row[3:6] / 2
+        _expect(len(p) == 600 and (p >= lo - 1e-6).all() and (p <= hi + 1e-6).all(),
+                f"instance {j}'s box does not contain its vertices")
+    print(f"{_card()} (host only): label export of a {len(pts)}-vertex scan of the desk (3 "
+          f"instances, a two-row "
+          f"label map): parsed and exported in {t_labels:.3f} s; boxes (centre, size, id) "
+          + "; ".join(" ".join(f"{v:.3f}" for v in row) for row in boxes)
+          + "; each contains its instance's 600 vertices")
 
 
 def _prune_crossing(torch, system) -> None:
@@ -3500,6 +3826,7 @@ def main() -> int:
     from object_nerf_torch.ops import _build, fused_mlp
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import render_rays_plain
+    from object_nerf_torch.scripts import profile_mlp as pm
     from object_nerf_torch.train.metrics import psnr
     from object_nerf_torch.train.system import render_image
 
@@ -3599,6 +3926,18 @@ def main() -> int:
             "fused_coarse_weights": _cuda_ms(run_coarse_plain, 3),
             "fused_render_tiles": _cuda_ms(run_fine_plain, 3),
         }
+        # the same functions as chains of torch calls (the library yardstick)
+        chain_c = pm.chain_layers(models.nerf_coarse)[0]
+        chain_f = pm.chain_layers(models.nerf_fine)[0]
+        library = {
+            "fused_coarse_weights": _library_turns(
+                "fused_coarse_weights", run_coarse,
+                lambda: pm.torch_coarse_weights(chain_c, cfg, xyz_c, z_c), w_plain),
+            "fused_render_tiles": _library_turns(
+                "fused_render_tiles", run_fine,
+                lambda: pm.torch_render_tiles(chain_f, cfg, xyz_f, z_f, dir_pe, codes), maps_p),
+        }
+        del chain_c, chain_f
     n_c, n_f = CHUNK * settings.N_samples, CHUNK * (settings.N_samples + settings.N_importance)
     flops = {
         "fused_coarse_weights": 2 * _macs_per_sample(cfg, True) * n_c,
@@ -3751,7 +4090,7 @@ def main() -> int:
 
     # -- 20 to 25. the shipped scene configs through the CLIs ---------------------------------
     torch.cuda.empty_cache()
-    scene_paths, route = _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms)
+    scene_paths, route, desk = _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms)
     for entry in train_entries + [sigma_entry, gather_entry]:
         name = entry["name"]
         entry["launches_by_path"] = {**entry.get("launches_by_path",
@@ -3772,7 +4111,18 @@ def main() -> int:
         entry["launches_by_path"]["data_parallel"] = dp[entry["name"]]
         entry["launches"] = sum(entry["launches_by_path"].values())
 
-    # -- 28. the kernels ------------------------------------------------------------
+    # -- 28. the desk checkpoint's mesh drawn in the scene viewer ---------------------------
+    torch.cuda.empty_cache()
+    desk_mesh = _desk_mesh_phase(torch, dev, desk)
+    for entry in (sigma_entry, gather_entry):
+        entry["launches_by_path"]["desk_mesh"] = desk_mesh[entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+    # -- 29. data preparation on the desk (host only) -----------------------------------
+    _data_prep_phase(desk)
+    shutil.rmtree(desk["work"], ignore_errors=True)
+
+    # -- 30. the kernels ------------------------------------------------------------
     replaces = {
         "fused_coarse_weights": "object_nerf_tpu/ops/pallas_mlp.py:845",
         "fused_render_tiles": "object_nerf_tpu/ops/pallas_mlp.py:639",
@@ -3789,7 +4139,7 @@ def main() -> int:
                               **scene_paths[k], "data_parallel": dp[k]},
          "max_abs_err": max(errs[k], vox[k]["err"]),
          "tol": KERNEL_TOL, "err_is": "max abs", "ms": ms[k], "plain_ms": plain_ms[k],
-         "bound_ms": bound_ms[k], "bound_by": bound_by[k], "library_ms": None,
+         "bound_ms": bound_ms[k], "bound_by": bound_by[k], **library[k],
          "voxel_ms": vox[k]["ms"], "voxel_plain_ms": vox[k]["plain_ms"],
          "voxel_bound_ms": vox[k]["bound_ms"],
          **chain_build[k]}

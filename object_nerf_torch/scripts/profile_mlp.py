@@ -21,8 +21,15 @@ each kernel of PERF.md's table at the shapes of its rows:
    that `profile_pe_micro.py` times, on the inputs it draws.
 `--step-peak` adds the peak device memory of one training step (batch 2048,
 64 + 64 samples, the synthetic scene's rays; the voxel model on the
-ScanNet-scale room's grid of `_fixtures.py`). Prints the card's name and
-power limit, one line per measurement, and one JSON line.
+ScanNet-scale room's grid of `_fixtures.py`). Rows 1-5 are also timed
+against the same function as a chain of torch calls (`torch_coarse_weights`,
+`torch_render_tiles`, `torch_mlp_eval`, `torch_mlp_bwd`, `torch_sigma_eval`:
+per layer one bf16 `mm` on cuBLAS into f32, the bias and the activation; the
+skip concatenation and the heads; the compositing in torch; for row 4
+`torch.autograd` of that chain on the same cotangent), in turns (library,
+kernel, kernel, library; the L2 flushed before each turn), as
+`profile_pe_micro.py` times row 6. Prints the card's name and power limit,
+one line per measurement, and one JSON line.
 
 It calls only entry points that the port has had since its voxel model was
 first trained, with the same arguments, so the same file, copied into an
@@ -36,23 +43,28 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from ..config import load_config
 from ..data import dataset_dict
 from ..data.ply_io import write_ply
 from ..models.embedding import freq_encode
-from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
+from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from ..ops import probes
+from ..ops.compositing import (
+    alphas_from_sigmas, composite, composite_instance, compute_deltas, weights_from_alphas,
+)
 from ..ops.fused_mlp import fused_coarse_weights, fused_render_tiles, pack_kernel_weights
 from ..ops.fused_mlp_vjp import fused_mlp_bwd, fused_mlp_eval
 from ..ops.fused_sigma import fused_sigma_eval
 from ..train.system import ObjectNeRFSystem
 from ._fixtures import SCENE, probe_inputs, scannet_scale_pcd
-from ._timing import card_line, median_ms, require_cuda
+from ._timing import card_line, median_ms, require_cuda, turns_ms
 
 BATCH = 2048
 SAMPLES = (64, 128)
@@ -62,6 +74,156 @@ SIGMA_POINTS = 4096 * 64
 PROBE_ROWS = 7680 * 128
 PROBE_MODES = ("none", "combined", "combined_polysin", "split_polysin")
 SEED = 0
+LIBRARY_ROUNDS, LIBRARY_LAUNCHES = 3, 5  # rounds of four turns, calls a turn
+LIBRARY = ("torch bf16 chain: per layer bf16 mm on cuBLAS into f32, bias, activation; the "
+           "skip concatenation and the heads (rows 1-2: and the compositing)")
+
+
+# ---------------------------------------------------------------------------
+# Rows 1-5 as chains of torch calls (the library yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 a @ bf16 b, f32 sums, f32 result: one cuBLAS call on the card
+    (`out_dtype`); on the CPU, which lacks that overload, the same product
+    through f32 copies."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _ChainMM(torch.autograd.Function):
+    """x @ w.T with both rounded to bf16 and f32 sums; the backward is two
+    more bf16 products of the cotangent rounded to bf16, f32 out (the input
+    gradient stays f32, as the kernel's does)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        return _mm(xb, wb.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        return _mm(gb, wb), _mm(gb.t(), xb)
+
+
+def chain_layers(model: ObjectNeRF, grad: bool = False):
+    """The two branches' layers for the torch chain: ({"scene" | "object":
+    {"trunk": [(w, b)], "skips", "sigma", "final", "dir", "rgb"}}, leaves).
+    Weights are cast to bf16 once; with `grad` every weight and bias is an
+    f32 leaf that requires grad instead, and `leaves` maps the model's
+    parameter names to them."""
+    names = {id(m): n for n, m in model.named_modules()}
+    leaves = {}
+
+    def pair(lin):
+        if not grad:
+            return lin.weight.detach().to(torch.bfloat16), lin.bias.detach()
+        w = lin.weight.detach().clone().requires_grad_()
+        b = lin.bias.detach().clone().requires_grad_()
+        leaves[names[id(lin)] + ".weight"], leaves[names[id(lin)] + ".bias"] = w, b
+        return w, b
+
+    layers = {}
+    for branch in ("scene", "object"):
+        p = model.branch_layers(branch)
+        layers[branch] = {"trunk": [pair(lin) for lin in p["trunk"]], "skips": p["skips"],
+                          **{k: pair(p[k]) for k in ("sigma", "final", "dir", "rgb")}}
+    return layers, leaves
+
+
+def _linear(h: torch.Tensor, wb) -> torch.Tensor:
+    w, b = wb
+    if w.requires_grad:
+        return _ChainMM.apply(h, w) + b
+    return _mm(h.to(torch.bfloat16), w.t()) + b
+
+
+def _chain_branch(L, x, emb_dir, sigma_only: bool):
+    h = x
+    for i, wb in enumerate(L["trunk"]):
+        if i in L["skips"]:
+            h = torch.cat([x, h], dim=-1)
+        h = F.leaky_relu(_linear(h, wb), LEAKY_SLOPE)
+    sigma = _linear(h, L["sigma"])[:, 0]
+    if sigma_only:
+        return sigma, None
+    h = _linear(h, L["final"])
+    h = F.leaky_relu(_linear(torch.cat([h, emb_dir], dim=-1), L["dir"]), LEAKY_SLOPE)
+    return sigma, torch.sigmoid(_linear(h, L["rgb"]))
+
+
+def _object_input(emb, obj_voxel, codes, per_row: int):
+    rows = codes.repeat_interleave(per_row, dim=0)
+    return torch.cat([emb] + ([obj_voxel] if obj_voxel is not None else []) + [rows], dim=-1)
+
+
+def _raw(voxel_raw):
+    return None if voxel_raw is None else voxel_raw.float()
+
+
+def torch_mlp_eval(L, cfg, xyz, dir_pe, codes, voxel_raw=None):
+    """Row 3 (`fused_mlp_eval`, both branches) as torch calls: sigma (n, S),
+    rgb (n, S, 3), inst_sigma, inst_rgb."""
+    n, s, _ = xyz.shape
+    emb, obj_voxel = embed_inputs(cfg, xyz.reshape(n * s, 3), _raw(voxel_raw))
+    dirs = dir_pe.repeat_interleave(s, dim=0)
+    sigma, rgb = _chain_branch(L["scene"], emb, dirs, False)
+    i_sigma, i_rgb = _chain_branch(L["object"], _object_input(emb, obj_voxel, codes, s),
+                                   dirs, False)
+    return (sigma.reshape(n, s), rgb.reshape(n, s, 3), i_sigma.reshape(n, s),
+            i_rgb.reshape(n, s, 3))
+
+
+def torch_coarse_weights(L, cfg, xyz, z_vals, voxel_raw=None):
+    """Row 1 (`fused_coarse_weights`) as torch calls: (n, S) pdf weights."""
+    n, s, _ = xyz.shape
+    emb, _ = embed_inputs(cfg, xyz.reshape(n * s, 3), _raw(voxel_raw))
+    sigma, _ = _chain_branch(L["scene"], emb, None, True)
+    return weights_from_alphas(alphas_from_sigmas(sigma.reshape(n, s),
+                                                  compute_deltas(z_vals, True)))
+
+
+def torch_render_tiles(L, cfg, xyz, z_vals, dir_pe, codes, voxel_raw=None):
+    """Row 2 (`fused_render_tiles`, both branches) as torch calls: the same
+    per-ray maps."""
+    sigma, rgb, i_sigma, i_rgb = torch_mlp_eval(L, cfg, xyz, dir_pe, codes, voxel_raw)
+    scene = composite(sigma, rgb, z_vals)
+    inst = composite_instance(i_sigma, i_rgb, z_vals, scene.depth, apply_occlusion=False)
+    return {"rgb": scene.rgb, "depth": scene.depth, "opacity": scene.opacity,
+            "rgb_instance": inst.rgb, "depth_instance": inst.depth,
+            "opacity_instance": inst.opacity}
+
+
+def torch_sigma_eval(L, cfg, pts, codes, branch: str, per_row: int, voxel_raw=None):
+    """Row 5 (`fused_sigma_eval`) as torch calls: (N,) raw density."""
+    emb, obj_voxel = embed_inputs(cfg, pts, _raw(voxel_raw))
+    if branch == "scene":
+        return _chain_branch(L["scene"], emb, None, True)[0]
+    return _chain_branch(L["object"], _object_input(emb, obj_voxel, codes, per_row),
+                         None, True)[0]
+
+
+def torch_mlp_bwd(L, leaves, cfg, xyz, dir_pe, codes, g, voxel_raw=None):
+    """Row 4 (`fused_mlp_bwd`) as torch calls: `torch.autograd` of
+    `torch_mlp_eval` on `chain_layers(model, grad=True)` for the cotangent g
+    (n*S, 8). Returns ({parameter name: gradient}, d_codes, d_voxel_raw or
+    None), as `fused_mlp_bwd` does."""
+    n, s, _ = xyz.shape
+    with torch.enable_grad():
+        c = codes.detach().requires_grad_()
+        raw = None if voxel_raw is None else voxel_raw.detach().float().requires_grad_()
+        outs = torch_mlp_eval(L, cfg, xyz, dir_pe, c, raw)
+        g4 = g.reshape(n, s, 8)
+        inputs = list(leaves.values()) + [c] + ([raw] if raw is not None else [])
+        got = torch.autograd.grad(outs, inputs,
+                                  [g4[..., 0], g4[..., 1:4], g4[..., 4], g4[..., 5:8]])
+    k = len(leaves)
+    return dict(zip(leaves, got[:k])), got[k], (got[k + 1] if raw is not None else None)
 
 
 def _inputs(cfg, n, s, dev, gen):
@@ -129,6 +291,14 @@ def _time(out, key, fn, launches, card):
     print(f"{key}: {out['ms'][key]:.3f} ms/launch (median of {launches}); {card}")
 
 
+def library_turns(kernel, chain):
+    """(kernel ms, chain ms, turns): medians of `turns_ms` in turns of
+    library, kernel, kernel, library."""
+    turns = turns_ms({"kernel": kernel, "torch": chain}, ("torch", "kernel", "kernel", "torch"),
+                     LIBRARY_ROUNDS, LIBRARY_LAUNCHES)
+    return statistics.median(turns["kernel"]), statistics.median(turns["torch"]), turns
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--launches", type=int, default=10)
@@ -139,7 +309,16 @@ def main(argv=None) -> int:
     dev = require_cuda()
     card = card_line()
     print(card)
-    out = {"card": card, "ms": {}, "launch_peak_bytes": {}}
+    out = {"card": card, "ms": {}, "launch_peak_bytes": {},
+           "library": {"chain": LIBRARY, "ms_in_turns": {}, "library_ms": {}}}
+
+    def vs_library(key, kernel, chain):
+        ms, lib, turns = library_turns(kernel, chain)
+        out["library"]["ms_in_turns"][key], out["library"]["library_ms"][key] = ms, lib
+        print(f"{key}: in turns kernel {ms:.3f} ms, torch chain {lib:.3f} ms (turns kernel "
+              + " ".join(f"{t:.3f}" for t in turns["kernel"]) + ", torch "
+              + " ".join(f"{t:.3f}" for t in turns["torch"]) + f"); {card}")
+
     gen = torch.Generator().manual_seed(SEED)
     for voxel in (False, True):
         cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
@@ -147,19 +326,26 @@ def main(argv=None) -> int:
         name = "voxel" if voxel else "classical"
         packed = pack_kernel_weights(model, cfg, True)
         coarse = pack_kernel_weights(model, cfg, False, sigma_only=True)
+        layers = chain_layers(model)[0]
         with torch.no_grad():
             if 1 in rows or 2 in rows:
                 for s in (64, 128):
                     xyz, dir_pe, codes, raw, _ = _inputs(cfg, CHUNK, s, dev, gen)
                     z = (xyz - xyz[:, :1]).norm(dim=-1).contiguous()
                     if s == 64 and 1 in rows:
-                        _time(out, f"fused_coarse_weights {name} {CHUNK}x{s}",
-                              lambda: fused_coarse_weights(model, cfg, xyz, z, voxel_raw=raw,
-                                                           packed=coarse), args.launches, card)
+                        key = f"fused_coarse_weights {name} {CHUNK}x{s}"
+                        run = lambda: fused_coarse_weights(model, cfg, xyz, z, voxel_raw=raw,
+                                                           packed=coarse)
+                        _time(out, key, run, args.launches, card)
+                        vs_library(key, run,
+                                   lambda: torch_coarse_weights(layers, cfg, xyz, z, raw))
                     if s == 128 and 2 in rows:
-                        _time(out, f"fused_render_tiles {name} {CHUNK}x{s}",
-                              lambda: fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw,
-                                                         packed=packed), args.launches, card)
+                        key = f"fused_render_tiles {name} {CHUNK}x{s}"
+                        run = lambda: fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw,
+                                                         packed=packed)
+                        _time(out, key, run, args.launches, card)
+                        vs_library(key, run, lambda: torch_render_tiles(
+                            layers, cfg, xyz, z, dir_pe, codes, raw))
                     del xyz, dir_pe, codes, raw, z
             if 3 in rows:
                 for n, s, flags in ((BATCH, 64, (True, True)), (BATCH, 128, (True, True)),
@@ -168,9 +354,13 @@ def main(argv=None) -> int:
                     xyz, dir_pe, codes, raw, _ = _inputs(cfg, n, s, dev, gen)
                     what = {(True, True): "", (False, True): " scene only",
                             (True, False): " object only"}[flags]
-                    _time(out, f"fused_mlp_eval {name} {n}x{s}{what}",
-                          lambda: fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, *flags,
-                                                 packed=packed), args.launches, card)
+                    key = f"fused_mlp_eval {name} {n}x{s}{what}"
+                    run = lambda: fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, *flags,
+                                                 packed=packed)
+                    _time(out, key, run, args.launches, card)
+                    if not what:  # the chain computes both branches
+                        vs_library(key, run, lambda: torch_mlp_eval(layers, cfg, xyz, dir_pe,
+                                                                    codes, raw))
                     del xyz, dir_pe, codes, raw
             if 5 in rows:
                 n_rows = SIGMA_POINTS // 64
@@ -179,10 +369,12 @@ def main(argv=None) -> int:
                 raw = None if raw is None else raw.reshape(SIGMA_POINTS, -1)
                 sig = pack_kernel_weights(model, cfg, True, sigma_only=True)
                 for branch in ("scene", "instance"):
-                    _time(out, f"fused_sigma_eval {name} {SIGMA_POINTS} points {branch}",
-                          lambda: fused_sigma_eval(model, cfg, pts, codes, branch, 64,
-                                                   voxel_raw=raw, packed=sig),
-                          args.launches, card)
+                    key = f"fused_sigma_eval {name} {SIGMA_POINTS} points {branch}"
+                    run = lambda: fused_sigma_eval(model, cfg, pts, codes, branch, 64,
+                                                   voxel_raw=raw, packed=sig)
+                    _time(out, key, run, args.launches, card)
+                    vs_library(key, run, lambda: torch_sigma_eval(layers, cfg, pts, codes,
+                                                                  branch, 64, raw))
                 del xyz, codes, raw, pts, sig
         if 4 in rows:
             for s in SAMPLES:
@@ -196,10 +388,14 @@ def main(argv=None) -> int:
                 key = f"fused_mlp_bwd {name} {BATCH}x{s}"
                 out["launch_peak_bytes"][key] = _peak_bytes(run, dev)
                 _time(out, key, run, args.launches, card)
+                layers_g, leaves = chain_layers(model, grad=True)
+                vs_library(key, run, lambda: torch_mlp_bwd(layers_g, leaves, cfg, xyz, dir_pe,
+                                                           codes, g, raw))
+                del layers_g, leaves
                 print(f"{key}: one launch adds {out['launch_peak_bytes'][key] / 1e9:.3f} GB at "
                       f"its peak; {card}")
                 del xyz, dir_pe, codes, raw, g
-        del model, packed, coarse
+        del model, packed, coarse, layers
     if 6 in rows:
         x, s, trunk = probe_inputs(PROBE_ROWS, dev)
         ptrunk = probes.pack_probe_trunk(trunk)
