@@ -197,9 +197,6 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    1-5 the torch chain's ms as `library_ms`), and, last, one JSON line
    naming the device.
 
-`--profile` adds a `torch.profiler` table of the device time of three
-training steps by kernel, classical and voxel.
-
 Any failed check exits non-zero. Without CUDA, or run from a directory that
 holds this file and nothing else of the repository, it exits non-zero and
 prints no result. It imports nothing of JAX or of `object_nerf_tpu`.
@@ -838,7 +835,7 @@ def _voxel_train_system(torch, dev, tmp):
     return system
 
 
-def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
+def _train_phases(torch, dev, peak_flops, peak_bytes):
     """Phases 6 and 7; returns the two training kernels' entries for the
     `kernels` line, the build report of the forward chain's kernels and the
     first step's loss and gradients, and prints everything else."""
@@ -1189,27 +1186,6 @@ def _train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     if not all(v == v for v in metrics.values()):
         raise SystemExit("validation metrics are not finite")
 
-    if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        n_prof = 3
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_prof):
-                system.training_step(system.train_dataset.sample_batch(BATCH, rng))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        averages = prof.key_averages()
-        print(averages.table(sort_by="cuda_time_total", row_limit=25,
-                             max_name_column_width=60))
-        busy_ms = sum(e.self_device_time_total for e in averages  # kernels and copies only
-                      if e.device_type == DeviceType.CUDA) / 1e3
-        print(f"profiled {n_prof} steps: device busy {busy_ms / n_prof:.2f} ms per step of "
-              f"{wall_ms / n_prof:.2f} ms wall (with the profiler's own cost on the host): "
-              f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %; against the unprofiled "
-              f"{step_ms:.2f} ms step: {100 * (1 - busy_ms / n_prof / step_ms):.1f} %")
     return entries, chain_build, first_step
 
 
@@ -1890,9 +1866,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
 
     # -- 13. one 640x480 voxel frame through the main path ---------------------------------
     def reset_counts():
-        fused_mlp.reset_launch_counts()
-        gather.reset_launch_counts()
-        vg.build_counts["corner_table"] = 0
+        fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
     def frame():
         return render_image(models, settings, batch, chunk=CHUNK, device=dev,
@@ -2184,7 +2158,7 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes, build):
     ]
 
 
-def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
+def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     """Phases 16 to 18: the voxel-conditioned model's training kernels against
     their plain versions, its training step, and the progressive hooks.
     Returns, for rows 3-4 and the sigma kernel and the gather, what the
@@ -2208,9 +2182,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     from object_nerf_torch.train.system import make_train_step
 
     def reset_counts():
-        fused_mlp.reset_launch_counts()
-        gather.reset_launch_counts()
-        vg.build_counts["corner_table"] = 0
+        fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
     def counts():
         return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
@@ -2499,25 +2471,6 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes, profile: bool):
     train_launches = {"fused_mlp_eval": 2 * (n_steps + 1), "fused_mlp_bwd": 2 * (n_steps + 1),
                       "gather_rows": 2 * (n_steps + 1)}
 
-    if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                system.training_step(system.train_dataset.sample_batch(BATCH, rng))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        averages = prof.key_averages()
-        print(averages.table(sort_by="cuda_time_total", row_limit=25,
-                             max_name_column_width=60))
-        busy_ms = sum(e_.self_device_time_total for e_ in averages
-                      if e_.device_type == DeviceType.CUDA) / 1e3
-        print(f"profiled 3 voxel steps: device busy {busy_ms / 3:.2f} ms per step of "
-              f"{wall_ms / 3:.2f} ms wall: idle share {100 * (1 - busy_ms / wall_ms):.1f} %")
-
     # -- 18. prune and subdivide on the room, then the subdivided step ---------------------------
     # the prune's decisions on the card against its plain f32 version on the
     # same jitter, at the median of the card's per-voxel alphas
@@ -2710,9 +2663,7 @@ def _voxel_edit_phase(torch, dev):
     fovx = 70.0
     kw = dict(h=EDIT_H, w=EDIT_W, camera_pose_Twc=Twc, fovx_deg=fovx, chunk=EDIT_CHUNK)
 
-    fused_mlp.reset_launch_counts()
-    gather.reset_launch_counts()
-    vg.build_counts["corner_table"] = 0
+    fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
     frame = renderer.render_edit(**kw)
     torch.cuda.synchronize()
     launches = dict(fused_mlp.launch_counts)
@@ -2840,9 +2791,7 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
     from object_nerf_torch.train.optim import make_optimizer
 
     def reset_counts():
-        fused_mlp.reset_launch_counts()
-        gather.reset_launch_counts()
-        vg.build_counts["corner_table"] = 0
+        fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
     def counts():
         return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
@@ -3348,9 +3297,7 @@ def _desk_mesh_phase(torch, dev, desk):
               f"{100 * (coarse > 0).mean():.2f} % above 0, max {coarse.max():.3f}; "
               f"sigma_threshold={level!r} (the {DESK_MESH_QUANTILE:g} quantile of the positive "
               f"ones)")
-        fused_mlp.reset_launch_counts()
-        gather.reset_launch_counts()
-        vg.build_counts["corner_table"] = 0
+        fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
         extract_mesh.main(mesh_args + [f"N_grid={DESK_MESH_GRID}", f"sigma_threshold={level!r}"])
         torch.cuda.synchronize()
         launched = dict(fused_mlp.launch_counts)
@@ -3601,9 +3548,7 @@ def _dp_worker(out_dir: str) -> int:
     res = {}
 
     def reset():
-        fused_mlp.reset_launch_counts()
-        gather.reset_launch_counts()
-        vg.build_counts["corner_table"] = 0
+        fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
     def counts():
         return {**fused_mlp.launch_counts, "gather_rows": gather.launch_counts["gather_rows"],
@@ -4019,8 +3964,7 @@ def main() -> int:
 
     # -- 6, 7. the training kernels and the training path ------------------------------
     torch.cuda.empty_cache()
-    train_entries, chain_build, first_step = _train_phases(
-        torch, dev, peak_flops, peak_bytes, profile="--profile" in sys.argv[1:])
+    train_entries, chain_build, first_step = _train_phases(torch, dev, peak_flops, peak_bytes)
 
     # -- 8, 9, 10. the density kernel, the edit frame and the mesh sweep ----------------
     torch.cuda.empty_cache()
@@ -4056,7 +4000,7 @@ def main() -> int:
     # -- 16 to 19. the voxel model trained, pruned, subdivided and edited ------------------------
     torch.cuda.empty_cache()
     vtrain, vtrain_launches, prune_launches = _voxel_train_phases(
-        torch, dev, peak_flops, peak_bytes, profile="--profile" in sys.argv[1:])
+        torch, dev, peak_flops, peak_bytes)
     torch.cuda.empty_cache()
     vedit_launches = _voxel_edit_phase(torch, dev)
     for entry in train_entries:

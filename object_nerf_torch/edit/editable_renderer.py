@@ -16,10 +16,13 @@ Counterpart of `object_nerf_tpu/edit/editable_renderer.py` (reference
 * `load_frame_meta` reads dataset camera poses (+fov) for demo trajectories.
 
 Pose math and the ray-box intersections stay on the host (numpy, once per
-frame). A frame's rays are uploaded once, the kernel weights are packed once,
-every chunk goes through `render_multi_fused_eval` (the CUDA kernels on
-`device=cuda`, their plain versions on `device=cpu`), the chunks' maps stay on
-the device and come back in one copy per frame. The kernels mask a ragged
+frame). A frame is the span `edit.frame` of `utils/trace.py`, its host steps
+the spans `edit.rays`, `edit.compact`, `edit.upload` and `edit.fetch`, and its
+chunks the counters `edit.chunks` and `edit.chunks_mixed`. A frame's rays are
+uploaded once, the kernel weights are packed once, every chunk goes through
+`render_multi_fused_eval` (the CUDA kernels on `device=cuda`, their plain
+versions on `device=cpu`), the chunks' maps stay on the device and come back
+in one copy per frame. The kernels mask a ragged
 last tile themselves, so the tail chunk is not padded. A voxel-conditioned
 model brings its grid (from a port checkpoint's `voxel_topo` /
 `voxel_static`, or a reference `.ckpt`'s buffers; JAX: editable_renderer.py:
@@ -48,6 +51,7 @@ from ..models import voxel_grid as vg
 from ..parallel import mesh
 from ..render.multi import compact_hit_order, pack_multi_weights, render_multi_fused_eval
 from ..render.renderer import RenderSettings
+from ..utils import trace
 from .bbox import BBoxRayHelper, boxes_to_arrays
 
 
@@ -213,22 +217,25 @@ class EditableRenderer:
         maps as host arrays, in pixel order."""
         n = rays_list[0].shape[0]
         dev = self.device
-        skip_helpers = self.get_skipping_bbox_helper()
-        skip_boxes = None
-        if skip_helpers:
-            a, b, s = boxes_to_arrays(skip_helpers, self.scale_factor)
-            skip_boxes = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), s)
         settings = dataclasses.replace(self.settings, white_back=white_back, perturb=0.0,
                                        noise_std=0.0, is_eval=True)
 
         # hit compaction: reorder the pixels so that object-box hits are
         # contiguous; the all-miss chunks then render the background set alone
         # (1e-8 away from the dense composite, see compact_hit_order)
-        plan = compact_hit_order(rays_list, obj_ids, chunk) if self.compact_rays else None
-        if plan is not None:
-            rays_list = [np.asarray(r)[plan[0]] for r in rays_list]
-        rays_dev = [torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(dev)
-                    for r in rays_list]
+        with trace.span("edit.compact"):
+            plan = compact_hit_order(rays_list, obj_ids, chunk) if self.compact_rays else None
+            if plan is not None:
+                rays_list = [np.asarray(r)[plan[0]] for r in rays_list]
+        with trace.span("edit.upload"):
+            skip_helpers = self.get_skipping_bbox_helper()
+            skip_boxes = None
+            if skip_helpers:
+                a, b, s = boxes_to_arrays(skip_helpers, self.scale_factor)
+                skip_boxes = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), s)
+            rays_dev = [torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(dev)
+                        for r in rays_list]
+            perm = torch.from_numpy(plan[0]).to(dev) if plan is not None else None
         packed = pack_multi_weights(self.models, settings, obj_ids) \
             if dev.type == "cuda" else None
         voxel_ctx = None
@@ -243,6 +250,8 @@ class EditableRenderer:
         n_chunks = -(-n // chunk)
         self.last_chunk_plan = {"chunks": n_chunks,
                                 "mixed": n_chunks if plan is None else plan[1]}
+        trace.count("edit.chunks", n_chunks)
+        trace.count("edit.chunks_mixed", self.last_chunk_plan["mixed"])
 
         def render_chunk(ci):
             mixed = plan is None or ci < plan[1]
@@ -253,12 +262,12 @@ class EditableRenderer:
                 packed=packed, voxel_ctx=voxel_ctx)
 
         merged = mesh.render_chunks(n, chunk, render_chunk)
-        if plan is not None:
-            # scatter back to pixel order: row j carries ray perm[j]
-            perm = torch.from_numpy(plan[0]).to(dev)
-            merged = {k: torch.empty_like(v).index_copy_(0, perm, v)
-                      for k, v in merged.items()}
-        return {k: v.cpu().numpy() for k, v in merged.items()}
+        with trace.span("edit.fetch"):  # waits for the frame's device work
+            if perm is not None:
+                # scatter back to pixel order: row j carries ray perm[j]
+                merged = {k: torch.empty_like(v).index_copy_(0, perm, v)
+                          for k, v in merged.items()}
+            return {k: v.cpu().numpy() for k, v in merged.items()}
 
     def edit_ray_sets(self, h: int, w: int, camera_pose_Twc: np.ndarray,
                       fovx_deg: float = 70):
@@ -293,12 +302,14 @@ class EditableRenderer:
         """Render the edited scene from `camera_pose_Twc` (4, 4): `rgb_*`
         (h*w, 3), `depth_*`, `opacity_*` of the final pass. Hit compaction
         follows `self.compact_rays`."""
-        if render_bg_only:
-            self.active_object_ids = [0]
-        if render_obj_only:
-            self.active_object_ids = [i for i in self.active_object_ids if i != 0]
-        rays_list, obj_ids = self.edit_ray_sets(h, w, camera_pose_Twc, fovx_deg)
-        return self._render_multi(rays_list, obj_ids, white_back, chunk)
+        with trace.span("edit.frame"):
+            if render_bg_only:
+                self.active_object_ids = [0]
+            if render_obj_only:
+                self.active_object_ids = [i for i in self.active_object_ids if i != 0]
+            with trace.span("edit.rays"):
+                rays_list, obj_ids = self.edit_ray_sets(h, w, camera_pose_Twc, fovx_deg)
+            return self._render_multi(rays_list, obj_ids, white_back, chunk)
 
     def render_origin(self, h: int, w: int, camera_pose_Twc: np.ndarray,
                       fovx_deg: float = 70, chunk: int = 4096) -> Dict[str, np.ndarray]:

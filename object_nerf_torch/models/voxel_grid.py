@@ -45,12 +45,15 @@ import numpy as np
 import torch
 
 from ..ops.gather import gather_rows, gather_rows_plain
+from ..utils import trace
 from .embedding import freq_encode
 
 INSTANCE_FTR_C = 8  # instance channels at the tail of the table (embedding_helper.py:185)
 
-# corner tables built since the last reset (a frame or a sweep builds one)
-build_counts = {"corner_table": 0}
+# corner tables built since the last reset (a frame or a sweep builds one), a
+# counter dict of `utils/trace.py`; the build, the lookups of `CornerTable` and
+# its table gradient are the spans `voxel.table`, `voxel.lookup`, `voxel.table_grad`
+build_counts = trace.counter_dict(("corner_table",))
 
 
 class VoxelTopology(NamedTuple):
@@ -324,14 +327,15 @@ def make_corner_table(features: torch.Tensor, topo: VoxelTopology, static: Voxel
     X, Y, Z = static.shape
     C = static.channels
     build_counts["corner_table"] += 1
-    if lowp:
-        features = features.to(torch.bfloat16)
-    idx = topo.idx_map.long()
-    dense = torch.where((idx >= 0)[:, None], features[idx.clamp(min=0)],
-                        torch.zeros((), dtype=features.dtype, device=features.device))
-    p = torch.nn.functional.pad(dense.reshape(X, Y, Z, C), (0, 0, 1, 1, 1, 1, 1, 1))
-    views = [p[bx:bx + X + 1, by:by + Y + 1, bz:bz + Z + 1] for bx, by, bz in _CORNERS]
-    return torch.cat(views, dim=-1).reshape(-1, 8 * C)
+    with trace.span("voxel.table", stream=True):
+        if lowp:
+            features = features.to(torch.bfloat16)
+        idx = topo.idx_map.long()
+        dense = torch.where((idx >= 0)[:, None], features[idx.clamp(min=0)],
+                            torch.zeros((), dtype=features.dtype, device=features.device))
+        p = torch.nn.functional.pad(dense.reshape(X, Y, Z, C), (0, 0, 1, 1, 1, 1, 1, 1))
+        views = [p[bx:bx + X + 1, by:by + Y + 1, bz:bz + Z + 1] for bx, by, bz in _CORNERS]
+        return torch.cat(views, dim=-1).reshape(-1, 8 * C)
 
 
 def corner_index_weights(topo: VoxelTopology, static: VoxelStatic, xyz: torch.Tensor):
@@ -409,7 +413,8 @@ class _TableToken(torch.autograd.Function):
     def backward(ctx, _):
         if not ctx.pending:
             return None, None, None, None
-        d_features = corner_table_grad(ctx.pending, ctx.topo, ctx.static)
+        with trace.span("voxel.table_grad"):  # on autograd's thread for a CUDA table
+            d_features = corner_table_grad(ctx.pending, ctx.topo, ctx.static)
         ctx.pending.clear()
         return d_features, None, None, None
 
@@ -464,12 +469,13 @@ class CornerTable:
     def lookup(self, xyz: torch.Tensor, with_addressing: bool = False):
         """(ftr (N, C) f32, invalid (N,) bool) at normalised xyz (N, 3), as
         `voxel_lookup_dense`; `with_addressing` also returns (flat, wts)."""
-        flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
-        if self._token is None:
-            out = _corner_sum(_fetch_rows(self.ct, flat), wts, self.static.channels)
-        else:
-            out = _CornerLookup.apply(self._token, self.ct, flat, wts, self._pending,
-                                      self.static.channels)
+        with trace.span("voxel.lookup", stream=True):
+            flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
+            if self._token is None:
+                out = _corner_sum(_fetch_rows(self.ct, flat), wts, self.static.channels)
+            else:
+                out = _CornerLookup.apply(self._token, self.ct, flat, wts, self._pending,
+                                          self.static.channels)
         if with_addressing:
             return out, ~sample_valid, flat, wts
         return out, ~sample_valid

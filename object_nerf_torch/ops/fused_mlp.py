@@ -30,7 +30,8 @@ a `sigma_only` packing, cached per layout by
 contiguity; on a CUDA tensor it launches its kernel or raises, and on a CPU
 tensor it runs its plain version, which sits beside it here. The wrappers are inference
 only (no autograd); the plain versions are differentiable. `launch_counts` counts the
-kernel launches and nothing else.
+kernel launches and nothing else; it is a counter dict of `utils/trace.py`, as
+is `ops/gather.py`'s, and `pack_kernel_weights` is its span `mlp.pack`.
 
 The plain versions are built from `models/mlp.py` and `ops/compositing.py`.
 With `matmul_dtype=torch.bfloat16` they round every matmul operand to bf16
@@ -47,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
+from ..utils import trace
 from .compositing import (
     alphas_from_sigmas, composite, composite_instance, compute_deltas,
     weights_from_alphas,
@@ -54,14 +56,10 @@ from .compositing import (
 
 # kernel launches since the last reset, by wrapper name (the training kernels'
 # wrappers are in fused_mlp_vjp.py, the point-wise density's in fused_sigma.py)
-launch_counts: Dict[str, int] = {"fused_coarse_weights": 0, "fused_render_tiles": 0,
-                                 "fused_mlp_eval": 0, "fused_mlp_bwd": 0,
-                                 "fused_sigma_eval": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+launch_counts: Dict[str, int] = trace.counter_dict(
+    ("fused_coarse_weights", "fused_render_tiles", "fused_mlp_eval", "fused_mlp_bwd",
+     "fused_sigma_eval"))
+reset_launch_counts = trace.reset  # every counter and span total of the registry
 
 
 # ---------------------------------------------------------------------------
@@ -206,20 +204,21 @@ def pack_kernel_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
     packed when `forward_instance`. The renderers pack once per frame, not
     once per chunk."""
     check_kernel_config(cfg)
-    pk = _Packer()
-    # the scene branch reads the first columns of the object branch's input
-    # row: whatever the shared tile holds past the scene's own width (codes,
-    # instance voxel features) meets zero weight rows
-    scene_k0, obj_k0 = input_tile_columns(cfg)
-    scene = pk.branch(model, "scene", cfg.in_channels_xyz, scene_k0, cfg.in_channels_dir,
-                      sigma_only)
-    obj = None
-    if forward_instance:
-        obj = pk.branch(model, "object", cfg.inst_channel_in, obj_k0,
-                        cfg.in_channels_dir, sigma_only)
-    w = torch.cat(pk.w).to(torch.bfloat16).contiguous()
-    b = torch.cat(pk.b).contiguous()
-    return PackedWeights(w, b, scene, obj, sigma_only)
+    with trace.span("mlp.pack"):
+        pk = _Packer()
+        # the scene branch reads the first columns of the object branch's input
+        # row: whatever the shared tile holds past the scene's own width (codes,
+        # instance voxel features) meets zero weight rows
+        scene_k0, obj_k0 = input_tile_columns(cfg)
+        scene = pk.branch(model, "scene", cfg.in_channels_xyz, scene_k0, cfg.in_channels_dir,
+                          sigma_only)
+        obj = None
+        if forward_instance:
+            obj = pk.branch(model, "object", cfg.inst_channel_in, obj_k0,
+                            cfg.in_channels_dir, sigma_only)
+        w = torch.cat(pk.w).to(torch.bfloat16).contiguous()
+        b = torch.cat(pk.b).contiguous()
+        return PackedWeights(w, b, scene, obj, sigma_only)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ table it runs `gather_rows_plain`, which sits beside it here. The wrapper
 carries no gradient: the table gradient of a training step's lookups is the
 hand-written backward of `models/voxel_grid.CornerTable` (one
 `index_add_` segment-sum and the transpose of the table build).
-`launch_counts` counts kernel launches and nothing else.
+`launch_counts` (a counter dict of `utils/trace.py`) counts kernel launches
+and nothing else.
 """
 
 from __future__ import annotations
@@ -18,14 +19,12 @@ from typing import Dict
 
 import torch
 
-launch_counts: Dict[str, int] = {"gather_rows": 0}
+from ..utils import trace
+
+launch_counts: Dict[str, int] = trace.counter_dict(("gather_rows",))
+reset_launch_counts = trace.reset  # every counter and span total of the registry
 
 ROW_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ encoding is one more tensor-core product, by the mode's
 `pack_probe_encoding` matrix `[I_27 | S_mode | 0]`, whose epilogue applies the
 mode's activation (`probe_activation`). On CUDA tensors the wrappers launch
 the kernels or raise; on CPU tensors they run the plain versions beside them
-here. `launch_counts` counts kernel launches and nothing else. The scripts
+here. `launch_counts` (a counter dict of `utils/trace.py`) counts kernel
+launches and nothing else. The scripts
 that ask the questions are `object_nerf_torch/scripts/profile_pe_micro.py` and
 `profile_voxel_split.py`.
 """
@@ -35,8 +36,10 @@ import torch
 from .fused_mlp_vjp import (
     FWD_MAX_CHUNKS, SWEEP_BOX, SWEEP_MAPS_PER_BRANCH, forward_chunk_rows,
 )
+from ..utils import trace
 
-launch_counts: Dict[str, int] = {"pe_probe": 0, "scale_copy": 0}
+launch_counts: Dict[str, int] = trace.counter_dict(("pe_probe", "scale_copy"))
+reset_launch_counts = trace.reset  # every counter and span total of the registry
 
 # the script's mode names, in the order of the kernel's enum
 MODES = ("none", "xyz_only", "split", "split_nosin", "split_polysin",
@@ -47,11 +50,6 @@ ENC_K = 32  # the encoding product's K: the raw channels, zero-padded
 _PIECES = ((0, 3), (3, 19), (19, 27))  # xyz, scene voxel, instance voxel channels
 # the kernel's activations of the encoded columns (ACT_* in the source)
 ACTIVATIONS = ("sin", "none", "polysin")
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:

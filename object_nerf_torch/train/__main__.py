@@ -15,7 +15,8 @@ checkpoint whenever validation PSNR improves, one per epoch
 validation PSNR, 0 none) and a `last`, under `logs/<time>_<exp_name>/`.
 Validation scalars and the 7-panel validation image go to TensorBoard when
 `tensorboardX` imports (best effort, as in the JAX CLI); `tpu.profile_dir`
-records a few steps with `torch.profiler` (`ObjectNeRFSystem.fit`).
+records a few steps with `torch.profiler` (`ObjectNeRFSystem.fit`), the
+program's spans (`utils/trace.py`) among them.
 `ckpt_path=<file>` resumes from one of these checkpoints, or starts from a
 reference checkpoint's weights.
 

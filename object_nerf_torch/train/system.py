@@ -35,6 +35,10 @@ eval render packs the coarse model in full for its coarse `fused_mlp_eval`.
 7-panel image); `fit` runs `torch.profiler` over a few steps when
 `tpu.profile_dir` is set.
 
+Spans (`utils/trace.py`): a train step is `train.step`, its backward
+`train.backward`, its optimizer work (learning rate, gradients cleared,
+Adam's step) `train.optim`; a frame of `make_render_fn` is `render.frame`.
+
 Data parallel (JAX `:251-278`, `:331-337`, `:440-444`, `:470-486`): under a
 `torch.distributed` process group (`parallel/mesh.py`) the models are
 replicated (rank 0's initial weights broadcast), every rank draws the same
@@ -69,6 +73,7 @@ from ..parallel import mesh
 from ..render.renderer import (
     RenderDraws, RenderSettings, bbox_route, render_rays, render_rays_fused_eval,
 )
+from ..utils import trace
 from .losses import term_counts, total_loss
 from .metrics import mse, psnr, ssim
 from .optim import make_lr_schedule, make_optimizer, set_lr
@@ -156,34 +161,35 @@ def make_render_fn(settings: RenderSettings, voxel_static: Optional[vg.VoxelStat
     @torch.no_grad()
     def render(models: ObjectNeRFModels, rays: torch.Tensor, instance_ids: torch.Tensor,
                voxel_topo: Optional[vg.VoxelTopology] = None) -> Dict[str, torch.Tensor]:
-        codes = models.code_library(instance_ids) if settings.forward_instance else None
-        voxel_ctx = None
-        if use_voxel:
-            voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
-            if dense:
-                voxel_ctx += (vg.CornerTable(
-                    models.voxel_features, voxel_topo, voxel_static,
-                    lowp=settings.matmul_dtype == torch.bfloat16),)
-        packed = {}
-        if rays.device.type == "cuda":
-            if settings.N_importance > 0:
-                packed["coarse"] = (
-                    pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
-                    if bbox_route(settings) else
-                    pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=False,
-                                        sigma_only=True))
-                packed["fine"] = pack_kernel_weights(
-                    models.nerf_fine, cfg, settings.forward_instance)
-            else:
-                packed["coarse"] = pack_kernel_weights(
-                    models.nerf_coarse, cfg, settings.forward_instance)
-        def render_chunk(c):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            return render_rays_fused_eval(models, rays[sl], settings,
-                                          codes[sl] if codes is not None else None, packed,
-                                          voxel_ctx)
+        with trace.span("render.frame"):
+            codes = models.code_library(instance_ids) if settings.forward_instance else None
+            voxel_ctx = None
+            if use_voxel:
+                voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
+                if dense:
+                    voxel_ctx += (vg.CornerTable(
+                        models.voxel_features, voxel_topo, voxel_static,
+                        lowp=settings.matmul_dtype == torch.bfloat16),)
+            packed = {}
+            if rays.device.type == "cuda":
+                if settings.N_importance > 0:
+                    packed["coarse"] = (
+                        pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
+                        if bbox_route(settings) else
+                        pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=False,
+                                            sigma_only=True))
+                    packed["fine"] = pack_kernel_weights(
+                        models.nerf_fine, cfg, settings.forward_instance)
+                else:
+                    packed["coarse"] = pack_kernel_weights(
+                        models.nerf_coarse, cfg, settings.forward_instance)
+            def render_chunk(c):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                return render_rays_fused_eval(models, rays[sl], settings,
+                                              codes[sl] if codes is not None else None, packed,
+                                              voxel_ctx)
 
-        return mesh.render_chunks(rays.shape[0], chunk, render_chunk)
+            return mesh.render_chunks(rays.shape[0], chunk, render_chunk)
 
     return render
 
@@ -253,59 +259,67 @@ class TrainStep:
                  draws: Optional[RenderDraws] = None,
                  voxel_topo: Optional[vg.VoxelTopology] = None,
                  voxel_static: Optional[vg.VoxelStatic] = None) -> Dict[str, object]:
-        st = self.settings
-        if (voxel_static is not None) != st.mlp.use_voxel_embedding:
-            raise ValueError("a voxel-conditioned model needs its voxel_static, and no other "
-                             "model takes one")
-        metrics: Dict[str, object] = {}
-        if self.lr_schedule is not None:
-            metrics["lr"] = self.lr_schedule(self.global_step)
-            set_lr(self.optimizer, metrics["lr"])
-        counts = None
-        if self.distributed:
-            n = batch["rays"].shape[0]
-            if draws is None and generator is not None:
-                draws = RenderDraws.sample(st, n * self.world, batch["rays"].device, generator)
-            if draws is not None:
-                if draws.perturb.shape[0] != n * self.world:
-                    raise ValueError(f"draws for {draws.perturb.shape[0]} rays; the global "
-                                     f"batch has {n * self.world}")
-                draws = draws.rows(slice(self.rank * n, (self.rank + 1) * n))
-            counts = mesh.all_reduce_sum(term_counts(batch, st.forward_instance))
-        codes = None
-        if st.forward_instance:
-            codes = models.code_library(batch["instance_ids"])
-        voxel_ctx = None
-        if voxel_static is not None:
-            voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
-        results = render_rays(models, batch["rays"], st, embedding_instance=codes,
-                              pass_through_mask=batch.get("pass_through_mask"),
-                              generator=generator, draws=draws, plain=self.plain,
-                              voxel_ctx=voxel_ctx)
-        loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance, counts)
-        typ = "fine" if st.N_importance > 0 else "coarse"
-        with torch.no_grad():
-            if self.distributed:  # the colour term's count is psnr's too
-                err = mse(results[f"rgb_{typ}"], batch["rgbs"], batch["valid_mask"][:, None],
-                          counts[0])
-            else:
-                train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
-                                  batch["valid_mask"][:, None])
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.distributed:
-            mesh.all_reduce_grads(p for g in self.optimizer.param_groups for p in g["params"])
-        self.optimizer.step()
-        self.global_step += 1
-        loss = loss.detach()
-        if self.distributed:  # the global batch's loss, terms and psnr
-            names = list(logs)
-            glob = mesh.all_reduce_sum(torch.stack([loss, err] + [logs[k] for k in names]))
-            loss, train_psnr = glob[0], -10.0 * torch.log10(glob[1])
-            logs = dict(zip(names, glob[2:]))
-        metrics.update({"train/loss": loss, "train/psnr": train_psnr})
-        metrics.update({f"train/{k}": v for k, v in logs.items()})
-        return metrics
+        with trace.span("train.step"):
+            st = self.settings
+            if (voxel_static is not None) != st.mlp.use_voxel_embedding:
+                raise ValueError("a voxel-conditioned model needs its voxel_static, and no "
+                                 "other model takes one")
+            metrics: Dict[str, object] = {}
+            if self.lr_schedule is not None:
+                metrics["lr"] = self.lr_schedule(self.global_step)
+            counts = None
+            if self.distributed:
+                n = batch["rays"].shape[0]
+                if draws is None and generator is not None:
+                    draws = RenderDraws.sample(st, n * self.world, batch["rays"].device,
+                                               generator)
+                if draws is not None:
+                    if draws.perturb.shape[0] != n * self.world:
+                        raise ValueError(f"draws for {draws.perturb.shape[0]} rays; the global "
+                                         f"batch has {n * self.world}")
+                    draws = draws.rows(slice(self.rank * n, (self.rank + 1) * n))
+                counts = mesh.all_reduce_sum(term_counts(batch, st.forward_instance))
+            codes = None
+            if st.forward_instance:
+                codes = models.code_library(batch["instance_ids"])
+            voxel_ctx = None
+            if voxel_static is not None:
+                voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
+            results = render_rays(models, batch["rays"], st, embedding_instance=codes,
+                                  pass_through_mask=batch.get("pass_through_mask"),
+                                  generator=generator, draws=draws, plain=self.plain,
+                                  voxel_ctx=voxel_ctx)
+            loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance,
+                                    counts)
+            typ = "fine" if st.N_importance > 0 else "coarse"
+            with torch.no_grad():
+                if self.distributed:  # the colour term's count is psnr's too
+                    err = mse(results[f"rgb_{typ}"], batch["rgbs"], batch["valid_mask"][:, None],
+                              counts[0])
+                else:
+                    train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
+                                      batch["valid_mask"][:, None])
+            with trace.span("train.optim"):
+                if self.lr_schedule is not None:
+                    set_lr(self.optimizer, metrics["lr"])
+                self.optimizer.zero_grad(set_to_none=True)
+            with trace.span("train.backward"):
+                loss.backward()
+            if self.distributed:
+                mesh.all_reduce_grads(
+                    p for g in self.optimizer.param_groups for p in g["params"])
+            with trace.span("train.optim"):
+                self.optimizer.step()
+            self.global_step += 1
+            loss = loss.detach()
+            if self.distributed:  # the global batch's loss, terms and psnr
+                names = list(logs)
+                glob = mesh.all_reduce_sum(torch.stack([loss, err] + [logs[k] for k in names]))
+                loss, train_psnr = glob[0], -10.0 * torch.log10(glob[1])
+                logs = dict(zip(names, glob[2:]))
+            metrics.update({"train/loss": loss, "train/psnr": train_psnr})
+            metrics.update({f"train/{k}": v for k, v in logs.items()})
+            return metrics
 
 
 def make_train_step(settings: RenderSettings, loss_weights: Mapping[str, float],
@@ -531,7 +545,8 @@ class ObjectNeRFSystem:
         the grid as that epoch's hook left it (pruned or subdivided). With
         `tpu.profile_dir` set (the scene configs' key), `torch.profiler`
         records steps 2 to 2 + `tpu.profile_steps` (default 5) of this call
-        and writes them as a Chrome trace, `<profile_dir>/trace.json`. Under
+        and writes them as a Chrome trace, `<profile_dir>/trace.json`, which
+        holds the program's spans (`utils/trace.py`) as ranges too. Under
         a process group every rank validates (the render is collective); the
         callbacks, the epoch line and the profiler run on rank 0 only, and the
         other ranks wait for it.

@@ -18,7 +18,8 @@ from object_nerf_torch.ops import fused_mlp_vjp as fv
 from object_nerf_torch.ops import fused_sigma as fs
 from object_nerf_torch.ops import gather, probes
 from object_nerf_torch.render.renderer import RenderSettings
-from object_nerf_torch.train.system import init_params
+from object_nerf_torch.train.system import init_params, make_train_step
+from object_nerf_torch.utils import trace
 
 
 @pytest.fixture
@@ -445,6 +446,62 @@ def test_table_gradient_on_card(cuda_device, lowp):
     out, _ = vg.voxel_lookup_dense(f, topo, static, pts[0], lowp=lowp)
     (out * wts[0]).sum().backward()
     assert f.grad is not None and float(f.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_voxel_train_step_spans_on_card(cuda_device):
+    """A voxel train step under a profiler: its spans go into the registry's
+    "on" bucket, the corner table's build and lookups with CUDA stream time
+    from their event pairs, and the step still launches 7 kernels (2 + 2
+    fused, 2 gathers, one table build); a step with no profiler records no
+    stream time."""
+    cfg = ObjectNeRFConfig()
+    feats, topo, static = _small_grid(cuda_device)
+    settings = RenderSettings(mlp=cfg, N_samples=64, N_importance=64, perturb=1.0,
+                              noise_std=1.0)
+    models = init_params(torch.Generator().manual_seed(0), settings, {}, device=cuda_device,
+                         voxel_features=feats)
+    weights = {"color_loss_weight": 1.0, "opacity_loss_weight": 10.0,
+               "instance_color_loss_weight": 1.0}
+    step = make_train_step(settings, weights, torch.optim.Adam(models.parameters(), lr=1e-3))
+    g = torch.Generator().manual_seed(2)
+    n = 2048
+    o, d = torch.randn(n, 3, generator=g) * 0.1, torch.randn(n, 3, generator=g)
+    rays = torch.cat([o, d / d.norm(dim=-1, keepdim=True), torch.full((n, 1), 0.05),
+                      torch.full((n, 1), 1.2)], -1)
+    batch = {k: v.to(cuda_device) for k, v in {
+        "rays": rays, "rgbs": torch.rand(n, 3, generator=g),
+        "valid_mask": torch.ones(n, dtype=torch.bool),
+        "instance_ids": torch.randint(0, 4, (n,), generator=g),
+        "instance_mask": torch.rand(n, generator=g) > 0.5,
+        "instance_mask_weight": torch.rand(n, generator=g)}.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def run():
+        m = step(models, batch, generator=gen, voxel_topo=topo, voxel_static=static)
+        assert torch.isfinite(m["train/loss"])
+
+    run()  # the kernels' build
+    torch.cuda.synchronize()
+    trace.reset()
+    run()
+    off = trace.totals()["spans"]["off"]
+    assert off["voxel.lookup"]["count"] == 2 and off["voxel.lookup"]["stream_s"] is None
+    trace.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        run()
+        torch.cuda.synchronize()
+    totals = trace.totals()
+    on = totals["spans"]["on"]
+    assert totals["spans"]["off"] == {}
+    assert on["train.step"]["count"] == 1 and on["train.optim"]["count"] == 2
+    assert on["voxel.lookup"]["count"] == 2 and on["voxel.table_grad"]["count"] == 1
+    for name in ("voxel.table", "voxel.lookup"):
+        assert 0 < on[name]["stream_s"] < on["train.step"]["host_s"] + 1.0, name
+    assert on["train.backward"]["stream_s"] is None
+    launches = {**fm.launch_counts, **gather.launch_counts, **vg.build_counts}
+    assert sum(launches.values()) == 7 and launches["fused_mlp_bwd"] == 2, launches
 
 
 # -- the gather and the probes ------------------------------------------------------
