@@ -84,7 +84,12 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
 11. holds the row gather `gather_rows` against `index_select` bit for bit,
    bf16 and f32, at the probe's shape (890,000-row table, 983,040 indices) and
    at the voxel path's (the bench grid's corner table, a chunk's 491,520 and
-   983,040 real sample addresses), and times both;
+   983,040 real sample addresses), and times both; then the fused lookup
+   `corner_lookup` at those samples against its plain chain (row index,
+   weights and flag bit for bit; the sums within 1e-6 of their terms'
+   magnitude, then bit for bit while ATen's reduction order is the one the
+   kernel copies), both timed; every main path below reads its `gather_rows`
+   launches beside its `corner_lookup` launches and fails on one;
 12. holds `fused_coarse_weights`, `fused_render_tiles` and `fused_sigma_eval`
    with the voxel operand against their bf16 plain versions on identical
    seeded inputs (`voxel_raw` from the real lookup on the bench grid) at
@@ -93,10 +98,10 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    them, and prints their weight streams;
 13. renders one 640x480 voxel frame with `render_image` (chunk 7680; rays from
    mid-room, near 0.05, far 2.4): finite maps, exactly 40 + 40 kernel
-   launches, 80 `gather_rows` launches and one corner-table build; four chunks
+   launches, 80 `corner_lookup` launches and one corner-table build; four chunks
    against `render_rays_plain` on the same bf16 table (gated) and on the
    all-f32 path (gated lower, distance printed); times the frame and prints
-   how it splits into kernels, gathers, table build and the rest;
+   how it splits into kernels, lookups, table build and the rest;
 14. sweeps the room's density grid at 128^3 through the voxel lookup and
    `fused_sigma_eval`, scene branch and one object, each against the plain f32
    sweep, and times the 512^3 voxel sweep (under the same budget rule);
@@ -121,10 +126,10 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    64 + 64 samples, perturbation and noise on, Adam): one step through the
    kernels against the same step through the plain bf16 path (loss, every
    gradient, the table's included), then 24 + 10 more steps: 2 + 2 kernel
-   launches, 2 gathers and one table build per step, the loss falling; times
+   launches, 2 lookups and one table build per step, the loss falling; times
    the step;
 18. runs the progressive hooks: the epoch-3 prune (one density launch and one
-   gather per batch of 256 voxels), the epoch-5 prune and subdivision (grid to
+   lookup per batch of 256 voxels), the epoch-5 prune and subdivision (grid to
    (126, 126, 54), still the dense route), and times 10 steps on the
    subdivided grid;
 19. renders one 320x240 voxel edit frame with an `EditableRenderer` on the room
@@ -139,7 +144,7 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    pass-through from the decoded maps), timing writing, decoding and the build;
 21. runs `train.__main__.main` on `config/synthetic_desk.yml` at 640x480,
    batch 2048, for 30 steps and one validation (chunk 7680): 2 + 2 kernel
-   launches, 2 gathers and one table build per step, 40 + 40 on the
+   launches, 2 lookups and one table build per step, 40 + 40 on the
    validation frame, every loss finite and falling, a checkpoint and the
    config and source snapshots written;
 22. builds an `ObjectNeRFSystem` on `config/scannet_base_0113_multi.yml`'s keys
@@ -169,7 +174,7 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    single-process kernel step (the loss to LOSS_TOL, every summed gradient to
    BWD_TOL of its largest entry), then phase 17's voxel system for three
    steps; the ranks' parameters, the table included, bit-equal; 2 + 2
-   launches a step on each rank (2 gathers and 1 table build for the voxel
+   launches a step on each rank (2 lookups and 1 table build for the voxel
    model); the epoch-3 prune on both ranks against the single process's on
    the same weights, grid and draws; phases 4 and 13's 640x480 frames and
    phase 9's edit frame chunk-sharded, against the single process's frames
@@ -178,7 +183,7 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
 28. runs the mesh CLI (`tools.extract_mesh.main`) on phase 21's desk
    checkpoint as a user would: first at 64^3 to read its densities and
    choose `sigma_threshold` (a high quantile of the positive ones), then at
-   256^3 with it: one `fused_sigma_eval` launch, one `gather_rows` launch a
+   256^3 with it: one `fused_sigma_eval` launch, one `corner_lookup` launch a
    chunk of 262,144 points and one table build, counted exactly; two
    x-slices of its grid against the plain bf16 path; a non-empty mesh. Then
    the scene viewer CLI (`tools.scene_visualizer.main`) with that mesh, the
@@ -400,6 +405,10 @@ DESK_MESH_QUANTILE = 0.99
 # 0.06 to 0.20 of that distance (measured on an H100 over three batches,
 # `python -m object_nerf_torch.scripts.profile_route_step`)
 ROUTE_TABLE_GRAD = 0.25
+# the fused lookup's 8-corner sums against the plain chain's, relative to the
+# sum of their terms' magnitudes: two orders of an 8-term f32 sum differ by at
+# most about 14 x 2^-24 of it
+LOOKUP_SUM_TOL = 1e-6
 
 # data parallel (phases 26-27): the card's machine has one card and NCCL takes
 # one rank per card, so phase 26 runs the train CLI on NCCL at world size 1 and
@@ -1607,14 +1616,21 @@ def _bound(flop, nbytes, peak_flops, peak_bytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _gather_phase(torch, dev, peak_bytes, ct_by_dtype, flat_by_rows):
+def _gather_phase(torch, dev, peak_bytes, ct_by_dtype, samples, topo, static):
     """Phase 11: `gather_rows` against `index_select`, bit for bit, and both
-    timed; returns the kernel's entry for the `kernels` line (without its
-    launches) and its ms by (table, dtype, rows)."""
+    timed, at the probe's shape and at the addresses of a chunk's samples
+    (`samples`: rows -> xyz); then `corner_lookup` at those samples against its
+    plain chain (row index, weights and flag bit-equal, the sums within
+    LOOKUP_SUM_TOL of their terms' magnitude and then bit-equal), both timed.
+    Returns the two kernels' entries for the `kernels` line without their
+    launches: the gather's come from GATHER_ROWS_BY_PATH at the end, the
+    lookup's from each path."""
     import numpy as np
 
     from object_nerf_torch.ops import gather
 
+    flat_by_rows = {n: gather.corner_index_weights(topo, static, xyz)[0].contiguous()
+                    for n, xyz in samples.items()}
     rng = np.random.RandomState(SEED + 4)
     probe_idx = torch.from_numpy(
         rng.randint(0, PROBE_TABLE_ROWS, size=(PROBE_ROWS,)).astype(np.int32)).to(dev)
@@ -1670,12 +1686,68 @@ def _gather_phase(torch, dev, peak_bytes, ct_by_dtype, flat_by_rows):
         "library_ms_by_shape": {" ".join(map(str, k)): v for k, v in lib_ms.items()},
         "bound_ms_by_shape": {" ".join(map(str, k)): v for k, v in bound.items()},
     }
-    return entry, ms
+
+    c = static.channels
+    lk_ms, lk_plain_ms, lk_bound = {}, {}, {}
+    for tag, table in ct_by_dtype.items():
+        for n, xyz in samples.items():
+            got = gather.corner_lookup(table, xyz, topo, static, with_addressing=True)
+            want = gather.corner_lookup_plain(table, xyz, topo, static, with_addressing=True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+                raise SystemExit(f"corner_lookup ({tag}, {n} samples): its flag, row index or "
+                                 f"weights differ from the plain chain's")
+            flat, wts = got[2], got[3]
+            magnitude = (table[flat.long()].reshape(n, 8, c).float().abs()
+                         * wts.abs()[..., None]).sum(1)
+            gap = (got[0] - want[0]).abs()
+            sum_gap = (gap / magnitude.clamp_min(1e-30)).max().item()
+            if not (gap <= LOOKUP_SUM_TOL * magnitude).all():
+                raise SystemExit(f"corner_lookup ({tag}, {n} samples): sums off by up to "
+                                 f"{sum_gap:.2e} of their terms' magnitude (tolerance "
+                                 f"{LOOKUP_SUM_TOL:g})")
+            if not torch.equal(got[0], want[0]):
+                raise SystemExit(f"corner_lookup ({tag}, {n} samples): sums within "
+                                 f"{sum_gap:.2e} of their terms' magnitude but not bit-equal: "
+                                 f"ATen now reduces the (N, 8, C) product in another order "
+                                 f"than the kernel's sum, which copies it")
+            del got, want, magnitude, gap
+            key = (tag, n)
+            lk_ms[key] = _cuda_ms(lambda: gather.corner_lookup(table, xyz, topo, static),
+                                  TIMED_LAUNCHES)
+            lk_plain_ms[key] = _cuda_ms(
+                lambda: gather.corner_lookup_plain(table, xyz, topo, static), TIMED_LAUNCHES)
+            # xyz read, out and the flag written once; of the table only the
+            # rows that these samples name, each read once
+            n_distinct = int(torch.unique(flat).numel())
+            nbytes = n * (12 + 4 * c + 1) + n_distinct * table.shape[1] * table.element_size()
+            lk_bound[key] = nbytes / peak_bytes * 1e3
+            print(f"corner_lookup {tag}, {n} samples ({n_distinct} distinct rows): bit-equal "
+                  f"to the plain chain; {lk_ms[key]:.3f} ms/launch "
+                  f"({nbytes / lk_ms[key] / 1e6:.0f} GB/s of the bytes it must move), plain "
+                  f"chain {lk_plain_ms[key]:.3f} ms, bound {lk_bound[key]:.3f} ms (bytes: "
+                  f"{nbytes / 1e6:.1f} MB)")
+    # a voxel chunk looks up once per pass in the bf16 table: the sum is its cost
+    path = [k for k in lk_ms if k[0] == "bf16"]
+    lookup = {
+        "name": "corner_lookup", "route": "cuda",
+        "source": "object_nerf_torch/ops/csrc/gather_rows.cu",
+        "replaces": "scripts/profile_dma_gather.py:39 with the trilinear sum around it",
+        "max_abs_err": 0.0, "tol": 0.0, "err_is": "bit-equal to the plain chain",
+        "ms": sum(lk_ms[k] for k in path), "plain_ms": sum(lk_plain_ms[k] for k in path),
+        "bound_ms": sum(lk_bound[k] for k in path), "bound_by": "bytes",
+        "library_ms": sum(lk_plain_ms[k] for k in path),
+        "ms_by_shape": {" ".join(map(str, k)): v for k, v in lk_ms.items()},
+        "plain_ms_by_shape": {" ".join(map(str, k)): v for k, v in lk_plain_ms.items()},
+        "bound_ms_by_shape": {" ".join(map(str, k)): v for k, v in lk_bound.items()},
+    }
+    return entry, lookup
 
 
 def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     """Phases 11 to 14: the voxel-conditioned model's eval frame and density
-    sweep. Returns the `gather_rows` entry and, for the three kernels that
+    sweep. Returns phase 11's `gather_rows` and `corner_lookup` entries and,
+    for the three kernels that
     gained the voxel operand, their voxel errors, times, bounds and launches."""
     import dataclasses
 
@@ -1729,12 +1801,12 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         inside = (raw_f.abs().sum(-1) > 0).float().mean().item()
         print(f"chunk 0: {inside * 100:.1f} % of the fine samples lie in occupied voxels; raw "
               f"features within {raw_f.min().item():.2f} .. {raw_f.max().item():.2f}")
-        flat = {xyz.shape[0] * xyz.shape[1]:
-                vg.corner_index_weights(topo, static, xyz.reshape(-1, 3))[0].contiguous()
-                for xyz in (xyz_c, xyz_f)}
+        samples = {xyz.shape[0] * xyz.shape[1]: xyz.reshape(-1, 3).contiguous()
+                   for xyz in (xyz_c, xyz_f)}
 
-    # -- 11. the gather ---------------------------------------------------------------
-    gather_entry, gather_ms = _gather_phase(torch, dev, peak_bytes, ct, flat)
+    # -- 11. the gather and the lookup -----------------------------------------------------
+    gather_entry, lookup_entry = _gather_phase(torch, dev, peak_bytes, ct, samples, topo,
+                                               static)
 
     # -- 12. the three kernels with the voxel operand -----------------------------------
     with torch.no_grad():
@@ -1860,7 +1932,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         vox["fused_sigma_eval"] = sig
         del pts, raw_p, got, want
 
-        # the lookup of a chunk's two passes, all of it and its gathers alone
+        # the lookup of a chunk's two passes
         lookup_ms = _cuda_ms(lambda: (lookup_voxel_raw(settings, ctx, xyz_c),
                                       lookup_voxel_raw(settings, ctx, xyz_f)), TIMED_LAUNCHES)
 
@@ -1877,19 +1949,19 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     out = frame()
     torch.cuda.synchronize()
     launches = dict(fused_mlp.launch_counts)
-    n_gathers, n_builds = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
-    print(f"voxel frame {W}x{H}: launches {launches}, gather_rows {n_gathers}, corner-table "
-          f"builds {n_builds} (expect {n_chunks} of each eval kernel, {2 * n_chunks} gathers, "
+    n_lookups, n_builds = _lookups(gather, "voxel_eval"), vg.build_counts["corner_table"]
+    print(f"voxel frame {W}x{H}: launches {launches}, corner_lookup {n_lookups}, corner-table "
+          f"builds {n_builds} (expect {n_chunks} of each eval kernel, {2 * n_chunks} lookups, "
           f"1 build)")
     if (launches != {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
                      "fused_mlp_eval": 0, "fused_mlp_bwd": 0, "fused_sigma_eval": 0}
-            or n_gathers != 2 * n_chunks or n_builds != 1):
+            or n_lookups != 2 * n_chunks or n_builds != 1):
         raise SystemExit("the voxel frame's launch counts are not those of its path")
     for k, v in out.items():
         if v.shape[0] != W * H or not np.isfinite(v).all():
             raise SystemExit(f"voxel frame map {k} is not finite or has shape {v.shape}")
     eval_launches = {"fused_coarse_weights": n_chunks, "fused_render_tiles": n_chunks,
-                     "gather_rows": n_gathers}
+                     "corner_lookup": n_lookups}
 
     all_ids = torch.from_numpy(batch["instance_ids"]).to(dev)
     ctx32 = (features, topo, static, tables["f32"])
@@ -1925,13 +1997,12 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         times.append(time.perf_counter() - t0)
     frame_ms = statistics.median(times) * 1e3
     k_ms = n_chunks * (vox["fused_coarse_weights"]["ms"] + vox["fused_render_tiles"]["ms"])
-    g_ms = n_chunks * sum(v for k, v in gather_ms.items() if k[0] == "corner" and k[1] == "bf16")
-    l_ms = n_chunks * lookup_ms - g_ms
+    l_ms = n_chunks * lookup_ms
     print(f"voxel frame: {frame_ms:.1f} ms median of {FRAMES_TIMED} (all: "
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), {W * H / (frame_ms / 1e3):.0f} "
-          f"rays/s; kernels {k_ms:.1f} ms, gathers {g_ms:.1f} ms, the lookups' addressing and "
-          f"8-corner sums {l_ms:.1f} ms, table build {build_ms:.2f} ms, glue + packing + "
-          f"copies (by subtraction) {frame_ms - k_ms - g_ms - l_ms - build_ms:.1f} ms; kernel "
+          f"rays/s; kernels {k_ms:.1f} ms, lookups (corner_lookup) {l_ms:.1f} ms, table build "
+          f"{build_ms:.2f} ms, glue + packing + copies (by subtraction) "
+          f"{frame_ms - k_ms - l_ms - build_ms:.1f} ms; kernel "
           f"bound {n_chunks * (vox['fused_coarse_weights']['bound_ms'] + vox['fused_render_tiles']['bound_ms']):.1f} ms")
     eval_launches["frame"] = out  # phase 27 holds its sharded frame to this one
     del out
@@ -1943,33 +2014,33 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     sweep_ctx = (features, topo, static)
     settings32 = dataclasses.replace(settings, matmul_dtype=torch.float32)
     per_sweep = -(-MESH_GRID ** 3 // MESH_CHUNK)
-    mesh_launches = {"fused_sigma_eval": 0, "gather_rows": 0}
+    mesh_launches = {"fused_sigma_eval": 0, "corner_lookup": 0}
     for obj_id in (0, VOX_OBJ):
         reset_counts()
         got = extract_sigma_grid(models, settings, grid_conf(MESH_GRID), obj_id, device=dev,
                                  as_tensor=True, voxel_ctx=sweep_ctx)
         torch.cuda.synchronize()
-        n_launch, n_gather = (fused_mlp.launch_counts["fused_sigma_eval"],
-                              gather.launch_counts["gather_rows"])
+        n_launch, n_lookup = (fused_mlp.launch_counts["fused_sigma_eval"],
+                              _lookups(gather, "voxel_mesh"))
         n_builds = vg.build_counts["corner_table"]
         want = extract_sigma_grid(models, settings32, grid_conf(MESH_GRID), obj_id, device=dev,
                                   plain=True, as_tensor=True, voxel_ctx=sweep_ctx)
         err = (got - want).abs().max().item()
         print(f"voxel sigma grid {MESH_GRID}^3, "
               f"{'scene branch' if obj_id == 0 else f'object {obj_id}'}: {n_launch} launches, "
-              f"{n_gather} gathers, {n_builds} table build (expect {per_sweep}, {per_sweep}, "
+              f"{n_lookup} lookups, {n_builds} table build (expect {per_sweep}, {per_sweep}, "
               f"1); max |kernel sweep - plain f32 sweep| = {err:.3e} (tol "
               f"{VOX_MESH_F32_TOL:g}); densities {got.min().item():.4f} .. "
               f"{got.max().item():.4f}, {(got > 0).float().mean().item() * 100:.1f} % above 0")
-        if (n_launch, n_gather, n_builds) != (per_sweep, per_sweep, 1) \
+        if (n_launch, n_lookup, n_builds) != (per_sweep, per_sweep, 1) \
                 or sum(fused_mlp.launch_counts.values()) != per_sweep:
             raise SystemExit(f"expected {per_sweep} launches of fused_sigma_eval and of "
-                             f"gather_rows and one table build")
+                             f"corner_lookup and one table build")
         if not torch.isfinite(got).all() or not err <= VOX_MESH_F32_TOL:
             raise SystemExit(f"the voxel kernel sweep disagrees with the plain f32 sweep: "
                              f"{err:.3e}")
         mesh_launches["fused_sigma_eval"] += n_launch
-        mesh_launches["gather_rows"] += n_gather
+        mesh_launches["corner_lookup"] += n_lookup
         del got, want
 
     def timed_sweep(n):
@@ -1983,32 +2054,32 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counted = (fused_mlp.launch_counts["fused_sigma_eval"],
-                   gather.launch_counts["gather_rows"], vg.build_counts["corner_table"])
+                   _lookups(gather, "voxel_mesh"), vg.build_counts["corner_table"])
         expect = -(-n ** 3 // MESH_CHUNK)
         if counted != (expect, expect, 1) or sum(fused_mlp.launch_counts.values()) != expect:
             raise SystemExit(f"the {n}^3 voxel sweep counted {counted} launches of "
-                             f"fused_sigma_eval, of gather_rows and table builds; expected "
+                             f"fused_sigma_eval, of corner_lookup and table builds; expected "
                              f"{(expect, expect, 1)}")
         if not torch.isfinite(grid).all():
             raise SystemExit(f"the {n}^3 voxel sweep is not finite")
         mesh_launches["fused_sigma_eval"] += counted[0]
-        mesh_launches["gather_rows"] += counted[1]
+        mesh_launches["corner_lookup"] += counted[1]
         return dt, counted[0], counted[1]
 
     n_timed = MESH_GRID_TIMED // 2
-    dt, n_launch, n_gather = timed_sweep(n_timed)
+    dt, n_launch, n_lookup = timed_sweep(n_timed)
     if 8 * dt <= SWEEP_BUDGET_S:
         n_timed = MESH_GRID_TIMED
-        dt, n_launch, n_gather = timed_sweep(n_timed)
+        dt, n_launch, n_lookup = timed_sweep(n_timed)
     print(f"voxel sigma sweep {n_timed}^3 ({n_timed ** 3} points, scene branch, chunk "
-          f"{MESH_CHUNK}): {dt * 1e3:.1f} ms, {n_launch} launches and {n_gather} gathers "
+          f"{MESH_CHUNK}): {dt * 1e3:.1f} ms, {n_launch} launches and {n_lookup} lookups "
           f"counted, 1 table build, {n_timed ** 3 / dt / 1e6:.1f} M points/s; kernel launches "
           f"alone {n_launch * sig['ms']['scene']:.1f} ms")
-    gather_entry["launches_by_path"] = {"voxel_eval": eval_launches["gather_rows"],
-                                        "voxel_mesh": mesh_launches["gather_rows"]}
-    gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
+    lookup_entry["launches_by_path"] = {"voxel_eval": eval_launches["corner_lookup"],
+                                        "voxel_mesh": mesh_launches["corner_lookup"]}
+    lookup_entry["launches"] = sum(lookup_entry["launches_by_path"].values())
     eval_launches["frame_ms"] = frame_ms
-    return gather_entry, vox, eval_launches, mesh_launches
+    return gather_entry, lookup_entry, vox, eval_launches, mesh_launches
 
 
 def _probe_phase(torch, dev, peak_flops, peak_bytes, build):
@@ -2161,7 +2232,7 @@ def _probe_phase(torch, dev, peak_flops, peak_bytes, build):
 def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     """Phases 16 to 18: the voxel-conditioned model's training kernels against
     their plain versions, its training step, and the progressive hooks.
-    Returns, for rows 3-4 and the sigma kernel and the gather, what the
+    Returns, for rows 3-4 and the sigma kernel and the lookup, what the
     `kernels` line needs of these paths."""
     import copy
     import dataclasses
@@ -2184,8 +2255,8 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     def reset_counts():
         fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
-    def counts():
-        return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
+    def counts(path="voxel_train"):
+        return (dict(fused_mlp.launch_counts), _lookups(gather, path),
                 vg.build_counts["corner_table"])
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2359,7 +2430,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
         look_ms = _cuda_ms(lambda: (lookup(xyz_c), lookup(xyz_f)), TIMED_LAUNCHES)
         cot = []
         for xyz in (xyz_c, xyz_f):
-            flat, wts, _ = vg.corner_index_weights(topo, static, xyz.reshape(-1, 3))
+            flat, wts, _ = gather.corner_index_weights(topo, static, xyz.reshape(-1, 3))
             cot.append((torch.randn(flat.shape[0], n_vox, device=dev), flat, wts))
         torch.cuda.reset_peak_memory_stats(dev)
         base_mem = torch.cuda.memory_allocated(dev)
@@ -2369,7 +2440,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
         seg_bytes = n_samples * 8 * n_vox * 4
         del cot
     print(f"voxel step pieces: table build {build_ms:.3f} ms (bf16), two lookups "
-          f"{look_ms:.3f} ms (gathers, addressing, 8-corner sums), table gradient "
+          f"{look_ms:.3f} ms (two corner_lookup launches), table gradient "
           f"{grad_ms:.3f} ms (d_rows of {n_samples} samples: {seg_bytes / 1e6:.0f} MB, one "
           f"index_add_ into the f32 corner table, the transpose; {grad_mem / 1e6:.0f} MB of "
           f"transient device memory)")
@@ -2409,7 +2480,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
           f"the MLP gradients: median {statistics.median(v for k, v in control.items() if k != table_name):.2e}"
           f"; launches {first}")
     if first[0]["fused_mlp_eval"] != 2 or first[0]["fused_mlp_bwd"] != 2 or first[1:] != (2, 1):
-        raise SystemExit(f"a voxel step should launch 2 + 2 kernels, 2 gathers and build one "
+        raise SystemExit(f"a voxel step should launch 2 + 2 kernels, 2 lookups and build one "
                          f"table: {first}")
     if not abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p):
         raise SystemExit("the voxel step's loss disagrees with the plain path's")
@@ -2442,15 +2513,15 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     torch.cuda.synchronize()
     step_peak = torch.cuda.max_memory_allocated(dev)
     n_steps = TRAIN_STEPS + STEPS_TIMED
-    launches, n_gather, n_build = counts()
+    launches, n_lookup, n_build = counts()
     losses = [float(x) for x in losses]
-    print(f"{n_steps} more voxel steps: launches {launches}, gather_rows {n_gather}, table "
+    print(f"{n_steps} more voxel steps: launches {launches}, corner_lookup {n_lookup}, table "
           f"builds {n_build} (expect {2 * n_steps}, {2 * n_steps}, {n_steps}); loss "
           + " ".join(f"{x:.4f}" for x in losses))
-    if ((launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build)
+    if ((launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_lookup, n_build)
             != (2 * n_steps, 2 * n_steps, 2 * n_steps, n_steps)
             or sum(launches.values()) != 4 * n_steps):
-        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 gathers, one build")
+        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 lookups, one build")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise SystemExit("a voxel training loss is not finite")
     head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
@@ -2469,7 +2540,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
           f"optimizer, glue, loss, autograd, upload; by subtraction) "
           f"{step_ms - k_ms - look_ms - build_ms - grad_ms:.2f} ms")
     train_launches = {"fused_mlp_eval": 2 * (n_steps + 1), "fused_mlp_bwd": 2 * (n_steps + 1),
-                      "gather_rows": 2 * (n_steps + 1)}
+                      "corner_lookup": 2 * (n_steps + 1)}
 
     # -- 18. prune and subdivide on the room, then the subdivided step ---------------------------
     # the prune's decisions on the card against its plain f32 version on the
@@ -2535,18 +2606,18 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     reset_counts()
     m = system.training_step(system.train_dataset.sample_batch(BATCH, rng))
     torch.cuda.synchronize()
-    launches, n_gather, n_build = counts()
+    launches, n_lookup, n_build = counts()
     grad = models.voxel_features.grad
     g_drop = grad[torch.from_numpy(dropped_rows).to(dev).long()].abs().max().item()
     g_kept = grad[torch.from_numpy(idx0[cells[keep_k]]).to(dev).long()].abs().max().item()
     print(f"a step on the pruned grid: loss {float(m['train/loss']):.4f}; largest table gradient "
           f"in the dropped voxels' rows {g_drop:.3e}, in the kept ones' {g_kept:.3e}; launches "
-          f"{launches}, gather_rows {n_gather}, builds {n_build}")
-    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build) != (2, 2, 2, 1):
-        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 gathers, one build")
+          f"{launches}, corner_lookup {n_lookup}, builds {n_build}")
+    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_lookup, n_build) != (2, 2, 2, 1):
+        raise SystemExit("a voxel step should launch 2 + 2 kernels and 2 lookups, one build")
     if not (g_drop == 0.0 and g_kept > 0.0 and math.isfinite(float(m["train/loss"]))):
         raise SystemExit("the pruned voxels' rows should take no gradient, the kept ones some")
-    for name in ("fused_mlp_eval", "fused_mlp_bwd", "gather_rows"):
+    for name in ("fused_mlp_eval", "fused_mlp_bwd", "corner_lookup"):
         train_launches[name] += 2
 
     # the hook (epoch 3: a prune at the config's threshold and sample count), timed
@@ -2557,46 +2628,46 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     system.on_epoch_start(3)
     torch.cuda.synchronize()
     prune_s = time.perf_counter() - t0
-    launches, n_gather, n_build = counts()
+    launches, n_lookup, n_build = counts("prune")
     n1 = int(system.voxel_topo.n_occupied)
     expect = -(-n0 // per_batch)
     print(f"prune (epoch 3): {n0} -> {n1} occupied voxels ({n0 - n1} dropped), {spv} samples "
           f"per voxel, {n0 * spv} points; {prune_s * 1e3:.1f} ms; fused_sigma_eval "
-          f"{launches['fused_sigma_eval']}, gather_rows {n_gather}, table builds {n_build} "
+          f"{launches['fused_sigma_eval']}, corner_lookup {n_lookup}, table builds {n_build} "
           f"(expect {expect}, {expect}, 1)")
-    if (launches["fused_sigma_eval"], n_gather, n_build) != (expect, expect, 1) \
+    if (launches["fused_sigma_eval"], n_lookup, n_build) != (expect, expect, 1) \
             or sum(launches.values()) != expect or not 0 < n1 <= n0:
-        raise SystemExit("the prune should launch one density kernel and one gather per batch "
+        raise SystemExit("the prune should launch one density kernel and one lookup per batch "
                          "of voxels and keep some of them")
-    prune_launches = {"fused_sigma_eval": expect, "gather_rows": expect}
+    prune_launches = {"fused_sigma_eval": expect, "corner_lookup": expect}
     shape0 = system.voxel_static.shape
     reset_counts()
     t0 = time.perf_counter()
     system.on_epoch_start(5)  # a prune, then the subdivision
     torch.cuda.synchronize()
     subdiv_s = time.perf_counter() - t0
-    launches, n_gather, n_build = counts()
+    launches, n_lookup, n_build = counts("prune")
     static2 = system.voxel_static
     print(f"epoch-5 hook (prune, then subdivide): grid {shape0} -> {static2.shape}, "
           f"{int(system.voxel_topo.n_occupied)} occupied voxels, dense corner table "
           f"{vg.dense_table_bytes(static2) / 1e6:.0f} MB in f32 (dense route: "
           f"{vg.dense_path_ok(static2)}); {subdiv_s * 1e3:.1f} ms; launches {launches}, "
-          f"gather_rows {n_gather}, builds {n_build}")
+          f"corner_lookup {n_lookup}, builds {n_build}")
     if static2.shape != tuple(2 * x for x in shape0) or not vg.dense_path_ok(static2):
         raise SystemExit("the subdivision should double the grid and keep the dense route")
     prune_launches["fused_sigma_eval"] += launches["fused_sigma_eval"]
-    prune_launches["gather_rows"] += n_gather
+    prune_launches["corner_lookup"] += n_lookup
     reset_counts()
     times = timed_steps(VOX_SUBDIV_STEPS)
-    launches, n_gather, n_build = counts()
+    launches, n_lookup, n_build = counts()
     sub_ms = statistics.median(times) * 1e3
     print(f"subdivided voxel step: {sub_ms:.2f} ms median of {VOX_SUBDIV_STEPS} (all: "
           f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (sub_ms / 1e3):.0f} rays/s; "
-          f"launches {launches}, gather_rows {n_gather}, builds {n_build}")
-    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_gather, n_build) != (
+          f"launches {launches}, corner_lookup {n_lookup}, builds {n_build}")
+    if (launches["fused_mlp_eval"], launches["fused_mlp_bwd"], n_lookup, n_build) != (
             2 * VOX_SUBDIV_STEPS, 2 * VOX_SUBDIV_STEPS, 2 * VOX_SUBDIV_STEPS, VOX_SUBDIV_STEPS):
-        raise SystemExit("the subdivided step should launch 2 + 2 kernels and 2 gathers")
-    for name in ("fused_mlp_eval", "fused_mlp_bwd", "gather_rows"):
+        raise SystemExit("the subdivided step should launch 2 + 2 kernels and 2 lookups")
+    for name in ("fused_mlp_eval", "fused_mlp_bwd", "corner_lookup"):
         train_launches[name] += 2 * VOX_SUBDIV_STEPS
     return out, train_launches, prune_launches
 
@@ -2667,20 +2738,20 @@ def _voxel_edit_phase(torch, dev):
     frame = renderer.render_edit(**kw)
     torch.cuda.synchronize()
     launches = dict(fused_mlp.launch_counts)
-    n_gather, n_build = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
+    n_lookup, n_build = _lookups(gather, "voxel_edit"), vg.build_counts["corner_table"]
     plan = renderer.last_chunk_plan
     n_chunks, n_mixed = plan["chunks"], plan["mixed"]
     expect = 2 * n_mixed + (n_chunks - n_mixed)
     print(f"voxel edit frame {EDIT_W}x{EDIT_H} on the room, background + object {VOX_OBJ} "
           f"moved, its original removed: {n_chunks} chunks, {n_mixed} with both ray sets; "
-          f"launches {launches}, gather_rows {n_gather}, table builds {n_build} (expect "
-          f"{expect} of each kernel, {2 * expect} gathers, 1 build)")
+          f"launches {launches}, corner_lookup {n_lookup}, table builds {n_build} (expect "
+          f"{expect} of each kernel, {2 * expect} lookups, 1 build)")
     if not 0 < n_mixed < n_chunks:
         raise SystemExit(f"the voxel edit frame should have mixed and background-only chunks: "
                          f"{plan}")
     if (launches != {"fused_coarse_weights": 0, "fused_render_tiles": 0,
                      "fused_mlp_eval": expect, "fused_mlp_bwd": 0, "fused_sigma_eval": expect}
-            or n_gather != 2 * expect or n_build != 1):
+            or n_lookup != 2 * expect or n_build != 1):
         raise SystemExit("the voxel edit frame's launch counts are not those of its path")
     for k, v in frame.items():
         if v.shape[0] != EDIT_W * EDIT_H or not np.isfinite(v).all():
@@ -2739,7 +2810,7 @@ def _voxel_edit_phase(torch, dev):
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
           f"{EDIT_W * EDIT_H / (frame_ms / 1e3):.0f} pixels/s; max |edited - unedited| "
           f"{moved:.3f}")
-    return {"fused_mlp_eval": expect, "fused_sigma_eval": expect, "gather_rows": 2 * expect}
+    return {"fused_mlp_eval": expect, "fused_sigma_eval": expect, "corner_lookup": 2 * expect}
 
 
 def _card() -> str:
@@ -2752,6 +2823,23 @@ def _card() -> str:
 def _expect(ok: bool, message: str) -> None:
     if not ok:
         raise SystemExit(message)
+
+
+# `gather_rows` launches read on each main path beside its `corner_lookup`
+# count; the kernels line's `gather_rows` entry is built from these readings
+GATHER_ROWS_BY_PATH: dict = {}
+
+
+def _lookups(gather, path: str) -> int:
+    """The `corner_lookup` launches counted on `path` since the last reset,
+    after reading its `gather_rows` launches into GATHER_ROWS_BY_PATH: the
+    fused lookup fetches the corner rows itself, so a path that launches
+    `gather_rows` fails."""
+    n_rows = gather.launch_counts["gather_rows"]
+    GATHER_ROWS_BY_PATH[path] = GATHER_ROWS_BY_PATH.get(path, 0) + n_rows
+    _expect(n_rows == 0, f"{path}: {n_rows} gather_rows launches; the voxel lookup should "
+                         f"fetch its rows in corner_lookup")
+    return gather.launch_counts["corner_lookup"]
 
 
 def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
@@ -2793,8 +2881,8 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
     def reset_counts():
         fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
-    def counts():
-        return (dict(fused_mlp.launch_counts), gather.launch_counts["gather_rows"],
+    def counts(path):
+        return (dict(fused_mlp.launch_counts), _lookups(gather, path),
                 vg.build_counts["corner_table"])
 
     def kernels(**n):
@@ -2805,13 +2893,13 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
     root = _repo_root()
     n_chunks = (W * H) // CHUNK
     paths = {k: {} for k in ("fused_coarse_weights", "fused_render_tiles", "fused_mlp_eval",
-                             "fused_mlp_bwd", "fused_sigma_eval", "gather_rows")}
+                             "fused_mlp_bwd", "fused_sigma_eval", "corner_lookup")}
 
-    def record(path, launched, n_gather):
+    def record(path, launched, n_lookup):
         for k, v in launched.items():
             if v:
                 paths[k][path] = v
-        paths["gather_rows"][path] = n_gather
+        paths["corner_lookup"][path] = n_lookup
 
     # the CLIs write logs/ and debug/ under the working directory: a
     # directory of the checkout's (ignored) logs/, removed at the end
@@ -2931,20 +3019,20 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
             system_mod.ObjectNeRFSystem.training_step = training_step
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t0
-        launched, n_gather, n_build = counts()
+        launched, n_lookup, n_build = counts("desk_train_cli")
         losses = [float(x) for x in losses]
         s_ = SCENE_STEPS
         print(f"train CLI, config/synthetic_desk.yml at {W}x{H}, batch {BATCH}: {len(losses)} "
               f"steps and one validation in {t_cli:.1f} s (system build, source snapshot and "
-              f"checkpoints included); launches {launched}, gather_rows {n_gather}, table builds "
+              f"checkpoints included); launches {launched}, corner_lookup {n_lookup}, table builds "
               f"{n_build}; loss " + " ".join(f"{x:.4f}" for x in losses))
         _expect(len(losses) == s_, f"the CLI took {len(losses)} steps, not {s_}")
         _expect(launched == kernels(fused_mlp_eval=2 * s_, fused_mlp_bwd=2 * s_,
                                     fused_coarse_weights=n_chunks, fused_render_tiles=n_chunks)
-                and n_gather == 2 * s_ + 2 * n_chunks and n_build == s_ + 1,
-                f"expected 2 + 2 launches, 2 gathers and 1 build per step and {n_chunks} + "
+                and n_lookup == 2 * s_ + 2 * n_chunks and n_build == s_ + 1,
+                f"expected 2 + 2 launches, 2 lookups and 1 build per step and {n_chunks} + "
                 f"{n_chunks} launches on the validation frame")
-        record("desk_train_cli", launched, n_gather)
+        record("desk_train_cli", launched, n_lookup)
         _expect(all(x == x and abs(x) != float("inf") for x in losses), "a desk loss is not finite")
         head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
         print(f"desk loss: mean of the first five {head:.4f}, of the last five {tail:.4f}")
@@ -3003,7 +3091,7 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
         _expect(moved.max().item() > 1e-3 and same,
                 "the route's fine z_vals should differ from the scene-weight pdf's")
         del on, off
-        def compare_step(st, kernel_models, kernel_step):
+        def compare_step(path, st, kernel_models, kernel_step):
             """One step from the same weights and draws through the kernels
             (`kernel_step` on `kernel_models`), the plain bf16 path and the
             plain f32 path (the control); (launches, loss pair, MLP errors,
@@ -3017,7 +3105,7 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
             m_k = kernel_step(kernel_models, batch, draws=draws, voxel_topo=topo,
                               voxel_static=static)
             torch.cuda.synchronize()
-            launches = counts()
+            launches = counts(path)
             m_p = plain[0](twin, batch, draws=draws, voxel_topo=topo, voxel_static=static)
             plain[1](twin32, batch, draws=draws, voxel_topo=topo, voxel_static=static)
             torch.cuda.synchronize()
@@ -3036,10 +3124,11 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
         off_step = system_mod.make_train_step(
             off_settings, dict(cfg_c.loss), make_optimizer(cfg_c.train, off_models.parameters()),
             system.lr_schedule)
-        results = {"route": compare_step(settings, models, system.train_step),
-                   "scene pdf": compare_step(off_settings, off_models, off_step)}
+        results = {"route": compare_step("route_train_step", settings, models, system.train_step),
+                   "scene pdf": compare_step("scene_pdf_train_step", off_settings, off_models,
+                                             off_step)}
         del off_models, off_step
-        for label, ((launched, n_gather, n_build), (loss_k, loss_p), e, e_table,
+        for label, ((launched, n_lookup, n_build), (loss_k, loss_p), e, e_table,
                     control) in results.items():
             worst = max(e, key=e.get)
             print(f"scannet-keyed step 1 ({label}), kernels vs plain bf16 path: loss "
@@ -3048,9 +3137,9 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
                   f"{VOX_STEP_GRAD_TOL:g}), median {statistics.median(e.values()):.2e}; table "
                   f"gradient {e_table:.2e} (tol: a quarter of the plain bf16 step's distance to "
                   f"the plain f32 step, {control:.2e}; see ROUTE_TABLE_GRAD); launches "
-                  f"{launched}, gather_rows {n_gather}, table builds {n_build}")
-            _expect(launched == kernels(fused_mlp_eval=2, fused_mlp_bwd=2) and n_gather == 2
-                    and n_build == 1, "a voxel step should launch 2 + 2 kernels, 2 gathers, "
+                  f"{launched}, corner_lookup {n_lookup}, table builds {n_build}")
+            _expect(launched == kernels(fused_mlp_eval=2, fused_mlp_bwd=2) and n_lookup == 2
+                    and n_build == 1, "a voxel step should launch 2 + 2 kernels, 2 lookups, "
                                       "1 build")
             _expect(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
                     f"the {label} step's loss disagrees with the plain path's")
@@ -3069,21 +3158,21 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
         reset_counts()
         out = system.render_image(batch_v, chunk=CHUNK)
         torch.cuda.synchronize()
-        launched, n_gather, n_build = counts()
+        launched, n_lookup, n_build = counts("route_val_frame")
         near, far = batch_v["rays"][:, 6], batch_v["rays"][:, 7]
         miss = (near == 0) & (far == 0)
         finite = all(np.isfinite(v).all() and v.shape[0] == n for v in out.values())
-        print(f"route frame {W}x{H}: launches {launched}, gather_rows {n_gather}, table builds "
+        print(f"route frame {W}x{H}: launches {launched}, corner_lookup {n_lookup}, table builds "
               f"{n_build} (expect {n_chunks} fused_mlp_eval, {n_chunks} fused_render_tiles, no "
               f"fused_coarse_weights); {int(miss.sum())} of {n} rays miss the box (near = far = "
               f"0); maps finite: {finite}; the misses' opacity at most "
               f"{np.abs(out['opacity_instance_fine'][miss]).max():.2e} (instance)")
         _expect(launched == kernels(fused_mlp_eval=n_chunks, fused_render_tiles=n_chunks)
-                and n_gather == 2 * n_chunks and n_build == 1,
+                and n_lookup == 2 * n_chunks and n_build == 1,
                 "the route frame's launch counts are not those of its path")
         _expect(0 < miss.sum() < n, "the frame should have rays in the box and rays outside")
         _expect(finite, "a route frame map is not finite")
-        record("route_val_frame", launched, n_gather)
+        record("route_val_frame", launched, n_lookup)
         features = models.voxel_features
         with torch.no_grad():
             ctx16 = (features, topo, static, vg.CornerTable(features, topo, static, lowp=True))
@@ -3184,16 +3273,16 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
                        f"ckpt_path={ckpt_c}", "device=cuda", f"chunk={CHUNK}",
                        f"save_images={work}/eval_images"])
         torch.cuda.synchronize()
-        launched, n_gather, n_build = counts()
+        launched, n_lookup, n_build = counts("route_eval_cli")
         _expect(launched == kernels(fused_mlp_eval=n_chunks, fused_render_tiles=n_chunks)
-                and n_gather == 2 * n_chunks and n_build == 1,
-                f"the eval CLI's route frame: launches {launched}, gathers {n_gather}")
-        record("route_eval_cli", launched, n_gather)
+                and n_lookup == 2 * n_chunks and n_build == 1,
+                f"the eval CLI's route frame: launches {launched}, lookups {n_lookup}")
+        record("route_eval_cli", launched, n_lookup)
         img = png_io.read_png(os.path.join(work, "eval_images", "eval_0000.png"))
         _expect(img.shape == (H, W, 3) and img.dtype == np.uint8 and img.std() > 0,
                 f"the eval CLI's PNG reads back as {img.shape} {img.dtype}")
-        print(f"eval CLI on the scannet-keyed checkpoint: launches {launched}, gather_rows "
-              f"{n_gather}; eval_0000.png re-read {img.shape}, mean level {img.mean():.1f}")
+        print(f"eval CLI on the scannet-keyed checkpoint: launches {launched}, corner_lookup "
+              f"{n_lookup}; eval_0000.png re-read {img.shape}, mean level {img.mean():.1f}")
 
         # -- 25. the edit CLI on the desk run's checkpoint ----------------------------------
         reset_counts()
@@ -3201,12 +3290,12 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
             f"config={os.path.join(root, 'config', 'edit_synthetic_desk.yaml')}",
             f"ckpt_path={run_b}/last.ckpt", f"total_frames={SCENE_EDIT_FRAMES}", "device=cuda"])
         torch.cuda.synchronize()
-        launched, n_gather, n_build = counts()
-        record("desk_edit_cli", launched, n_gather)
+        launched, n_lookup, n_build = counts("desk_edit_cli")
+        record("desk_edit_cli", launched, n_lookup)
         pngs = sorted(glob.glob(os.path.join(work, render_path, "render_*.png")))
         shapes = [png_io.read_png(p).shape for p in pngs]
         print(f"edit CLI, {SCENE_EDIT_FRAMES} frames on the desk run: launches {launched}, "
-              f"gather_rows {n_gather}, table builds {n_build}; PNGs re-read {shapes}")
+              f"corner_lookup {n_lookup}, table builds {n_build}; PNGs re-read {shapes}")
         _expect(len(pngs) == SCENE_EDIT_FRAMES and all(s == (72, 96, 3) for s in shapes),
                 "the edit CLI's PNGs do not read back as 96x72 RGB")
         _expect(launched["fused_sigma_eval"] > 0 and launched["fused_mlp_eval"] > 0,
@@ -3260,7 +3349,7 @@ def _desk_mesh_phase(torch, dev, desk):
     """Phase 28: the mesh CLI on phase 21's desk checkpoint, then the scene
     viewer CLI with that mesh, the desk's poses and boxes, as a user runs
     them. Returns the sweep's launches of `fused_sigma_eval` and
-    `gather_rows`."""
+    `corner_lookup`."""
     import re
 
     import numpy as np
@@ -3301,7 +3390,7 @@ def _desk_mesh_phase(torch, dev, desk):
         extract_mesh.main(mesh_args + [f"N_grid={DESK_MESH_GRID}", f"sigma_threshold={level!r}"])
         torch.cuda.synchronize()
         launched = dict(fused_mlp.launch_counts)
-        n_gather, n_build = gather.launch_counts["gather_rows"], vg.build_counts["corner_table"]
+        n_lookup, n_build = _lookups(gather, "desk_mesh"), vg.build_counts["corner_table"]
     finally:
         extract_mesh.extract_sigma_grid = sweep
     (models, settings, config, obj_id), kw, grid, t_sweep = seen.pop()
@@ -3310,11 +3399,11 @@ def _desk_mesh_phase(torch, dev, desk):
     print(f"{_card()}: mesh CLI, phase 21's desk checkpoint, N_grid={n}: sweep "
           f"{t_sweep * 1e3:.1f} ms "
           f"(host clock around the CLI's sweep, the grid's copy to the host included); "
-          f"launches {launched}, gather_rows {n_gather}, table builds {n_build} (expect "
-          f"{expect} of fused_sigma_eval and of gather_rows, one chunk of "
+          f"launches {launched}, corner_lookup {n_lookup}, table builds {n_build} (expect "
+          f"{expect} of fused_sigma_eval and of corner_lookup, one chunk of "
           f"{extract_mesh.CUDA_CHUNK} points each, and 1 build)")
     _expect(launched == {**dict.fromkeys(launched, 0), "fused_sigma_eval": expect}
-            and n_gather == expect and n_build == 1,
+            and n_lookup == expect and n_build == 1,
             "the desk mesh sweep's launch counts are not those of its path")
     # two x-slices of the CLI's grid against the plain bf16 path on the same
     # points and the same f32 corner table as the sweep's (and, for scale, the
@@ -3374,7 +3463,7 @@ def _desk_mesh_phase(torch, dev, desk):
             "the viewer's layers or labels are not the desk's")
     _expect(len(back) == n_pcd + 32 * n_lines + len(mesh["points"]),
             "the viewer's PLY does not read back with the expected point count")
-    return {"fused_sigma_eval": launched["fused_sigma_eval"], "gather_rows": n_gather}
+    return {"fused_sigma_eval": launched["fused_sigma_eval"], "corner_lookup": n_lookup}
 
 
 def _data_prep_phase(desk):
@@ -3551,7 +3640,8 @@ def _dp_worker(out_dir: str) -> int:
         fused_mlp.reset_launch_counts()  # every counter of utils/trace.py
 
     def counts():
-        return {**fused_mlp.launch_counts, "gather_rows": gather.launch_counts["gather_rows"],
+        return {**fused_mlp.launch_counts, "corner_lookup": gather.launch_counts["corner_lookup"],
+                "gather_rows": gather.launch_counts["gather_rows"],
                 "corner_table": vg.build_counts["corner_table"]}
 
     def host(t):
@@ -3678,7 +3768,8 @@ def _dp_phase(torch, dev, first_step, frames, edit_launches):
                         f"{name}: rank {r}'s summed gradient {k} differs from rank 0's")
         want = {"fused_coarse_weights": 0, "fused_render_tiles": 0,
                 "fused_mlp_eval": 2 * DP_STEPS, "fused_mlp_bwd": 2 * DP_STEPS,
-                "fused_sigma_eval": 0, "gather_rows": 2 * DP_STEPS if name == "voxel" else 0,
+                "fused_sigma_eval": 0, "corner_lookup": 2 * DP_STEPS if name == "voxel" else 0,
+                "gather_rows": 0,
                 "corner_table": DP_STEPS if name == "voxel" else 0}
         for r, res in enumerate(ranks):
             _expect(res[name]["launches"] == want,
@@ -3747,8 +3838,9 @@ def _dp_phase(torch, dev, first_step, frames, edit_launches):
             _expect(same or p >= PSNR_FLOOR_DB,
                     f"{part}: rank {r}'s frame is {p:.1f} dB from the single process's")
     for r, res in enumerate(ranks):
-        for part, extra in (("frame", {}), ("voxel_frame", {"gather_rows": n_chunks,
-                                                            "corner_table": 1})):
+        for part, extra in (("frame", {"gather_rows": 0}),
+                            ("voxel_frame", {"corner_lookup": n_chunks, "corner_table": 1,
+                                             "gather_rows": 0})):
             got = res[part]["launches"]
             _expect(got["fused_coarse_weights"] == got["fused_render_tiles"] == n_chunks // DP_RANKS
                     and all(got[k] == v for k, v in extra.items()),
@@ -3756,6 +3848,10 @@ def _dp_phase(torch, dev, first_step, frames, edit_launches):
     edit_sum = {k: sum(res["edit"]["launches"][k] for res in ranks) for k in edit_launches}
     _expect(edit_sum == edit_launches and r0["edit"]["plan"] == ranks[1]["edit"]["plan"],
             f"the sharded edit frame launched {edit_sum} over its ranks, phase 9 {edit_launches}")
+    GATHER_ROWS_BY_PATH["data_parallel"] = total["gather_rows"]
+    _expect(total["gather_rows"] == 0,
+            f"the ranks launched {total['gather_rows']} gather_rows; the voxel lookup should "
+            f"fetch its rows in corner_lookup")
     return total
 
 
@@ -3986,7 +4082,7 @@ def main() -> int:
     frame4 = frame
     del models, frame
     torch.cuda.empty_cache()
-    gather_entry, vox, vox_eval_launches, vox_mesh_launches = _voxel_phases(
+    gather_entry, lookup_entry, vox, vox_eval_launches, vox_mesh_launches = _voxel_phases(
         torch, dev, peak_flops, peak_bytes)
     frame13_ms = vox_eval_launches.pop("frame_ms")
     frame13 = vox_eval_launches.pop("frame")
@@ -4026,16 +4122,16 @@ def main() -> int:
     sigma_entry["launches_by_path"]["prune"] = prune_launches["fused_sigma_eval"]
     sigma_entry["launches_by_path"]["voxel_edit"] = vedit_launches["fused_sigma_eval"]
     sigma_entry["launches"] = sum(sigma_entry["launches_by_path"].values())
-    for path, n in (("voxel_train", vtrain_launches["gather_rows"]),
-                    ("prune", prune_launches["gather_rows"]),
-                    ("voxel_edit", vedit_launches["gather_rows"])):
-        gather_entry["launches_by_path"][path] = n
-    gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
+    for path, n in (("voxel_train", vtrain_launches["corner_lookup"]),
+                    ("prune", prune_launches["corner_lookup"]),
+                    ("voxel_edit", vedit_launches["corner_lookup"])):
+        lookup_entry["launches_by_path"][path] = n
+    lookup_entry["launches"] = sum(lookup_entry["launches_by_path"].values())
 
     # -- 20 to 25. the shipped scene configs through the CLIs ---------------------------------
     torch.cuda.empty_cache()
     scene_paths, route, desk = _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms)
-    for entry in train_entries + [sigma_entry, gather_entry]:
+    for entry in train_entries + [sigma_entry, lookup_entry]:
         name = entry["name"]
         entry["launches_by_path"] = {**entry.get("launches_by_path",
                                                  {"train": entry["launches"]}),
@@ -4051,14 +4147,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp = _dp_phase(torch, dev, first_step, {"frame": frame4, "voxel_frame": frame13,
                                             "edit": frame9}, edit_launches)
-    for entry in train_entries + [sigma_entry, gather_entry]:
+    for entry in train_entries + [sigma_entry, lookup_entry]:
         entry["launches_by_path"]["data_parallel"] = dp[entry["name"]]
         entry["launches"] = sum(entry["launches_by_path"].values())
 
     # -- 28. the desk checkpoint's mesh drawn in the scene viewer ---------------------------
     torch.cuda.empty_cache()
     desk_mesh = _desk_mesh_phase(torch, dev, desk)
-    for entry in (sigma_entry, gather_entry):
+    for entry in (sigma_entry, lookup_entry):
         entry["launches_by_path"]["desk_mesh"] = desk_mesh[entry["name"]]
         entry["launches"] = sum(entry["launches_by_path"].values())
 
@@ -4074,6 +4170,10 @@ def main() -> int:
     errs = {"fused_coarse_weights": err_c, "fused_render_tiles": err_f}
     sources = {"fused_coarse_weights": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh",
                "fused_render_tiles": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh"}
+    unread = set(lookup_entry["launches_by_path"]) - set(GATHER_ROWS_BY_PATH)
+    _expect(not unread, f"paths whose gather_rows launches were not read: {sorted(unread)}")
+    gather_entry["launches_by_path"] = dict(GATHER_ROWS_BY_PATH)
+    gather_entry["launches"] = sum(GATHER_ROWS_BY_PATH.values())
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k],
@@ -4088,7 +4188,7 @@ def main() -> int:
          "voxel_bound_ms": vox[k]["bound_ms"],
          **chain_build[k]}
         for k in replaces
-    ] + train_entries + [sigma_entry, gather_entry] + probe_entries}))
+    ] + train_entries + [sigma_entry, gather_entry, lookup_entry] + probe_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -30,10 +30,12 @@ reference `EmbeddingVoxel`, models/embedding_helper.py:77-479):
 
 The corner table is `((X+1)(Y+1)(Z+1), 8 C)`: row p holds the features of the
 8 corners of the padded-frame base cell p, so a sample's whole neighbourhood
-is ONE contiguous row. On a CUDA tensor `voxel_lookup_dense` fetches those
-rows through the hand-written `ops.gather.gather_rows` kernel; everything
-else here is plain tensor code. Topology tensors live on an explicit device;
-the build runs on the host in numpy.
+is ONE contiguous row. On a CUDA table `voxel_lookup_dense` and
+`CornerTable.lookup` are one launch of the hand-written
+`ops.gather.corner_lookup` kernel (addressing, row fetch and 8-corner sum;
+the addressing `corner_index_weights` and the plain chain live beside it in
+`ops/gather.py`); everything else here is plain tensor code. Topology
+tensors live on an explicit device; the build runs on the host in numpy.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.gather import gather_rows, gather_rows_plain
+from ..ops.gather import corner_lookup, corner_lookup_plain, trilinear_weights
 from ..utils import trace
 from .embedding import freq_encode
 
@@ -297,15 +299,6 @@ def dense_path_ok(static: VoxelStatic) -> bool:
     return dense_table_bytes(static) <= DENSE_CELL_TABLE_LIMIT_BYTES
 
 
-def _trilinear_weights(p: torch.Tensor) -> torch.Tensor:
-    """(N, 8) corner weights in _CORNERS binary order from fractions (N, 3)."""
-    u, v, w = p[:, 0:1], p[:, 1:2], p[:, 2:3]
-    lu, lv, lw = 1.0 - u, 1.0 - v, 1.0 - w
-    return torch.cat(
-        [lu * lv * lw, lu * lv * w, lu * v * lw, lu * v * w,
-         u * lv * lw, u * lv * w, u * v * lw, u * v * w], dim=-1)
-
-
 def make_corner_table(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
                       lowp: bool = False) -> torch.Tensor:
     """Materialise the ((X+1)(Y+1)(Z+1), 8 C) corner table.
@@ -338,26 +331,6 @@ def make_corner_table(features: torch.Tensor, topo: VoxelTopology, static: Voxel
         return torch.cat(views, dim=-1).reshape(-1, 8 * C)
 
 
-def corner_index_weights(topo: VoxelTopology, static: VoxelStatic, xyz: torch.Tensor):
-    """Dense-route sample addressing: (flat (N,) int32 padded-cell row index,
-    wts (N, 8) f32 trilinear weights, zeroed for out-of-bounds samples,
-    sample_valid (N,) bool).
-
-    `sum(ct[flat].reshape(N, 8, C) * wts[..., None], 1)` is the masked
-    trilinear lookup: an out-of-bounds sample reads a valid (clipped) row with
-    weight 0."""
-    _, Y, Z = static.shape
-    xyz_scaled = (xyz + topo.voxel_offset) / topo.voxel_size
-    base = torch.floor(xyz_scaled)
-    q0 = base.to(torch.int32)
-    shape = torch.tensor(static.shape, dtype=torch.int32, device=xyz.device)
-    sample_valid = ((q0 >= -1) & (q0 <= shape - 1)).all(dim=-1)
-    pb = torch.minimum((q0 + 1).clamp(min=0), shape)  # padded-frame base cell
-    flat = (pb[:, 0] * (Y + 1) + pb[:, 1]) * (Z + 1) + pb[:, 2]
-    wts = _trilinear_weights(xyz_scaled - base) * sample_valid[:, None]
-    return flat, wts, sample_valid
-
-
 def corner_table_transpose(d_ct: torch.Tensor, row_to_cell: torch.Tensor,
                            static: VoxelStatic) -> torch.Tensor:
     """d_features (capacity, C) f32 from a corner-table cotangent d_ct
@@ -377,11 +350,6 @@ def corner_table_transpose(d_ct: torch.Tensor, row_to_cell: torch.Tensor,
     d_dense = padded[1:X + 1, 1:Y + 1, 1:Z + 1].reshape(-1, C)
     d_dense = torch.cat([d_dense, d_dense.new_zeros(1, C)])  # the trash cell
     return d_dense[row_to_cell.long()]
-
-
-def _corner_sum(rows: torch.Tensor, wts: torch.Tensor, channels: int) -> torch.Tensor:
-    """The f32 trilinear sum of fetched corner rows (N, 8 C) with weights (N, 8)."""
-    return (rows.reshape(-1, 8, channels).float() * wts[..., None]).sum(dim=1)
 
 
 def corner_table_grad(cotangents, topo: VoxelTopology, static: VoxelStatic) -> torch.Tensor:
@@ -420,28 +388,23 @@ class _TableToken(torch.autograd.Function):
 
 
 class _CornerLookup(torch.autograd.Function):
-    """One lookup of a step's table: the row fetch (`gather_rows`: the kernel
-    on a CUDA table, index_select on a CPU one) and the f32 8-corner sum. Its
+    """One lookup of a step's table: `corner_lookup` with its addressing (one
+    launch of the kernel on a CUDA table, the plain chain on a CPU one). Its
     backward only files (d_out, flat, wts) for the table's token."""
 
     @staticmethod
-    def forward(ctx, token, ct, flat, wts, pending, channels):
+    def forward(ctx, token, ct, xyz, topo, static, pending):
+        out, invalid, flat, wts = corner_lookup(ct, xyz, topo, static, with_addressing=True)
         ctx.pending = pending
         ctx.save_for_backward(flat, wts)
-        return _corner_sum(_fetch_rows(ct, flat), wts, channels)
+        ctx.mark_non_differentiable(invalid, flat, wts)
+        return out, invalid, flat, wts
 
     @staticmethod
-    def backward(ctx, d_out):
+    def backward(ctx, d_out, *_):
         flat, wts = ctx.saved_tensors
         ctx.pending.append((d_out, flat, wts))
         return d_out.new_zeros(1), None, None, None, None, None
-
-
-def _fetch_rows(ct: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Rows of a corner table at clipped addresses: the kernel on the card."""
-    if ct.device.type == "cuda":
-        return gather_rows(ct, flat, check_indices=False)  # clipped by construction
-    return gather_rows_plain(ct, flat)
 
 
 class CornerTable:
@@ -470,15 +433,11 @@ class CornerTable:
         """(ftr (N, C) f32, invalid (N,) bool) at normalised xyz (N, 3), as
         `voxel_lookup_dense`; `with_addressing` also returns (flat, wts)."""
         with trace.span("voxel.lookup", stream=True):
-            flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
             if self._token is None:
-                out = _corner_sum(_fetch_rows(self.ct, flat), wts, self.static.channels)
-            else:
-                out = _CornerLookup.apply(self._token, self.ct, flat, wts, self._pending,
-                                          self.static.channels)
-        if with_addressing:
-            return out, ~sample_valid, flat, wts
-        return out, ~sample_valid
+                return corner_lookup(self.ct, xyz, self.topo, self.static, with_addressing)
+            looked = _CornerLookup.apply(self._token, self.ct, xyz, self.topo, self.static,
+                                         self._pending)
+        return looked if with_addressing else looked[:2]
 
 
 class PlainCornerTable:
@@ -495,9 +454,7 @@ class PlainCornerTable:
         self.ct = ct
 
     def lookup(self, xyz: torch.Tensor):
-        flat, wts, sample_valid = corner_index_weights(self.topo, self.static, xyz)
-        return _corner_sum(gather_rows_plain(self.ct, flat), wts, self.static.channels), \
-            ~sample_valid
+        return corner_lookup_plain(self.ct, xyz, self.topo, self.static)
 
 
 def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
@@ -509,11 +466,11 @@ def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
     `ct`: a prebuilt `make_corner_table` (`features` may be None then);
     without it the table is built here, in bf16 when `lowp`, and under
     autograd the table gradient reaches `features` through
-    `CornerTable`'s hand-written backward (f32 whatever `lowp`). The row
-    fetch of a CUDA table is the `gather_rows` kernel, which carries no
-    gradient (a prebuilt CUDA table that requires one is refused), of a CPU
-    table its plain version; the 8-corner sum runs in f32. `with_addressing`
-    also returns (flat, wts)."""
+    `CornerTable`'s hand-written backward (f32 whatever `lowp`). The lookup
+    of a CUDA table is the `corner_lookup` kernel, which carries no gradient
+    (a prebuilt CUDA table that requires one is refused), of a CPU table its
+    plain version; the 8-corner sum runs in f32. `with_addressing` also
+    returns (flat, wts)."""
     if ct is None:
         return CornerTable(features, topo, static, lowp=lowp).lookup(
             xyz, with_addressing=with_addressing)
@@ -521,11 +478,7 @@ def voxel_lookup_dense(features: Optional[torch.Tensor], topo: VoxelTopology,
         raise ValueError("the row fetch of a prebuilt CUDA corner table carries no gradient: "
                          "pass `features` and no `ct` (the table gradient of "
                          "CornerTable), or look up under torch.no_grad()")
-    flat, wts, sample_valid = corner_index_weights(topo, static, xyz)
-    out = _corner_sum(_fetch_rows(ct, flat), wts, static.channels)
-    if with_addressing:
-        return out, ~sample_valid, flat, wts
-    return out, ~sample_valid
+    return corner_lookup(ct, xyz, topo, static, with_addressing)
 
 
 def voxel_lookup_raw(features: Optional[torch.Tensor], topo: VoxelTopology,
@@ -551,7 +504,7 @@ def voxel_lookup_raw(features: Optional[torch.Tensor], topo: VoxelTopology,
     base = torch.floor(xyz_scaled)
     q = base.long()[:, None, :] + torch.from_numpy(_CORNERS).to(xyz.device)[None]
     ftr, invalid = _gather_rows(features, topo, static, q)  # (N, 8, C), (N, 8)
-    wts = _trilinear_weights(xyz_scaled - base)
+    wts = trilinear_weights(xyz_scaled - base)
     out = (ftr * wts[..., None]).sum(dim=1)
     return out, invalid.all(dim=-1)
 
@@ -741,7 +694,8 @@ def subdivide_voxels(features: torch.Tensor, topo: VoxelTopology, static: VoxelS
     ct = make_corner_table(features, topo, static) if dense_path_ok(static) else None
     feats = []
     for i in range(0, len(new_xyz), chunk):
-        pts = torch.from_numpy(new_xyz[i:i + chunk].astype(np.float32)).to(device)
+        # row-major: np.argwhere's columns make new_xyz column-major
+        pts = torch.from_numpy(np.ascontiguousarray(new_xyz[i:i + chunk], np.float32)).to(device)
         feats.append(voxel_lookup_raw(features, topo, static, pts, ct=ct)[0].cpu())
     new_ftrs = torch.cat(feats).numpy() if feats else np.zeros((0, static.channels), np.float32)
 

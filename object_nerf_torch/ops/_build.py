@@ -54,6 +54,7 @@ SIGNATURES = {
     "onerf_sigma_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_gather_rows": [_P, _P, _P, _L, _I, _P],
+    "onerf_corner_lookup": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "onerf_pe_probe": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "onerf_scale_copy": [_P, _P, _L, _P],
 }

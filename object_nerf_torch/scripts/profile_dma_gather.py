@@ -1,4 +1,5 @@
-"""How fast is the hand-written row gather beside PyTorch's own?
+"""How fast is the hand-written row gather beside PyTorch's own, and the
+fused voxel lookup beside the chain it replaced?
 
     python -m object_nerf_torch.scripts.profile_dma_gather [n_idx [rows]]
 
@@ -15,18 +16,35 @@ sample. On the shape of that script (890,000 x 192 table, bf16 and f32,
 
 each as a median over launches by CUDA events, with the rows' bytes over the
 time as the achieved memory rate, and checks that the two gathers agree bit
-for bit. Every line carries the card's name and power limit.
+for bit. Then, on the benchmark room's grid ((63, 63, 27) cells of 0.1,
+a 114,688-row corner table, bf16 and f32) at the render's fine-pass
+(983,040 samples) and coarse-pass (491,520) shapes, samples drawn uniformly
+over the grid's box and a margin around it, it times
+
+  corner_lookup          the fused lookup kernel (addressing, corner-row
+                         fetch and 8-corner sum in one launch)
+  corner_lookup_plain    the torch chain it replaced (`corner_index_weights`,
+                         `index_select`, the f32 sum)
+
+against the byte bound: xyz read, `out` (f32) and the flag written, and the
+distinct table rows the samples name, each once, at 3.35 TB/s. Every line
+carries the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ..ops.gather import gather_rows, gather_rows_plain
+from ..models.voxel_grid import VoxelStatic
+from ..ops.gather import corner_lookup, corner_lookup_plain, gather_rows, gather_rows_plain
 from ._timing import card_line, median_ms, require_cuda
+
+PEAK_BYTES_S = 3.35e12  # H100 SXM
+ROOM_GRID, VOXEL, CHANNELS = (63, 63, 27), 0.1, 24
 
 
 def main(argv) -> None:
@@ -58,6 +76,39 @@ def main(argv) -> None:
             ms = median_ms(fn)
             print(f"[{card}] [{tag}] {name}: {ms:7.3f} ms ({ms * 1e6 / n_idx:5.2f} ns/row, "
                   f"rows alone {moved / ms / 1e6:6.0f} GB/s)")
+    profile_corner_lookup(dev, card, rng)
+
+
+def profile_corner_lookup(dev, card, rng) -> None:
+    """The fused lookup and its plain chain at the render's two pass shapes."""
+    static = VoxelStatic(ROOM_GRID, CHANNELS, 6, 1 << 17)
+    topo = SimpleNamespace(voxel_offset=torch.zeros(3, device=dev),
+                           voxel_size=torch.tensor(VOXEL, device=dev))
+    n_rows = (ROOM_GRID[0] + 1) * (ROOM_GRID[1] + 1) * (ROOM_GRID[2] + 1)
+    table32 = torch.from_numpy(rng.randn(n_rows, 8 * CHANNELS).astype(np.float32)).to(dev)
+    box = np.asarray(ROOM_GRID, np.float32) * VOXEL
+    for n in (983040, 491520):  # 7680 rays x 128 fine, x 64 coarse samples
+        xyz = torch.from_numpy(
+            (rng.rand(n, 3) * 1.2 - 0.1).astype(np.float32) * box).to(dev)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32 ")):
+            table = table32.to(dtype)
+            out, inv, flat, wts = corner_lookup(table, xyz, topo, static, with_addressing=True)
+            want = corner_lookup_plain(table, xyz, topo, static, with_addressing=True)
+            if not (torch.equal(flat, want[2]) and torch.equal(inv, want[1])
+                    and torch.equal(wts, want[3])):
+                raise SystemExit(f"[{tag}] corner_lookup's addressing differs from the chain's")
+            gap = (out - want[0]).abs().max().item()
+            distinct = int(torch.unique(flat).numel())
+            nbytes = n * (12 + 4 * CHANNELS + 1) + distinct * 8 * CHANNELS * table.element_size()
+            bound = nbytes / PEAK_BYTES_S * 1e3
+            for name, fn in (
+                ("corner_lookup       ", lambda: corner_lookup(table, xyz, topo, static)),
+                ("corner_lookup_plain ", lambda: corner_lookup_plain(table, xyz, topo, static)),
+            ):
+                ms = median_ms(fn)
+                print(f"[{card}] [{tag}] {name} {n} samples ({distinct} distinct rows): "
+                      f"{ms:7.3f} ms, bound {bound:.3f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+                      f"{bound / ms * 100:5.1f} % of it; max |fused - chain| {gap:.2e}")
 
 
 if __name__ == "__main__":

@@ -417,7 +417,7 @@ def _small_grid(device, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lowp", [False, True])
 def test_table_gradient_on_card(cuda_device, lowp):
-    """One trainable table, two lookups through `gather_rows`, one backward:
+    """One trainable table, two lookups through `corner_lookup`, one backward:
     the hand-written table gradient against autograd of the plain version
     (f32 build, index_select, the bf16 cast passed straight through). Both
     sum in f32; index_add_'s order on the card is not fixed: 1e-5 relative."""
@@ -437,7 +437,8 @@ def test_table_gradient_on_card(cuda_device, lowp):
     vg.build_counts["corner_table"] = 0
     loss, got = run(vg.CornerTable)
     torch.cuda.synchronize()
-    assert gather.launch_counts["gather_rows"] == 2 and vg.build_counts["corner_table"] == 1
+    assert gather.launch_counts == {"gather_rows": 0, "corner_lookup": 2}
+    assert vg.build_counts["corner_table"] == 1
     want_loss, want = run(vg.PlainCornerTable)
     assert got.dtype == torch.float32 and abs(loss - want_loss) <= 1e-5 * abs(want_loss)
     assert _rel(got, want) < 1e-5
@@ -453,8 +454,8 @@ def test_voxel_train_step_spans_on_card(cuda_device):
     """A voxel train step under a profiler: its spans go into the registry's
     "on" bucket, the corner table's build and lookups with CUDA stream time
     from their event pairs, and the step still launches 7 kernels (2 + 2
-    fused, 2 gathers, one table build); a step with no profiler records no
-    stream time."""
+    fused, 2 corner lookups, one table build); a step with no profiler
+    records no stream time."""
     cfg = ObjectNeRFConfig()
     feats, topo, static = _small_grid(cuda_device)
     settings = RenderSettings(mlp=cfg, N_samples=64, N_importance=64, perturb=1.0,
@@ -502,6 +503,7 @@ def test_voxel_train_step_spans_on_card(cuda_device):
     assert on["train.backward"]["stream_s"] is None
     launches = {**fm.launch_counts, **gather.launch_counts, **vg.build_counts}
     assert sum(launches.values()) == 7 and launches["fused_mlp_bwd"] == 2, launches
+    assert launches["corner_lookup"] == 2 and launches["gather_rows"] == 0, launches
 
 
 # -- the gather and the probes ------------------------------------------------------
@@ -529,8 +531,78 @@ def test_gather_rows_is_index_select_on_card(cuda_device, dtype, rows, n):
 
 @pytest.mark.cuda
 def test_voxel_lookup_goes_through_gather_rows_on_card(cuda_device):
+    """The voxel lookup of a prebuilt table is one `corner_lookup` launch
+    and no `gather_rows`: the fused lookup took the place of the gather and
+    the torch chain around it."""
+    gather.reset_launch_counts()
     cfg, models, xyz, _, _, _, raw = _voxel_setup(cuda_device, 16, 32)
-    assert raw.is_cuda and gather.launch_counts["gather_rows"] > 0
+    assert raw.is_cuda and gather.launch_counts == {"gather_rows": 0, "corner_lookup": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 37, 4097, 131072, 491520, 983040])
+def test_corner_lookup_matches_plain_on_card(cuda_device, dtype, n):
+    """The fused lookup against the plain chain on the card: samples inside,
+    on the border and outside the grid on every side. The row index, the
+    weights and the flag are the same f32 / int32 operations: bit-equal. The
+    sums are within 1e-6 of their terms' magnitude (any order of the 8
+    products is), and bit-equal while the kernel's order is that of ATen's
+    reduction over the corner axis of the (N, 8, C) f32 product, which ATen
+    does not promise to keep."""
+    feats, topo, static = _small_grid(cuda_device)
+    ct = vg.make_corner_table(feats, topo, static, lowp=dtype == torch.bfloat16)
+    g = torch.Generator().manual_seed(n)
+    xyz = (torch.rand(n, 3, generator=g) * 2.0 - 1.0).to(cuda_device)
+    gather.reset_launch_counts()
+    got = gather.corner_lookup(ct, xyz, topo, static, with_addressing=True)
+    eval_out, eval_inv = gather.corner_lookup(ct, xyz, topo, static)
+    want = gather.corner_lookup_plain(ct, xyz, topo, static, with_addressing=True)
+    torch.cuda.synchronize()
+    assert gather.launch_counts == {"gather_rows": 0, "corner_lookup": 2}
+    out, inv, flat, wts = got
+    assert out.dtype == torch.float32 and out.shape == (n, 24) and inv.dtype == torch.bool
+    assert torch.equal(flat, want[2]) and torch.equal(inv, want[1])
+    assert torch.equal(wts.view(torch.int32), want[3].view(torch.int32))
+    assert torch.equal(eval_out, out) and torch.equal(eval_inv, inv)
+    rows = ct[flat.long()].reshape(n, 8, static.channels).float().abs()
+    magnitude = (rows * wts.abs()[..., None]).sum(1)
+    gap = (out - want[0]).abs()
+    assert (gap <= 1e-6 * magnitude).all(), (
+        f"sums off by up to {(gap / magnitude.clamp_min(1e-30)).max().item():.2e} of their "
+        f"terms' magnitude (tolerance 1e-6)")
+    assert torch.equal(out, want[0]), (
+        f"{int((out != want[0]).sum())} sums differ in their last bits (at most "
+        f"{(gap / magnitude.clamp_min(1e-30)).max().item():.2e} of their terms' magnitude, "
+        f"within 1e-6): ATen now reduces the (N, 8, C) product in another order than "
+        f"corner_lookup_kernel's sum, which copies it")
+    if n > 1000:
+        assert 0 < int(inv.sum()) < n
+
+
+@pytest.mark.cuda
+def test_corner_lookup_makes_no_host_sync_on_card(cuda_device):
+    """A frame's lookups and a step's (under autograd, with the addressing)
+    under `torch.cuda.set_sync_debug_mode("error")`: none synchronises the
+    host with the card. The plain chain's shape tensor does, which shows that
+    the mode catches it."""
+    feats, topo, static = _small_grid(cuda_device)
+    xyz = (torch.rand(4096, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1).to(
+        cuda_device)
+    frame = vg.CornerTable(feats, topo, static, lowp=True)
+    step = vg.CornerTable(feats.clone().requires_grad_(), topo, static, lowp=True)
+    frame.lookup(xyz)  # the build of the kernel library, outside the checked region
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out, _ = frame.lookup(xyz)
+        out_t, _, flat, wts = step.lookup(xyz, with_addressing=True)
+        with pytest.raises(RuntimeError):
+            gather.corner_lookup_plain(frame.ct, xyz, topo, static)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, out_t.detach()) and out_t.requires_grad
 
 
 # the probe's 8-layer chain: as FWD_TOL, relative to the largest output

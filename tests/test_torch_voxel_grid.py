@@ -184,7 +184,7 @@ def test_lookup_matches_jax(route, lowp, monkeypatch):
     want, want_inv = jvg.voxel_lookup_raw(jf, jt, js, jnp.asarray(pts), lowp=lowp, **jkw)
     gather.reset_launch_counts()
     got, inv = vg.voxel_lookup_raw(f, t, s, _t(pts), lowp=lowp, **kw)
-    assert gather.launch_counts["gather_rows"] == 0  # CPU tensors: the plain version
+    assert gather.launch_counts == {"gather_rows": 0, "corner_lookup": 0}  # CPU: the plain versions
     assert got.dtype == torch.float32 and got.shape == (len(pts), 24)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), rtol=0,
                                atol=LOOKUP_ATOL)
@@ -219,7 +219,7 @@ def test_corner_index_weights_match_jax():
     (jf, jt, js), (f, t, s) = _pair()
     pts = _points(s, t, n=200, seed=7)
     jflat, jw, jvalid = jvg.corner_index_weights(jt, js, jnp.asarray(pts))
-    flat, w, valid = vg.corner_index_weights(t, s, _t(pts))
+    flat, w, valid = gather.corner_index_weights(t, s, _t(pts))
     assert flat.dtype == torch.int32
     np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
@@ -373,7 +373,7 @@ def test_gather_rows_wrapper_on_cpu(dtype):
     idx = torch.randint(0, 50, (333,), generator=g, dtype=torch.int32)
     gather.reset_launch_counts()
     got = gather.gather_rows(table, idx)
-    assert gather.launch_counts == {"gather_rows": 0}
+    assert gather.launch_counts == {"gather_rows": 0, "corner_lookup": 0}
     assert torch.equal(got, table[idx.long()]) and got.dtype == dtype
     assert torch.equal(gather.gather_rows_plain(table, idx), got)
     assert gather.gather_rows(table, idx[:0]).shape == (0, 192)
