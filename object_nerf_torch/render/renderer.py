@@ -37,7 +37,10 @@ runs `fused_mlp_eval` on both branches (with the frame's `packed` inference
 weights on the card), the compositing glue of `_composite_pass` runs on its
 raw outputs without noise, and `sample_pdf` and `fused_render_tiles` follow
 as on the plain route. A model without an instance branch takes the plain
-route (JAX `:346`).
+route (JAX `:346`). The route's coarse pass, from its voxel lookup to the
+pdf weights, is the stream span `render.route_coarse`, and each chunk it
+renders adds one to the counter `render.route_chunks` (`utils/trace.py`);
+the plain route opens neither.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..ops.fused_mlp import (
 )
 from ..ops.fused_mlp_vjp import MLPOut, fused_mlp_eval, mlp_eval_plain
 from ..ops.sampling import merge_z_vals, sample_pdf, stratified_sample
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,16 +167,19 @@ def _render_chunk(models: nn.Module, rays: torch.Tensor, settings: RenderSetting
 
     xyz_c = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).contiguous()
     if settings.N_importance > 0:
-        vox_c = lookup_voxel_raw(settings, voxel_ctx, xyz_c)
         if bbox_route(settings):
             # both branches' raw outputs, composited: the instance weights
-            raw = mlp_fn(models.nerf_coarse, cfg, xyz_c, dir_pe, codes, vox_c,
-                         packed.get("coarse"))
-            coarse: Dict[str, torch.Tensor] = {}
-            _composite_pass(coarse, settings, "coarse", raw, z_vals, None, None, None)
-            weights = coarse["weights_coarse"]
+            trace.count("render.route_chunks")
+            with trace.span("render.route_coarse", stream=True):
+                vox_c = lookup_voxel_raw(settings, voxel_ctx, xyz_c)
+                raw = mlp_fn(models.nerf_coarse, cfg, xyz_c, dir_pe, codes, vox_c,
+                             packed.get("coarse"))
+                coarse: Dict[str, torch.Tensor] = {}
+                _composite_pass(coarse, settings, "coarse", raw, z_vals, None, None, None)
+                weights = coarse["weights_coarse"]
         else:
             # only the pdf weights survive the coarse pass: scene density only
+            vox_c = lookup_voxel_raw(settings, voxel_ctx, xyz_c)
             weights = coarse_fn(models.nerf_coarse, cfg, xyz_c, z_vals, voxel_raw=vox_c,
                                 packed=packed.get("coarse"))
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])

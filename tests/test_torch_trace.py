@@ -183,9 +183,11 @@ PER_UNIT = {
     "voxel-render": {"render.frame": 1, "voxel.table": 1, "voxel.lookup": 6},
     "pe-edit": {"edit.frame": 1, "edit.rays": 1, "edit.compact": 1, "edit.upload": 1,
                 "edit.fetch": 1},
+    "voxel-route-render": {"render.frame": 1, "voxel.table": 1, "voxel.lookup": 6,
+                           "render.route_coarse": 3},
 }
 UNIT = {"voxel-train": "train.step", "pe-train": "train.step", "voxel-render": "render.frame",
-        "pe-edit": "edit.frame"}
+        "pe-edit": "edit.frame", "voxel-route-render": "render.frame"}
 RUN = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -220,8 +222,8 @@ def test_a_traced_cpu_run_gives_every_new_host_metric(traced_runs, cell):
     assert run["rc"] == 0 and run["line"]["correct"]
     got = run["line"]["metrics"]
     want = {m["name"] for m in harness.cell_metrics(BENCH, cell, traced=True)} & NEW_METRICS
-    # a CPU run has no CUDA events: the stream reader stays silent there
-    silent = want & {"voxel_stream_ms.render"}
+    # a CPU run has no CUDA events: the stream readers stay silent there
+    silent = want & {"voxel_stream_ms.render", "route_coarse_ms.route"}
     want -= silent
     assert want <= set(got), sorted(want - set(got))
     assert not silent & set(got)
@@ -239,7 +241,13 @@ def test_each_span_opens_its_count_a_unit(traced_runs, cell):
     assert units >= 1
     assert {n: c / units for n, c in counts.items()} == PER_UNIT[cell]
     assert traced_runs[cell]["counts"]["on"][UNIT[cell]] >= 2  # both slices
+    c = traced_runs[cell]["counters"]
+    frames = units + traced_runs[cell]["counts"]["on"][UNIT[cell]]
     if cell == "pe-edit":  # 3 chunks a frame, the object's hits in the first
-        c = traced_runs[cell]["counters"]
-        assert c["edit.chunks"] == 3 * (units + traced_runs[cell]["counts"]["on"]["edit.frame"])
+        assert c["edit.chunks"] == 3 * frames
         assert 0 < c["edit.chunks_mixed"] < c["edit.chunks"]
+    # the route's chunks, 3 a frame; the plain route opens neither its span nor its counter
+    assert c.get("render.route_chunks", 0) == (3 * frames if cell == "voxel-route-render" else 0)
+    for bucket in ("off", "on"):
+        assert ("render.route_coarse" in traced_runs[cell]["counts"][bucket]) == \
+            (cell == "voxel-route-render")
