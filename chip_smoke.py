@@ -49,8 +49,11 @@ Phases 28 and 29: the offline tools on the same desk (the mesh CLI on phase
    registers, spills, stack frames and wgmma serialization (`-Xptxas -v`)
    of the forward chain's ten instantiations and the backward's kernels and
    counts the wgmma (HGMMA) and TMA (UTMALDG) instructions in their machine
-   code (`cuobjdump -sass`; each must issue both, and ptxas must serialize
-   none of their wgmma), prints the forward's weight stream, and
+   code (`cuobjdump -sass`; each must issue both, ptxas must serialize none
+   of their wgmma, and the chain must not spill), prints each chain
+   instantiation's weight-ring
+   stages and shared memory (also on the kernels line, under `ring`), prints
+   the forward's weight stream, and
    times them (the backward split into its sweep, its weight-gradient GEMM
    and its reduction by `torch.profiler`), reads the memory one backward
    launch adds at its peak (held to its workspace and partials), and times
@@ -523,6 +526,8 @@ def _nrel(got, want) -> float:
     return ((got - want).norm() / (want.norm() + 1e-30)).item()
 
 
+# ptxas's notes that it serialized a kernel's wgmma
+WGMMA_SERIALIZED = ("(C7510)", "(C7512)", "(C7515)")
 # the backward's three kernels, by a piece of their (mangled or demangled) names
 BWD_KERNELS = {"sweep": "mlp_bwd_kernel", "weight_gradient": "wgrad_kernel",
                "reduction": "reduce_segments_kernel"}
@@ -530,10 +535,10 @@ BWD_KERNELS = {"sweep": "mlp_bwd_kernel", "weight_gradient": "wgrad_kernel",
 
 def _ptxas_resources(names):
     """{piece of a kernel name: {"registers", "spill_stores", "spill_loads",
-    "stack_frame" (bytes), "wgmma_serialized" (ptxas's C7510 or C7515: it
-    serialized the kernel's wgmma because their pipeline crosses a function
-    call, or because other instructions define accumulator registers inside
-    it)}}
+    "stack_frame" (bytes), "wgmma_serialized" (ptxas's C7510, C7512 or
+    C7515: it serialized the kernel's wgmma because their pipeline crosses a
+    function call, for want of registers, or because other instructions
+    define accumulator registers inside it)}}
     from the `-Xptxas -v` report kept beside the built library."""
     import re
 
@@ -541,7 +546,7 @@ def _ptxas_resources(names):
 
     found, current = {}, None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "(C7510)" in line or "(C7515)" in line:
+        if any(code in line for code in WGMMA_SERIALIZED):
             for k in names:
                 if k in line:
                     found.setdefault(k, {})["wgmma_serialized"] = True
@@ -624,9 +629,11 @@ def _fmt_split(split) -> str:
 # product
 CHAIN_MODES = {0: "fused_mlp_eval", 1: "fused_render_tiles", 2: "fused_coarse_weights",
                3: "fused_sigma_eval scene", 4: "fused_sigma_eval object"}  # FWD_* in the source
+# the chain's instantiations by label: (voxel, mode)
+CHAIN_LABELS = {f"forward chain, {name} {model}": (vox, mode) for mode, name in CHAIN_MODES.items()
+                for vox, model in ((0, "classical"), (1, "voxel"))}
 WGMMA_INSTANTIATIONS = {
-    **{f"forward chain, {name} {model}": f"fwd_chain_kernelILb{vox}ELi{mode}E"
-       for mode, name in CHAIN_MODES.items() for vox, model in ((0, "classical"), (1, "voxel"))},
+    **{label: f"fwd_chain_kernelILb{vox}ELi{mode}E" for label, (vox, mode) in CHAIN_LABELS.items()},
     "sweep, classical": "mlp_bwd_kernelILb0", "sweep, voxel": "mlp_bwd_kernelILb1",
     "weight gradient": "wgrad_kernel", "pe_probe": "pe_probe_wg_kernel"}
 BUILD_INSTANTIATIONS = {**WGMMA_INSTANTIATIONS, "reduction": "reduce_segments_kernel"}
@@ -642,22 +649,37 @@ def _build_line(label, key, r, counts) -> str:
 
 def _build_report():
     """Print the registers, spills, stack frame and wgmma serialization of
-    the kernels on wgmma (and the backward's reduction), and the tensor-core
-    and TMA instructions in their machine code; fail unless each of them
-    issues wgmma (HGMMA) and TMA loads (UTMALDG) and ptxas serialized none of
-    their wgmma. Returns {label: ptxas figures}, {label: SASS counts}."""
+    the kernels on wgmma (and the backward's reduction), the tensor-core and
+    TMA instructions in their machine code, and each forward-chain
+    instantiation's weight-ring stages and shared memory
+    (`fused_mlp.chain_layout`); fail unless each of them issues wgmma (HGMMA)
+    and TMA loads (UTMALDG) and ptxas serialized none of their wgmma, or if
+    a forward-chain instantiation spills.
+    Returns {label: ptxas figures}, {label: SASS counts}, {label: ring}."""
+    from object_nerf_torch.ops import fused_mlp
+
     res = _ptxas_resources(list(BUILD_INSTANTIATIONS.values()))
     sass = _sass_counts(list(BUILD_INSTANTIATIONS.values()))
+    ring = {}
+    for label, (vox, mode) in CHAIN_LABELS.items():
+        stages, smem = fused_mlp.chain_layout(bool(vox), fused_mlp.CHAIN_MODES[mode])
+        ring[label] = {"stages": stages, "smem_bytes": smem}
     for label, key in BUILD_INSTANTIATIONS.items():
-        print(_build_line(label, key, res[key], sass[key]))
+        line = _build_line(label, key, res[key], sass[key])
+        if label in ring:
+            line += (f"; weight ring {ring[label]['stages']} stages, "
+                     f"{ring[label]['smem_bytes']} bytes of shared memory")
+        print(line)
     for label, key in WGMMA_INSTANTIATIONS.items():
         got = sass[key]
         if not (got["HGMMA"] > 0 and got["UTMALDG"] > 0):
             raise SystemExit(f"{label} issues no wgmma or no TMA load: {got}")
         if res[key]["wgmma_serialized"]:
-            raise SystemExit(f"ptxas serialized the wgmma of {label} (C7510 / C7515)")
+            raise SystemExit(f"ptxas serialized the wgmma of {label} (C7510 / C7512 / C7515)")
+        if label in CHAIN_LABELS and (res[key].get("spill_stores") or res[key].get("spill_loads")):
+            raise SystemExit(f"{label} spills registers: {res[key]}")
     return ({k: res[v] for k, v in BUILD_INSTANTIATIONS.items()},
-            {k: sass[v] for k, v in BUILD_INSTANTIATIONS.items()})
+            {k: sass[v] for k, v in BUILD_INSTANTIATIONS.items()}, ring)
 
 
 def _weight_stream(packed, cfg, n_rows: int, ms: float, forward_instance: bool = True,
@@ -1076,17 +1098,19 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
         })
     entries[1]["split_ms_by_samples"] = split
     entries[1]["launch_peak_bytes_by_samples"] = launch_peak
-    ptxas, sass = _build_report()
+    ptxas, sass, ring = _build_report()
     for entry, labels in ((entries[0], [k for k in ptxas if "fused_mlp_eval" in k]),
                           (entries[1], ["sweep, classical", "sweep, voxel", "weight gradient",
                                         "reduction"])):
         entry["ptxas"] = {k: ptxas[k] for k in labels}
         entry["sass_counts"] = {k: sass[k] for k in labels}
+    entries[0]["ring"] = {k: v for k, v in ring.items() if "fused_mlp_eval" in k}
     # the forward chain's instantiations of the eval kernels, by kernel
     chain_build = {name: {key: {k: v for k, v in d.items() if name in k}
-                          for key, d in (("ptxas", ptxas), ("sass_counts", sass))}
+                          for key, d in (("ptxas", ptxas), ("sass_counts", sass), ("ring", ring))}
                    for name in ("fused_render_tiles", "fused_coarse_weights", "fused_sigma_eval",
                                 "pe_probe")}
+    del chain_build["pe_probe"]["ring"]  # pe_probe's ring is its own (probes.cu)
     print(f"pack_kernel_weights: {pack_ms:.3f} ms per model (twice per step)")
 
     # -- 7. the training path -----------------------------------------------------------

@@ -45,6 +45,7 @@ SIGNATURES = {
     "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_sincos_check": [_P, _L, _P, _P],
+    "onerf_fwd_chain_layout": [_I, _I, _P, _P],
     "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,

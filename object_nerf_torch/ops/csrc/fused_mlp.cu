@@ -65,6 +65,13 @@ __global__ void sincos_check_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+// The ring depth and the dynamic shared memory of one instantiation.
+template <bool VOX, int MODE>
+void chain_layout(int* stages, int* smem_bytes) {
+  *stages = FwdCfg<VOX, MODE>::STAGES;
+  *smem_bytes = FwdCfg<VOX, MODE>::BYTES;
+}
+
 }  // namespace
 
 extern "C" {
@@ -114,6 +121,25 @@ int onerf_render_tiles(const float* xyz, const float* z, const float* dir_pe,
                                               a, st);
   return launch_fwd_chain<false, FWD_RENDER>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a,
                                              st);
+}
+
+// The forward chain's layout (FwdCfg) in fwd_chain_kernel<vox, mode>, mode
+// one of FWD_* (0 eval, 1 render, 2 coarse weights, 3 scene density, 4
+// object density): the weight ring's stages and the block's dynamic shared
+// memory in bytes, into two host ints. Launches nothing.
+int onerf_fwd_chain_layout(int vox, int mode, int* stages, int* smem_bytes) {
+  typedef void (*Layout)(int*, int*);
+  static const Layout layouts[2][5] = {
+      {chain_layout<false, FWD_EVAL>, chain_layout<false, FWD_RENDER>,
+       chain_layout<false, FWD_WEIGHTS>, chain_layout<false, FWD_SIGMA_SCENE>,
+       chain_layout<false, FWD_SIGMA_OBJ>},
+      {chain_layout<true, FWD_EVAL>, chain_layout<true, FWD_RENDER>,
+       chain_layout<true, FWD_WEIGHTS>, chain_layout<true, FWD_SIGMA_SCENE>,
+       chain_layout<true, FWD_SIGMA_OBJ>}};
+  if (mode < 0 || mode > FWD_SIGMA_OBJ || stages == nullptr || smem_bytes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  layouts[vox != 0][mode](stages, smem_bytes);
+  return (int)cudaSuccess;
 }
 
 // mism[0] += the n arguments x (device pointers) at which sincosf differs from

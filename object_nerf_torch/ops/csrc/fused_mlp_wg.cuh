@@ -8,7 +8,7 @@
 // shared-memory descriptors of wgmma operands in the 128-byte swizzle, and
 // the wgmma instructions. pe_probe (probes.cu) runs on the chain's own parts
 // as well: its plan (fwd_plan), producer (fwd_produce), ring (FwdPipe),
-// products (fwd_gemm) and stmatrix stores.
+// products from shared memory (fwd_gemm) and stmatrix stores.
 //
 // The forward chain, in five modes (FWD_*, below). fused_mlp_eval and
 // fused_render_tiles compute, per sample row, both MLP branches (trunk,
@@ -31,41 +31,46 @@
 //   ahead across layers, branches and tiles. A chunk is 32 K rows of a
 //   256-column matrix, 64 of a 128-column one, 128 of the object's 64-column
 //   direction layer. The ring takes what shared memory leaves beside the
-//   tiles (FwdCfg): 7 stages beside the classical tiles, 2 beside the voxel
-//   model's 112 KB input tile; the scene-only modes hold the scene's columns
-//   alone (the voxel coarse pass 4 stages, the voxel scene density 5). A
-//   measured trade: 8 KB chunks ran slower, and waiting with a deeper
-//   wait_group did not help.
+//   input tiles, the render's row buffers and the direction biases (FwdCfg):
+//   classical 11 stages (eval, render), 12 (coarse weights), 13 (scene
+//   density), 12 (object density); voxel, beside its 448-column input tile,
+//   6, 8, 9 and 7. A measured trade: 8 KB chunks ran slower, and waiting
+//   with a deeper wait_group did not help.
 //   Warpgroups 1 and 2 consume the same chunks, each for its own 64 rows of
-//   the tile, with its own input tile X and activation buffer H; they meet
-//   only at the ring's barriers (a stage is refilled when the 8 consumer
-//   warps have released it) and, in the render, at the tile's compositing.
-//   Inside a warpgroup, named barriers (bar.sync id, 128); nothing in the
-//   layer loop is block-wide. setmaxnreg gives the consumers 232 registers.
+//   the tile, with its own input tile X; they meet only at the ring's
+//   barriers (a stage is refilled when the 8 consumer warps have released
+//   it) and, in the render, at the tile's compositing. Inside a warpgroup,
+//   named barriers (bar.sync id, 128) around the input build alone; nothing
+//   in the layer loop is a barrier. setmaxnreg gives the consumers 232
+//   registers.
 // * Products: wgmma m64nNk16 with N the layer's whole width (256 scene, 128
-//   object and scene direction layer, 64 object direction layer); A (X or H)
-//   K-major and B (a chunk of the packed (K, N) row-major weights, N / 64
-//   boxes of 64 columns) MN-major, both in the 128-byte swizzle, from shared
-//   memory. A chunk's K steps are committed as one group and the consumer
-//   waits with wait_group 1, so the next chunk queues behind the current
-//   one; the chunk before is released then. Each product is
-//   unrolled: no loop carries a wgmma in flight (ptxas serialized that).
-// * Epilogues from registers: the layer's bias, loaded while the product
-//   runs, and LeakyReLU in f32, then bf16 pairs stored by stmatrix straight
-//   into H in the swizzled layout the next product reads. The sigma head
-//   (after the last trunk layer) and the sigmoid rgb head (after the
-//   direction layer, whose accumulators start from the per-ray biases) are
-//   dot products over each thread's accumulator columns, reduced over the
-//   four lanes of a row by shuffles; the direction layer's output never
-//   reaches shared memory, nor does the last trunk layer's in the modes
-//   that stop at the sigma head.
-// * The input tile is built per warpgroup before its first product: every
-//   input it reads is staged with all of a thread's loads in flight, the
-//   direction biases are 32-term dot products with all loads issued first,
-//   and each (value, octave) pair's sine and cosine come from one
-//   full-precision sincosf. Classical: 128 columns [PE(xyz) | code | 0];
-//   voxel: 448 columns [svox | PE(svox) | xyz | PE(xyz) | ivox | PE(ivox) |
-//   code | 0]; the scene-only modes stop at the scene's 64 / 320 columns.
+//   object and scene direction layer, 64 object direction layer), B (a chunk
+//   of the packed (K, N) row-major weights, N / 64 boxes of 64 columns)
+//   MN-major in the 128-byte swizzle from shared memory. A is the input tile
+//   X (K-major, the same swizzle, from shared memory) for layer 0 and the
+//   input rows of a skip layer, and the previous layer's output, from
+//   registers, for every other product: the accumulators of an m64nN
+//   product, rounded to bf16 pairs, are the A fragments of the next
+//   product's K steps as they stand (fwd_gemm_rs). A chunk's K steps are
+//   committed as one group and the consumer waits with wait_group 1, so the
+//   next chunk queues behind the current one; the chunk before is released
+//   then. Each product is unrolled: no loop carries a wgmma in flight (ptxas
+//   serialized that).
+// * Epilogues in registers: the layer's bias and LeakyReLU in f32, then bf16
+//   pairs packed into the warpgroup's activation registers, which the next
+//   product reads. The sigma head (after the last trunk layer) and the
+//   sigmoid rgb head (after the direction layer, whose accumulators start
+//   from the per-ray biases) are dot products over each thread's accumulator
+//   columns, reduced over the four lanes of a row by shuffles. No activation
+//   reaches shared memory.
+// * The input tile is built per warpgroup before its first product: each
+//   thread prefetches its row's xyz, raw voxel features and code into L1,
+//   stages the rays' direction encodings (with the heads), the direction
+//   biases are 32-term dot products with all loads issued first, and each
+//   (value, octave) pair's sine and cosine come from one full-precision
+//   sincosf. Classical: 128 columns [PE(xyz) | code | 0]; voxel: 448
+//   columns [svox | PE(svox) | xyz | PE(xyz) | ivox | PE(ivox) | code | 0];
+//   the scene-only modes stop at the scene's 64 / 320 columns.
 // * The compositing (render, coarse weights): one warp per (ray, branch),
 //   by the second consumer warpgroup once the first has signalled (an
 //   mbarrier per tile parity) that its rows are written; the row buffers
@@ -282,13 +287,6 @@ constexpr int FWD_MAX_CHUNKS = 320;  // weight chunks per tile (both branches)
 constexpr int FWD_STAGE = 16384;      // bytes of one chunk, one stage of the weight ring
 constexpr int FWD_ROWBUF = 9 * ROWS;  // a tile's sig, rgb, isig, irgb, z (floats)
 constexpr int MAX_DIR = 32;           // direction-encoding channels at most
-// a warpgroup's staged inputs (floats, in its H): xyz, raw voxel features,
-// two rays' codes and direction encodings
-static_assert(64 * (3 + MAX_VOX) + 2 * XCOLS_V + 2 * MAX_DIR <= 64 * WS / 2,
-              "the staged inputs exceed H");
-// the point-wise mode stages the codes of up to 64 runs of points in H
-// after xyz and the raw voxel features: this many floats
-constexpr int FWD_CODE_FLOATS = 64 * WS / 2 - 64 * (3 + MAX_VOX);
 constexpr int FWD_DB = 2 * (WS / 2 + WO / 2);  // a warpgroup's direction biases (<= 2 rays)
 
 // The chain's modes, what one launch computes:
@@ -326,12 +324,15 @@ struct FwdArgs {
   int n_rays, S, n_freq, c_dir, code_len, forward_instance, compute_scene, last_delta_inf;
 };
 
-// Per model and mode: STAGES stages of FWD_STAGE bytes (what shared memory
-// leaves beside the tiles), XKB 64-column blocks of the input tile (the
-// columns the launch's branches read: the scene branch's alone in the
-// scene-only modes). The ring's depth follows, a design choice measured on
-// the card (PERF.md): classical 7 stages (EVAL, RENDER), 8 (WEIGHTS), 9
-// (SIGMA_SCENE), 8 (SIGMA_OBJ); voxel 2, 4, 5, 3.
+// Per model and mode: STAGES stages of FWD_STAGE bytes, as many as shared
+// memory holds beside what the instantiation keeps there; XKB 64-column
+// blocks of the input tile (the columns the launch's branches read: the
+// scene branch's alone in the scene-only modes). The activations live in
+// registers, so a mode holds only its two input tiles, the row buffers of
+// the modes that composite, and with the heads the direction biases and the
+// staged direction encodings: classical 11 stages (EVAL, RENDER), 12
+// (WEIGHTS), 13 (SIGMA_SCENE), 12 (SIGMA_OBJ); voxel 6, 6, 8, 9, 7. The
+// depth follows from the model and the mode alone, at compile time.
 template <bool VOX, int MODE>
 struct FwdCfg {
   // both heads (and the direction layer), or the sigma head alone
@@ -341,22 +342,25 @@ struct FwdCfg {
   static constexpr int K0S = VOX ? 320 : 64, K0O = VOX ? 448 : 128;
   static constexpr int XKB = (MODE == FWD_WEIGHTS || MODE == FWD_SIGMA_SCENE ? K0S : K0O) / 64;
   static constexpr int STAGE = FWD_STAGE;
-  // floats of a tile parity's row buffer (the point-wise modes store from
-  // registers) and of a warpgroup's direction biases
-  static constexpr int NROW = MODE == FWD_SIGMA_SCENE || MODE == FWD_SIGMA_OBJ ? 0 : FWD_ROWBUF;
+  // floats of a tile parity's row buffer (the modes that composite; the
+  // others store from registers), of a warpgroup's direction biases and of
+  // its staged direction encodings (two rays of MAX_DIR)
+  static constexpr int NROW = MODE == FWD_RENDER || MODE == FWD_WEIGHTS ? FWD_ROWBUF : 0;
   static constexpr int NDB = HEADS ? FWD_DB : 0;
+  static constexpr int NDIR = HEADS ? 2 * MAX_DIR : 0;
   // as many stages as shared memory holds beside the tiles, the row buffers,
-  // the direction biases, the two rows barriers and the alignment slack
+  // the direction biases and encodings, the two rows barriers and the
+  // alignment slack
   static constexpr int STAGES =
-      (232448 - 2 * XKB * 8192 - 2 * 4 * 8192 - 2 * NROW * 4 - 2 * NDB * 4 - 16 - 1024) /
+      (232448 - 2 * XKB * 8192 - 2 * NROW * 4 - 2 * NDB * 4 - 2 * NDIR * 4 - 16 - 1024) /
       (FWD_STAGE + 16);
   // dynamic shared memory (bytes from a 1024-byte aligned base)
   static constexpr int RING = 0;
   static constexpr int X = RING + STAGES * STAGE;       // 2 warpgroups x XKB x 8 KB
-  static constexpr int H = X + 2 * XKB * 8192;          // 2 warpgroups x 4 x 8 KB
-  static constexpr int ROW = H + 2 * 4 * 8192;          // 2 tile parities x NROW
+  static constexpr int ROW = X + 2 * XKB * 8192;        // 2 tile parities x NROW
   static constexpr int DB = ROW + 2 * NROW * 4;         // 2 warpgroups x NDB
-  static constexpr int BAR = DB + 2 * NDB * 4;          // full, empty per stage; rows x 2
+  static constexpr int DIR = DB + 2 * NDB * 4;          // 2 warpgroups x NDIR
+  static constexpr int BAR = DIR + 2 * NDIR * 4;        // full, empty per stage; rows x 2
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 2) + 1024;  // + alignment
   // producer threads, each issuing every PRODUCERS-th chunk. A thread waits
   // for a stage's release by the parity of its phase, which also passes on
@@ -374,8 +378,9 @@ struct FwdCfg {
 enum { RB_SIG = 0, RB_RGB = ROWS, RB_ISIG = 4 * ROWS, RB_IRGB = 5 * ROWS, RB_Z = 8 * ROWS };
 
 // Byte offset of (row, col) in a warpgroup's K-major bf16 tile of 64 rows
-// (X or H) in the 128-byte swizzle: 64-column blocks of 8 KB; row r of a
-// block at 128 r, its 16-byte pieces XOR-ed with r % 8.
+// (an input tile; pe_probe's activations) in the 128-byte swizzle:
+// 64-column blocks of 8 KB; row r of a block at 128 r, its 16-byte pieces
+// XOR-ed with r % 8.
 __device__ __forceinline__ int swz(int row, int col) {
   return (col >> 6) * 8192 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
@@ -451,6 +456,42 @@ __device__ __forceinline__ void wgmma_kn(float (&d)[32], uint64_t da, uint64_t d
                : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x N] += A B on one warpgroup: A (64 x 16) in registers, the bf16
+// pairs a[0..3] of the wgmma A fragment (rows r, r + 8 of columns 2 c, 2 c
+// + 1, then of 2 c + 8, 2 c + 9: the layout of an m64nN accumulator's two
+// 8-column groups), B (16 x N) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rkn(float (&d)[128], const uint32_t* a, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_REGS128
+               ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+               : WG_ACC128(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rkn(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+               : WG_ACC64(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rkn(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : WG_ACC32(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the registers stay as they are up to here: a wgmma that reads them from
+// registers may still be running until its wait_group
+template <int L>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[L]) {
+#pragma unroll
+  for (int r = 0; r < L; ++r) asm volatile("" : "+r"(a[r])::"memory");
+}
+
 // A consumer warpgroup's end of the weight ring (C: the launch's FwdCfg): the
 // stage and parity of the next chunk.
 template <class C>
@@ -514,6 +555,40 @@ __device__ __forceinline__ void fwd_gemm(float (&acc)[L], uint32_t a, FwdPipe<C>
   fence_acc(acc);
 }
 
+// acc += A[0:64, 0:K] @ (the next K / KCH chunks of the ring), as fwd_gemm,
+// with A the previous layer's output in registers: h[4 ks .. 4 ks + 3] the
+// A fragment of K step ks (rows r, r + 8 of columns 16 ks + 2 c, + 1, then
+// 16 ks + 8 + 2 c, + 1), which is where that layer's epilogue packed its
+// accumulators of 8-column groups 2 ks and 2 ks + 1.
+template <class C, int K, int L>
+__device__ __forceinline__ void fwd_gemm_rs(float (&acc)[L], uint32_t (&h)[K / 4],
+                                            FwdPipe<C>& p) {
+  constexpr int KCH = FWD_STAGE / 2 / (2 * L), NCH = K / KCH;
+  static_assert(K % KCH == 0 && KCH % 16 == 0, "a product is whole chunks of whole K steps");
+  int prev = 0;  // the stage of the chunk before
+  fence_acc(acc);
+  fence_frag(h);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const uint32_t st = p.next();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KCH / 16; ++kk)
+      wgmma_rkn(acc, h + 4 * (c * KCH / 16 + kk), desc_mn_wide(st + kk * 2048, KCH * 128));
+    wgmma_commit();
+    if (c > 0) {  // the chunk before has finished
+      wgmma_wait<1>();
+      p.release(prev);
+    }
+    prev = p.stage;
+    p.advance();
+  }
+  wgmma_wait<0>();
+  p.release(prev);
+  fence_acc(acc);
+  fence_frag(h);
+}
+
 // Where a warpgroup's head outputs go: row r's sigma at sig[r * stride], its
 // rgb at rgb[r * stride + k]; rows >= valid are not written.
 struct HeadOut {
@@ -541,146 +616,122 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A consumer thread's registers for the products: the accumulators of the
+// widest layer and the A fragments of its output. Both branches run on the
+// one set (the object branch on its first half): with a set each, the two
+// branches' modes ran out of registers and ptxas serialized their wgmma
+// (C7512).
+struct FwdRegs {
+  float acc[WS / 2];
+  uint32_t h[WS / 4];
+};
+
 // One branch over the warpgroup's 64 rows: the trunk, the sigma head and,
 // when C::HEADS, `final`, the direction layer (direction part from the
-// per-ray biases `db`, ND per ray) and the sigmoid rgb head. X and H are the
-// warpgroup's tiles (shared addresses). The epilogues add the bias and apply
-// LeakyReLU in f32, round to bf16 and store by stmatrix; the direction
-// layer's accumulators start from the per-ray biases. Without the heads the
-// last trunk layer feeds the sigma head alone: it is not stored to H.
+// per-ray biases `db`, ND per ray) and the sigmoid rgb head. X is the
+// warpgroup's input tile (shared address). The epilogues add the bias and
+// apply LeakyReLU in f32 and round to bf16 pairs in `h`, the A fragments of
+// the next product; the direction layer's accumulators start from the
+// per-ray biases. Without the heads the last trunk layer feeds the sigma
+// head alone.
 template <int N, class C>
 __device__ __forceinline__ void fwd_branch(const BranchTab& t, const bf16* __restrict__ w,
-                                           const float* __restrict__ b, uint32_t X, uint32_t Hs,
-                                           const float* db, int S, FwdPipe<C>& p, int bar,
-                                           HeadOut ho) {
+                                           const float* __restrict__ b, uint32_t X,
+                                           const float* db, int S, FwdPipe<C>& p, HeadOut ho,
+                                           FwdRegs& regs) {
   constexpr int L = N / 2, ND = N / 2;
   constexpr int K0 = N == WS ? C::K0S : C::K0O;
   const int lane = threadIdx.x & 31;
   const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c0 = 2 * (lane & 3);
   const int depth = t.v[T_DEPTH];
   const bf16* ws = w + t.v[T_SIGW];
-  float acc[L];
+  // the last layer's output: h[2 g + u] the bf16 pair of rows r0 + 8 u,
+  // columns 8 g + c0, + 1
+  uint32_t (&h)[N / 4] = *reinterpret_cast<uint32_t(*)[N / 4]>(&regs.h);
+  float (&acc)[L] = *reinterpret_cast<float(*)[L]>(&regs.acc);
   // the trunk, then `final` (i == depth) when the heads follow
   for (int i = 0; i < (C::HEADS ? depth + 1 : depth); ++i) {
     const bool fin = i == depth, last = i == depth - 1;
-    const bool store = C::HEADS || !last;  // H is read after this layer
-    // the layer's bias, loaded now and added after the product: its L2
-    // round trip overlaps the product instead of preceding it
-    const float* bl = b + (fin ? t.v[T_FINB] : t.v[T_TB + i]);
-    float bias[N / 4];
-#pragma unroll
-    for (int n8 = 0; n8 < N / 8; ++n8) {
-      bias[2 * n8] = __ldg(bl + 8 * n8 + c0);
-      bias[2 * n8 + 1] = __ldg(bl + 8 * n8 + c0 + 1);
-    }
 #pragma unroll
     for (int r = 0; r < L; ++r) acc[r] = 0.f;
-    // layer 0 and a skip layer read the input rows, every later layer H
+    // layer 0 and a skip layer's input rows read X, the hidden rows h
     if (i == 0 || (i < depth && ((t.v[T_SKIPS] >> i) & 1))) fwd_gemm<C, K0>(acc, X, p);
-    if (i > 0) fwd_gemm<C, N>(acc, Hs, p);
-    if (store) wg_bar(bar);  // every warp's products have read H
+    if (i > 0) fwd_gemm_rs<C, N>(acc, h, p);
+    const float* bl = b + (fin ? t.v[T_FINB] : t.v[T_TB + i]);
     float s[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n8 = 0; n8 < N / 8; n8 += 2) {
-      uint32_t q[4];
+    for (int g = 0; g < N / 8; ++g) {
+      const float b0 = __ldg(bl + 8 * g + c0), b1 = __ldg(bl + 8 * g + c0 + 1);
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v0 = acc[4 * (n8 + u) + 2 * h] + bias[2 * (n8 + u)],
-                v1 = acc[4 * (n8 + u) + 2 * h + 1] + bias[2 * (n8 + u) + 1];
-          if (!fin) {
-            v0 = lrelu(v0);
-            v1 = lrelu(v1);
-          }
-          q[2 * u + h] = pack_bf16(v0, v1);
-          if (last) {
-            const int c = 8 * (n8 + u) + c0;
-            const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&q[2 * u + h]);
-            s[h] += __low2float(hv) * __bfloat162float(ws[c]) +
-                    __high2float(hv) * __bfloat162float(ws[c + 1]);
-          }
+      for (int u = 0; u < 2; ++u) {
+        float v0 = acc[4 * g + 2 * u] + b0, v1 = acc[4 * g + 2 * u + 1] + b1;
+        if (!fin) {
+          v0 = lrelu(v0);
+          v1 = lrelu(v1);
         }
-      if (store) store_pairs(Hs, n8, q);
+        h[2 * g + u] = pack_bf16(v0, v1);
+        if (last) {
+          const int c = 8 * g + c0;
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h[2 * g + u]);
+          s[u] += __low2float(hv) * __bfloat162float(ws[c]) +
+                  __high2float(hv) * __bfloat162float(ws[c + 1]);
+        }
+      }
     }
     if (last) {
       const float bs = __ldg(b + t.v[T_SIGB]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = s[h];
+      for (int u = 0; u < 2; ++u) {
+        float v = s[u];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        const int r = r0 + 8 * h;
+        const int r = r0 + 8 * u;
         if ((lane & 3) == 0 && r < ho.valid) ho.sig[r * ho.stride] = v + bs;
       }
-    }
-    if (store) {
-      fence_proxy_async();  // H is complete for the next product's reads
-      wg_bar(bar);
     }
   }
   if constexpr (C::HEADS) {
     // the direction layer (from the per-ray biases) and the rgb head, from registers
-    float accd[ND / 2];
+    float (&accd)[ND / 2] = *reinterpret_cast<float(*)[ND / 2]>(&regs.acc);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* dr = db + ((r0 + 8 * h) / S) * ND;
+    for (int u = 0; u < 2; ++u) {
+      const float* dr = db + ((r0 + 8 * u) / S) * ND;
 #pragma unroll
       for (int n8 = 0; n8 < ND / 8; ++n8) {
-        accd[4 * n8 + 2 * h] = dr[8 * n8 + c0];
-        accd[4 * n8 + 2 * h + 1] = dr[8 * n8 + c0 + 1];
+        accd[4 * n8 + 2 * u] = dr[8 * n8 + c0];
+        accd[4 * n8 + 2 * u + 1] = dr[8 * n8 + c0 + 1];
       }
     }
-    fwd_gemm<C, N>(accd, Hs, p);
+    fwd_gemm_rs<C, N>(accd, h, p);
     const bf16* wr = w + t.v[T_RGBW];
     float q[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
     for (int n8 = 0; n8 < ND / 8; ++n8) {
       const int c = 8 * n8 + c0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const __nv_bfloat162 dv = __floats2bfloat162_rn(lrelu(accd[4 * n8 + 2 * h]),
-                                                        lrelu(accd[4 * n8 + 2 * h + 1]));
+      for (int u = 0; u < 2; ++u) {
+        const __nv_bfloat162 dv = __floats2bfloat162_rn(lrelu(accd[4 * n8 + 2 * u]),
+                                                        lrelu(accd[4 * n8 + 2 * u + 1]));
         const float d0 = __low2float(dv), d1 = __high2float(dv);
 #pragma unroll
         for (int k = 0; k < 3; ++k)
-          q[h][k] += d0 * __bfloat162float(wr[k * ND + c]) +
+          q[u][k] += d0 * __bfloat162float(wr[k * ND + c]) +
                      d1 * __bfloat162float(wr[k * ND + c + 1]);
       }
     }
     const float* br = b + t.v[T_RGBB];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + 8 * u;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        float v = q[h][k];
+        float v = q[u][k];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
         if ((lane & 3) == 0 && r < ho.valid)
           ho.rgb[r * ho.rgb_stride + k] = 1.f / (1.f + expf(-(v + __ldg(br + k))));
       }
     }
-  }
-}
-
-// dst[e] = e < n_valid ? src[e] : 0 for e < n, over the warpgroup's threads;
-// each thread issues U loads before it stores any, so a tile's inputs cost
-// a few round trips to memory, not one per element.
-template <int U>
-__device__ __forceinline__ void stage_copy(float* dst, const float* __restrict__ src, int n,
-                                           int n_valid) {
-  const int tid = threadIdx.x & 127;
-  for (int e0 = tid; e0 < n; e0 += 128 * U) {
-    float v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + 128 * u;
-      v[u] = e < n_valid ? __ldg(src + e) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (e0 + 128 * u < n) dst[e0 + 128 * u] = v[u];
   }
 }
 
@@ -706,69 +757,71 @@ __device__ __forceinline__ void fwd_dir_bias(const BranchTab& t, const bf16* __r
   }
 }
 
-// One encoded piece of an input row: C staged channels at p, written from
-// column `col` as [x (C) | sin 2^0 x (C) | cos 2^0 x (C) | sin 2^1 x ...].
+// One encoded piece of an input row: C channels at p (device memory),
+// written from column `col` as [x (C) | sin 2^0 x (C) | cos 2^0 x (C) | sin
+// 2^1 x ...].
 struct EncPiece {
   const float* p;
   int C, nf, col;
 };
 
+// Ask L1 for the n floats at p (device memory), a 32-byte sector at a time,
+// without waiting: the loads that follow find them there.
+__device__ __forceinline__ void prefetch_l1(const float* p, int n) {
+  for (int o = 0; o < n; o += 8)
+    asm volatile("prefetch.L1 [%0];" ::"l"(reinterpret_cast<uint64_t>(p + o)));
+}
+
 // Build the warpgroup's rows of the input tile (rows g0 .. g0 + 63 of the
-// launch, `valid` of them real). First every input the tile reads is staged
-// into `stage` (floats; the warpgroup's H, free until the first epilogue)
-// with all loads of a thread in flight together: xyz, the raw voxel
-// features, the codes (per ray; in the point-wise modes those of the up to
-// 64 runs of S points that the rows span), the rays' direction encodings
-// when the heads follow, and the z values into `zrow` when it is given.
-// Then the per-ray direction biases of the branches that run (with the
-// heads), and X: the encoded pieces (one item per column, or per (octave,
-// channel) pair, whose sine and cosine come from one full-precision
-// sincosf), the code (when `inst`) and zeros up to XKB * 64 columns, as
-// bf16 in the swizzle.
+// launch, `valid` of them real). Each thread first asks L1 for what its row
+// reads (xyz, the raw voxel features, the code of its ray or run of S
+// points), so that the encoding's loads wait on L1, not on L2; with the
+// heads, the rays' direction encodings are staged in `dirs` (two rays of
+// MAX_DIR) and the per-ray direction biases of the branches that run
+// computed from them. The z values go into `zrow` when it is given. Then X:
+// the encoded pieces (one item per channel: its column and the sine and
+// cosine of each octave, both from one full-precision sincosf), the code
+// (when `inst`) and zeros up to XKB * 64 columns, as bf16 in the swizzle.
 template <bool VOX, int MODE>
 __device__ __forceinline__ void fwd_build(const FwdArgs& a, const BranchTab& scene,
                                           const BranchTab& obj, long long g0, int valid,
-                                          bool inst, unsigned char* Xg, float* stage,
+                                          bool inst, unsigned char* Xg, float* dirs,
                                           float* zrow, float* db, int bar) {
   using C = FwdCfg<VOX, MODE>;
   const int cv = VOX ? a.vd.c_s + a.vd.c_i : 0;
-  float* xyzs = stage;                  // (64, 3)
-  float* voxs = xyzs + 64 * 3;          // (64, cv)
-  float* codes = voxs + 64 * MAX_VOX;   // (nr, code_len), or (runs, code_len)
-  float* dirs = codes + 2 * XCOLS_V;    // (nr, MAX_DIR)
-  // the first row's ray, or in the point-wise modes its run of S points
-  const long long run0 = g0 / a.S;
-  const int ray0 = (int)run0, nr = a.S >= 64 ? 1 : 64 / a.S;
-  stage_copy<2>(xyzs, a.xyz + g0 * 3, 64 * 3, valid * 3);
-  if constexpr (VOX) stage_copy<8>(voxs, a.vox + g0 * cv, 64 * cv, valid * cv);
+  // lane l of warps 2 h and 2 h + 1 takes row 32 h + l, each warp every
+  // other item of the row in turn. Within a warp every lane takes the same
+  // kind of item.
+  const int w4 = (threadIdx.x >> 5) & 3, half = w4 & 1;
+  const int r = (threadIdx.x & 31) + 32 * (w4 >> 1);
+  const bool real = r < valid;
+  const long long g = g0 + r;
+  const float* xr = a.xyz + g * 3;
+  const float* vr = VOX ? a.vox + g * cv : nullptr;
+  // the row's code: its ray's, or in the point-wise modes its run's
+  const float* cr = inst ? a.codes + (g / a.S) * a.code_len : nullptr;
+  if (real) {
+    prefetch_l1(xr, 3);
+    if (VOX) prefetch_l1(vr, cv);
+    if (inst) prefetch_l1(cr, a.code_len);
+  }
+  if (zrow != nullptr && (threadIdx.x & 127) < 64) {  // read once the tile's rows are written
+    const int e = threadIdx.x & 127;
+    zrow[e] = e < valid ? __ldg(a.z + g0 + e) : 0.f;
+  }
   if constexpr (C::HEADS) {
+    // the warpgroup's rays (two at most: the launcher takes S >= 32)
+    const int ray0 = (int)(g0 / a.S), nr = a.S >= 64 ? 1 : 64 / a.S;
     const int rays = max(0, min(nr, a.n_rays - ray0));  // real rays of the warpgroup
-    if (inst)
-      stage_copy<1>(codes, a.codes + (size_t)ray0 * a.code_len, nr * a.code_len,
-                    rays * a.code_len);
     for (int e = threadIdx.x & 127; e < nr * MAX_DIR; e += 128) {  // padded to MAX_DIR
       const int lr = e / MAX_DIR, c = e % MAX_DIR;
       dirs[e] = lr < rays && c < a.c_dir ? a.dir_pe[(size_t)(ray0 + lr) * a.c_dir + c] : 0.f;
     }
-  } else if (inst && valid > 0) {  // the runs of the real rows (the launcher checks they fit)
-    const int n = (int)((g0 + valid - 1) / a.S - run0 + 1) * a.code_len;
-    stage_copy<8>(codes, a.codes + run0 * a.code_len, n, n);
-  }
-  if (zrow != nullptr) stage_copy<1>(zrow, a.z + g0, 64, valid);
-  wg_bar(bar);
-  if constexpr (C::HEADS) {
+    wg_bar(bar);
     if (a.compute_scene) fwd_dir_bias<WS / 2>(scene, a.w, a.b, dirs, nr, db);
     if (inst) fwd_dir_bias<WO / 2>(obj, a.w, a.b, dirs, nr, db + 2 * (WS / 2));
   }
 
-  // X: lane l of warps 2 h and 2 h + 1 takes row 32 h + l, each warp every
-  // other item of the row in turn (an item is a column, or an (octave,
-  // channel) pair). Within a warp every lane takes the same kind of item.
-  const int w4 = (threadIdx.x >> 5) & 3, half = w4 & 1;
-  const int r = (threadIdx.x & 31) + 32 * (w4 >> 1);
-  const bool real = r < valid;
-  const float* xr = xyzs + r * 3;
-  const float* vr = voxs + r * cv;
   EncPiece pc[3];
   int np;
   if constexpr (VOX) {
@@ -791,26 +844,24 @@ __device__ __forceinline__ void fwd_build(const FwdArgs& a, const BranchTab& sce
   for (int k = 0; k < (VOX ? 3 : 1); ++k) {
     if (k < np) {
       const EncPiece e = pc[k];
-      for (; it < e.C; it += 2) put(e.col + it, e.p[it]);
-      it -= e.C;
-      for (int oct = 0; oct < e.nf; ++oct) {
-        const float f = (float)(1 << oct);  // 2^oct x is exact
-        for (; it < e.C; it += 2) {
+      for (; it < e.C; it += 2) {
+        const float v = real ? __ldg(e.p + it) : 0.f;
+        put(e.col + it, v);
+        for (int oct = 0; oct < e.nf; ++oct) {
           float sn, cs;
-          sincosf(e.p[it] * f, &sn, &cs);
+          sincosf(v * (float)(1 << oct), &sn, &cs);  // 2^oct x is exact
           const int col = e.col + e.C + 2 * e.C * oct + it;
           put(col, sn);
           put(col + e.C, cs);
         }
-        it -= e.C;
       }
+      it -= e.C;
       col_end = e.col + e.C * (1 + 2 * e.nf);
     }
   }
   if (inst) {
-    const float* cr = C::HEADS ? codes + (r / a.S) * a.code_len
-                               : codes + (int)((g0 + r) / a.S - run0) * a.code_len;
-    for (; it < a.code_len; it += 2) put(col_end + it, cr[it]);
+#pragma unroll 4
+    for (; it < a.code_len; it += 2) put(col_end + it, real ? __ldg(cr + it) : 0.f);
     it -= a.code_len;
     col_end += a.code_len;
   }
@@ -885,27 +936,28 @@ fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTa
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int wg = (threadIdx.x >> 7) - 1, bar = 1 + wg;
     const int w4 = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    const uint32_t Xs = base + C::X + wg * C::XKB * 8192, Hs = base + C::H + wg * 4 * 8192;
+    const uint32_t Xs = base + C::X + wg * C::XKB * 8192;
     unsigned char* Xg = sm + C::X + wg * C::XKB * 8192;
-    unsigned char* Hg = sm + C::H + wg * 4 * 8192;
     float* db = reinterpret_cast<float*>(sm + C::DB) + wg * C::NDB;
+    float* dirs = reinterpret_cast<float*>(sm + C::DIR) + wg * C::NDIR;
     // the tile holds the object branch's columns (its code included)
     const bool inst = MODE == FWD_SIGMA_OBJ || (C::HEADS && a.forward_instance != 0);
     FwdPipe<C> p{base + C::RING, full, empty, 0, 0};
+    FwdRegs regs;
     int iter = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++iter) {
       float* rb = reinterpret_cast<float*>(sm + C::ROW) + (iter & 1) * C::NROW;
       const long long g0 = (long long)tile * ROWS + 64 * wg;
       const int valid = (int)max(0LL, min(64LL, n_rows - g0));
-      wg_bar(bar);  // the previous tile's readers of X, H and the biases are done
-      fwd_build<VOX, MODE>(a, scene, obj, g0, valid, inst, Xg, reinterpret_cast<float*>(Hg),
+      wg_bar(bar);  // the previous tile's readers of X and the biases are done
+      fwd_build<VOX, MODE>(a, scene, obj, g0, valid, inst, Xg, dirs,
                            RENDER || WEIGHTS ? rb + RB_Z + 64 * wg : nullptr, db, bar);
       if constexpr (POINTS) {  // the raw density of each real row
         const HeadOut ho = {a.out + g0, nullptr, 1, 0, valid};
         if constexpr (MODE == FWD_SIGMA_SCENE)
-          fwd_branch<WS, C>(scene, a.w, a.b, Xs, Hs, nullptr, a.S, p, bar, ho);
+          fwd_branch<WS, C>(scene, a.w, a.b, Xs, nullptr, a.S, p, ho, regs);
         else
-          fwd_branch<WO, C>(obj, a.w, a.b, Xs, Hs, nullptr, a.S, p, bar, ho);
+          fwd_branch<WO, C>(obj, a.w, a.b, Xs, nullptr, a.S, p, ho, regs);
       } else {
         HeadOut ho;
         if (RENDER || WEIGHTS) {
@@ -913,7 +965,7 @@ fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTa
         } else {
           ho = {a.out + g0 * 8, a.out + g0 * 8 + 1, 8, 8, valid};
         }
-        if (a.compute_scene) fwd_branch<WS, C>(scene, a.w, a.b, Xs, Hs, db, a.S, p, bar, ho);
+        if (a.compute_scene) fwd_branch<WS, C>(scene, a.w, a.b, Xs, db, a.S, p, ho, regs);
         if (inst) {
           if (RENDER) {
             ho.sig = rb + RB_ISIG + 64 * wg;
@@ -922,7 +974,7 @@ fwd_chain_kernel(const __grid_constant__ FwdPlan plan, BranchTab scene, BranchTa
             ho.sig += 4;
             ho.rgb += 4;
           }
-          fwd_branch<WO, C>(obj, a.w, a.b, Xs, Hs, db + 2 * (WS / 2), a.S, p, bar, ho);
+          fwd_branch<WO, C>(obj, a.w, a.b, Xs, db + 2 * (WS / 2), a.S, p, ho, regs);
         }
         if (!RENDER && !WEIGHTS) {  // zeros for a branch that is off
           const int tid = threadIdx.x & 127;
@@ -1026,9 +1078,10 @@ int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
       scene_tab[T_K0] != C::K0S || (obj_tab != nullptr && obj_tab[T_K0] != C::K0O) ||
       (MODE == FWD_SIGMA_OBJ && obj_tab == nullptr) || a.n_rays < 0 || a.S < 1)
     return (int)cudaErrorInvalidValue;
-  // the point-wise object mode stages the codes of the runs of S points that a
-  // warpgroup's 64 rows span: at most 63 / S + 2 of them
-  if (MODE == FWD_SIGMA_OBJ && (long long)min(64, 63 / a.S + 2) * a.code_len > FWD_CODE_FLOATS)
+  // a tile of whole rays, S in {32, 64, 128}: with the heads a warpgroup's 64
+  // rows span two rays at most (their direction encodings are staged), and
+  // the compositing takes S / 32 samples a lane
+  if ((C::HEADS || MODE == FWD_WEIGHTS) && (a.S < 32 || ROWS % a.S != 0))
     return (int)cudaErrorInvalidValue;
   FwdPlan plan;
   cudaError_t e = (cudaError_t)fwd_plan(a.w, wmap_tab, chunks, n_chunks, &plan);

@@ -32,6 +32,8 @@ tensor it runs its plain version, which sits beside it here. The wrappers are in
 only (no autograd); the plain versions are differentiable. `launch_counts` counts the
 kernel launches and nothing else; it is a counter dict of `utils/trace.py`, as
 is `ops/gather.py`'s, and `pack_kernel_weights` is its span `mlp.pack`.
+`chain_layout` reads, per model and mode, the forward chain's weight-ring
+depth and shared memory from the built library.
 
 The plain versions are built from `models/mlp.py` and `ops/compositing.py`.
 With `matmul_dtype=torch.bfloat16` they round every matmul operand to bf16
@@ -43,7 +45,7 @@ f32 path.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -475,3 +477,26 @@ def sincos_mismatches(x: torch.Tensor) -> int:
                                     torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, rc, "sincos_mismatches")
     return int(count.item())
+
+
+# the forward chain's modes (FWD_* in csrc/fused_mlp_wg.cuh), in their order:
+# fused_mlp_eval, fused_render_tiles, fused_coarse_weights, fused_sigma_eval's
+# scene and object branch
+CHAIN_MODES = ("eval", "render", "weights", "sigma_scene", "sigma_obj")
+
+
+def chain_layout(voxel: bool, mode: str) -> Tuple[int, int]:
+    """(weight-ring stages, dynamic shared memory bytes) of the forward chain's
+    instantiation for the voxel-conditioned or the classical model in `mode`
+    (one of `CHAIN_MODES`), as the built library lays it out. Builds the
+    library on first use; launches nothing."""
+    from ._build import check, load_library
+
+    if mode not in CHAIN_MODES:
+        raise ValueError(f"mode must be one of {CHAIN_MODES}, got {mode!r}")
+    lib = load_library()
+    stages, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.onerf_fwd_chain_layout(int(voxel), CHAIN_MODES.index(mode),
+                                    ctypes.addressof(stages), ctypes.addressof(smem))
+    check(lib, rc, "chain_layout")
+    return stages.value, smem.value

@@ -8,10 +8,11 @@ The shipped kernels carry no instrumentation. This script copies the package
 into `object_nerf_torch/_build/fwd_chain_timeline/` (the build directory, which
 git does not keep), adds `%globaltimer` stamps to the copy's chain for block 0
 only (when a producer lane issues each weight chunk; when each consumer
-warpgroup wants each chunk and when it is ready; when each trunk layer's
-epilogue ends; the phases of each tile's input build), builds the copy, and
-launches it in a child process per model (classical, voxel) and mode, on
-random weights and inputs from a seed: `eval`, `fused_mlp_eval` at 2048 rays
+warpgroup wants each chunk and when it is ready; when each layer's epilogue
+ends; the phases of each tile's input build: the rows' prefetch and, with the
+heads, the staged direction encodings; the direction biases; the encoding),
+builds the copy, and launches it in a child process per model (classical,
+voxel) and mode, on random weights and inputs from a seed: `eval`, `fused_mlp_eval` at 2048 rays
 x 128 samples (both branches); `weights`, `fused_coarse_weights` at 7680 x 64
 (the eval chunk's coarse pass); `sigma_scene` and `sigma_object`,
 `fused_sigma_eval` at 262,144 points, a code per 64 (the sweep's and the
@@ -55,15 +56,15 @@ _STAMPS = [
     ("fused_mlp_wg.cuh", "  __device__ __forceinline__ void advance() {",
      "  __device__ __forceinline__ void advance() {\n    ++count;"),
     ("fused_mlp_wg.cuh",
-     "          mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes",
-     "          mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes\n"
-     "          if (blockIdx.x == 0 && gj < 4096) g_trace[gj] = gtime();"),
+     "      mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes",
+     "      mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes\n"
+     "      if (blockIdx.x == 0 && gj < 4096) g_trace[gj] = gtime();"),
     ("fused_mlp_wg.cuh",
-     "      fence_proxy_async();  // H is complete for the next product's reads\n"
-     "      wg_bar(bar);\n",
-     "      fence_proxy_async();  // H is complete for the next product's reads\n"
-     "      wg_bar(bar);\n"
-     "      if (blockIdx.x == 0 && threadIdx.x == 128 && p.count < 2048)"
+     "        if ((lane & 3) == 0 && r < ho.valid) ho.sig[r * ho.stride] = v + bs;\n"
+     "      }\n    }\n",
+     "        if ((lane & 3) == 0 && r < ho.valid) ho.sig[r * ho.stride] = v + bs;\n"
+     "      }\n    }\n"
+     "    if (blockIdx.x == 0 && threadIdx.x == 128 && p.count < 2048)"
      " g_trace[12288 + p.count] = gtime();\n"),
     ("fused_mlp_wg.cuh", "                                          float* zrow, float* db, int bar) {",
      "                                          float* zrow, float* db, int bar) {\n"
@@ -71,13 +72,14 @@ _STAMPS = [
      "  const int tbi = 15000 + 4 * (int)(g0 / 128 / gridDim.x);\n"
      "  if (trb && tbi < 16380) g_trace[tbi] = gtime();"),
     ("fused_mlp_wg.cuh",
-     "  if (zrow != nullptr) stage_copy<1>(zrow, a.z + g0, 64, valid);\n  wg_bar(bar);\n",
-     "  if (zrow != nullptr) stage_copy<1>(zrow, a.z + g0, 64, valid);\n  wg_bar(bar);\n"
-     "  if (trb && tbi < 16380) g_trace[tbi + 1] = gtime();\n"),
+     "    wg_bar(bar);\n    if (a.compute_scene) fwd_dir_bias",
+     "    wg_bar(bar);\n    if (trb && tbi < 16380) g_trace[tbi + 1] = gtime();\n"
+     "    if (a.compute_scene) fwd_dir_bias"),
     ("fused_mlp_wg.cuh",
      "    if (inst) fwd_dir_bias<WO / 2>(obj, a.w, a.b, dirs, nr, db + 2 * (WS / 2));\n  }\n",
      "    if (inst) fwd_dir_bias<WO / 2>(obj, a.w, a.b, dirs, nr, db + 2 * (WS / 2));\n  }\n"
-     "  if (trb && tbi < 16380) g_trace[tbi + 2] = gtime();\n"),
+     "  if (trb && tbi < 16380) {\n    if (!C::HEADS) g_trace[tbi + 1] = gtime();\n"
+     "    g_trace[tbi + 2] = gtime();\n  }\n"),
     ("fused_mlp_wg.cuh", "  fence_proxy_async();  // X is complete for the products' reads\n  wg_bar(bar);",
      "  fence_proxy_async();  // X is complete for the products' reads\n  wg_bar(bar);\n"
      "  if (trb && tbi < 16380) g_trace[tbi + 3] = gtime();"),
@@ -188,7 +190,7 @@ def _child(voxel: bool, mode: str, tiles: int) -> None:
         print(f"{name} tile {k}: period {nxt - b[0]:.2f} us; input build {b[3] - b[0]:.2f} us "
               f"(staging {b[1] - b[0]:.2f}, direction biases {b[2] - b[1]:.2f}, encoding "
               f"{b[3] - b[2]:.2f}); products and epilogues {ready[0][-1] - want[0][0]:.2f} us, "
-              f"of which the {len(ends)} stored layers' epilogues (last chunk ready to layer "
+              f"of which the {len(ends)} layers' epilogues (last chunk ready to layer "
               f"done) {epi:.2f} us; waits on full: warpgroup 0 {waits[0]:.2f} us, warpgroup 1 "
               f"{waits[1]:.2f} us over {nc} chunks; a chunk issued {lead:.2f} us before "
               f"warpgroup 0 wanted it, on average")

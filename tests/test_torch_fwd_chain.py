@@ -8,8 +8,9 @@ from the boxes that the tensor maps of `sweep_weight_maps` cut out of the
 packed weights. The emulation below walks the chunk list in the producer's
 order, checks that each chunk is the one the consumer's loop reads next, and
 computes each warpgroup's rows from those boxes in bf16 with f32 sums, with
-the kernel's epilogues (bias and LeakyReLU in f32, then bf16; the heads and
-the per-ray direction bias as the kernel forms them). It must reproduce the
+the kernel's epilogues (bias and LeakyReLU in f32, then bf16: the kernel keeps
+each layer's rounded output in registers as the next product's A operand; the
+heads and the per-ray direction bias as the kernel forms them). It must reproduce the
 plain versions (`mlp_eval_plain`, `render_tiles_plain`, which the JAX
 package's kernels hold in tests/test_torch_fused_mlp*.py) for the classical
 and the voxel model, S in {32, 64, 128}, each branch on and off, and a ragged
@@ -210,9 +211,14 @@ def test_chain_reproduces_render_tiles_plain(voxel, s, n, forward_instance):
 
 
 # the kernel's ring stages per mode, (classical, voxel): FwdCfg in the source
-# gives each mode as many as shared memory holds beside its tiles
-RING_STAGES = {"eval": (7, 2), "render": (7, 2), "weights": (8, 4), "sigma_scene": (9, 5),
-               "sigma_obj": (8, 3)}
+# gives each mode as many as shared memory holds beside what it keeps there
+# (no activations: they stay in registers)
+RING_STAGES = {"eval": (11, 6), "render": (11, 6), "weights": (12, 8), "sigma_scene": (13, 9),
+               "sigma_obj": (12, 7)}
+# the same when the activations had a 64-row tile per warpgroup in shared
+# memory: no mode may have fewer stages than then
+RING_STAGES_WITH_H = {"eval": (7, 2), "render": (7, 2), "weights": (8, 4),
+                      "sigma_scene": (9, 5), "sigma_obj": (8, 3)}
 # the modes that read each chunk order, by (forward_instance, compute_scene, sigma_only)
 CHUNK_MODES = [pytest.param(fi, cs, False, id=f"{fi}-{cs}") for fi, cs in FLAGS] + [
     pytest.param(False, True, True, id="sigma_only-scene"),
@@ -222,17 +228,19 @@ CHUNK_MODES = [pytest.param(fi, cs, False, id=f"{fi}-{cs}") for fi, cs in FLAGS]
 def _chain_smem(cfg, mode, stages):
     """Shared memory of one block of the chain in `mode` with `stages` ring
     stages, as FwdCfg lays it out: the stages, two warpgroups' input tiles
-    (the columns the mode's branches read) and activations (64 rows each),
-    two tiles' row buffers (modes that composite or store from them), the
-    direction biases (modes with the heads), the barriers and 1 KB of
-    alignment."""
+    (the columns the mode's branches read; the activations stay in
+    registers, and the rows' own inputs are read through L1), two tiles' row
+    buffers (the modes that composite), with the heads each warpgroup's
+    direction biases and staged direction encodings (two rays), the
+    barriers and 1 KB of alignment."""
     scene_k0, obj_k0 = fm.input_tile_columns(cfg)
     x_cols = scene_k0 if mode in ("weights", "sigma_scene") else obj_k0
-    rowbuf = 0 if mode.startswith("sigma") else 9 * 128
-    dbias = 2 * (fm.SCENE_W + fm.OBJ_W) // 2 if mode in ("eval", "render") else 0
-    return (stages * fv.FWD_STAGE_BYTES + 2 * WG_ROWS * x_cols * 2
-            + 2 * WG_ROWS * fm.SCENE_W * 2 + 2 * rowbuf * 4 + 2 * dbias * 4
-            + 8 * (2 * stages + 2) + 1024)
+    rowbuf = 9 * 128 if mode in ("render", "weights") else 0
+    heads = mode in ("eval", "render")
+    dbias = 2 * (fm.SCENE_W + fm.OBJ_W) // 2 if heads else 0
+    dirs = 2 * fm.MAX_DIR if heads else 0
+    return (stages * fv.FWD_STAGE_BYTES + 2 * WG_ROWS * x_cols * 2 + 2 * rowbuf * 4
+            + 2 * dbias * 4 + 2 * dirs * 4 + 8 * (2 * stages + 2) + 1024)
 
 
 @pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
@@ -244,7 +252,7 @@ def test_chunks_meet_the_hardware_rules(voxel, forward_instance, compute_scene, 
     row that is a multiple of them; 16-byte aligned addresses and row strides.
     The ring's stages and the two warpgroups' tiles fit a block's shared
     memory in every mode that reads the chunk order, and one stage more would
-    not (FwdCfg in the source: 7 stages beside the classical tile, 2 beside
+    not (FwdCfg in the source: 11 stages beside the classical tile, 6 beside
     the voxel one; the sigma-only modes hold fewer columns and buffers); a
     tile has more chunks than the ring has stages where row buffers
     alternate by tile parity on that, and the counts match the branches'
@@ -408,3 +416,20 @@ def test_chain_reproduces_sigma_eval_plain(voxel, branch, per_row):
         want = fs.sigma_eval_plain(model, cfg, pts, codes, branch, per_row, raw_p)
     assert rows[:, 4 * (1 - instance)].abs().max() == 0  # the other branch is off
     assert (rows[:, 4 * instance] - want).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+@pytest.mark.parametrize("mode", list(RING_STAGES))
+def test_ring_is_deeper_without_activation_tiles(voxel, mode):
+    """With the activations in registers every (model, mode) keeps at least
+    the stages it had beside a 64-row activation tile per warpgroup, the
+    voxel eval and render rings (2 stages then, each chunk a full round trip
+    to L2) at least 4; the mirror is the layout that fills the block, and
+    the modes the chip's launchers name are the ones mirrored here."""
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    stages = RING_STAGES[mode][int(voxel)]
+    assert stages >= RING_STAGES_WITH_H[mode][int(voxel)]
+    if voxel and mode in ("eval", "render"):
+        assert stages >= 4
+    assert _chain_smem(cfg, mode, stages) <= SMEM < _chain_smem(cfg, mode, stages + 1)
+    assert fm.CHAIN_MODES == tuple(RING_STAGES)

@@ -762,6 +762,75 @@ def test_forward_chain_sigma_modes_match_plain_bf16_on_card(cuda_device, voxel, 
     assert fm.launch_counts["fused_coarse_weights"] == 4
 
 
+# (samples, rays) per mode: a ragged last tile at S = 32 and 64 (1033.25 and
+# 150.5 tiles); at S = 128 a tile is one ray, and 133 tiles put two on one SM
+MODE_SHAPES = [(32, 4133), (64, 301), (128, 133)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+@pytest.mark.parametrize("mode", fm.CHAIN_MODES)
+@pytest.mark.parametrize("s,n", MODE_SHAPES)
+def test_forward_chain_each_mode_on_card(cuda_device, voxel, mode, s, n):
+    """Each of the chain's five modes alone, classical and voxel, at S = 32,
+    64 and 128: within FWD_TOL of its plain version, and a relaunch on the
+    same inputs bit-equal (the point-wise modes over the n * s points, a code
+    per run of s)."""
+    cfg, model, xyz, z, dir_pe, codes, raw = _chain_setup(cuda_device, voxel, n, s)
+    pts, n_pts = xyz.reshape(-1, 3), n * s
+    raw_p = None if raw is None else raw.reshape(n_pts, -1)
+    with torch.no_grad():
+        if mode == "eval":
+            packed = fm.pack_kernel_weights(model, cfg, True)
+
+            def run():
+                return fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, packed=packed)
+            want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
+        elif mode == "render":
+            packed = fm.pack_kernel_weights(model, cfg, True)
+
+            def run():
+                out = fm.fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw,
+                                            want_weights=True, packed=packed)
+                return [out[k] for k in sorted(out)]
+            want = fm.render_tiles_plain(model, cfg, xyz, z, dir_pe, codes, raw,
+                                         want_weights=True)
+            want = [want[k] for k in sorted(want)]
+        elif mode == "weights":
+            def run():
+                return [fm.fused_coarse_weights(model, cfg, xyz, z, raw)]
+            want = [fm.coarse_weights_plain(model, cfg, xyz, z, raw)]
+        else:
+            branch = "scene" if mode == "sigma_scene" else "instance"
+
+            def run():
+                return [fs.fused_sigma_eval(model, cfg, pts, codes, branch, s, raw_p)]
+            want = [fs.sigma_eval_plain(model, cfg, pts, codes, branch, s, raw_p)]
+        got, again = run(), run()
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() < FWD_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_forward_chain_ring_depth_on_card(cuda_device, voxel):
+    """The built library's layout of every instantiation is the mirror's of
+    tests/test_torch_fwd_chain.py (RING_STAGES), within a block's shared
+    memory, and the voxel eval and render rings hold at least 4 stages."""
+    from test_torch_fwd_chain import RING_STAGES  # the layout mirror, tests/ on sys.path
+
+    for mode in fm.CHAIN_MODES:
+        stages, smem = fm.chain_layout(voxel, mode)
+        assert stages == RING_STAGES[mode][int(voxel)], mode
+        assert 0 < smem <= 232448, mode
+    for mode in ("eval", "render"):
+        assert fm.chain_layout(voxel, mode)[0] >= (4 if voxel else 7)
+
+
 @pytest.mark.cuda
 def test_forward_chain_build_on_card(cuda_device):
     """The chain's ten instantiations (fwd_chain_kernel<VOX, MODE>, MODE 0-4:
@@ -769,16 +838,26 @@ def test_forward_chain_build_on_card(cuda_device):
     fused_sigma_eval's scene and object branch, classical and voxel) issue
     wgmma (HGMMA) and TMA loads (UTMALDG) in their machine code, and ptxas
     serialized none of their wgmma (C7510: the pipeline crosses a call;
-    C7515: other instructions define accumulator registers inside it)."""
+    C7512: too few registers; C7515: other instructions define accumulator
+    registers inside it) nor spilled a register."""
+    import re
     import shutil
     import subprocess
 
     from object_nerf_torch.ops import _build
 
     _build.load_library()
+    current = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "(C7510)" in line or "(C7515)" in line:
+        if any(code in line for code in ("(C7510)", "(C7512)", "(C7515)")):
             assert "fwd_chain_kernel" not in line, line
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            current = m.group(1) if "fwd_chain_kernel" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if current is not None and m:
+            assert m.groups() == ("0", "0"), (current, line)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
