@@ -423,27 +423,11 @@ DP_STEPS = 3
 DP_TIMEOUT_S = 600
 DP_ALLREDUCE_TIMED = 5
 
-# dense bf16 tensor-core peak and memory rate by card (NVIDIA data sheets)
-PEAKS = (  # (name substring, TFLOP/s, TB/s)
-    ("H100 PCIe", 756.0, 2.0),
-    ("H100 NVL", 835.0, 3.9),
-    ("H200", 989.0, 4.8),
-    ("H100", 989.0, 3.35),  # SXM
-)
-
-
 def _repo_root() -> str:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "object_nerf_torch")):
         raise SystemExit(f"chip_smoke.py: no object_nerf_torch package beside {__file__}")
     return root
-
-
-def _peaks(name: str):
-    for key, tflops, tbs in PEAKS:
-        if key in name:
-            return tflops * 1e12, tbs * 1e12
-    raise SystemExit(f"no published peaks for {name!r}")
 
 
 def _cuda_ms(fn, n: int) -> float:
@@ -652,17 +636,17 @@ def _build_report():
     the kernels on wgmma (and the backward's reduction), the tensor-core and
     TMA instructions in their machine code, and each forward-chain
     instantiation's weight-ring stages and shared memory
-    (`fused_mlp.chain_layout`); fail unless each of them issues wgmma (HGMMA)
+    (`fwd_chain.chain_layout`); fail unless each of them issues wgmma (HGMMA)
     and TMA loads (UTMALDG) and ptxas serialized none of their wgmma, or if
     a forward-chain instantiation spills.
     Returns {label: ptxas figures}, {label: SASS counts}, {label: ring}."""
-    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fwd_chain
 
     res = _ptxas_resources(list(BUILD_INSTANTIATIONS.values()))
     sass = _sass_counts(list(BUILD_INSTANTIATIONS.values()))
     ring = {}
     for label, (vox, mode) in CHAIN_LABELS.items():
-        stages, smem = fused_mlp.chain_layout(bool(vox), fused_mlp.CHAIN_MODES[mode])
+        stages, smem = fwd_chain.chain_layout(bool(vox), fwd_chain.CHAIN_MODES[mode])
         ring[label] = {"stages": stages, "smem_bytes": smem}
     for label, key in BUILD_INSTANTIATIONS.items():
         line = _build_line(label, key, res[key], sass[key])
@@ -682,16 +666,15 @@ def _build_report():
             {k: sass[v] for k, v in BUILD_INSTANTIATIONS.items()}, ring)
 
 
-def _weight_stream(packed, cfg, n_rows: int, ms: float, forward_instance: bool = True,
-                   compute_scene: bool = True, sigma_only: bool = False) -> str:
+def _weight_stream(packed, n_rows: int, ms: float, mode: str) -> str:
     """The forward chain's weight stream of one launch, for a printed line:
     every block copies each chunk of the tile's chunk list from L2 into
     shared memory once per tile (`forward_weight_bytes`), and the rate that
     implies at the measured time. A figure of the design: the kernels line's
     bound counts the packed weights once."""
-    from object_nerf_torch.ops import fused_mlp_vjp as fv
+    from object_nerf_torch.ops import fwd_chain
 
-    per_tile = fv.forward_weight_bytes(packed, forward_instance, compute_scene, sigma_only)
+    per_tile = fwd_chain.forward_weight_bytes(packed, mode)
     n_tiles = -(-n_rows // 128)
     total = per_tile * n_tiles
     return (f"weight stream: {n_tiles} tiles x {per_tile / 1e6:.3f} MB = {total / 1e9:.2f} GB "
@@ -873,7 +856,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
     import copy
 
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp, fwd_chain
     from object_nerf_torch.ops import fused_mlp_vjp as fv
     from object_nerf_torch.ops.compositing import composite
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
@@ -946,7 +929,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
     pack_ms = 0.0
     for s_, (model, typ, xyz, z, noise, noise_inst) in shapes.items():
         with torch.no_grad():
-            packed = fused_mlp.pack_kernel_weights(model, cfg, True)
+            packed = fwd_chain.pack_kernel_weights(model, cfg, True)
             got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes)
             again = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes)
@@ -989,10 +972,11 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
         errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e[worst])
         with torch.no_grad():
             ms["fused_mlp_eval"][s_] = _cuda_ms(
-                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True),
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, torch.bfloat16, True,
+                                        True),
                 TIMED_LAUNCHES)
             print(f"fused_mlp_eval {tuple(xyz.shape)}: "
-                  + _weight_stream(packed, cfg, BATCH * s_, ms["fused_mlp_eval"][s_]))
+                  + _weight_stream(packed, BATCH * s_, ms["fused_mlp_eval"][s_], "eval"))
             ms["fused_mlp_bwd"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed),
                 TIMED_LAUNCHES)
@@ -1008,11 +992,12 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
                 lambda: fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes), 3)
             plain_ms["fused_mlp_bwd"][s_] = _cuda_ms(
                 lambda: fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g), 3)
-            pack_ms = _cuda_ms(lambda: fused_mlp.pack_kernel_weights(model, cfg, True), 10)
+            pack_ms = _cuda_ms(lambda: fwd_chain.pack_kernel_weights(model, cfg, True), 10)
             chain = pm.chain_layers(model)[0]
             library["fused_mlp_eval"][s_] = _library_turns(
                 f"fused_mlp_eval {tuple(xyz.shape)}",
-                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True),
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, torch.bfloat16, True,
+                                        True),
                 lambda: pm.torch_mlp_eval(chain, cfg, xyz, dir_pe, codes), want)
             chain, leaves = pm.chain_layers(model, grad=True)
             library["fused_mlp_bwd"][s_] = _library_turns(
@@ -1237,7 +1222,7 @@ def _branch_macs(cfg, instance: bool) -> int:
 def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
     """Phase 8; returns the kernel's entry for the `kernels` line (without
     its launches) and its ms per launch by branch."""
-    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fwd_chain
     from object_nerf_torch.ops import fused_sigma as fs
     from object_nerf_torch.scripts import profile_mlp as pm
 
@@ -1252,7 +1237,7 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
     ms, plain_ms, bound, by, errs, library = {}, {}, {}, {}, {}, {}
     with torch.no_grad():
         codes = models.code_library(ids).contiguous()
-        packed = fused_mlp.pack_kernel_weights(model, cfg, True, sigma_only=True)
+        packed = fwd_chain.pack_kernel_weights(model, cfg, True, sigma_only=True)
         chain = pm.chain_layers(model)[0]
         for branch in fs.BRANCHES:
             def run(branch=branch):
@@ -1299,8 +1284,8 @@ def _sigma_phase(torch, dev, models, cfg, peak_flops, peak_bytes):
                   f"{plain_ms[branch]:.3f} ms, bound {bound[branch]:.3f} ms ({by[branch]}: "
                   f"{macs} multiply-adds per point, {2 * macs * n / 1e12:.3f} TFLOP, "
                   f"{nbytes / 1e6:.1f} MB), {2 * macs * n / ms[branch] / 1e9:.1f} TFLOP/s "
-                  f"achieved; " + _weight_stream(packed, cfg, n, ms[branch], instance,
-                                                 not instance, True))
+                  f"achieved; " + _weight_stream(packed, n, ms[branch],
+                                                 "sigma_obj" if instance else "sigma_scene"))
     entry = {
         "name": "fused_sigma_eval", "route": "cuda",
         "source": "object_nerf_torch/ops/csrc/fused_mlp_wg.cuh",
@@ -1371,7 +1356,7 @@ def _edit_phase(torch, dev, models, cfg, sigma_ms):
 
     from object_nerf_torch.edit.bbox import boxes_to_arrays
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp
+    from object_nerf_torch.ops import fused_mlp, fwd_chain
     from object_nerf_torch.ops import fused_mlp_vjp as fv
     from object_nerf_torch.render.multi import compact_hit_order, render_rays_multi
     from object_nerf_torch.train.metrics import psnr
@@ -1474,7 +1459,7 @@ def _edit_phase(torch, dev, models, cfg, sigma_ms):
         dirs = torch.nn.functional.normalize(torch.randn(EDIT_CHUNK, 3, generator=gen), dim=-1)
         dir_pe = freq_encode(dirs.to(dev), cfg.N_freq_dir).contiguous()
         codes = models.code_library(torch.full((EDIT_CHUNK,), EDIT_OBJ, device=dev)).contiguous()
-        packed = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True)
+        packed = fwd_chain.pack_kernel_weights(models.nerf_fine, cfg, True)
         mlp_ms, mlp_err = {}, 0.0
         for name, fi, cs, cd in (("scene", False, True, None), ("instance", True, False, codes)):
             def run(fi=fi, cs=cs, cd=cd):
@@ -1780,7 +1765,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
     from object_nerf_torch.config import Config
     from object_nerf_torch.models import voxel_grid as vg
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops import fused_mlp, fwd_chain, gather
     from object_nerf_torch.ops import fused_sigma as fs
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import lookup_voxel_raw, render_rays_plain
@@ -1834,8 +1819,8 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
 
     # -- 12. the three kernels with the voxel operand -----------------------------------
     with torch.no_grad():
-        pk_c = fused_mlp.pack_kernel_weights(models.nerf_coarse, cfg, False, sigma_only=True)
-        pk_f = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True)
+        pk_c = fwd_chain.pack_kernel_weights(models.nerf_coarse, cfg, False, sigma_only=True)
+        pk_f = fwd_chain.pack_kernel_weights(models.nerf_fine, cfg, True)
         runs = {
             "fused_coarse_weights": (
                 lambda: fused_mlp.fused_coarse_weights(models.nerf_coarse, cfg, xyz_c, z_c,
@@ -1891,10 +1876,10 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
                   f"{flop / vox[name]['ms'] / 1e9:.1f} TFLOP/s achieved")
             if name == "fused_render_tiles":
                 print(f"{name} voxel {tuple(xyz_f.shape)}: "
-                      + _weight_stream(pk_f, cfg, n_f, vox[name]["ms"]))
+                      + _weight_stream(pk_f, n_f, vox[name]["ms"], "render"))
             else:
                 print(f"{name} voxel {tuple(xyz_c.shape)}: "
-                      + _weight_stream(pk_c, cfg, n_c, vox[name]["ms"], False, True, True))
+                      + _weight_stream(pk_c, n_c, vox[name]["ms"], "weights"))
 
         # the density kernel at the sweep's chunk: points in and around the room,
         # features from the f32 table as the sweep looks them up
@@ -1906,7 +1891,7 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
         raw_p = raw_p.contiguous()
         code_rows = models.code_library(
             torch.randint(0, 64, (n_pts // per_row,), generator=gen).to(dev)).contiguous()
-        pk_s = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True, sigma_only=True)
+        pk_s = fwd_chain.pack_kernel_weights(models.nerf_fine, cfg, True, sigma_only=True)
         sig = {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}}
         for branch in fs.BRANCHES:
             def run(branch=branch):
@@ -1951,8 +1936,8 @@ def _voxel_phases(torch, dev, peak_flops, peak_bytes):
                   f"{sig['plain_ms'][branch]:.3f} ms, bound {sig['bound_ms'][branch]:.3f} ms "
                   f"({sig['bound_by'][branch]}: {macs} multiply-adds per point), "
                   f"{2 * macs * n_pts / sig['ms'][branch] / 1e9:.1f} TFLOP/s achieved; "
-                  + _weight_stream(pk_s, cfg, n_pts, sig["ms"][branch], instance, not instance,
-                                   True))
+                  + _weight_stream(pk_s, n_pts, sig["ms"][branch],
+                                   "sigma_obj" if instance else "sigma_scene"))
         vox["fused_sigma_eval"] = sig
         del pts, raw_p, got, want
 
@@ -2267,7 +2252,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
 
     from object_nerf_torch.models import voxel_grid as vg
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops import fused_mlp, fwd_chain, gather
     from object_nerf_torch.ops import fused_mlp_vjp as fv
     from object_nerf_torch.ops import fused_sigma as fs
     from object_nerf_torch.ops.compositing import composite
@@ -2343,14 +2328,14 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     # the bound counts the model's own input columns and the input gradients
     # that have a consumer; the kernels perform more (their padded tile, and
     # the 128-column chunks of the input gradient), printed beside it
-    k0_pad, grad_cols = fused_mlp.input_tile_columns(cfg), _voxel_grad_cols(cfg)
+    k0_pad, grad_cols = fwd_chain.input_tile_columns(cfg), _voxel_grad_cols(cfg)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     grad_cols_pad = (256, 448)
     n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
     dvox_err = {"max": 0.0, "norm": 0.0}
     for s_, (model, typ, xyz, z, raw, noise, noise_inst) in shapes.items():
         with torch.no_grad():
-            packed = fused_mlp.pack_kernel_weights(model, cfg, True)
+            packed = fwd_chain.pack_kernel_weights(model, cfg, True)
             got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
             again = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
@@ -2398,10 +2383,12 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
         rows = BATCH * s_
         with torch.no_grad():
             out["fused_mlp_eval"]["ms"][s_] = _cuda_ms(
-                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True, raw),
+                lambda: fv._launch_eval(cfg, xyz, dir_pe, codes, packed, torch.bfloat16, True,
+                                        True, raw),
                 TIMED_LAUNCHES)
             print(f"fused_mlp_eval voxel {tuple(xyz.shape)}: "
-                  + _weight_stream(packed, cfg, BATCH * s_, out["fused_mlp_eval"]["ms"][s_]))
+                  + _weight_stream(packed, BATCH * s_, out["fused_mlp_eval"]["ms"][s_],
+                                   "eval"))
             out["fused_mlp_bwd"]["ms"][s_] = _cuda_ms(
                 lambda: fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, g, packed=packed,
                                          voxel_raw=raw), TIMED_LAUNCHES)
@@ -2575,7 +2562,7 @@ def _voxel_train_phases(torch, dev, peak_flops, peak_bytes):
     per_batch = int(config.train.get("prune_voxel_batch", 256))
     model = models.nerf_fine
     with torch.no_grad():
-        pk_s = fused_mlp.pack_kernel_weights(model, cfg, False, sigma_only=True)
+        pk_s = fwd_chain.pack_kernel_weights(model, cfg, False, sigma_only=True)
     uniform = torch.rand(-(-n0 // per_batch) * per_batch * PRUNE_CHECK_SPV, 3, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(SEED + 7))
 
@@ -2887,7 +2874,7 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
     from object_nerf_torch.edit import __main__ as edit_cli
     from object_nerf_torch.models import voxel_grid as vg
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import fused_mlp, gather
+    from object_nerf_torch.ops import fused_mlp, fwd_chain, gather
     from object_nerf_torch.ops import fused_mlp_vjp as fv
     from object_nerf_torch.ops.sampling import stratified_sample
     from object_nerf_torch.render.renderer import (
@@ -3229,7 +3216,7 @@ def _scene_phases(torch, dev, peak_flops, peak_bytes, frame13_ms):
             xyz_c = (rays_c[:, None, 0:3] + rays_c[:, None, 3:6] * z_c[..., None]).contiguous()
             dir_pe = freq_encode(rays_c[:, 3:6], cfg.N_freq_dir).contiguous()
             raw_c = lookup_voxel_raw(system.eval_settings, ctx16, xyz_c)
-            packed = fused_mlp.pack_kernel_weights(models.nerf_coarse, cfg, True)
+            packed = fwd_chain.pack_kernel_weights(models.nerf_coarse, cfg, True)
 
             def run():
                 return fv.fused_mlp_eval(models.nerf_coarse, cfg, xyz_c, dir_pe, codes_c,
@@ -3887,8 +3874,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, _repo_root())
 
+    from benchmark.flops import peaks
     from object_nerf_torch.models.embedding import freq_encode
-    from object_nerf_torch.ops import _build, fused_mlp
+    from object_nerf_torch.ops import _build, fused_mlp, fwd_chain
     from object_nerf_torch.ops.sampling import merge_z_vals, sample_pdf, stratified_sample
     from object_nerf_torch.render.renderer import render_rays_plain
     from object_nerf_torch.scripts import profile_mlp as pm
@@ -3906,7 +3894,10 @@ def main() -> int:
     ).stdout.strip()
     print(smi)
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bytes = _peaks(kind)
+    try:  # the benchmark's table of peaks (NVIDIA data sheets)
+        peak_flops, peak_bytes = peaks(kind)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # -- 2. build -------------------------------------------------------------
@@ -3939,8 +3930,8 @@ def main() -> int:
                                            settings.N_importance, det=True)).contiguous()
         xyz_f = (rays[:, None, 0:3] + rays[:, None, 3:6] * z_f[..., None]).contiguous()
 
-        pk_c = fused_mlp.pack_kernel_weights(models.nerf_coarse, cfg, False, sigma_only=True)
-        pk_f = fused_mlp.pack_kernel_weights(models.nerf_fine, cfg, True)
+        pk_c = fwd_chain.pack_kernel_weights(models.nerf_coarse, cfg, False, sigma_only=True)
+        pk_f = fwd_chain.pack_kernel_weights(models.nerf_fine, cfg, True)
 
         def run_coarse():
             return fused_mlp.fused_coarse_weights(models.nerf_coarse, cfg, xyz_c, z_c,
@@ -4022,16 +4013,16 @@ def main() -> int:
               f"{bound_ms[k]:.3f} ms ({bound_by[k]}: {flops[k] / 1e12:.3f} TFLOP, "
               f"{nbytes[k] / 1e6:.1f} MB), {flops[k] / ms[k] / 1e9:.1f} TFLOP/s achieved")
     print(f"fused_render_tiles {tuple(xyz_f.shape)}: "
-          + _weight_stream(pk_f, cfg, n_f, ms["fused_render_tiles"]))
+          + _weight_stream(pk_f, n_f, ms["fused_render_tiles"], "render"))
     print(f"fused_coarse_weights {tuple(xyz_c.shape)}: "
-          + _weight_stream(pk_c, cfg, n_c, ms["fused_coarse_weights"], False, True, True))
+          + _weight_stream(pk_c, n_c, ms["fused_coarse_weights"], "weights"))
     # the chain takes both values of an encoded pair from one sincosf: it must
     # give sinf's and cosf's bits, here over arguments at the encodings' scale
     # (xyz up to 2^9, voxel features up to 2^5 times a few units) and beyond
     gen = torch.Generator().manual_seed(SEED + 3)
     args = torch.cat([torch.randn(1 << 22, generator=gen) * s_
                       for s_ in (1.0, 30.0, 600.0, 2e4)]).to(dev)
-    mism = fused_mlp.sincos_mismatches(args)
+    mism = fwd_chain.sincos_mismatches(args)
     print(f"sincosf vs sinf / cosf on the card: {mism} of {args.numel()} arguments differ")
     if mism:
         raise SystemExit("sincosf differs from sinf / cosf: the chain's encoding would too")

@@ -40,20 +40,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 SIGNATURES = {
     # name: argtypes (see the extern "C" blocks of csrc/*.cu)
-    "onerf_coarse_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
-    "onerf_render_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_fwd_chain": [_I, _I, _P, _P, _P, _P, _P, _I, _P],
     "onerf_sincos_check": [_P, _L, _P, _P],
     "onerf_fwd_chain_layout": [_I, _I, _P, _P],
-    "onerf_mlp_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                       _P, _I, _P, _P, _I, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_wgrad": [_P, _I, _I, _P, _I, _P, _P],
-    "onerf_sigma_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "onerf_gather_rows": [_P, _P, _P, _L, _I, _P],
     "onerf_corner_lookup": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "onerf_pe_probe": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],

@@ -43,6 +43,10 @@
 // (full-precision sincosf, reference channel order) and the compositing run
 // in f32.
 //
+// This source instantiates those two modes and holds the chain's one entry
+// point, onerf_fwd_chain, which launches each of the five modes (eval in
+// fused_mlp_train.cu, the densities in fused_sigma.cu).
+//
 // Built with nvcc for sm_90a by object_nerf_torch/ops/_build.py and bound
 // with ctypes: plain C entry points, every pointer a device pointer, the
 // stream PyTorch's current stream. The kernels allocate nothing.
@@ -65,6 +69,16 @@ __global__ void sincos_check_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+// The branches a launch runs fit its mode: the render runs the scene branch,
+// the coarse weights and the scene density the scene branch alone, the
+// object density the object branch alone; the eval one or both.
+bool branches_fit(int mode, const FwdArgs& a) {
+  const bool inst = a.forward_instance != 0, scene = a.compute_scene != 0;
+  if (mode == FWD_EVAL) return true;
+  if (mode == FWD_RENDER) return scene;
+  return mode == FWD_SIGMA_OBJ ? inst && !scene : scene && !inst;
+}
+
 // The ring depth and the dynamic shared memory of one instantiation.
 template <bool VOX, int MODE>
 void chain_layout(int* stages, int* smem_bytes) {
@@ -74,53 +88,42 @@ void chain_layout(int* stages, int* smem_bytes) {
 
 }  // namespace
 
+FWD_CHAIN_INSTANCE(false, FWD_RENDER);
+FWD_CHAIN_INSTANCE(true, FWD_RENDER);
+FWD_CHAIN_INSTANCE(false, FWD_WEIGHTS);
+FWD_CHAIN_INSTANCE(true, FWD_WEIGHTS);
+
 extern "C" {
 
 const char* onerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// `vox` is the raw voxel feature operand (n_rays, S, c_svox + c_ivox) of a
-// voxel-conditioned model, or null for a classical one (then the three widths
-// are unused). `wmap_tab` and `chunks`: the chain's weight maps and the
-// sigma-only chunk order of one tile (fused_mlp_vjp.forward_launch_tables).
+// The forward chain in `mode` (FWD_*: 0 eval, 1 render, 2 coarse weights, 3
+// scene density, 4 object density) over the launch `a` describes
+// (fwd_chain.launch fills it), for the voxel-conditioned model (`vox` != 0,
+// with a->vox the raw voxel features) or the classical one (a->vox null).
+// `scene_tab` and `obj_tab` are the packing's offset tables (obj_tab null
+// unless the object branch runs), `wmap_tab` and `chunks` the chain's weight
+// maps and the chunk order of one tile (fwd_chain.forward_launch_tables).
 // Returns cudaGetLastError() after the launch (0 on success).
-int onerf_coarse_weights(const float* xyz, const float* z, const float* vox,
-                         const void* w, const float* b, const int* scene_tab,
-                         const int* wmap_tab, const int* chunks, int n_chunks,
-                         float* weights, int n_rays, int S, int n_freq,
-                         int last_delta_inf, int c_svox, int c_ivox, int n_freq_vox,
-                         void* stream) {
-  FwdArgs a = {xyz, z, nullptr, nullptr, vox, static_cast<const bf16*>(w), b, nullptr,
-               nullptr, weights, {c_svox, c_ivox, n_freq_vox}, n_rays, S, n_freq, 0, 0, 0, 1,
-               last_delta_inf};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vox != nullptr)
-    return launch_fwd_chain<true, FWD_WEIGHTS>(wmap_tab, chunks, n_chunks, scene_tab, nullptr,
-                                               a, st);
-  return launch_fwd_chain<false, FWD_WEIGHTS>(wmap_tab, chunks, n_chunks, scene_tab, nullptr,
-                                              a, st);
-}
-
-// `wmap_tab` and `chunks`: the chain's weight maps and the chunk order of
-// one tile (fused_mlp_vjp.forward_launch_tables).
-int onerf_render_tiles(const float* xyz, const float* z, const float* dir_pe,
-                       const float* codes, const float* vox, const void* w,
-                       const float* b, const int* scene_tab, const int* obj_tab,
-                       const int* wmap_tab, const int* chunks, int n_chunks,
-                       float* maps, float* weights, int n_rays, int S, int n_freq,
-                       int c_dir, int code_len, int forward_instance,
-                       int last_delta_inf, int c_svox, int c_ivox, int n_freq_vox,
-                       void* stream) {
-  FwdArgs a = {xyz, z, dir_pe, codes, vox, static_cast<const bf16*>(w), b, nullptr, maps,
-               weights, {c_svox, c_ivox, n_freq_vox}, n_rays, S, n_freq, c_dir, code_len,
-               forward_instance, 1, last_delta_inf};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vox != nullptr)
-    return launch_fwd_chain<true, FWD_RENDER>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab,
-                                              a, st);
-  return launch_fwd_chain<false, FWD_RENDER>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a,
-                                             st);
+int onerf_fwd_chain(int vox, int mode, const FwdArgs* a, const int* scene_tab,
+                    const int* obj_tab, const int* wmap_tab, const int* chunks, int n_chunks,
+                    void* stream) {
+  typedef int (*Launch)(const int*, const int*, int, const int*, const int*, const FwdArgs&,
+                        cudaStream_t);
+  static const Launch launches[2][5] = {
+      {launch_fwd_chain<false, FWD_EVAL>, launch_fwd_chain<false, FWD_RENDER>,
+       launch_fwd_chain<false, FWD_WEIGHTS>, launch_fwd_chain<false, FWD_SIGMA_SCENE>,
+       launch_fwd_chain<false, FWD_SIGMA_OBJ>},
+      {launch_fwd_chain<true, FWD_EVAL>, launch_fwd_chain<true, FWD_RENDER>,
+       launch_fwd_chain<true, FWD_WEIGHTS>, launch_fwd_chain<true, FWD_SIGMA_SCENE>,
+       launch_fwd_chain<true, FWD_SIGMA_OBJ>}};
+  if (mode < 0 || mode > FWD_SIGMA_OBJ || a == nullptr || (a->vox != nullptr) != (vox != 0) ||
+      !branches_fit(mode, *a))
+    return (int)cudaErrorInvalidValue;
+  return launches[vox != 0][mode](wmap_tab, chunks, n_chunks, scene_tab, obj_tab, *a,
+                                  (cudaStream_t)stream);
 }
 
 // The forward chain's layout (FwdCfg) in fwd_chain_kernel<vox, mode>, mode

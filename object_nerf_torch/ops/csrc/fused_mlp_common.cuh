@@ -15,6 +15,11 @@
 
 typedef __nv_bfloat16 bf16;
 
+// Widths of the voxel operand: scene and instance channels of a raw feature
+// row, and the octaves of their encoding. Outside the unnamed namespace: the
+// forward chain's FwdArgs holds it, and FwdArgs crosses the sources.
+struct VoxDims { int c_s, c_i, n_fv; };
+
 namespace {
 
 constexpr int ROWS = 128;     // sample rows per block (R whole rays x S samples)
@@ -29,7 +34,7 @@ constexpr float LEAKY = 0.01f;
 constexpr float T_EPS = 1e-10f;
 
 // Offsets of one branch's weights (bf16 buffer) and biases (f32 buffer), in
-// elements. The layout is written by pack_kernel_weights in fused_mlp.py:
+// elements. The layout is written by pack_kernel_weights in fwd_chain.py:
 // trunk layer i is a (K, N) row-major matrix ("in, out"); a skip layer
 // holds the input rows [0, K0) and then the hidden rows [K0, K0 + N); the
 // sigma and rgb heads are stored (out, in); the view-direction layer is
@@ -122,10 +127,6 @@ __device__ void load_inputs(int tile, const float* __restrict__ xyz,
     X[r * LDX + c] = __float2bfloat16(v);
   }
 }
-
-// Widths of the voxel operand: scene and instance channels of a raw feature
-// row, and the octaves of their encoding.
-struct VoxDims { int c_s, c_i, n_fv; };
 
 // Column j of the encoding of a C-channel piece v, in the reference channel
 // order [sin f0 (C), cos f0 (C), sin f1 (C), ...], f_k = 2^k. sinf / cosf in

@@ -1041,28 +1041,13 @@ int launch_mlp_bwd(const float* xyz, const float* dir_pe, const float* codes,
 
 }  // namespace
 
+// the forward, launched by onerf_fwd_chain (fused_mlp.cu)
+FWD_CHAIN_INSTANCE(false, FWD_EVAL);
+FWD_CHAIN_INSTANCE(true, FWD_EVAL);
+
 extern "C" {
 
 // Every launcher returns cudaGetLastError() after the launch (0 on success).
-// `vox` is the raw voxel feature operand (n_rays * S, c_svox + c_ivox) of a
-// voxel-conditioned model, or null for a classical one (then the three
-// widths are unused). `wmap_tab` and `chunks`: the forward chain's weight
-// maps and the chunk order of one tile (fused_mlp_vjp.forward_launch_tables).
-int onerf_mlp_eval(const float* xyz, const float* dir_pe, const float* codes,
-                   const float* vox, const void* w, const float* b, const int* scene_tab,
-                   const int* obj_tab, const int* wmap_tab, const int* chunks, int n_chunks,
-                   float* out, int n_rays, int S, int n_freq, int c_dir, int code_len,
-                   int forward_instance, int compute_scene, int c_svox, int c_ivox,
-                   int n_freq_vox, void* stream) {
-  FwdArgs a = {xyz, nullptr, dir_pe, codes, vox, static_cast<const bf16*>(w), b, out,
-               nullptr, nullptr, {c_svox, c_ivox, n_freq_vox}, n_rays, S, n_freq, c_dir,
-               code_len, forward_instance, compute_scene, 0};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vox != nullptr)
-    return launch_fwd_chain<true, FWD_EVAL>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a,
-                                            st);
-  return launch_fwd_chain<false, FWD_EVAL>(wmap_tab, chunks, n_chunks, scene_tab, obj_tab, a, st);
-}
 
 // The backward in three launches (fused_mlp_bwd in fused_mlp_vjp.py builds
 // every table): the sweep on n_blocks blocks, reading the weights through

@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's fused MLP kernels, and the forward
-// chain that fused_mlp_eval (fused_mlp_train.cu), fused_render_tiles and
-// fused_coarse_weights (fused_mlp.cu) and fused_sigma_eval (fused_sigma.cu)
-// share.
+// chain that fused_mlp_eval, fused_render_tiles, fused_coarse_weights and
+// fused_sigma_eval share: one entry point, onerf_fwd_chain (fused_mlp.cu),
+// launches each of its modes, and object_nerf_torch/ops/fwd_chain.py builds
+// its arguments and tables.
 //
 // The building blocks (the backward's sweep and weight-gradient kernel use
 // them too): the TMA tensor maps of the packed weight matrices, mbarriers,
@@ -25,7 +26,7 @@
 //   its warps (chunks in turn: one thread alone issued too slowly) streams
 //   the weights by TMA through a ring of 16 KB stages (full / empty mbarrier
 //   per stage) in a fixed chunk order that does not depend on the data
-//   (fused_mlp_vjp.forward_chunks builds it: per branch, layer 0, the trunk
+//   (fwd_chain.forward_chunks builds it: per branch, layer 0, the trunk
 //   with each skip layer's input rows and hidden rows, then, unless the mode
 //   stops at the sigma head, `final` and the direction layer), so it runs
 //   ahead across layers, branches and tiles. A chunk is 32 K rows of a
@@ -90,7 +91,7 @@
 namespace {
 
 // The weight matrices the sweep multiplies by, as TMA tensor maps
-// (sweep_weight_maps in fused_mlp_vjp.py gives each one's element offset in
+// (sweep_weight_maps in fwd_chain.py gives each one's element offset in
 // the packed weights, rows and columns): per branch, trunk layer i at slot
 // i, `final` at WM_FIN, the direction layer's hidden part at WM_DIR; each a
 // row-major bf16 view read in boxes of 64 columns in the 128-byte swizzle
@@ -312,9 +313,15 @@ struct FwdPlan {
   unsigned short chunk[FWD_MAX_CHUNKS];
 };
 
-// The inputs and outputs of one launch. `out` (n_rays * S, 8) for
-// fused_mlp_eval; `maps` (n_rays, 16) and `weights` (n_rays, S) or null for
-// the render.
+}  // namespace
+
+// The inputs and outputs of one launch, filled by the host (fwd_chain.FwdArgs
+// mirrors it field by field): `out` (n_rays * S, 8) rows for FWD_EVAL and
+// (n_rays * S,) densities for the point-wise modes; `maps` (n_rays, 16) and
+// `weights` (n_rays, S) or null for FWD_RENDER; `weights` for FWD_WEIGHTS.
+// In the point-wise modes a "ray" is a run of S points that share a code.
+// Outside the unnamed namespace: onerf_fwd_chain (fused_mlp.cu) passes it to
+// the launches that the other sources compile.
 struct FwdArgs {
   const float *xyz, *z, *dir_pe, *codes, *vox;
   const bf16* w;
@@ -323,6 +330,8 @@ struct FwdArgs {
   VoxDims vd;
   int n_rays, S, n_freq, c_dir, code_len, forward_instance, compute_scene, last_delta_inf;
 };
+
+namespace {
 
 // Per model and mode: STAGES stages of FWD_STAGE bytes, as many as shared
 // memory holds beside what the instantiation keeps there; XKB 64-column
@@ -338,7 +347,7 @@ struct FwdCfg {
   // both heads (and the direction layer), or the sigma head alone
   static constexpr bool HEADS = MODE == FWD_EVAL || MODE == FWD_RENDER;
   // input columns of the scene and the object branch (input_tile_columns in
-  // fused_mlp.py)
+  // fwd_chain.py)
   static constexpr int K0S = VOX ? 320 : 64, K0O = VOX ? 448 : 128;
   static constexpr int XKB = (MODE == FWD_WEIGHTS || MODE == FWD_SIGMA_SCENE ? K0S : K0O) / 64;
   static constexpr int STAGE = FWD_STAGE;
@@ -1064,6 +1073,8 @@ int fwd_plan(const void* w, const int* wmap_tab, const int* chunks, int n_chunks
   return (int)cudaSuccess;
 }
 
+}  // namespace
+
 // Launch the forward chain in mode MODE: the weight maps of `wmap_tab`
 // (WM_LEN x 3 ints, as encode_sweep_maps takes them) in boxes of FWD_STAGE
 // bytes per row of boxes, the chunk order `chunks` (n_chunks x 3 ints: slot,
@@ -1097,4 +1108,19 @@ int launch_fwd_chain(const int* wmap_tab, const int* chunks, int n_chunks,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// Each (model, mode) is compiled by one source, which instantiates it: fused_mlp.cu
+// the render and the coarse weights, fused_mlp_train.cu the eval, fused_sigma.cu
+// the two densities, so that their compilers build the ten kernels side by side.
+#define FWD_CHAIN_INSTANCE(VOX, MODE)                                                      \
+  template int launch_fwd_chain<VOX, MODE>(const int*, const int*, int, const int*,        \
+                                           const int*, const FwdArgs&, cudaStream_t)
+extern FWD_CHAIN_INSTANCE(false, FWD_EVAL);
+extern FWD_CHAIN_INSTANCE(true, FWD_EVAL);
+extern FWD_CHAIN_INSTANCE(false, FWD_RENDER);
+extern FWD_CHAIN_INSTANCE(true, FWD_RENDER);
+extern FWD_CHAIN_INSTANCE(false, FWD_WEIGHTS);
+extern FWD_CHAIN_INSTANCE(true, FWD_WEIGHTS);
+extern FWD_CHAIN_INSTANCE(false, FWD_SIGMA_SCENE);
+extern FWD_CHAIN_INSTANCE(true, FWD_SIGMA_SCENE);
+extern FWD_CHAIN_INSTANCE(false, FWD_SIGMA_OBJ);
+extern FWD_CHAIN_INSTANCE(true, FWD_SIGMA_OBJ);

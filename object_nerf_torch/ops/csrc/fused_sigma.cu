@@ -39,41 +39,8 @@
 
 #include "fused_mlp_wg.cuh"
 
-extern "C" {
-
-// `scene_tab` and `obj_tab` are the packing's offset tables (obj_tab null
-// unless `instance`); the scene branch runs when `instance` is 0 (codes
-// unused), the object branch otherwise (codes holds n_pts / per_row rows of
-// code_len). `wmap_tab` and `chunks`: the chain's weight maps and the
-// sigma-only chunk order of the branch (fused_mlp_vjp.forward_launch_tables).
-// `vox` is the raw voxel feature operand (n_pts, c_svox + c_ivox) of a
-// voxel-conditioned model, or null for a classical one. Returns
-// cudaGetLastError().
-int onerf_sigma_eval(const float* pts, const float* codes, const float* vox,
-                     const void* w, const float* b, const int* scene_tab,
-                     const int* obj_tab, const int* wmap_tab, const int* chunks,
-                     int n_chunks, float* sigma, int n_pts, int per_row, int n_freq,
-                     int code_len, int instance, int c_svox, int c_ivox, int n_freq_vox,
-                     void* stream) {
-  if (per_row < 1 || n_pts % per_row != 0) return (int)cudaErrorInvalidValue;
-  // the launch's "rays" are the runs of per_row points that share a code
-  FwdArgs a = {pts, nullptr, nullptr, instance ? codes : nullptr, vox,
-               static_cast<const bf16*>(w), b, sigma, nullptr, nullptr,
-               {c_svox, c_ivox, n_freq_vox}, n_pts / per_row, per_row, n_freq, 0,
-               instance ? code_len : 0, instance, !instance, 0};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vox != nullptr) {
-    if (instance)
-      return launch_fwd_chain<true, FWD_SIGMA_OBJ>(wmap_tab, chunks, n_chunks, scene_tab,
-                                                   obj_tab, a, st);
-    return launch_fwd_chain<true, FWD_SIGMA_SCENE>(wmap_tab, chunks, n_chunks, scene_tab,
-                                                   nullptr, a, st);
-  }
-  if (instance)
-    return launch_fwd_chain<false, FWD_SIGMA_OBJ>(wmap_tab, chunks, n_chunks, scene_tab,
-                                                  obj_tab, a, st);
-  return launch_fwd_chain<false, FWD_SIGMA_SCENE>(wmap_tab, chunks, n_chunks, scene_tab,
-                                                  nullptr, a, st);
-}
-
-}  // extern "C"
+// launched by onerf_fwd_chain (fused_mlp.cu)
+FWD_CHAIN_INSTANCE(false, FWD_SIGMA_SCENE);
+FWD_CHAIN_INSTANCE(true, FWD_SIGMA_SCENE);
+FWD_CHAIN_INSTANCE(false, FWD_SIGMA_OBJ);
+FWD_CHAIN_INSTANCE(true, FWD_SIGMA_OBJ);

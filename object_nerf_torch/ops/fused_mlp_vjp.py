@@ -23,8 +23,9 @@ versions beside them here: `mlp_eval_plain` (differentiable by autograd, the
 check of the hand-derived backward) and `mlp_bwd_plain` (the hand-derived
 backward in tensor code, rounding where the kernel rounds). The kernels keep
 the eval kernels' tile of 128 rows of whole rays, hence their restriction to
-`KERNEL_SAMPLES` samples per ray. `launch_counts` (shared with
-`fused_mlp.py`) counts kernel launches and nothing else.
+`KERNEL_SAMPLES` samples per ray. The forward is the forward chain's "eval"
+mode (`fwd_chain.py` owns its format and launch). `launch_counts` (shared
+with `fused_mlp.py`) counts kernel launches and nothing else.
 
 The backward runs in three launches: a sweep over the tiles that writes
 every product input and rounded d_pre of the weight gradients into a
@@ -32,10 +33,8 @@ row-major workspace (`bwd_workspace_layout`), a split-K GEMM over a work list
 (`wgrad_work_list`) that contracts them over all rows, and a reduction that
 adds the partial sums in a fixed order (`bwd_plan` puts the three together).
 The layout and the work list are built here, where the CPU tests reach them,
-and passed to the kernels as small tables. So is the order of the weight
-chunks that the forward chain (`fused_mlp_eval`, and `fused_render_tiles` in
-`fused_mlp.py`) streams through its ring (`forward_chunks`), over the same
-tensor maps as the backward's sweep (`sweep_weight_maps`).
+and passed to the kernels as small tables; the sweep reads the weights
+through the forward chain's tensor maps (`fwd_chain.sweep_weight_maps`).
 
 A voxel-conditioned model takes `voxel_raw` (n, S, 16 + 8), the raw trilinear
 features of its samples, as the eval kernels do: the input row is
@@ -49,17 +48,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig, embed_inputs
-from .fused_mlp import (
-    MAX_DIR, OBJ_W, SCENE_W, T_DEPTH, T_DIRB, T_DIRWD, T_DIRWH, T_FINB, T_FINW, T_K0,
-    T_LEN, T_RGBB, T_RGBW, T_SIGB, T_SIGW, T_SKIPS, T_TB, T_TW, PackedWeights,
-    _check_launch, _check_tensor, _check_voxel_raw, _ptr, _tab, _vox_args,
-    check_voxel_operand, input_tile_columns, launch_counts, pack_kernel_weights,
+from . import fwd_chain
+from .fused_mlp import launch_counts
+from .fwd_chain import (
+    BRANCH_WIDTHS, MAX_DIR, SWEEP_MAPS_PER_BRANCH, T_DEPTH, T_DIRB, T_DIRWD, T_DIRWH,
+    T_FINB, T_FINW, T_K0, T_LEN, T_RGBB, T_RGBW, T_SIGB, T_SIGW, T_SKIPS, T_TB, T_TW,
+    PackedWeights, _check_launch, _check_tensor, _check_voxel_raw, _ptr, _run_branches, _tab,
+    check_voxel_operand, input_tile_columns, pack_kernel_weights, sweep_weight_maps,
 )
 
 MLPOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -259,10 +259,7 @@ WG_M = 128  # dW rows (input features) of one item at most: two warpgroups of 64
 WG_N = 256  # dW columns of one item at most: four wgmma blocks of 64
 WG_ITEMS_PER_SM = 6  # the work list fills the card about this many times
 ITEM_LEN = 8  # ints per work-list item (enum I_* in the source)
-BRANCH_WIDTHS = (SCENE_W, OBJ_W)
 WS_TAB_LEN = 13  # enum W_* in the source
-SWEEP_MAPS_PER_BRANCH = 10  # enum WM_*: trunk layers 0-7, `final`, the direction layer
-SWEEP_BOX = (64, 64)  # the sweep's weight boxes: (columns, rows), bf16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,117 +288,6 @@ class BwdLayout:
     @property
     def nbytes(self) -> int:
         return 2 * self.rows * self.cols
-
-
-def _run_branches(packed: PackedWeights, forward_instance: bool) -> List[List[int]]:
-    return [packed.scene] + ([packed.obj] if forward_instance else [])
-
-
-def sweep_weight_maps(packed: PackedWeights,
-                      forward_instance: bool = True) -> List[Tuple[int, int, int]]:
-    """The weight matrices the sweep multiplies by, as the TMA tensor maps
-    of its weight ring: per branch slot (trunk layer i at i, `final` at 8,
-    the direction layer's hidden part at 9) the matrix's (element offset in
-    the packed weights, rows, columns), row-major bf16; (0, 0, 0) for a slot
-    that no matrix takes, among them `final` and the direction layer of a
-    `sigma_only` packing, which holds neither. A skip layer is one map: its
-    input rows, then its hidden rows."""
-    maps = [(0, 0, 0)] * (2 * SWEEP_MAPS_PER_BRANCH)
-    for bi, tab in enumerate(_run_branches(packed, forward_instance)):
-        width, k0, base = BRANCH_WIDTHS[bi], tab[T_K0], bi * SWEEP_MAPS_PER_BRANCH
-        for i in range(tab[T_DEPTH]):
-            skip = i > 0 and (tab[T_SKIPS] >> i) & 1
-            rows = k0 if i == 0 else (k0 + width if skip else width)
-            maps[base + i] = (tab[T_TW + i], rows, width)
-        if not packed.sigma_only:
-            maps[base + 8] = (tab[T_FINW], width, width)
-            maps[base + 9] = (tab[T_DIRWH], width, width // 2)
-    return maps
-
-
-# The forward chain (csrc/fused_mlp_wg.cuh) of fused_mlp_eval, fused_render_tiles,
-# fused_coarse_weights and fused_sigma_eval: its producer streams these chunks
-# through the weight ring
-FWD_MAX_CHUNKS = 320  # chunks of one tile at most (FWD_MAX_CHUNKS in the source)
-FWD_STAGE_BYTES = 16384  # one chunk, one stage of the ring (FWD_STAGE)
-
-
-def forward_chunk_rows(cols: int) -> int:
-    """K rows of one chunk of a matrix of `cols` columns: a row of 64-column
-    boxes across the matrix that fills one FWD_STAGE_BYTES stage (32 rows of
-    the 256-wide scene layers, 64 of the 128-wide ones, 128 of the object
-    branch's 64-wide direction layer)."""
-    return FWD_STAGE_BYTES // (2 * cols)
-
-
-def forward_chunks(packed: PackedWeights, forward_instance: bool = True,
-                   compute_scene: bool = True,
-                   sigma_only: bool = False) -> List[Tuple[int, int, int]]:
-    """The weight chunks of one tile of the forward chain, in the order its
-    producer loads them and each consumer warpgroup reads them: `(slot, row,
-    boxes)`, rows [row, row + forward_chunk_rows(cols)) of the (rows, cols)
-    matrix of `sweep_weight_maps` slot `slot`, as `boxes` = cols / 64 TMA
-    boxes. Per branch that runs (the scene when `compute_scene`, the object
-    branch when `forward_instance`): trunk layer 0 (the input rows), each
-    later layer (a skip layer's input rows, then its hidden rows), then,
-    unless `sigma_only` (the chain's modes that stop at the sigma head:
-    `fused_coarse_weights`, `fused_sigma_eval`), `final` and the direction
-    layer's hidden part. The order does not depend on the data, so the
-    producer runs ahead across layers, branches and tiles."""
-    if packed.sigma_only and not sigma_only:
-        raise ValueError("a sigma_only packing holds no `final` or direction layer")
-    maps = sweep_weight_maps(packed, forward_instance)
-    out: List[Tuple[int, int, int]] = []
-    for bi, tab in enumerate(_run_branches(packed, forward_instance)):
-        if bi == 0 and not compute_scene:
-            continue
-        base, width, k0 = bi * SWEEP_MAPS_PER_BRANCH, BRANCH_WIDTHS[bi], tab[T_K0]
-
-        def rows(slot: int, r0: int, n: int) -> None:
-            cols = maps[base + slot][2]
-            out.extend((base + slot, r, cols // SWEEP_BOX[0])
-                       for r in range(r0, r0 + n, forward_chunk_rows(cols)))
-
-        for i in range(tab[T_DEPTH]):
-            skip = i > 0 and (tab[T_SKIPS] >> i) & 1
-            if i == 0 or skip:
-                rows(i, 0, k0)
-            if i > 0:
-                rows(i, k0 if skip else 0, width)
-        if not sigma_only:
-            rows(8, 0, width)
-            rows(9, 0, width)
-    if len(out) > FWD_MAX_CHUNKS:
-        raise ValueError(f"{len(out)} weight chunks per tile exceed {FWD_MAX_CHUNKS}")
-    return out
-
-
-def forward_weight_bytes(packed: PackedWeights, forward_instance: bool = True,
-                         compute_scene: bool = True, sigma_only: bool = False) -> int:
-    """Bytes of weights one tile of the forward chain copies from L2 into
-    shared memory (every block reads every chunk once per tile)."""
-    return FWD_STAGE_BYTES * len(forward_chunks(packed, forward_instance, compute_scene,
-                                                sigma_only))
-
-
-def forward_launch_tables(packed: PackedWeights, forward_instance: bool, compute_scene: bool,
-                          sigma_only: bool = False):
-    """The forward chain's tables as its launchers take them: the weight maps
-    (WM_LEN x 3 ints), the chunk order (n x 3 ints) and n. They depend on the
-    packing's offset tables alone, so they are built once per layout."""
-    return _launch_tables(tuple(packed.scene), None if packed.obj is None else tuple(packed.obj),
-                          packed.sigma_only, forward_instance, compute_scene, sigma_only)
-
-
-@functools.lru_cache(maxsize=64)
-def _launch_tables(scene, obj, packed_sigma_only, forward_instance, compute_scene, sigma_only):
-    layout = PackedWeights(None, None, list(scene), None if obj is None else list(obj),
-                           packed_sigma_only)
-    maps = sweep_weight_maps(layout, forward_instance)
-    chunks = forward_chunks(layout, forward_instance, compute_scene, sigma_only)
-    flat = [v for c in chunks for v in c]
-    return ((ctypes.c_int * (3 * len(maps)))(*(v for m in maps for v in m)),
-            (ctypes.c_int * max(1, len(flat)))(*flat), len(chunks))
 
 
 def bwd_workspace_layout(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int,
@@ -626,32 +512,18 @@ def _check_inputs(cfg: ObjectNeRFConfig, xyz, dir_pe, codes, voxel_raw) -> Tuple
     return n, s
 
 
-def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, forward_instance: bool,
-                 compute_scene: bool, voxel_raw: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+def _launch_eval(cfg, xyz, dir_pe, codes, packed: PackedWeights, dtype,
+                 forward_instance: bool, compute_scene: bool,
+                 voxel_raw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward chain for `fused_mlp_eval`; returns the (n*S, 8) f32
     output."""
-    from ._build import check, load_library
-
     n, s = xyz.shape[0], xyz.shape[1]
-    device = xyz.device
-    out = torch.empty((n * s, 8), dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = lib.onerf_mlp_eval(
-            xyz.data_ptr(), dir_pe.data_ptr(), _ptr(codes) if forward_instance else None,
-            _ptr(voxel_raw), packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
-            _tab(packed.obj) if forward_instance else None,
-            *forward_launch_tables(packed, forward_instance, compute_scene),
-            out.data_ptr(), n, s,
-            cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length,
-            int(forward_instance), int(compute_scene), *_vox_args(cfg),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    check(lib, rc, "fused_mlp_eval")
-    launch_counts["fused_mlp_eval"] += 1
+    out = torch.empty((n * s, 8), dtype=torch.float32, device=xyz.device)
+    fwd_chain.launch("eval", cfg, packed, dtype, n, s, xyz, dir_pe=dir_pe, codes=codes,
+                     vox=voxel_raw, out=out, forward_instance=forward_instance,
+                     compute_scene=compute_scene)
+    if n > 0:
+        launch_counts["fused_mlp_eval"] += 1
     return out
 
 
@@ -750,7 +622,8 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
             items.data_ptr(), items.shape[0], parts.data_ptr(), segs.data_ptr(),
             segs.shape[0], flat.data_ptr(), d_codes.data_ptr(), _ptr(d_vox), n_blocks, n, s,
             cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),
-            *_vox_args(cfg), torch.cuda.current_stream(device).cuda_stream,
+            cfg.N_scn_voxel_size, cfg.N_obj_voxel_size, cfg.N_freq_voxel,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     check(lib, rc, "fused_mlp_bwd")
     launch_counts["fused_mlp_bwd"] += 1
@@ -789,9 +662,7 @@ class FusedMLP(torch.autograd.Function):
             return tuple(o.contiguous() for o in out)
         # the bf16 copy of the weights, kept for the backward launch
         ctx.packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
-        _check_launch(cfg, dtype, s, ctx.packed, xyz.device, need_obj=forward_instance,
-                      need_heads=True)
-        out = _launch_eval(cfg, xyz, dir_pe, codes, ctx.packed, forward_instance, True,
+        out = _launch_eval(cfg, xyz, dir_pe, codes, ctx.packed, dtype, forward_instance, True,
                            voxel_raw)
         return _split_out(out, n, s)
 
@@ -835,9 +706,7 @@ def fused_mlp_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
                                       compute_scene, dtype, voxel_raw)
             if packed is None:
                 packed = pack_kernel_weights(model, cfg, forward_instance=forward_instance)
-            _check_launch(cfg, dtype, s, packed, xyz.device, need_obj=forward_instance,
-                          need_heads=True)
-            out = _launch_eval(cfg, xyz, dir_pe, codes, packed, forward_instance,
+            out = _launch_eval(cfg, xyz, dir_pe, codes, packed, dtype, forward_instance,
                                compute_scene, voxel_raw)
             return _split_out(out, n, s)
     return FusedMLP.apply(xyz, dir_pe, codes, voxel_raw, model, cfg, forward_instance, dtype,

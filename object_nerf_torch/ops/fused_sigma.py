@@ -9,10 +9,9 @@ mesh-extraction sweep and the coarse pass of the multi-object edit render.
 
 The kernel is CUDA C++ for Hopper (`csrc/fused_sigma.cu`, built by
 `_build.py`): the point-wise modes of the forward chain of
-`csrc/fused_mlp_wg.cuh`, one per branch, over the branch's sigma-only chunk
-order (`fused_mlp_vjp.forward_launch_tables`, cached per packing layout). On
-a CUDA tensor the wrapper launches it or raises; on a CPU
-tensor it runs `sigma_eval_plain`, which sits beside it here and rounds the
+`csrc/fused_mlp_wg.cuh`, "sigma_scene" and "sigma_obj", one per branch,
+launched by `fwd_chain.launch`. On a CUDA tensor the wrapper launches it or
+raises; on a CPU tensor it runs `sigma_eval_plain`, which sits beside it here and rounds the
 matmul operands to `matmul_dtype` where the kernel rounds. `launch_counts`
 (shared with `fused_mlp.py`) counts kernel launches and nothing else.
 """
@@ -24,9 +23,10 @@ from typing import Optional
 import torch
 
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
-from .fused_mlp import (
-    PackedWeights, _check_launch, _check_tensor, _check_voxel_raw, _ptr, _tab, _vox_args,
-    check_voxel_operand, launch_counts, pack_kernel_weights,
+from . import fwd_chain
+from .fused_mlp import launch_counts
+from .fwd_chain import (
+    PackedWeights, _check_tensor, _check_voxel_raw, check_voxel_operand, pack_kernel_weights,
 )
 
 BRANCHES = ("scene", "instance")
@@ -89,27 +89,12 @@ def fused_sigma_eval(model: ObjectNeRF, cfg: ObjectNeRFConfig, pts: torch.Tensor
     _check_voxel_raw(cfg, voxel_raw, (n,), device)
     if device.type == "cpu":
         return sigma_eval_plain(model, cfg, pts, obj_codes, branch, s, voxel_raw, dtype)
-
-    from ._build import check, load_library
-    from .fused_mlp_vjp import forward_launch_tables
-
     if packed is None:
         packed = pack_kernel_weights(model, cfg, forward_instance=instance, sigma_only=True)
-    _check_launch(cfg, dtype, None, packed, device, need_obj=instance, need_heads=False)
     sigma = torch.empty((n,), dtype=torch.float32, device=device)
-    if n == 0:
-        return sigma
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = lib.onerf_sigma_eval(
-            pts.data_ptr(), obj_codes.data_ptr() if instance else None, _ptr(voxel_raw),
-            packed.w.data_ptr(), packed.b.data_ptr(), _tab(packed.scene),
-            _tab(packed.obj) if instance else None,
-            *forward_launch_tables(packed, instance, not instance, sigma_only=True),
-            sigma.data_ptr(), n, s, cfg.N_freq_xyz, cfg.N_obj_code_length, int(instance),
-            *_vox_args(cfg),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    check(lib, rc, "fused_sigma_eval")
-    launch_counts["fused_sigma_eval"] += 1
+    # the launch's "rays" are the runs of per_row points that share a code
+    fwd_chain.launch("sigma_obj" if instance else "sigma_scene", cfg, packed, dtype, n // s, s,
+                     pts, codes=obj_codes, vox=voxel_raw, out=sigma)
+    if n > 0:
+        launch_counts["fused_sigma_eval"] += 1
     return sigma

@@ -33,10 +33,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from .fused_mlp_vjp import (
-    FWD_MAX_CHUNKS, SWEEP_BOX, SWEEP_MAPS_PER_BRANCH, forward_chunk_rows,
-)
 from ..utils import trace
+from .fwd_chain import FWD_MAX_CHUNKS, SWEEP_BOX, SWEEP_MAPS_PER_BRANCH, forward_chunk_rows
 
 launch_counts: Dict[str, int] = trace.counter_dict(("pe_probe", "scale_copy"))
 reset_launch_counts = trace.reset  # every counter and span total of the registry

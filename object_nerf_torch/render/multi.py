@@ -49,9 +49,9 @@ import torch
 from torch import nn
 
 from ..models.embedding import freq_encode
-from ..ops.fused_mlp import PackedWeights, pack_kernel_weights
 from ..ops.fused_mlp_vjp import fused_mlp_eval, mlp_eval_plain
 from ..ops.fused_sigma import fused_sigma_eval
+from ..ops.fwd_chain import PackedWeights, pack_kernel_weights
 from ..ops.sampling import sample_pdf, stratified_sample
 from .renderer import RenderSettings, VoxelCtx, lookup_voxel_raw
 

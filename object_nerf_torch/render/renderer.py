@@ -58,10 +58,10 @@ from ..models.mlp import ObjectNeRFConfig
 from ..models.voxel_grid import voxel_embed, voxel_lookup_raw
 from ..ops.compositing import composite, composite_instance
 from ..ops.fused_mlp import (
-    PackedWeights, coarse_weights_plain, fused_coarse_weights,
-    fused_render_tiles, render_tiles_plain,
+    coarse_weights_plain, fused_coarse_weights, fused_render_tiles, render_tiles_plain,
 )
 from ..ops.fused_mlp_vjp import MLPOut, fused_mlp_eval, mlp_eval_plain
+from ..ops.fwd_chain import PackedWeights
 from ..ops.sampling import merge_z_vals, sample_pdf, stratified_sample
 from ..utils import trace
 

@@ -84,7 +84,8 @@ _STAMPS = [
      "  fence_proxy_async();  // X is complete for the products' reads\n  wg_bar(bar);\n"
      "  if (trb && tbi < 16380) g_trace[tbi + 3] = gtime();"),
 ]
-# each source keeps its own copy of the chain's stamps: one reader per source
+# each source keeps its own copy of the chain's stamps (those of the modes it
+# instantiates): one reader per source, appended to it
 _READERS = {"fused_mlp_train.cu": "onerf_trace_train", "fused_mlp.cu": "onerf_trace_mlp",
             "fused_sigma.cu": "onerf_trace_sigma"}
 
@@ -94,16 +95,16 @@ def _make_tree() -> None:
         shutil.rmtree(TREE)
     shutil.copytree(PKG, TREE / PKG.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = TREE / PKG.name / "ops" / "csrc"
-    stamps = _STAMPS + [(name, 'extern "C" {',
-                         f'extern "C" {{\nint {fn}(void* out) {{\n'
-                         "  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));\n}\n")
-                        for name, fn in _READERS.items()]
-    for name, old, new in stamps:
+    for name, old, new in _STAMPS:
         path = csrc / name
         text = path.read_text()
         if text.count(old) != 1:
             raise SystemExit(f"{name}: {old!r} is not there once: update the stamps")
         path.write_text(text.replace(old, new))
+    for name, fn in _READERS.items():
+        path = csrc / name
+        path.write_text(path.read_text() + f'\nextern "C" int {fn}(void* out) {{\n'
+                        "  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));\n}\n")
     build = TREE / PKG.name / "ops" / "_build.py"
     text = build.read_text()
     anchor = '    "onerf_scale_copy": [_P, _P, _L, _P],'
@@ -123,8 +124,9 @@ def _child(voxel: bool, mode: str, tiles: int) -> None:
     from object_nerf_torch.models.embedding import freq_encode
     from object_nerf_torch.models.mlp import ObjectNeRF, ObjectNeRFConfig
     from object_nerf_torch.ops import _build, fused_mlp_vjp as fv
-    from object_nerf_torch.ops.fused_mlp import fused_coarse_weights, pack_kernel_weights
+    from object_nerf_torch.ops.fused_mlp import fused_coarse_weights
     from object_nerf_torch.ops.fused_sigma import fused_sigma_eval
+    from object_nerf_torch.ops.fwd_chain import forward_chunks, pack_kernel_weights
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -142,14 +144,14 @@ def _child(voxel: bool, mode: str, tiles: int) -> None:
         raw = (torch.randn(n, s, n_vox, generator=gen) * 0.5).to(dev)
     if mode == "eval":
         packed = pack_kernel_weights(model, cfg, True)
-        chunks = fv.forward_chunks(packed, True, True)
+        chunks = forward_chunks(packed, "eval")
         reader = "onerf_trace_train"
 
         def run():
-            fv._launch_eval(cfg, xyz, dir_pe, codes, packed, True, True, raw)
+            fv._launch_eval(cfg, xyz, dir_pe, codes, packed, torch.bfloat16, True, True, raw)
     elif mode == "weights":
         packed = pack_kernel_weights(model, cfg, False, sigma_only=True)
-        chunks = fv.forward_chunks(packed, False, True, True)
+        chunks = forward_chunks(packed, "weights")
         reader = "onerf_trace_mlp"
 
         def run():
@@ -157,7 +159,7 @@ def _child(voxel: bool, mode: str, tiles: int) -> None:
     else:
         inst = mode == "sigma_object"
         packed = pack_kernel_weights(model, cfg, inst, sigma_only=True)
-        chunks = fv.forward_chunks(packed, inst, not inst, True)
+        chunks = forward_chunks(packed, "sigma_obj" if inst else "sigma_scene")
         reader = "onerf_trace_sigma"
         pts = xyz.reshape(-1, 3)
         raw_p = None if raw is None else raw.reshape(n * s, -1)

@@ -59,9 +59,10 @@ from ..ops import probes
 from ..ops.compositing import (
     alphas_from_sigmas, composite, composite_instance, compute_deltas, weights_from_alphas,
 )
-from ..ops.fused_mlp import fused_coarse_weights, fused_render_tiles, pack_kernel_weights
+from ..ops.fused_mlp import fused_coarse_weights, fused_render_tiles
 from ..ops.fused_mlp_vjp import fused_mlp_bwd, fused_mlp_eval
 from ..ops.fused_sigma import fused_sigma_eval
+from ..ops.fwd_chain import pack_kernel_weights
 from ..train.system import ObjectNeRFSystem
 from ._fixtures import SCENE, probe_inputs, scannet_scale_pcd
 from ._timing import card_line, median_ms, require_cuda, turns_ms

@@ -32,7 +32,7 @@ import torch
 
 from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRFConfig
-from ..ops.fused_mlp import pack_kernel_weights
+from ..ops.fwd_chain import pack_kernel_weights
 from ..ops.gather import gather_rows
 from ..ops.probes import scale_copy
 from ..render.renderer import RenderSettings, render_rays_fused_eval

@@ -90,8 +90,8 @@ def extract_sigma_grid(models, settings, config, obj_id: int = 0, device=None,
     device, the reference a kernel sweep is held against; `as_tensor` returns
     the device tensor instead of a host array."""
     from ..models import voxel_grid as vg
-    from ..ops.fused_mlp import pack_kernel_weights
     from ..ops.fused_sigma import fused_sigma_eval, sigma_eval_plain
+    from ..ops.fwd_chain import pack_kernel_weights
 
     n = int(config.N_grid)
     n3 = n * n * n

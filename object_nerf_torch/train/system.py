@@ -67,8 +67,8 @@ from ..device import resolve_device
 from ..models.code_library import CodeLibrary
 from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
-from ..ops.fused_mlp import pack_kernel_weights
 from ..ops.fused_sigma import fused_sigma_eval
+from ..ops.fwd_chain import pack_kernel_weights
 from ..parallel import mesh
 from ..render.renderer import (
     RenderDraws, RenderSettings, bbox_route, render_rays, render_rays_fused_eval,

@@ -18,6 +18,7 @@ from object_nerf_tpu.ops import pallas_mlp as jk
 from object_nerf_torch.models.embedding import freq_encode
 from object_nerf_torch.models.mlp import ObjectNeRFConfig
 from object_nerf_torch.ops import fused_mlp as fm
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.ops.compositing import composite, composite_instance
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train.system import init_params
@@ -113,8 +114,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="voxel"):  # a classical model takes none
         fm.fused_coarse_weights(models.nerf_coarse, CFG, xyz, z, voxel_raw=xyz)
     with pytest.raises(ValueError, match="widths"):
-        fm.check_kernel_config(CFG)
-    fm.check_kernel_config(ObjectNeRFConfig(use_voxel_embedding=False))
+        fc.check_kernel_config(CFG)
+    fc.check_kernel_config(ObjectNeRFConfig(use_voxel_embedding=False))
 
 
 # -- the kernels' weight layout, emulated at flagship width on the CPU ----------
@@ -129,7 +130,7 @@ def _emulate(packed, cfg, xyz, z, dir_pe=None, codes=None):
     n, s, _ = xyz.shape
     w, b = packed.w.float(), packed.b
     pe = freq_encode(xyz.reshape(-1, 3), cfg.N_freq_xyz)
-    X = torch.zeros(n * s, fm.OBJ_K0)
+    X = torch.zeros(n * s, fc.OBJ_K0)
     X[:, :pe.shape[1]] = pe
     if codes is not None:
         X[:, pe.shape[1]:pe.shape[1] + codes.shape[1]] = codes.repeat_interleave(s, 0)
@@ -142,38 +143,38 @@ def _emulate(packed, cfg, xyz, z, dir_pe=None, codes=None):
         return torch.where(x >= 0, x, 0.01 * x)
 
     def branch(tab, width, heads):
-        k0, h = tab[fm.T_K0], None
-        for i in range(tab[fm.T_DEPTH]):
-            off, bias = tab[fm.T_TW + i], b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]
+        k0, h = tab[fc.T_K0], None
+        for i in range(tab[fc.T_DEPTH]):
+            off, bias = tab[fc.T_TW + i], b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]
             if i == 0:
                 acc = X[:, :k0] @ mat(off, k0, width)
-            elif (tab[fm.T_SKIPS] >> i) & 1:
+            elif (tab[fc.T_SKIPS] >> i) & 1:
                 acc = X[:, :k0] @ mat(off, k0, width) + h @ mat(off + k0 * width, width, width)
             else:
                 acc = h @ mat(off, width, width)
             h = lrelu(acc + bias).bfloat16().float()
-        sigma = h @ w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width] + b[tab[fm.T_SIGB]]
+        sigma = h @ w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width] + b[tab[fc.T_SIGB]]
         if not heads:
             return sigma.reshape(n, s), None
-        hf = (h @ mat(tab[fm.T_FINW], width, width)
-              + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width]).bfloat16().float()
+        hf = (h @ mat(tab[fc.T_FINW], width, width)
+              + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width]).bfloat16().float()
         nd = width // 2
-        wd = mat(tab[fm.T_DIRWD], fm.MAX_DIR, nd)[:dir_pe.shape[1]]
-        dbias = dir_pe.bfloat16().float() @ wd + b[tab[fm.T_DIRB]:tab[fm.T_DIRB] + nd]
-        d = lrelu(hf @ mat(tab[fm.T_DIRWH], width, nd)
+        wd = mat(tab[fc.T_DIRWD], fc.MAX_DIR, nd)[:dir_pe.shape[1]]
+        dbias = dir_pe.bfloat16().float() @ wd + b[tab[fc.T_DIRB]:tab[fc.T_DIRB] + nd]
+        d = lrelu(hf @ mat(tab[fc.T_DIRWH], width, nd)
                   + dbias.repeat_interleave(s, 0)).bfloat16().float()
-        rgb = torch.sigmoid(d @ mat(tab[fm.T_RGBW], 3, nd).t()
-                            + b[tab[fm.T_RGBB]:tab[fm.T_RGBB] + 3])
+        rgb = torch.sigmoid(d @ mat(tab[fc.T_RGBW], 3, nd).t()
+                            + b[tab[fc.T_RGBB]:tab[fc.T_RGBB] + 3])
         return sigma.reshape(n, s), rgb.reshape(n, s, 3)
 
     if packed.sigma_only:
-        sigma, _ = branch(packed.scene, fm.SCENE_W, False)
+        sigma, _ = branch(packed.scene, fc.SCENE_W, False)
         return composite(sigma, torch.zeros(n, s, 3), z).weights
-    sigma, rgb = branch(packed.scene, fm.SCENE_W, True)
+    sigma, rgb = branch(packed.scene, fc.SCENE_W, True)
     scene = composite(sigma, rgb, z)
     out = {"rgb": scene.rgb, "depth": scene.depth, "opacity": scene.opacity}
     if packed.obj is not None:
-        i_sigma, i_rgb = branch(packed.obj, fm.OBJ_W, True)
+        i_sigma, i_rgb = branch(packed.obj, fc.OBJ_W, True)
         inst = composite_instance(i_sigma, i_rgb, z, scene.depth, apply_occlusion=False)
         out.update(rgb_instance=inst.rgb, depth_instance=inst.depth,
                    opacity_instance=inst.opacity)
@@ -194,12 +195,12 @@ def test_packed_layout_reproduces_plain_bf16(forward_instance):
     dir_pe = freq_encode(d, cfg.N_freq_dir)
     codes = torch.randn(n, cfg.N_obj_code_length, generator=g)
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(models.nerf_coarse, cfg, sigma_only=True)
+        packed = fc.pack_kernel_weights(models.nerf_coarse, cfg, sigma_only=True)
         np.testing.assert_allclose(
             _emulate(packed, cfg, xyz, z).numpy(),
             fm.coarse_weights_plain(models.nerf_coarse, cfg, xyz, z).numpy(),
             atol=1e-5, rtol=0)
-        packed = fm.pack_kernel_weights(models.nerf_fine, cfg, forward_instance)
+        packed = fc.pack_kernel_weights(models.nerf_fine, cfg, forward_instance)
         assert packed.w.dtype == torch.bfloat16 and packed.w.numel() % 8 == 0
         got = _emulate(packed, cfg, xyz, z, dir_pe, codes if forward_instance else None)
         want = fm.render_tiles_plain(models.nerf_fine, cfg, xyz, z, dir_pe, codes,

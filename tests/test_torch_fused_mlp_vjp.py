@@ -33,6 +33,7 @@ from object_nerf_torch.models.embedding import freq_encode
 from object_nerf_torch.models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_mlp_vjp as fv
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.train.convert import from_jax_grads, from_jax_params
 
 torch.set_num_threads(2)
@@ -296,14 +297,14 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
             return w[off:off + rows * cols].reshape(rows, cols)
 
         def wmap(slot):  # a matrix the sweep multiplies by, as its tensor map views it
-            off, rows, cols = plan.weight_maps[bi * fv.SWEEP_MAPS_PER_BRANCH + slot]
+            off, rows, cols = plan.weight_maps[bi * fc.SWEEP_MAPS_PER_BRANCH + slot]
             return mat(off, rows, cols)
 
         def add(key, val):
             part[gt[key]:gt[key] + val.numel()] += val.reshape(-1)
 
-        k0, depth, nd = tab[fm.T_K0], tab[fm.T_DEPTH], width // 2
-        skips = [i for i in range(depth) if (tab[fm.T_SKIPS] >> i) & 1]
+        k0, depth, nd = tab[fc.T_K0], tab[fc.T_DEPTH], width // 2
+        skips = [i for i in range(depth) if (tab[fc.T_SKIPS] >> i) & 1]
         hs, h = [], None
         for i in range(depth):
             if i == 0:
@@ -312,40 +313,40 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
                 acc = X[:, :k0] @ wmap(i)[:k0] + h @ wmap(i)[k0:]
             else:
                 acc = h @ wmap(i)
-            h = bf(lrelu(acc + b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]))
+            h = bf(lrelu(acc + b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]))
             hs.append(h)
             wsr[:, act + i * width:act + (i + 1) * width] = h
-        hf = bf(h @ wmap(8) + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width])
+        hf = bf(h @ wmap(8) + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width])
         wsr[:, fin:fin + width] = hf
-        wdd = mat(tab[fm.T_DIRWD], fm.MAX_DIR, nd)
-        dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fm.T_DIRB]:tab[fm.T_DIRB] + nd]
+        wdd = mat(tab[fc.T_DIRWD], fc.MAX_DIR, nd)
+        dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fc.T_DIRB]:tab[fc.T_DIRB] + nd]
         denc = bf(lrelu(hf @ wmap(9) + dbias.repeat_interleave(s, 0)))
-        w_rgb = mat(tab[fm.T_RGBW], 3, nd)
-        rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fm.T_RGBB]:tab[fm.T_RGBB] + 3])
+        w_rgb = mat(tab[fc.T_RGBW], 3, nd)
+        rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fc.T_RGBB]:tab[fc.T_RGBB] + 3])
         # reverse sweep: small heads and bias sums into the block's partial
         dpr = gr * rgb * (1 - rgb)
-        add(fm.T_RGBW, bf(dpr).t() @ denc)
-        add(fm.T_RGBB, dpr.sum(0))
-        add(fm.T_SIGB, gs.sum(0))
+        add(fc.T_RGBW, bf(dpr).t() @ denc)
+        add(fc.T_RGBB, dpr.sum(0))
+        add(fc.T_SIGB, gs.sum(0))
         d_pre_d = slope(denc, bf(dpr) @ w_rgb)
         G = bf(d_pre_d)
-        add(fm.T_DIRB, d_pre_d.sum(0))
+        add(fc.T_DIRB, d_pre_d.sum(0))
         raysum = G.reshape(-1, s, nd).sum(1)  # per ray, then the direction product
-        gdd = torch.zeros(fm.MAX_DIR, nd)
+        gdd = torch.zeros(fc.MAX_DIR, nd)
         gdd[:dirs.shape[1]] = bf(dirs).t() @ raysum
-        add(fm.T_DIRWD, gdd)
+        add(fc.T_DIRWD, gdd)
         wsr[:, gdir:gdir + nd] = G
         d_hf = G @ wmap(9).t()
-        add(fm.T_FINB, d_hf.sum(0))
+        add(fc.T_FINB, d_hf.sum(0))
         G = bf(d_hf)
         wsr[:, gfin:gfin + width] = G
-        w_sig = w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width]
-        add(fm.T_SIGW, hs[-1].t() @ bf(gs))
+        w_sig = w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width]
+        add(fc.T_SIGW, hs[-1].t() @ bf(gs))
         d_h = G @ wmap(8).t() + bf(gs) * w_sig[None, :]
         dcat = torch.zeros(X.shape[0], lay.x_cols)
         for i in reversed(range(depth)):
             d_pre = slope(hs[i], d_h)
-            add(fm.T_TB + i, d_pre.sum(0))
+            add(fc.T_TB + i, d_pre.sum(0))
             G = bf(d_pre)
             wsr[:, gcol + i * width:gcol + (i + 1) * width] = G
             rows = 0  # the hidden rows of a skip layer follow its input rows
@@ -372,8 +373,8 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
         dirs[:hi - lo] = dir_pe[lo:hi]
         gt = torch.zeros(128, 8)
         gt[:real] = g[lo * s:hi * s]
-        for bi, (tab, gtab, width) in enumerate(((packed.scene, plan.gtabs[0], fm.SCENE_W),
-                                                  (packed.obj, plan.gtabs[1], fm.OBJ_W))):
+        for bi, (tab, gtab, width) in enumerate(((packed.scene, plan.gtabs[0], fc.SCENE_W),
+                                                  (packed.obj, plan.gtabs[1], fc.OBJ_W))):
             want = bi == 1 or voxel_raw is not None
             dcat = branch(bi, tab, gtab, width, X, dirs, gt[:, 4 * bi:4 * bi + 1],
                           gt[:, 4 * bi + 1:4 * bi + 4], wsr, part, want)
@@ -429,7 +430,7 @@ def test_backward_dataflow_reproduces_plain_bf16(voxel):
         n_vox = cfg.N_scn_voxel_size + cfg.N_obj_voxel_size
         raw = torch.randn(n, s, n_vox, generator=gen) * 0.5
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(model, cfg, True)
+        packed = fc.pack_kernel_weights(model, cfg, True)
         plan = fv.bwd_plan(packed, cfg, 384, 132, 2)
         assert len(plan.work.slices) == 6
         got, got_codes, got_vox = _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g,
@@ -457,7 +458,7 @@ PLAN_SHAPES = ((2048 * 64, 132), (2048 * 128, 132), (384, 132), (128, 4))
 
 def _plans(voxel, forward_instance):
     cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
-    packed = fm.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    packed = fc.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
     for rows, n_sm in PLAN_SHAPES:
         n_blocks = min(rows // fv.TILE_ROWS, n_sm)
         yield packed, fv.bwd_plan(packed, cfg, rows, n_sm, n_blocks, forward_instance)
@@ -470,17 +471,17 @@ def _gradient_ranges(packed, forward_instance):
     nw = packed.w.numel()
     big, small = [], []
     for tab, width in zip([packed.scene] + ([packed.obj] if forward_instance else []),
-                          (fm.SCENE_W, fm.OBJ_W)):
-        k0, depth, nd = tab[fm.T_K0], tab[fm.T_DEPTH], width // 2
+                          (fc.SCENE_W, fc.OBJ_W)):
+        k0, depth, nd = tab[fc.T_K0], tab[fc.T_DEPTH], width // 2
         for i in range(depth):
-            rows = k0 if i == 0 else (k0 + width if (tab[fm.T_SKIPS] >> i) & 1 else width)
-            big.append((tab[fm.T_TW + i], rows * width))
-            small.append((nw + tab[fm.T_TB + i], width))
-        big += [(tab[fm.T_FINW], width * width), (tab[fm.T_DIRWH], width * nd)]
-        small += [(tab[fm.T_SIGW], width), (tab[fm.T_DIRWD], fm.MAX_DIR * nd),
-                  (tab[fm.T_RGBW], 3 * nd), (nw + tab[fm.T_SIGB], 1),
-                  (nw + tab[fm.T_FINB], width), (nw + tab[fm.T_DIRB], nd),
-                  (nw + tab[fm.T_RGBB], 3)]
+            rows = k0 if i == 0 else (k0 + width if (tab[fc.T_SKIPS] >> i) & 1 else width)
+            big.append((tab[fc.T_TW + i], rows * width))
+            small.append((nw + tab[fc.T_TB + i], width))
+        big += [(tab[fc.T_FINW], width * width), (tab[fc.T_DIRWH], width * nd)]
+        small += [(tab[fc.T_SIGW], width), (tab[fc.T_DIRWD], fc.MAX_DIR * nd),
+                  (tab[fc.T_RGBW], 3 * nd), (nw + tab[fc.T_SIGB], 1),
+                  (nw + tab[fc.T_FINB], width), (nw + tab[fc.T_DIRB], nd),
+                  (nw + tab[fc.T_RGBB], 3)]
     return big, small
 
 
@@ -549,7 +550,7 @@ def test_tma_boxes_meet_the_hardware_rules(voxel, forward_instance):
         assert box_cols <= 256 and box_rows <= 256
         assert (2 * box_cols) % 16 == 0 and 2 * box_cols <= fv.WG_SWIZZLE_BYTES
         blocks = [(lay.x, lay.x_cols)]
-        for (act, fin, g, gfin, gdir), width in zip(lay.branches, fv.BRANCH_WIDTHS):
+        for (act, fin, g, gfin, gdir), width in zip(lay.branches, fc.BRANCH_WIDTHS):
             depth = (fin - act) // width
             blocks += [(act, depth * width), (fin, width), (g, depth * width), (gfin, width),
                        (gdir, width // 2)]
@@ -577,10 +578,10 @@ def test_sweep_weight_maps_meet_the_hardware_rules(voxel, forward_instance):
     a skip layer's k0, or the voxel input's 128-column chunks) lies inside its
     map; the object branch's input rows hold the 128-row code product."""
     cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
-    packed = fm.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
-    maps = fv.sweep_weight_maps(packed, forward_instance)
-    assert len(maps) == 2 * fv.SWEEP_MAPS_PER_BRANCH
-    box_cols, box_rows = fv.SWEEP_BOX
+    packed = fc.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    maps = fc.sweep_weight_maps(packed, forward_instance)
+    assert len(maps) == 2 * fc.SWEEP_MAPS_PER_BRANCH
+    box_cols, box_rows = fc.SWEEP_BOX
     assert box_cols <= 256 and box_rows <= 256 and 2 * box_cols == fv.WG_SWIZZLE_BYTES
     big, _ = _gradient_ranges(packed, forward_instance)
     used = [m for m in maps if m[1]]
@@ -591,10 +592,10 @@ def test_sweep_weight_maps_meet_the_hardware_rules(voxel, forward_instance):
         assert rows % box_rows == 0 and cols % box_cols == 0 and cols <= 256
         assert off + rows * cols <= packed.w.numel()
     for bi, tab in enumerate([packed.scene] + ([packed.obj] if forward_instance else [])):
-        base, k0 = bi * fv.SWEEP_MAPS_PER_BRANCH, tab[fm.T_K0]
+        base, k0 = bi * fc.SWEEP_MAPS_PER_BRANCH, tab[fc.T_K0]
         assert k0 % box_rows == 0 and k0 % 128 in (0, 64)
         assert maps[base][1] == k0 and (bi == 0 or k0 >= 128)
-        for slot in range(tab[fm.T_DEPTH], 8):
+        for slot in range(tab[fc.T_DEPTH], 8):
             assert maps[base + slot] == (0, 0, 0)
     if not forward_instance:
-        assert all(m == (0, 0, 0) for m in maps[fv.SWEEP_MAPS_PER_BRANCH:])
+        assert all(m == (0, 0, 0) for m in maps[fc.SWEEP_MAPS_PER_BRANCH:])

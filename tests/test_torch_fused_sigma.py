@@ -19,6 +19,7 @@ from object_nerf_torch.models.embedding import freq_encode
 from object_nerf_torch.models.mlp import ObjectNeRFConfig
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_sigma as fs
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train.system import init_params
 
@@ -108,29 +109,29 @@ def _emulate_sigma(packed, cfg, pts, codes, branch, s):
     head stored (1, width)."""
     instance = branch == "instance"
     tab = packed.obj if instance else packed.scene
-    width = fm.OBJ_W if instance else fm.SCENE_W
+    width = fc.OBJ_W if instance else fc.SCENE_W
     w, b = packed.w.float(), packed.b
     pe = freq_encode(pts, cfg.N_freq_xyz)
-    X = torch.zeros(pts.shape[0], fm.OBJ_K0)
+    X = torch.zeros(pts.shape[0], fc.OBJ_K0)
     X[:, :pe.shape[1]] = pe
     if instance:
         rows = torch.arange(pts.shape[0]) // s  # the kernel's point / per_row
         X[:, pe.shape[1]:pe.shape[1] + codes.shape[1]] = codes[rows]
     X = X.bfloat16().float()
-    k0, h = tab[fm.T_K0], None
-    for i in range(tab[fm.T_DEPTH]):
-        off = tab[fm.T_TW + i]
-        bias = b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]
+    k0, h = tab[fc.T_K0], None
+    for i in range(tab[fc.T_DEPTH]):
+        off = tab[fc.T_TW + i]
+        bias = b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]
         if i == 0:
             acc = X[:, :k0] @ w[off:off + k0 * width].reshape(k0, width)
-        elif (tab[fm.T_SKIPS] >> i) & 1:
+        elif (tab[fc.T_SKIPS] >> i) & 1:
             acc = (X[:, :k0] @ w[off:off + k0 * width].reshape(k0, width)
                    + h @ w[off + k0 * width:off + (k0 + width) * width].reshape(width, width))
         else:
             acc = h @ w[off:off + width * width].reshape(width, width)
         acc = acc + bias
         h = torch.where(acc >= 0, acc, 0.01 * acc).bfloat16().float()
-    return h @ w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width] + b[tab[fm.T_SIGB]]
+    return h @ w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width] + b[tab[fc.T_SIGB]]
 
 
 @pytest.mark.parametrize("branch", ["scene", "instance"])
@@ -144,7 +145,7 @@ def test_packed_sigma_only_layout_reproduces_plain_bf16(branch):
     pts = torch.rand(n, 3, generator=g) * 3.0 - 1.5
     codes = torch.randn(n // s, cfg.N_obj_code_length, generator=g)
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(model, cfg, forward_instance=True, sigma_only=True)
+        packed = fc.pack_kernel_weights(model, cfg, forward_instance=True, sigma_only=True)
         assert packed.sigma_only and packed.obj is not None
         assert packed.w.dtype == torch.bfloat16 and packed.w.numel() % 8 == 0
         # trunks and sigma heads only: no final / direction / rgb blocks
@@ -152,10 +153,10 @@ def test_packed_sigma_only_layout_reproduces_plain_bf16(branch):
                   if name.endswith("weight") and ("encoding_" in name or "sigma" in name)
                   and "final" not in name and "dir" not in name)
         pe, code = cfg.xyz_pe_size, cfg.N_obj_code_length
-        pad_scene = 2 * (fm.SCENE_K0 - pe) * fm.SCENE_W  # layer 0 and the skip layer
-        pad_obj = 2 * (fm.OBJ_K0 - pe - code) * fm.OBJ_W
+        pad_scene = 2 * (fc.SCENE_K0 - pe) * fc.SCENE_W  # layer 0 and the skip layer
+        pad_obj = 2 * (fc.OBJ_K0 - pe - code) * fc.OBJ_W
         assert packed.w.numel() == n_w + pad_scene + pad_obj
-        assert packed.obj[fm.T_FINW] == 0 and packed.obj[fm.T_RGBW] == 0
+        assert packed.obj[fc.T_FINW] == 0 and packed.obj[fc.T_RGBW] == 0
         got = _emulate_sigma(packed, cfg, pts, codes, branch, s)
         want = fs.sigma_eval_plain(model, cfg, pts, codes, branch, s)
         # the skip layer's two partial products are summed in another order
@@ -166,12 +167,12 @@ def test_packed_sigma_only_layout_reproduces_plain_bf16(branch):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
         assert want.abs().max() > 1e-2
         # a scene-only packing cannot serve the object branch
-        scene_only = fm.pack_kernel_weights(model, cfg, forward_instance=False,
+        scene_only = fc.pack_kernel_weights(model, cfg, forward_instance=False,
                                             sigma_only=True)
         assert scene_only.obj is None
         with pytest.raises(ValueError, match="object branch"):
-            fm._check_launch(cfg, torch.bfloat16, None, scene_only, torch.device("cuda"),
+            fc._check_launch(cfg, torch.bfloat16, None, scene_only, torch.device("cuda"),
                              need_obj=True, need_heads=False)
         with pytest.raises(ValueError, match="sigma head only"):
-            fm._check_launch(cfg, torch.bfloat16, 64, packed, torch.device("cuda"),
+            fc._check_launch(cfg, torch.bfloat16, 64, packed, torch.device("cuda"),
                              need_obj=True, need_heads=True)

@@ -16,6 +16,7 @@ from object_nerf_torch.models.mlp import ObjectNeRFConfig
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_mlp_vjp as fv
 from object_nerf_torch.ops import fused_sigma as fs
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.ops import gather, probes
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train.system import init_params, make_train_step
@@ -193,7 +194,7 @@ def test_backward_workspace_is_the_layouts_on_card(cuda_device, voxel):
     codes = torch.randn(n, cfg.N_obj_code_length, generator=g).to(cuda_device)
     raw = ((torch.randn(n, s, 24, generator=g) * 0.5).to(cuda_device) if voxel else None)
     cot = (torch.randn(n * s, 8, generator=g).abs() * 1e-4).to(cuda_device)
-    packed = fm.pack_kernel_weights(model, cfg, True)
+    packed = fc.pack_kernel_weights(model, cfg, True)
     fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, packed=packed, voxel_raw=raw)
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plan = fv.bwd_plan(packed, cfg, n * s, n_sm, min(n * s // 128, n_sm))
@@ -243,7 +244,7 @@ def test_sigma_kernel_matches_plain_bf16_on_card(cuda_device, n, per_row):
     g = torch.Generator().manual_seed(2)
     pts = (torch.rand(n, 3, generator=g) * 3.0 - 1.5).to(cuda_device)
     codes = torch.randn(n // per_row, cfg.N_obj_code_length, generator=g).to(cuda_device)
-    full = fm.pack_kernel_weights(model, cfg, forward_instance=True)
+    full = fc.pack_kernel_weights(model, cfg, forward_instance=True)
     fm.reset_launch_counts()
     for branch in fs.BRANCHES:
         got = fs.fused_sigma_eval(model, cfg, pts, codes, branch, per_row)
@@ -264,7 +265,7 @@ def test_sigma_kernel_wrapper_raises_on_card(cuda_device):
     models = init_params(torch.Generator().manual_seed(0), RenderSettings(mlp=cfg), {},
                          device=cuda_device)
     pts = torch.zeros(128, 3, device=cuda_device)
-    scene_only = fm.pack_kernel_weights(models.nerf_fine, cfg, False, sigma_only=True)
+    scene_only = fc.pack_kernel_weights(models.nerf_fine, cfg, False, sigma_only=True)
     codes = torch.zeros(2, cfg.N_obj_code_length, device=cuda_device)
     with pytest.raises(ValueError, match="object branch"):
         fs.fused_sigma_eval(models.nerf_fine, cfg, pts, codes, "instance", packed=scene_only)
@@ -272,7 +273,7 @@ def test_sigma_kernel_wrapper_raises_on_card(cuda_device):
         fs.fused_sigma_eval(models.nerf_fine, cfg, pts, dtype=torch.float32)
     with pytest.raises(ValueError, match="another device"):
         fs.fused_sigma_eval(models.nerf_fine.cpu(), cfg, pts,
-                            packed=fm.PackedWeights(scene_only.w.cpu(), scene_only.b.cpu(),
+                            packed=fc.PackedWeights(scene_only.w.cpu(), scene_only.b.cpu(),
                                                     scene_only.scene, None, True))
 
 
@@ -701,7 +702,7 @@ def test_forward_chain_matches_plain_bf16_on_card(cuda_device, voxel, s, n):
     cfg, model, xyz, z, dir_pe, codes, raw = _chain_setup(cuda_device, voxel, n, s)
     fm.reset_launch_counts()
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(model, cfg, True)
+        packed = fc.pack_kernel_weights(model, cfg, True)
         for fi, cs in ((True, True), (False, True), (True, False)):
             got = fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, fi, cs, packed=packed)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, fi, cs, voxel_raw=raw)
@@ -769,7 +770,7 @@ MODE_SHAPES = [(32, 4133), (64, 301), (128, 133)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
-@pytest.mark.parametrize("mode", fm.CHAIN_MODES)
+@pytest.mark.parametrize("mode", fc.CHAIN_MODES)
 @pytest.mark.parametrize("s,n", MODE_SHAPES)
 def test_forward_chain_each_mode_on_card(cuda_device, voxel, mode, s, n):
     """Each of the chain's five modes alone, classical and voxel, at S = 32,
@@ -781,13 +782,13 @@ def test_forward_chain_each_mode_on_card(cuda_device, voxel, mode, s, n):
     raw_p = None if raw is None else raw.reshape(n_pts, -1)
     with torch.no_grad():
         if mode == "eval":
-            packed = fm.pack_kernel_weights(model, cfg, True)
+            packed = fc.pack_kernel_weights(model, cfg, True)
 
             def run():
                 return fv.fused_mlp_eval(model, cfg, xyz, dir_pe, codes, raw, packed=packed)
             want = fv.mlp_eval_plain(model, cfg, xyz, dir_pe, codes, voxel_raw=raw)
         elif mode == "render":
-            packed = fm.pack_kernel_weights(model, cfg, True)
+            packed = fc.pack_kernel_weights(model, cfg, True)
 
             def run():
                 out = fm.fused_render_tiles(model, cfg, xyz, z, dir_pe, codes, raw,
@@ -823,12 +824,12 @@ def test_forward_chain_ring_depth_on_card(cuda_device, voxel):
     memory, and the voxel eval and render rings hold at least 4 stages."""
     from test_torch_fwd_chain import RING_STAGES  # the layout mirror, tests/ on sys.path
 
-    for mode in fm.CHAIN_MODES:
-        stages, smem = fm.chain_layout(voxel, mode)
+    for mode in fc.CHAIN_MODES:
+        stages, smem = fc.chain_layout(voxel, mode)
         assert stages == RING_STAGES[mode][int(voxel)], mode
         assert 0 < smem <= 232448, mode
     for mode in ("eval", "render"):
-        assert fm.chain_layout(voxel, mode)[0] >= (4 if voxel else 7)
+        assert fc.chain_layout(voxel, mode)[0] >= (4 if voxel else 7)
 
 
 @pytest.mark.cuda
@@ -883,7 +884,7 @@ def test_sincosf_is_sinf_and_cosf_on_card(cuda_device):
     (xyz times up to 2^9, voxel features times up to 2^5) and beyond."""
     g = torch.Generator().manual_seed(11)
     x = torch.cat([torch.randn(1 << 20, generator=g) * s for s in (1.0, 30.0, 600.0, 2e4)])
-    assert fm.sincos_mismatches(x.to(cuda_device)) == 0
+    assert fc.sincos_mismatches(x.to(cuda_device)) == 0
 
 
 @pytest.mark.cuda
@@ -909,7 +910,7 @@ def test_route_coarse_pass_matches_plain_bf16_on_card(cuda_device, voxel):
         raw = None
     fm.reset_launch_counts()
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
+        packed = fc.pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=True)
         got = fv.fused_mlp_eval(models.nerf_coarse, cfg, xyz, dir_pe, codes, voxel_raw=raw,
                                 packed=packed)
         want = fv.mlp_eval_plain(models.nerf_coarse, cfg, xyz, dir_pe, codes, voxel_raw=raw)
@@ -945,8 +946,8 @@ def test_route_eval_chunk_matches_plain_on_card(cuda_device):
     rays[:100, 6:] = 0.0  # rays that miss the box: near = far = 0
     rays = rays.to(cuda_device)
     codes = models.code_library(torch.randint(0, 64, (n,), generator=g).to(cuda_device))
-    packed = {"coarse": fm.pack_kernel_weights(models.nerf_coarse, cfg, True),
-              "fine": fm.pack_kernel_weights(models.nerf_fine, cfg, True)}
+    packed = {"coarse": fc.pack_kernel_weights(models.nerf_coarse, cfg, True),
+              "fine": fc.pack_kernel_weights(models.nerf_fine, cfg, True)}
     fm.reset_launch_counts()
     with torch.no_grad():
         got = render_rays_fused_eval(models, rays, settings, codes, packed)

@@ -29,8 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import scripts.profile_dma_gather as jdg  # noqa: E402
 import scripts.profile_pe_micro as jpe  # noqa: E402
 
-from object_nerf_torch.ops import fused_mlp_vjp as fv  # noqa: E402
 from object_nerf_torch.ops import gather, probes  # noqa: E402
+from object_nerf_torch.ops import fwd_chain as fc  # noqa: E402
 from object_nerf_torch.scripts._fixtures import probe_inputs  # noqa: E402
 
 torch.set_num_threads(2)
@@ -168,8 +168,8 @@ def test_probe_chunks_cover_each_layer_once_in_order():
     layer 0's 384 rows, then each later layer's 256, each row once, inside
     the tensor maps, which tile the packed trunk."""
     maps, chunks = probes.probe_weight_maps(), probes.probe_chunks()
-    assert len(chunks) == 68 <= fv.FWD_MAX_CHUNKS
-    assert len(maps) == 2 * fv.SWEEP_MAPS_PER_BRANCH
+    assert len(chunks) == 68 <= fc.FWD_MAX_CHUNKS
+    assert len(maps) == 2 * fc.SWEEP_MAPS_PER_BRANCH
     off = 0
     for i, (o, rows, cols) in enumerate(maps[:probes.DEPTH]):
         assert (o, rows, cols) == (off, probes.K0 if i == 0 else probes.WIDTH, probes.WIDTH)
@@ -179,7 +179,7 @@ def test_probe_chunks_cover_each_layer_once_in_order():
     want = [(i, r, 4) for i in range(probes.DEPTH)
             for r in range(0, maps[i][1], 32)]
     assert chunks == want
-    assert 2 * 32 * probes.WIDTH == fv.FWD_STAGE_BYTES == 2 * fv.forward_chunk_rows(256) * 256
+    assert 2 * 32 * probes.WIDTH == fc.FWD_STAGE_BYTES == 2 * fc.forward_chunk_rows(256) * 256
 
 
 WG_ROWS = 64  # rows of a consumer warpgroup

@@ -24,6 +24,7 @@ from object_nerf_torch.models.embedding import freq_encode
 from object_nerf_torch.models.mlp import ObjectNeRFConfig, embed_inputs
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_sigma as fs
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.ops.compositing import composite, composite_instance
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train.system import init_params
@@ -161,12 +162,12 @@ def test_voxel_operand_is_required_and_refused():
     with pytest.raises(ValueError, match="shape"):
         fs.fused_sigma_eval(models.nerf_fine, VCFG, pts, voxel_raw=raw)
     with pytest.raises(ValueError, match="widths"):
-        fm.check_kernel_config(VCFG)
-    fm.check_kernel_config(ObjectNeRFConfig())  # the default voxel model is taken
+        fc.check_kernel_config(VCFG)
+    fc.check_kernel_config(ObjectNeRFConfig())  # the default voxel model is taken
     with pytest.raises(ValueError, match="voxel channels"):
-        fm.check_kernel_config(ObjectNeRFConfig(N_scn_voxel_size=40))
+        fc.check_kernel_config(ObjectNeRFConfig(N_scn_voxel_size=40))
     with pytest.raises(ValueError, match="exceed"):
-        fm.check_kernel_config(ObjectNeRFConfig(N_freq_voxel=10))
+        fc.check_kernel_config(ObjectNeRFConfig(N_freq_voxel=10))
 
 
 def test_embed_inputs_is_the_model_input_layout():
@@ -212,7 +213,7 @@ def _emulate(packed, cfg, xyz, z, raw, dir_pe=None, codes=None):
     n, s, _ = xyz.shape
     w, b = packed.w.float(), packed.b
     inst = packed.obj is not None
-    ncols = (packed.obj if inst else packed.scene)[fm.T_K0]
+    ncols = (packed.obj if inst else packed.scene)[fc.T_K0]
     X = _input_tile(cfg, xyz.reshape(-1, 3), raw.reshape(n * s, -1), codes, s, ncols, inst)
 
     def mat(off, k, n_):
@@ -222,38 +223,38 @@ def _emulate(packed, cfg, xyz, z, raw, dir_pe=None, codes=None):
         return torch.where(x >= 0, x, 0.01 * x)
 
     def branch(tab, width, heads):
-        k0, h = tab[fm.T_K0], None
-        for i in range(tab[fm.T_DEPTH]):
-            off, bias = tab[fm.T_TW + i], b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]
+        k0, h = tab[fc.T_K0], None
+        for i in range(tab[fc.T_DEPTH]):
+            off, bias = tab[fc.T_TW + i], b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]
             if i == 0:
                 acc = X[:, :k0] @ mat(off, k0, width)
-            elif (tab[fm.T_SKIPS] >> i) & 1:
+            elif (tab[fc.T_SKIPS] >> i) & 1:
                 acc = X[:, :k0] @ mat(off, k0, width) + h @ mat(off + k0 * width, width, width)
             else:
                 acc = h @ mat(off, width, width)
             h = lrelu(acc + bias).bfloat16().float()
-        sigma = h @ w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width] + b[tab[fm.T_SIGB]]
+        sigma = h @ w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width] + b[tab[fc.T_SIGB]]
         if not heads:
             return sigma.reshape(n, s), None
-        hf = (h @ mat(tab[fm.T_FINW], width, width)
-              + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width]).bfloat16().float()
+        hf = (h @ mat(tab[fc.T_FINW], width, width)
+              + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width]).bfloat16().float()
         nd = width // 2
-        wd = mat(tab[fm.T_DIRWD], fm.MAX_DIR, nd)[:dir_pe.shape[1]]
-        dbias = dir_pe.bfloat16().float() @ wd + b[tab[fm.T_DIRB]:tab[fm.T_DIRB] + nd]
-        d = lrelu(hf @ mat(tab[fm.T_DIRWH], width, nd)
+        wd = mat(tab[fc.T_DIRWD], fc.MAX_DIR, nd)[:dir_pe.shape[1]]
+        dbias = dir_pe.bfloat16().float() @ wd + b[tab[fc.T_DIRB]:tab[fc.T_DIRB] + nd]
+        d = lrelu(hf @ mat(tab[fc.T_DIRWH], width, nd)
                   + dbias.repeat_interleave(s, 0)).bfloat16().float()
-        rgb = torch.sigmoid(d @ mat(tab[fm.T_RGBW], 3, nd).t()
-                            + b[tab[fm.T_RGBB]:tab[fm.T_RGBB] + 3])
+        rgb = torch.sigmoid(d @ mat(tab[fc.T_RGBW], 3, nd).t()
+                            + b[tab[fc.T_RGBB]:tab[fc.T_RGBB] + 3])
         return sigma.reshape(n, s), rgb.reshape(n, s, 3)
 
     if packed.sigma_only:
-        tab, width = (packed.obj, fm.OBJ_W) if inst else (packed.scene, fm.SCENE_W)
+        tab, width = (packed.obj, fc.OBJ_W) if inst else (packed.scene, fc.SCENE_W)
         return branch(tab, width, False)[0], X
-    sigma, rgb = branch(packed.scene, fm.SCENE_W, True)
+    sigma, rgb = branch(packed.scene, fc.SCENE_W, True)
     scene = composite(sigma, rgb, z)
     out = {"rgb": scene.rgb, "depth": scene.depth, "opacity": scene.opacity}
     if inst:
-        i_sigma, i_rgb = branch(packed.obj, fm.OBJ_W, True)
+        i_sigma, i_rgb = branch(packed.obj, fc.OBJ_W, True)
         comp = composite_instance(i_sigma, i_rgb, z, scene.depth, apply_occlusion=False)
         out.update(rgb_instance=comp.rgb, depth_instance=comp.depth,
                    opacity_instance=comp.opacity)
@@ -280,9 +281,9 @@ def test_voxel_packed_layout_reproduces_plain_bf16(forward_instance):
     cfg, models, xyz, z, raw, dir_pe, codes = _flagship_inputs()
     assert (cfg.in_channels_xyz, cfg.inst_channel_in) == (271, 439)
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(models.nerf_fine, cfg, forward_instance)
-        assert packed.scene[fm.T_K0] == 320
-        assert packed.obj is None or packed.obj[fm.T_K0] == 448
+        packed = fc.pack_kernel_weights(models.nerf_fine, cfg, forward_instance)
+        assert packed.scene[fc.T_K0] == 320
+        assert packed.obj is None or packed.obj[fc.T_K0] == 448
         got, X = _emulate(packed, cfg, xyz, z, raw, dir_pe,
                           codes if forward_instance else None)
         if forward_instance:  # the scene branch's pad columns hold live data
@@ -301,7 +302,7 @@ def test_voxel_sigma_only_layout_reproduces_plain_bf16(branch):
     cfg, models, xyz, z, raw, _, codes = _flagship_inputs()
     inst = branch == "instance"
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=inst,
+        packed = fc.pack_kernel_weights(models.nerf_coarse, cfg, forward_instance=inst,
                                         sigma_only=True)
         sigma, _ = _emulate(packed, cfg, xyz, z, raw, codes=codes if inst else None)
         want = fs.sigma_eval_plain(models.nerf_coarse, cfg, xyz.reshape(-1, 3), codes, branch,
@@ -316,13 +317,13 @@ def test_voxel_sigma_only_layout_reproduces_plain_bf16(branch):
 
 def test_classical_packing_is_unchanged_by_the_voxel_layout():
     cfg = ObjectNeRFConfig(use_voxel_embedding=False)
-    assert fm.input_tile_columns(cfg) == (64, 128)
-    assert fm.input_tile_columns(ObjectNeRFConfig()) == (320, 448)
+    assert fc.input_tile_columns(cfg) == (64, 128)
+    assert fc.input_tile_columns(ObjectNeRFConfig()) == (320, 448)
     models = init_params(torch.Generator().manual_seed(0), RenderSettings(mlp=cfg), {},
                          device="cpu")
-    packed = fm.pack_kernel_weights(models.nerf_fine, cfg, True)
-    assert packed.scene[fm.T_K0] == 64 and packed.obj[fm.T_K0] == 128
+    packed = fc.pack_kernel_weights(models.nerf_fine, cfg, True)
+    assert packed.scene[fc.T_K0] == 64 and packed.obj[fc.T_K0] == 128
     # a packing of one layout is refused for a model of the other
     with pytest.raises(ValueError, match="another input layout"):
-        fm._check_launch(ObjectNeRFConfig(), torch.bfloat16, 64, packed,
+        fc._check_launch(ObjectNeRFConfig(), torch.bfloat16, 64, packed,
                          torch.device("cuda"), True, True)

@@ -46,6 +46,7 @@ from object_nerf_torch.models.mlp import ObjectNeRF, ObjectNeRFConfig, embed_inp
 from object_nerf_torch.ops import fused_mlp as fm
 from object_nerf_torch.ops import fused_mlp_vjp as fv
 from object_nerf_torch.ops import fused_sigma as fs
+from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.render.renderer import RenderSettings
 from object_nerf_torch.train import optim as to
 from object_nerf_torch.train.checkpoint import save_checkpoint
@@ -222,33 +223,33 @@ def _emulate_vox_bwd(packed, cfg, xyz, dir_pe, codes, raw, g):
 
     def branch_dcats(tab, width, X, dirs, gs, gr):
         """[(layer offset of the input rows, G)] of the layers that read X."""
-        k0, depth, nd = tab[fm.T_K0], tab[fm.T_DEPTH], width // 2
-        skips = [i for i in range(depth) if (tab[fm.T_SKIPS] >> i) & 1]
+        k0, depth, nd = tab[fc.T_K0], tab[fc.T_DEPTH], width // 2
+        skips = [i for i in range(depth) if (tab[fc.T_SKIPS] >> i) & 1]
         hs, h = [], None
         for i in range(depth):
-            off = tab[fm.T_TW + i]
+            off = tab[fc.T_TW + i]
             if i == 0:
                 acc = X[:, :k0] @ mat(off, k0, width)
             elif i in skips:
                 acc = X[:, :k0] @ mat(off, k0, width) + h @ mat(off + k0 * width, width, width)
             else:
                 acc = h @ mat(off, width, width)
-            h = bf(lrelu(acc + b[tab[fm.T_TB + i]:tab[fm.T_TB + i] + width]))
+            h = bf(lrelu(acc + b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]))
             hs.append(h)
-        hf = bf(h @ mat(tab[fm.T_FINW], width, width) + b[tab[fm.T_FINB]:tab[fm.T_FINB] + width])
-        wdd = mat(tab[fm.T_DIRWD], fm.MAX_DIR, nd)
-        dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fm.T_DIRB]:tab[fm.T_DIRB] + nd]
-        denc = bf(lrelu(hf @ mat(tab[fm.T_DIRWH], width, nd) + dbias.repeat_interleave(s, 0)))
-        w_rgb = mat(tab[fm.T_RGBW], 3, nd)
-        rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fm.T_RGBB]:tab[fm.T_RGBB] + 3])
+        hf = bf(h @ mat(tab[fc.T_FINW], width, width) + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width])
+        wdd = mat(tab[fc.T_DIRWD], fc.MAX_DIR, nd)
+        dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fc.T_DIRB]:tab[fc.T_DIRB] + nd]
+        denc = bf(lrelu(hf @ mat(tab[fc.T_DIRWH], width, nd) + dbias.repeat_interleave(s, 0)))
+        w_rgb = mat(tab[fc.T_RGBW], 3, nd)
+        rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fc.T_RGBB]:tab[fc.T_RGBB] + 3])
         G = bf(slope(denc, bf(gr * rgb * (1 - rgb)) @ w_rgb))
-        G = bf(G @ mat(tab[fm.T_DIRWH], width, nd).t())
-        w_sig = w[tab[fm.T_SIGW]:tab[fm.T_SIGW] + width]
-        d_h = G @ mat(tab[fm.T_FINW], width, width).t() + bf(gs) * w_sig[None, :]
+        G = bf(G @ mat(tab[fc.T_DIRWH], width, nd).t())
+        w_sig = w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width]
+        d_h = G @ mat(tab[fc.T_FINW], width, width).t() + bf(gs) * w_sig[None, :]
         out = []
         for i in reversed(range(depth)):
             G = bf(slope(hs[i], d_h))
-            off = tab[fm.T_TW + i]
+            off = tab[fc.T_TW + i]
             if i == 0 or i in skips:
                 out.append((off, G))
                 if i == 0:
@@ -288,10 +289,10 @@ def _emulate_vox_bwd(packed, cfg, xyz, dir_pe, codes, raw, g):
         lo, hi = tile * rpt, min((tile + 1) * rpt, n)
         real = (hi - lo) * s
         emb, ivox = embed_inputs(cfg, xyz[lo:hi].reshape(-1, 3), raw[lo:hi])
-        X = torch.zeros(128, fm.OBJ_K0_VOX)
+        X = torch.zeros(128, fc.OBJ_K0_VOX)
         X[:real] = torch.nn.functional.pad(
             torch.cat([emb, ivox, codes[lo:hi].repeat_interleave(s, 0)], -1),
-            (0, fm.OBJ_K0_VOX - cfg.inst_channel_in))
+            (0, fc.OBJ_K0_VOX - cfg.inst_channel_in))
         X = bf(X)
         rows_raw = torch.zeros(128, cv)
         rows_raw[:real] = raw[lo:hi].reshape(-1, cv)
@@ -300,8 +301,8 @@ def _emulate_vox_bwd(packed, cfg, xyz, dir_pe, codes, raw, g):
         gt = torch.zeros(128, 8)
         gt[:real] = g[lo * s:hi * s]
         dv, pr = torch.zeros(128, cv), torch.zeros(rpt, code_len)
-        for br, (tab, width, gsl) in enumerate(((packed.scene, fm.SCENE_W, slice(0, 4)),
-                                                (packed.obj, fm.OBJ_W, slice(4, 8)))):
+        for br, (tab, width, gsl) in enumerate(((packed.scene, fc.SCENE_W, slice(0, 4)),
+                                                (packed.obj, fc.OBJ_W, slice(4, 8)))):
             layers, k0 = branch_dcats(tab, width, X, dirs, gt[:, gsl][:, :1], gt[:, gsl][:, 1:])
             hi_col = c_s * (1 + 2 * nf) if br == 0 else o_code + code_len
             for off, G in layers:
@@ -335,7 +336,7 @@ def test_backward_voxel_dataflow_reproduces_plain_bf16():
     raw = torch.randn(n, s, C_VOX, generator=gen) * (torch.rand(n, s, 1, generator=gen) > 0.2)
     g = torch.randn(n * s, 8, generator=gen) * 1e-3
     with torch.no_grad():
-        packed = fm.pack_kernel_weights(model, cfg, True)
+        packed = fc.pack_kernel_weights(model, cfg, True)
         got_codes, got_vox = _emulate_vox_bwd(packed, cfg, xyz, dir_pe, codes, raw, g)
         _, want_codes, want_vox = fv.mlp_bwd_plain(model, cfg, xyz, dir_pe, codes, g, True,
                                                    voxel_raw=raw)
