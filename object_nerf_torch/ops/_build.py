@@ -44,8 +44,9 @@ SIGNATURES = {
     "onerf_sincos_check": [_P, _L, _P, _P],
     "onerf_fwd_chain_layout": [_I, _I, _P, _P],
     "onerf_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                      _P, _I, _P, _P, _I, _P, _P, _P,
+                      _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "onerf_bwd_sweep_layout": [_I, _P, _P],
     "onerf_wgrad": [_P, _I, _I, _P, _I, _P, _P],
     "onerf_gather_rows": [_P, _P, _P, _L, _I, _P],
     "onerf_corner_lookup": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],

@@ -28,18 +28,26 @@
 //   render: a persistent, warp-specialised grid (a TMA producer warp, two
 //   consumer warpgroups of 64 rows on wgmma), storing each row's outputs
 //   from the heads' registers.
-// * The sweep keeps the 128-row tile of whole rays and computes on wgmma: its
-//   two warpgroups own
-//   64 rows each; the A operand (input tile, activation or d_pre, padded
-//   row-major bf16 in shared memory) enters through ldmatrix as registers,
-//   B (a 64-row chunk of the weights, 32 KB at most) comes by TMA in the
-//   128-byte swizzle that wgmma reads (MN-major for the forward's W, K-major
-//   for the d_pre chain's W^T) through a ring of two stages: the 32 KB stage
-//   and whichever of X and G is free (G during the forward recompute, X
-//   during the reverse sweep), so the copy of the next chunk overlaps the
-//   current product. The epilogues read the accumulators in wgmma's
-//   register layout. Every function that issues wgmma is inlined: a call
-//   between two wgmma makes ptxas serialize all of them.
+// * The sweep keeps the 128-row tile of whole rays and computes on wgmma,
+//   on the forward chain's pipeline: a persistent grid (one block per SM), a
+//   producer warpgroup whose lanes stream 16 KB weight chunks by TMA through
+//   a ring (7 stages classical, 6 voxel: SweepCfg; sweep_layout in
+//   fused_mlp_vjp.py reads them) in the order the consumers take them
+//   (sweep_chunks in fused_mlp_vjp.py: per branch the forward's products by
+//   W, rows of W with all their columns, MN-major, then the reverse sweep's
+//   products by W^T, 64 columns of 128 rows of W, K-major), so it runs ahead
+//   across products, layers, branches and tiles; two consumer warpgroups of
+//   64 rows each take every chunk and release its stage on their own (full /
+//   empty mbarrier per stage). Nothing in a product waits for the other
+//   warpgroup: they meet at the ring's barriers and once per tile, for the
+//   per-ray code sums. The forward recompute is the chain's: A is the input
+//   tile X (swizzled, shared memory) for layer 0 and a skip layer's input
+//   rows, and otherwise the previous layer's output in registers, rounded to
+//   bf16 pairs (fwd_gemm_rs), which the epilogue also stores into the
+//   workspace. In the reverse sweep A is the warpgroup's d_pre tile G
+//   (swizzled, shared memory), each LeakyReLU mask is loaded from the
+//   workspace into registers while the product before its epilogue runs, and
+//   each rounded d_pre goes from registers into G and the workspace.
 // * A weight gradient contracts over rows, and a branch's gradients (2.4 MB
 //   in f32 for the scene) fit no block's registers or shared memory across
 //   tiles. On the TPU the sum lived in VMEM across a sequential grid; blocks
@@ -61,9 +69,8 @@
 //   the 8-row groups (1024 bytes) enters the descriptors. Each item writes
 //   its own f32 partial; the slices add up in the reduction.
 // * The small products (sigma head, rgb head, the direction part of the
-//   direction layer) and the bias column sums stay in the sweep, per block
-//   of a persistent grid (one block per SM, each walking tiles blockIdx.x,
-//   blockIdx.x + gridDim.x, ...) in a compact f32 partial (41 KB).
+//   direction layer) and the bias column sums stay in the sweep, per
+//   consumer warpgroup in a compact f32 partial (41 KB; two per block).
 // * Only what needs a gradient is formed: the scene branch's input gradient
 //   is never computed, the object branch's only for its layer 0 and skip
 //   layer, of which the code columns are summed over each ray's rows inside
@@ -76,19 +83,20 @@
 // operand and the input tile is the eval kernels' [svox | PE(svox) | xyz |
 // PE(xyz)] (271 columns, read as 320) followed by [ivox | PE(ivox) | code]
 // (439, read as 448). The forward takes the chain's voxel layout
-// (fused_mlp_wg.cuh). The sweep cannot: the 116,736-byte tile, H, G and
-// the weight stage exceed a block's shared memory. Its tile is built once per
+// (fused_mlp_wg.cuh). The sweep cannot: the 116,736-byte tile beside G
+// and the ring exceeds a block's shared memory. Its tile is built once per
 // tile into the tile's rows of the workspace (where wgrad_kernel reads it
-// too) and staged into the classical X buffer 128 columns at a time wherever
-// layer 0 or a skip layer reads it. The sweep also forms the input gradient
-// of both branches (JAX: need_cat_grad=use_voxel, pallas_mlp_vjp.py:322-342),
-// but only of layer 0 and the skip layers and only 128 output columns at a
-// time: each (128, 128) f32 chunk of G @ W_in^T lands in the H buffer (dead
-// at that point of the sweep), and is reduced at once into the (128, C) f32
-// d_vox tile through the encoding's chain, in f32 with full-precision sincosf
-// (a sin(2^k x) column adds 2^k cos(2^k x) times its cotangent to channel x,
-// a cos column -2^k sin(2^k x) times its cotangent), and into per-ray sums of
-// the code columns. Every (row, channel) of d_vox is owned by one thread, its
+// too; one item per thread by a table of the items, each sine and cosine
+// pair from one full-precision sincosf) and staged into X 128 columns at a
+// time wherever layer 0 or a skip layer reads it. The sweep also forms the input gradient of both
+// branches (JAX: need_cat_grad=use_voxel, pallas_mlp_vjp.py:322-342), but
+// only of layer 0 and the skip layers and only 64 output columns at a time:
+// each warpgroup's (64, 64) f32 chunk of G @ W_in^T lands in its X (spent in
+// the reverse sweep), and is reduced at once into its (64, C) f32 d_vox rows
+// through the encoding's chain, in f32 with full-precision sincosf (a sin(2^k
+// x) column adds 2^k cos(2^k x) times its cotangent to channel x, a cos
+// column -2^k sin(2^k x) times its cotangent), and into per-ray sums of the
+// code columns. Every (row, channel) of d_vox is owned by one thread, its
 // layers are added in a fixed order and the row is written once: no atomics,
 // two launches on the same inputs give the same bits.
 //
@@ -108,53 +116,66 @@
 
 namespace {
 
-constexpr int GROUPS = ROWS / 16;
-// the sweep's weight stage: a 64-row chunk of a weight matrix in the
-// wgmma operand layout (128-byte swizzle), at most 256 x 64 bf16
-constexpr int WST_BYTES = 32768;
-// the weight ring's state: an mbarrier per stage, then the parity word
-constexpr int RING_BYTES = 32;
+// ---- the sweep's layout ----------------------------------------------------------
 
-// backward kernel: dynamic shared memory layout (bytes; the weight stage
-// and the X and G buffers, the ring's other stage, 1024-byte aligned for
-// the swizzle)
-constexpr int SB_X = 0;
-constexpr int SB_H = SB_X + ROWS * LDX * 2;
-constexpr int SB_G = SB_H + ROWS * LDH * 2;
-constexpr int SB_W = SB_G + ROWS * LDH * 2;
-constexpr int SB_RGB = SB_W + WST_BYTES;                   // rgb (128, 3) f32
-constexpr int SB_GB = SB_RGB + ROWS * 3 * 4;               // g of the branch (128, 4)
-constexpr int SB_DPR = SB_GB + ROWS * 4 * 4;               // d_pre of the rgb head (128, 3)
-constexpr int SB_DB = SB_DPR + ROWS * 3 * 4;               // dir bias / per-ray sums
-constexpr int SB_P = SB_DB + MAX_R * (WS / 2) * 4;         // input-gradient sums (8, 128)
-constexpr int SB_RING = SB_P + GROUPS * XCOLS * 4;
-constexpr int SMEM_BWD = SB_RING + RING_BYTES;
-static_assert(SB_W % 1024 == 0 && SB_G % 1024 == 0 && SB_X % 1024 == 0,
-              "the ring's stages must be 1024-byte aligned");
-static_assert(ROWS * LDX * 2 >= WST_BYTES && ROWS * LDH * 2 >= WST_BYTES,
-              "X and G each hold a stage");
-static_assert(SMEM_BWD <= 232448, "a block has 227 KB of shared memory");
+constexpr int SW_THREADS = 384;      // warpgroup 0 the producer, 1 and 2 the consumers
+constexpr int SW_XT = 64 * XCOLS * 2;  // a warpgroup's input tile: 64 rows x 128 columns
+constexpr int SW_GT = 64 * WS * 2;     // a warpgroup's d_pre tile: 64 rows x 256 columns
+constexpr int SW_D = 64;               // columns of a voxel input-gradient chunk
 
-// The voxel backward's layout: X is the staging buffer of 128-column chunks
-// of the tile (which lives in the workspace); per-ray code sums and the
-// d_vox tile take the room of the classical layout's group sums.
-constexpr int SBV_X = 0;
-constexpr int SBV_H = SBV_X + ROWS * LDX * 2;
-constexpr int SBV_G = SBV_H + ROWS * LDH * 2;
-constexpr int SBV_W = SBV_G + ROWS * LDH * 2;
-constexpr int SBV_RGB = SBV_W + WST_BYTES;
-constexpr int SBV_GB = SBV_RGB + ROWS * 3 * 4;
-constexpr int SBV_DPR = SBV_GB + ROWS * 4 * 4;
-constexpr int SBV_DB = SBV_DPR + ROWS * 3 * 4;
-constexpr int SBV_P = SBV_DB + MAX_R * (WS / 2) * 4;       // per-ray code sums (4, 128)
-constexpr int SBV_DV = SBV_P + MAX_R * XCOLS * 4;          // d_vox tile (128, MAX_VOX) f32
-constexpr int SBV_RING = SBV_DV + ROWS * MAX_VOX * 4;
-constexpr int SMEM_BWD_V = SBV_RING + RING_BYTES;
-static_assert(SBV_W % 1024 == 0 && SBV_G % 1024 == 0 && SBV_X % 1024 == 0,
-              "the ring's stages must be 1024-byte aligned");
-static_assert(SMEM_BWD_V <= 232448, "voxel backward exceeds a block's shared memory");
-static_assert(ROWS * XCOLS * 4 <= ROWS * LDH * 2, "an f32 input-gradient chunk exceeds H");
-static_assert((THREADS / 32) * WS * 4 <= WST_BYTES, "the column sums exceed the stage");
+// Per model: STAGES stages of FWD_STAGE bytes (one weight chunk each), as many
+// as shared memory holds beside what the sweep keeps there. Per consumer
+// warpgroup, in the 128-byte swizzle: its input tile X (classical: the tile;
+// voxel: 128 columns of it at a time, staged from the workspace, and in the
+// reverse sweep the f32 input-gradient chunk D and the column sums) and its
+// d_pre tile G; then, in floats, its 4 warps' column sums (classical), the
+// rgb head's d_pre, the direction biases (two rays at most), the code sums
+// per 16-row group and the d_vox rows (voxel);
+// the voxel tile's item table. The depth follows from the model alone, at
+// compile time: 7 stages classical, 6 voxel.
+template <bool VOX>
+struct SweepCfg {
+  static constexpr int STAGE = FWD_STAGE;
+  static constexpr int NCOL = VOX ? 0 : 4 * WS;
+  static constexpr int NDPR = 64 * 3;
+  static constexpr int NDB = 2 * (WS / 2);
+  static constexpr int NP = 4 * XCOLS;
+  static constexpr int NDV = VOX ? 64 * MAX_VOX : 0;
+  static constexpr int NCT = VOX ? XCOLS_V : 0;
+  static constexpr int FIXED =
+      2 * SW_XT + 2 * SW_GT + 2 * 4 * (NCOL + NDPR + NDB + NP + NDV) + 4 * NCT;
+  // as many stages as shared memory holds beside the rest, the two barriers
+  // per stage and the alignment slack
+  static constexpr int STAGES = (232448 - FIXED - 1024) / (FWD_STAGE + 16);
+  // dynamic shared memory (bytes from a 1024-byte aligned base)
+  static constexpr int RING = 0;
+  static constexpr int X = RING + STAGES * STAGE;
+  static constexpr int G = X + 2 * SW_XT;
+  static constexpr int COL = G + 2 * SW_GT;
+  static constexpr int DPR = COL + 2 * 4 * NCOL;
+  static constexpr int DB = DPR + 2 * 4 * NDPR;
+  static constexpr int P = DB + 2 * 4 * NDB;
+  static constexpr int DV = P + 2 * 4 * NP;
+  static constexpr int CT = DV + 2 * 4 * NDV;
+  static constexpr int BAR = CT + 4 * NCT;  // full, empty per stage
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;
+  // producer lanes, chunks in turn (FwdCfg::PRODUCERS says why at most STAGES)
+  static constexpr int PRODUCERS = STAGES < 4 ? STAGES : 4;
+  static_assert(STAGES >= 4, "the sweep's ring needs at least 4 stages");
+  static_assert(BYTES <= 232448, "the sweep exceeds a block's shared memory");
+  static_assert(X % 1024 == 0 && G % 1024 == 0, "the swizzled tiles need 1024-byte alignment");
+  static_assert(!VOX || (64 * SW_D * 4 <= SW_XT && 4 * WS * 4 <= SW_XT &&
+                         64 * (3 + MAX_VOX) * 4 <= SW_XT),
+                "D, the column sums and the input staging each fit a warpgroup's input tile");
+};
+
+// The producer's plan: the sweep's weight maps, read in boxes of 64 columns x
+// FWD_STAGE / (2 C) rows (C the map's columns), as the forward chain reads
+// them, and their columns.
+struct SweepPlan {
+  SweepMaps maps;
+  unsigned short cols[WM_LEN];
+};
 
 // The workspace table (bwd_workspace_layout(...).tab() in fused_mlp_vjp.py):
 // the columns of a workspace row, the first column and the width of the
@@ -176,688 +197,912 @@ __device__ __forceinline__ BranchWs branch_ws(const WsTab& t, int branch) {
   return {t.v[o], t.v[o + 1], t.v[o + 2], t.v[o + 3], t.v[o + 4]};
 }
 
-// ---- the sweep's products: wgmma, two warpgroups of 64 rows each ----------------
-// A (the input tile, an activation or a d_pre: bf16 in shared memory,
-// row-major with padded rows) enters through ldmatrix as registers; B, a
-// 64-row chunk of the weights, comes by TMA into a stage of the ring in the
-// 128-byte swizzle and is read by wgmma from there. Warp w holds rows
-// [16 w, 16 w + 16) of the tile: in accumulator register r of column block
-// j, row 16 w + lane / 4 + 8 ((r / 2) % 2) and column
-// 64 j + 8 (r / 4) + 2 (lane % 4) + r % 2.
-
-// The weight ring: two stages of one chunk each (the 32 KB stage `w`, and
-// the X or G buffer, whichever the caller names free), an mbarrier per stage
-// that the TMA copies complete, and in shared memory the parities that the
-// stages' barriers complete next (bit s for stage s), kept from one product
-// to the next. Thread 0 issues the copy of chunk c + 1 before the block
-// waits for chunk c, so each copy overlaps the product before it.
-struct Ring {
-  uint32_t w, x, g;  // shared addresses of the stages
-  uint32_t bar;      // two mbarriers, 8 bytes apart
-  uint32_t* phase;
-};
-
-// The start of a product on the ring: returns the parities it waits for.
-__device__ __forceinline__ uint32_t ring_begin(const Ring& rg) {
-  fence_proxy_async();  // generic accesses to either stage come before the copies
-  __syncthreads();      // earlier readers of both stages are done
-  return *rg.phase;
-}
-
-// Wait for the chunk in stage q; the warp converges again for wgmma.
-__device__ __forceinline__ void ring_wait(const Ring& rg, uint32_t& ph, int q) {
-  mbar_wait(rg.bar + 8 * q, (ph >> q) & 1);
-  ph ^= 1u << q;
-  __syncwarp();
-}
-
-// The parities for the next product, which every thread reads after its
-// first barrier (this product's last barrier is behind every read).
-__device__ __forceinline__ void ring_end(const Ring& rg, uint32_t ph) {
-  if (threadIdx.x == 0) *rg.phase = ph;
-}
-
-// rows [r, r + 64) of a (K, N) matrix, MN-major: N / 64 boxes
-template <int N>
-__device__ __forceinline__ void ring_load_mn(uint32_t dst, uint32_t bar, const CUtensorMap* map,
-                                             int r) {
-  mbar_expect_tx(bar, N * 128);
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j) tma_load_2d(dst + j * 8192, map, 64 * j, r, bar);
-}
-
-// columns [c, c + 64) of rows [r, r + NOUT), K-major: NOUT / 64 boxes
-template <int NOUT>
-__device__ __forceinline__ void ring_load_k(uint32_t dst, uint32_t bar, const CUtensorMap* map,
-                                            int c, int r) {
-  mbar_expect_tx(bar, NOUT * 128);
-#pragma unroll
-  for (int i = 0; i < NOUT / 64; ++i) tma_load_2d(dst + i * 8192, map, c, r + 64 * i, bar);
-}
-
-template <int N>
-struct WAcc {
-  float d[N / 64][32];
-};
-
-template <int N>
-__device__ __forceinline__ void wacc_zero(WAcc<N>& a) {
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) a.d[j][r] = 0.f;
-}
-
-// f(row, col, value) over this thread's accumulators
-template <int N, typename F>
-__device__ __forceinline__ void wacc_for_each(WAcc<N>& a, F f) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j)
-#pragma unroll
-    for (int r = 0; r < 32; ++r)
-      f(r0 + 8 * ((r >> 1) & 1), 64 * j + 8 * (r >> 2) + c0 + (r & 1), a.d[j][r]);
-}
-
-// acc += A[0:128, k0:k0 + 64] @ B, B the chunk in the stage at b0 (TB:
-// MN-major rows of K, else K-major rows of N), column block j at j * 8 KB
-template <int N, int TB>
-__device__ __forceinline__ void wg_mma_chunk(WAcc<N>& acc, const bf16* A, int lda, int k0,
-                                             uint32_t b0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* arow = A + (16 * (threadIdx.x >> 5) + (lane & 7) + 8 * ((lane >> 3) & 1)) * lda +
-                     k0 + 8 * (lane >> 4);
-  uint32_t a[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
-                 : "r"(smem_u32(arow + 16 * kk)));
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j) fence_acc(acc.d[j]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < N / 64; ++j) {
-      const uint32_t addr = b0 + j * 8192 + (TB ? kk * 2048 : kk * 32);
-      wgmma_rs<TB>(acc.d[j], a[kk], TB ? desc_mn(addr) : desc_k(addr));
-    }
-  wgmma_commit_wait();
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j) fence_acc(acc.d[j]);
-}
-
-// acc += A[0:128, 0:K] @ W[r0:r0 + K, 0:N], W the (rows, N) matrix of
-// `map`, staged 64 rows at a time MN-major through the ring, whose second
-// stage is `other`. K is a multiple of 64.
-template <int N>
-__device__ __forceinline__ void wg_gemm(WAcc<N>& acc, const bf16* A, int lda,
-                                        const CUtensorMap* map, int r0, int K, const Ring& rg,
-                                        uint32_t other) {
-  uint32_t ph = ring_begin(rg);
-  const int n = K / 64;
-  if (threadIdx.x == 0) ring_load_mn<N>(rg.w, rg.bar, map, r0);
-  for (int c = 0; c < n; ++c) {
-    const int q = c & 1;
-    if (threadIdx.x == 0 && c + 1 < n)
-      ring_load_mn<N>(q ? rg.w : other, rg.bar + 8 * (q ^ 1), map, r0 + 64 * (c + 1));
-    ring_wait(rg, ph, q);
-    wg_mma_chunk<N, 1>(acc, A, lda, 64 * c, q ? other : rg.w);
-    __syncthreads();  // both warpgroups are done with stage q
-  }
-  ring_end(rg, ph);
-}
-
-// acc += A[0:128, 0:Kc] @ W[r0:r0 + NOUT, 0:Kc]^T, W the matrix of `map`,
-// staged 64 columns at a time K-major through the ring. Kc is a multiple
-// of 64.
-template <int NOUT>
-__device__ __forceinline__ void wg_gemm_nt(WAcc<NOUT>& acc, const bf16* A, int lda,
-                                           const CUtensorMap* map, int r0, int Kc,
-                                           const Ring& rg, uint32_t other) {
-  uint32_t ph = ring_begin(rg);
-  const int n = Kc / 64;
-  if (threadIdx.x == 0) ring_load_k<NOUT>(rg.w, rg.bar, map, 0, r0);
-  for (int c = 0; c < n; ++c) {
-    const int q = c & 1;
-    if (threadIdx.x == 0 && c + 1 < n)
-      ring_load_k<NOUT>(q ? rg.w : other, rg.bar + 8 * (q ^ 1), map, 64 * (c + 1), r0);
-    ring_wait(rg, ph, q);
-    wg_mma_chunk<NOUT, 0>(acc, A, lda, 64 * c, q ? other : rg.w);
-    __syncthreads();  // both warpgroups are done with stage q
-  }
-  ring_end(rg, ph);
-}
-
-// f(row, col, value) over the accumulators. Starts with a block barrier, so
-// f may overwrite the A operand of the product that produced `acc`.
-template <int N, typename F>
-__device__ __forceinline__ void wepilogue(WAcc<N>& acc, F f) {
-  __syncthreads();
-  wacc_for_each(acc, f);
-}
-
-// f(row, col, value) -> d_pre over the accumulators, like `wepilogue`, and
-// the f32 column sums of what f returns, added to dbias[0:N] (the block's
-// partial): per warp over its 16 rows by shuffles, then over the 8 warps in
-// warp order through `colbuf` (8 x N floats of the stage, free after the
-// product).
-template <int N, typename F>
-__device__ __forceinline__ void wepilogue_colsum(WAcc<N>& acc, float* colbuf, float* dbias,
-                                                 bool first, F f) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < N / 64; ++j)
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 64 * j + 8 * q + c0 + h;
-        float cs = f(r0, c, acc.d[j][4 * q + h]) + f(r0 + 8, c, acc.d[j][4 * q + 2 + h]);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 4);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 8);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-        if (lane < 4) colbuf[warp * N + c] = cs;
-      }
-  __syncthreads();
-  for (int k = threadIdx.x; k < N; k += THREADS) {
-    float t = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) t += colbuf[w * N + k];
-    dbias[k] = (first ? 0.f : dbias[k]) + t;
-  }
-}
-
-// The code columns of an input gradient, summed over each 16-row group (one
-// warp's rows): P[group, col] (+)= sum over the group's rows of acc[row, col].
-__device__ __forceinline__ void wepilogue_groupsum(WAcc<XCOLS>& acc, float* P, bool add) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < XCOLS / 64; ++j)
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float cs = acc.d[j][4 * q + h] + acc.d[j][4 * q + 2 + h];
-        cs += __shfl_xor_sync(0xffffffffu, cs, 4);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 8);
-        cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-        float* p = P + warp * XCOLS + 64 * j + 8 * q + c0 + h;
-        if (lane < 4) *p = add ? *p + cs : cs;
-      }
-}
-
-// Copy a (128, ncols) bf16 tile from shared memory (leading dimension lds)
-// to the tile's rows of the workspace (leading dimension ld). Starts with a
-// barrier: the tile is complete.
-__device__ __forceinline__ void tile_store(const bf16* src, int lds, bf16* dst, int ld,
-                                           int ncols) {
-  __syncthreads();
-  const int vpr = ncols / 8;
-  for (int v = threadIdx.x; v < ROWS * vpr; v += THREADS) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c);
-  }
-}
-
-// dst[0:128, 0:ncols] (leading dimension ldd) = a (128, ncols) tile of the
-// workspace (leading dimension ld) that this block wrote.
-__device__ __forceinline__ void tile_load(bf16* dst, int ldd, const bf16* src, int ld,
-                                          int ncols) {
-  __syncthreads();  // earlier readers of dst are done; the workspace rows are written
-  const int vpr = ncols / 8;
-  for (int v = threadIdx.x; v < ROWS * vpr; v += THREADS) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    cp_async16(dst + r * ldd + c, src + (size_t)r * ld + c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
 __device__ __forceinline__ float rbf(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-struct SmemB {
-  bf16 *X, *H, *G, *wst;
-  float *rgb, *gb, *dpr, *db, *P, *dv;
-  Ring ring;
+// ---- the producer ------------------------------------------------------------------
+
+// The producer warpgroup's work: lane 0 of its first C::PRODUCERS warps,
+// chunks in turn, streams the chunk order `chunks` (sweep_chunks in
+// fused_mlp_vjp.py) once per tile of the block by TMA into the ring, each
+// chunk into the next stage once the 8 consumer warps have released it. A
+// chunk is `slot | x / 64 << 5 | y / 16 << 8 | (nx - 1) << 19 | (ny - 1) <<
+// 21`: nx x ny boxes of the map in `slot` from column x, row y, box (bx, by)
+// at (x + 64 bx, y + by box_rows), stored (bx ny + by) boxes into the stage:
+// rows of W with all their columns (a product by W, MN-major), or 64 columns
+// of rows of W (a product by W^T, K-major: ny boxes one under the other, nx
+// such blocks for the next 64 columns). Every chunk is FWD_STAGE bytes.
+template <class C>
+__device__ __forceinline__ void sweep_produce(const SweepPlan& plan,
+                                              const unsigned* __restrict__ chunks, int n_chunks,
+                                              int n_tiles, uint32_t ring, uint32_t full,
+                                              uint32_t empty) {
+  const int pw = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0 || pw >= C::PRODUCERS) return;
+  for (int i = 0; i < WM_LEN; ++i)
+    if (plan.cols[i] > 0)
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&plan.maps.m[i]))
+                   : "memory");
+  int gj = 0;  // the block's chunks so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int j = 0; j < n_chunks; ++j, ++gj) {
+      if (gj % C::PRODUCERS != pw) continue;
+      const unsigned c = __ldg(chunks + j);
+      const int slot = c & 31, x = 64 * ((c >> 5) & 7), y = 16 * ((c >> 8) & 2047);
+      const int nx = ((c >> 19) & 3) + 1, ny = ((c >> 21) & 3) + 1;
+      const int box_rows = FWD_STAGE / 2 / plan.cols[slot], box = 128 * box_rows;
+      const int stage = gj % C::STAGES, phase = (gj / C::STAGES) & 1;
+      mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh stage passes
+      const uint32_t dst = ring + stage * C::STAGE, bar = full + 8 * stage;
+      mbar_expect_tx(bar, FWD_STAGE);
+      for (int bx = 0; bx < nx; ++bx)
+        for (int by = 0; by < ny; ++by)
+          tma_load_2d(dst + (bx * ny + by) * box, &plan.maps.m[slot], x + 64 * bx,
+                      y + box_rows * by, bar);
+    }
+  }
+}
+
+// ---- a consumer warpgroup's products ---------------------------------------------
+// Each consumer warpgroup owns 64 rows of the tile and takes every chunk of
+// the ring (FwdPipe: wait for `full`, release by `empty`); the two meet only
+// at the ring's barriers and once per tile for the per-ray code sums. The
+// forward's products are the chain's: fwd_gemm (A the input tile X in shared
+// memory) and fwd_gemm_rs (A the previous layer's output in registers).
+
+// acc += A[0:64, 0:K] @ W[r0:r0 + NOUT, 0:K]^T over the next chunks of the
+// ring, A the warpgroup's d_pre tile (K-major, swizzled, at shared address
+// a), NOUT = 2 L: for NOUT >= 128 a chunk is 128 rows of W by 64 columns
+// (NOUT / 128 chunks per 64 columns of K, each on its 128 output columns),
+// for NOUT 64 a chunk is two blocks of 64 rows by 64 columns (128 columns
+// of K). Unrolled as fwd_gemm: each chunk's K steps one group, wait_group 1
+// releases the chunk before.
+template <class C, int K, int L>
+__device__ __forceinline__ void bwd_gemm(float (&acc)[L], uint32_t a, FwdPipe<C>& p) {
+  constexpr int NOUT = 2 * L, HALVES = NOUT >= 128 ? NOUT / 128 : 1;
+  constexpr int NCH = NOUT >= 128 ? K / 64 * HALVES : K / 128;
+  static_assert(NOUT == 64 || NOUT % 128 == 0, "128 output columns a chunk, or 64");
+  static_assert(K % (NOUT >= 128 ? 64 : 128) == 0, "a product is whole chunks");
+  int prev = 0;  // the stage of the chunk before
+  fence_acc(acc);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const uint32_t st = p.next();
+    wgmma_fence();
+    if constexpr (NOUT >= 128) {
+      const int kb = c / HALVES, half = c % HALVES;
+      float (&d)[64] = *reinterpret_cast<float(*)[64]>(acc + 64 * half);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_kn<0>(d, desc_k(a + kb * 8192 + kk * 32), desc_k(st + kk * 32));
+    } else {
+#pragma unroll
+      for (int sub = 0; sub < 2; ++sub)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_kn<0>(acc, desc_k(a + (2 * c + sub) * 8192 + kk * 32),
+                      desc_k(st + sub * 8192 + kk * 32));
+    }
+    wgmma_commit();
+    if (c > 0) {  // the chunk before has finished
+      wgmma_wait<1>();
+      p.release(prev);
+    }
+    prev = p.stage;
+    p.advance();
+  }
+  wgmma_wait<0>();
+  p.release(prev);
+  fence_acc(acc);
+}
+
+// A consumer warpgroup's rows (rows [64 wg, 64 wg + 64) of the tile) and its
+// buffers in one tile.
+struct SwWg {
+  int t, bar;          // the thread in the warpgroup (0..127), its named barrier
+  int real;            // its rows of rays before n_rays: [0, real)
+  long long g0;        // its first row in the launch
+  bf16* ws;            // its first workspace row
+  uint32_t xs, gs;     // shared addresses of its input tile and d_pre tile
+  unsigned char *xg, *gg;
+  float *col, *dpr, *db, *P, *dv;
 };
 
-// The voxel operand of one backward tile: the tile's input columns in the
-// workspace, the raw features of its rows (device memory, tile row 0 first)
-// and the column layout of the input row.
-struct VoxTile {
-  const bf16* xg;     // (ROWS, ld) bf16
-  int ld;
-  const float* raw;   // (rows of the tile, c_s + c_i) f32
-  VoxDims d;
-  int o_ivox, o_code, code_len;  // first columns of [ivox | PE(ivox)] and of the code
+// The sweep's inputs.
+struct SweepIn {
+  const float *xyz, *dir_pe, *codes, *vox, *g;
+  const bf16* w;
+  const float* b;
+  const int* ct;  // the voxel tile's item table
+  VoxDims vd;
+  int n_rays, S, n_freq, c_dir, code_len, ld, x0;  // ld, x0: the workspace's columns, the tile's first
 };
 
-// Stage columns [c0, c0 + w) of the voxel input tile into xs (leading
-// dimension LDX). Starts with a barrier: earlier readers of xs are done.
-__device__ __forceinline__ void stage_x(bf16* xs, const VoxTile& vt, int c0, int w) {
-  __syncthreads();
-  const int vpr = w / 8;
-  for (int v = threadIdx.x; v < ROWS * vpr; v += THREADS) {
+// The voxel operand: first columns of [ivox | PE(ivox)] and of the code in
+// the input row.
+struct VoxCols {
+  int o_ivox, o_code;
+};
+
+// The K0 input columns of a branch (input_tile_columns in fwd_chain.py).
+template <bool VOX, int N>
+__host__ __device__ constexpr int branch_k0() {
+  return N == WS ? (VOX ? 320 : 64) : (VOX ? 448 : 128);
+}
+
+// this thread's two accumulator rows (r0, r0 + 8) and first column pair
+__device__ __forceinline__ int acc_row0() {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
+
+// The column sums of the warpgroup's rows: `cs` (this thread's sum of its two
+// rows for column c) over the warp's 16 rows by shuffles into the warp's row
+// of `col` (4 x n floats).
+__device__ __forceinline__ void put_colsum(float cs, float* col, int n, int c) {
+  cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+  cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+  cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+  if ((threadIdx.x & 31) < 4) col[((threadIdx.x >> 5) & 3) * n + c] = cs;
+}
+
+// out[0:n] (+)= the sums of the 4 warps' rows of `col`, in warp order. Starts
+// with the warpgroup's barrier; `col` is free again after its next barrier.
+template <int N>
+__device__ __forceinline__ void sum_colsum(const SwWg& w, float* out, bool first) {
+  float prior[N / 128];
+#pragma unroll
+  for (int q = 0; q < N / 128; ++q) prior[q] = first ? 0.f : out[w.t + 128 * q];
+  wg_bar(w.bar);
+#pragma unroll
+  for (int q = 0; q < N / 128; ++q) {
+    const int k = w.t + 128 * q;
+    out[k] = prior[q] + (w.col[k] + w.col[N + k] + w.col[2 * N + k] + w.col[3 * N + k]);
+  }
+}
+
+// this thread's bf16 pairs (rows r0, r0 + 8 of the 8-column groups) of N
+// columns of the warpgroup's workspace rows from `rows`: m[2 g + u] the pair
+// of row r0 + 8 u, columns 8 g + c0, + 1 (the layout of an m64nN accumulator)
+template <int N>
+__device__ __forceinline__ void load_pairs(uint32_t (&m)[N / 4], const bf16* rows, int ld) {
+  const int r0 = acc_row0(), c0 = acc_col0();
+#pragma unroll
+  for (int g = 0; g < N / 8; ++g)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      m[2 * g + u] =
+          *reinterpret_cast<const uint32_t*>(rows + (size_t)(r0 + 8 * u) * ld + 8 * g + c0);
+}
+
+// Copy the warp's 16 rows of columns [0, ncols) of the warpgroup's swizzled
+// tile at `t` (generic; the warp's own stmatrix stores, so a __syncwarp
+// orders them) to its workspace rows from column `col`, 16 bytes a lane at a
+// time: a row's 128-byte pieces go out whole.
+__device__ __forceinline__ void warp_rows_store(const SwWg& w, const unsigned char* t, int ld,
+                                                int col, int ncols) {
+  __syncwarp();
+  const int lane = threadIdx.x & 31, row0 = 16 * ((threadIdx.x >> 5) & 3);
+  const int vpr = ncols / 8;
+  for (int v = lane; v < 16 * vpr; v += 32) {
+    const int r = row0 + v / vpr, c = (v % vpr) * 8;
+    *reinterpret_cast<uint4*>(w.ws + (size_t)r * ld + col + c) =
+        *reinterpret_cast<const uint4*>(t + swz(r, c));
+  }
+}
+
+// The d_pre of a product's accumulators (d_h of a layer, N columns): v =
+// acc, plus the sigma head's part rbf(g_sigma) w_sig (SIG), times the
+// LeakyReLU slope of the layer's rounded activation (MASK: its pairs `m`).
+// Its f32 column sums go to `dbias` (the warpgroup's partial), its bf16
+// rounding into the d_pre tile (the next products' A) and into the
+// workspace rows at column `col`.
+template <int N, bool MASK, bool SIG>
+__device__ __forceinline__ void dpre_epilogue(const float (&acc)[N / 2],
+                                              const uint32_t (&m)[WS / 4], const float (&gsig)[2],
+                                              const bf16* __restrict__ wsig, const SwWg& w,
+                                              int ld, int col, float* dbias, bool first) {
+  const int c0 = acc_col0();
+  float prior[N / 128];  // the partial's sums so far, loaded before they are needed
+#pragma unroll
+  for (int q = 0; q < N / 128; ++q) prior[q] = first ? 0.f : dbias[w.t + 128 * q];
+  wg_bar(w.bar);  // every warp's product is done reading the d_pre tile
+#pragma unroll
+  for (int g2 = 0; g2 < N / 16; ++g2) {
+    uint32_t d[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = 2 * g2 + h, c = 8 * g + c0;
+      float v[2][2];
+      float s0 = 0.f, s1 = 0.f;
+      if (SIG) {
+        s0 = __bfloat162float(wsig[c]);
+        s1 = __bfloat162float(wsig[c + 1]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        v[u][0] = acc[4 * g + 2 * u];
+        v[u][1] = acc[4 * g + 2 * u + 1];
+        if (SIG) {
+          v[u][0] += gsig[u] * s0;
+          v[u][1] += gsig[u] * s1;
+        }
+        if (MASK) {
+          const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&m[2 * g + u]);
+          if (!(__low2float(a) >= 0.f)) v[u][0] *= LEAKY;
+          if (!(__high2float(a) >= 0.f)) v[u][1] *= LEAKY;
+        }
+        d[2 * h + u] = pack_bf16(v[u][0], v[u][1]);
+      }
+      put_colsum(v[0][0] + v[1][0], w.col, N, c);
+      put_colsum(v[0][1] + v[1][1], w.col, N, c + 1);
+    }
+    store_pairs(w.gs, 2 * g2, d);
+  }
+  fence_proxy_async();  // the d_pre tile is complete for the products' reads
+  warp_rows_store(w, w.gg, ld, col, N);
+  wg_bar(w.bar);
+#pragma unroll
+  for (int q = 0; q < N / 128; ++q) {
+    const int k = w.t + 128 * q;
+    dbias[k] = prior[q] + (w.col[k] + w.col[N + k] + w.col[2 * N + k] + w.col[3 * N + k]);
+  }
+}
+
+// Copy columns [0, ncols) of the warpgroup's swizzled tile at `t` (generic)
+// to its workspace rows from column `col`, 16 bytes a thread at a time.
+__device__ __forceinline__ void tile_store(const SwWg& w, const unsigned char* t, int ld,
+                                           int col, int ncols) {
+  const int vpr = ncols / 8;
+  for (int v = w.t; v < 64 * vpr; v += 128) {
     const int r = v / vpr, c = (v % vpr) * 8;
-    cp_async16(xs + r * LDX + c, vt.xg + (size_t)r * vt.ld + c0 + c);
+    *reinterpret_cast<uint4*>(w.ws + (size_t)r * ld + col + c) =
+        *reinterpret_cast<const uint4*>(t + swz(r, c));
+  }
+}
+
+// Stage columns [c0, c0 + ncols) of the warpgroup's rows of the voxel input
+// tile (in the workspace) into its swizzled input tile X for the products.
+__device__ __forceinline__ void stage_x(const SwWg& w, int ld, int x0, int c0, int ncols) {
+  wg_bar(w.bar);  // the warpgroup's earlier readers of X are done
+  const int vpr = ncols / 8;
+  for (int v = w.t; v < 64 * vpr; v += 128) {
+    const int r = v / vpr, c = (v % vpr) * 8;
+    cp_async16(w.xg + swz(r, c), w.ws + (size_t)r * ld + x0 + c0 + c);
   }
   cp_async_wait_all();
+  fence_proxy_async();  // X is complete for the products' reads
+  wg_bar(w.bar);
 }
 
-// acc += X[:, 0:k0] @ W[0:k0, :] (W the matrix of `map`): the shared tile,
-// or the voxel tile staged 128 columns at a time. A forward product: G is
-// the ring's second stage.
-template <int N, bool VOX>
-__device__ __forceinline__ void gemm_in(WAcc<N>& acc, const SmemB& s, const VoxTile& vt,
-                                        const CUtensorMap* map, int k0) {
-  if (!VOX) {
-    wg_gemm<N>(acc, s.X, LDX, map, 0, k0, s.ring, s.ring.g);
-    return;
+// acc += X[:, 0:K0] @ W[0:K0, :] for layer 0 or a skip layer's input rows:
+// the classical tile in X, or the voxel tile staged 128 columns at a time.
+template <class C, bool VOX, int N, int L>
+__device__ __forceinline__ void x_product(float (&acc)[L], const SwWg& w, int ld, int x0,
+                                          FwdPipe<C>& p) {
+  constexpr int K0 = branch_k0<VOX, N>();
+  if constexpr (!VOX) {
+    fwd_gemm<C, K0, L>(acc, w.xs, p);
+  } else {
+#pragma unroll
+    for (int c0 = 0; c0 < K0; c0 += XCOLS) {
+      stage_x(w, ld, x0, c0, K0 - c0 >= XCOLS ? XCOLS : K0 - c0);
+      if (K0 - c0 >= XCOLS)
+        fwd_gemm<C, XCOLS, L>(acc, w.xs, p);
+      else
+        fwd_gemm<C, K0 % XCOLS, L>(acc, w.xs, p);
+    }
   }
-  for (int c0 = 0; c0 < k0; c0 += XCOLS) {
-    const int w = min(XCOLS, k0 - c0);
-    stage_x(s.X, vt, c0, w);
-    wg_gemm<N>(acc, s.X, LDX, map, c0, w, s.ring, s.ring.g);
+}
+
+// ---- the input tile ---------------------------------------------------------------
+
+// Item i of the voxel input tile, in column order: a raw value, a sine /
+// cosine pair of one octave (the cosine C columns after the sine), a code
+// column or a zero column, as voxel_input_value orders them. Bits 0-8 the
+// (sine's) column, 9-11 the kind (0 a raw value, 1 a pair, 3 a code column,
+// 4 zero), 12-19 the index (the value in the staged row [xyz (3) | raw voxel
+// features], or the code's column), 20-23 the octave, 24-29 C.
+__device__ int vox_item(int i, VoxDims d, int n_freq, bool inst, int code_len) {
+  auto enc = [](int col, int kind, int idx, int oct, int C) {
+    return col | kind << 9 | idx << 12 | oct << 20 | C << 24;
+  };
+  int col = 0, out = 0;
+  // a piece of C values: its raw columns, then n octaves of [sin (C) | cos (C)]
+  auto piece = [&](int C, int n, int base) {
+    if (i < C) {
+      out = enc(col + i, 0, base + i, 0, 0);
+      return true;
+    }
+    i -= C;
+    col += C;
+    if (i < C * n) {
+      const int k = i / C, q = i % C;
+      out = enc(col + 2 * C * k + q, 1, base + q, k, C);
+      return true;
+    }
+    i -= C * n;
+    col += 2 * C * n;
+    return false;
+  };
+  if (piece(d.c_s, d.n_fv, 3) || piece(3, n_freq, 0)) return out;
+  if (inst) {
+    if (piece(d.c_i, d.n_fv, 3 + d.c_s)) return out;
+    if (i < code_len) return enc(col + i, 3, i, 0, 0);
+    i -= code_len;
+    col += code_len;
+  }
+  return enc(col + i, 4, 0, 0, 0);
+}
+
+// The warpgroup's rows of the voxel input tile into its workspace rows
+// (columns [0, ncols)): xyz and the raw features staged in X (f32), then one
+// item of the item table per thread at a time over the 64 rows (the rows
+// independent of each other), each pair's sine and cosine from one
+// full-precision sincosf, as the forward chain builds its tile. Ends with the
+// warpgroup's barrier: the rows are written for stage_x.
+__device__ __forceinline__ void build_vox(const SweepIn& in, const SwWg& w, int ncols,
+                                          bool inst) {
+  const VoxDims d = in.vd;
+  const int cv = d.c_s + d.c_i, sr = 3 + cv;
+  float* st = reinterpret_cast<float*>(w.xg);
+  for (int e = w.t; e < 64 * 3; e += 128)
+    st[(e / 3) * sr + e % 3] = e / 3 < w.real ? in.xyz[w.g0 * 3 + e] : 0.f;
+  for (int e = w.t; e < 64 * cv; e += 128)
+    st[(e / cv) * sr + 3 + e % cv] = e / cv < w.real ? in.vox[w.g0 * cv + e] : 0.f;
+  wg_bar(w.bar);
+  const long long ray0 = w.g0 / in.S;
+  const int off = (int)(w.g0 - ray0 * in.S);
+  const int n_items = ncols - d.c_s * d.n_fv - 3 * in.n_freq - (inst ? d.c_i * d.n_fv : 0);
+  for (int it = w.t; it < n_items; it += 128) {
+    const int e = in.ct[it], col = e & 511, kind = (e >> 9) & 7, idx = (e >> 12) & 255;
+    const int C = (e >> 24) & 63;
+    const float f = (float)(1 << ((e >> 20) & 15));
+    bf16* out = w.ws + in.x0 + col;
+#pragma unroll 8
+    for (int r = 0; r < 64; ++r) {
+      float x = 0.f, y = 0.f;
+      if (r < w.real) {
+        if (kind <= 1) {
+          const float v = st[r * sr + idx];
+          if (kind == 0)
+            x = v;
+          else
+            sincosf(v * f, &x, &y);  // v * f exact
+        } else if (kind == 3) {
+          x = in.codes[(ray0 + (off + r) / in.S) * in.code_len + idx];
+        }
+      }
+      out[(size_t)r * in.ld] = __float2bfloat16(x);
+      if (kind == 1) out[(size_t)r * in.ld + C] = __float2bfloat16(y);
+    }
+  }
+  wg_bar(w.bar);
+}
+
+// The warpgroup's rows of the classical input tile [PE(xyz) | code | 0]
+// into X (swizzled; one column per thread and row) and into its workspace
+// rows (columns [0, ncols)). xyz is staged in the rgb head's buffer.
+__device__ void build_classical(const SweepIn& in, const SwWg& w, int ncols, bool inst) {
+  float* xs = w.dpr;
+  for (int e = w.t; e < 64 * 3; e += 128) xs[e] = e / 3 < w.real ? in.xyz[w.g0 * 3 + e] : 0.f;
+  wg_bar(w.bar);
+  const int pe = 3 * (2 * in.n_freq + 1);
+#pragma unroll 4
+  for (int r = 0; r < 64; ++r) {
+    const long long g = w.g0 + r;
+    float v = 0.f;
+    if (r < w.real)
+      v = input_value(xs + 3 * r, w.t, pe, inst ? in.codes + (g / in.S) * in.code_len : nullptr,
+                      in.code_len);
+    *reinterpret_cast<bf16*>(w.xg + swz(r, w.t)) = __float2bfloat16(v);
+  }
+  fence_proxy_async();  // X is complete for the products' reads
+  wg_bar(w.bar);
+  tile_store(w, w.xg, in.ld, in.x0, ncols);
+}
+
+// ---- the reverse sweep's small heads and input gradient ------------------------------
+
+// The direction part of the direction layer's weight gradient over the
+// warpgroup's rays: gwd[c, k] (+)= sum over its nr rays of dirs[ray, c] db[ray,
+// k] (the staged, rounded encodings, MAX_DIR a ray, zero past c_dir; the rays'
+// sums of the rounded d_pre), thread t taking entries t, t + 128, ...
+template <int ND>
+__device__ __forceinline__ void dir_weight_grad(float* __restrict__ gwd,
+                                                const float* __restrict__ dirs,
+                                                const float* __restrict__ db, int nr, int t,
+                                                bool first) {
+  constexpr int PER = MAX_DIR * ND / 128;
+  float prior[PER];  // the partial's entries so far, every load issued before the first use
+#pragma unroll
+  for (int m = 0; m < PER; ++m) prior[m] = first ? 0.f : gwd[t + 128 * m];
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = t + 128 * m, c = e / ND, k = e % ND;
+    float a = dirs[c] * db[k];
+    for (int lr = 1; lr < nr; ++lr) a += dirs[lr * MAX_DIR + c] * db[lr * ND + k];
+    gwd[e] = prior[m] + a;
   }
 }
 
-// D[0:128, 0:NOUT] (f32, leading dimension XCOLS, shared) = G @ W[r0:r0 +
-// NOUT, :]^T, W the matrix of `map`. X (spent in the reverse sweep of a
-// voxel tile) is the ring's second stage.
-template <int N, int NOUT>
-__device__ __forceinline__ void input_grad_chunk(float* D, const SmemB& s,
-                                                 const CUtensorMap* map, int r0) {
-  WAcc<NOUT> a;
-  wacc_zero(a);
-  wg_gemm_nt<NOUT>(a, s.G, LDH, map, r0, N, s.ring, s.ring.x);
-  wacc_for_each(a, [&](int r, int c, float v) { D[r * XCOLS + c] = v; });
-  __syncthreads();
+// The direction biases of the warpgroup's rays: db[lr * ND + j] = b_dir[j] +
+// dir_pe[ray, :] . W_dir[:, j] (bf16 operands, f32 sum; the bias alone past
+// n_rays), nr = max(1, 64 / S) rays.
+__device__ void wg_dir_bias(const SweepIn& in, const BranchTab& t, int ND, const SwWg& w) {
+  const bf16* wd = in.w + t.v[T_DIRWD];
+  const float* bd = in.b + t.v[T_DIRB];
+  const int nr = in.S >= 64 ? 1 : 64 / in.S;
+  const long long ray0 = w.g0 / in.S;
+  for (int e = w.t; e < nr * ND; e += 128) {
+    const int lr = e / ND, j = e % ND;
+    const long long ray = ray0 + lr;
+    float s = 0.f;
+    if (ray < in.n_rays)
+      for (int c = 0; c < in.c_dir; ++c)
+        s += rbf(in.dir_pe[ray * in.c_dir + c]) * __bfloat162float(wd[c * ND + j]);
+    w.db[e] = s + bd[j];
+  }
 }
 
-// Reduce the input-gradient columns [c0, c0 + w) in D into the d_vox tile
+// Reduce the input-gradient columns [c0, c0 + SW_D) in D (the warpgroup's 64
+// rows, f32, column c of row r at (c ^ 8 (r % 8))) into its d_vox rows
 // (identity column plus the encoding's chain, f32) and, for the object
-// branch, into the per-ray sums of the code columns. Rows of rays past
-// n_rays are skipped (their cotangent is zero).
-__device__ void reduce_input_grad(const float* D, int c0, int w, int branch, const SmemB& s,
-                                  const VoxTile& vt, int tile, int n_rays, int S) {
-  const VoxDims d = vt.d;
-  const int cv = d.c_s + d.c_i, R = ROWS / S;
-  for (int e = threadIdx.x; e < ROWS * cv; e += THREADS) {
-    const int r = e / cv, ch = e % cv;
-    const bool inst = ch >= d.c_s;
-    if ((inst && branch == 0) || tile * R + r / S >= n_rays) continue;
+// branch, into its 16-row group sums of the code columns (`first`: the
+// branch's first layer sets them). Thread t takes channel t % 32 of the 16
+// rows of group t / 32, so that a channel's columns and octaves are found
+// once and its rows are independent of each other; each (row, channel) of
+// d_vox is summed by one thread, in a fixed order. Rows of rays past n_rays
+// are skipped (their cotangent is zero).
+__device__ void reduce_input_grad(const float* __restrict__ D, float* __restrict__ dv, int c0,
+                                  int branch, const SweepIn& in, const VoxCols& vc,
+                                  const SwWg& w, bool first) {
+  const VoxDims d = in.vd;
+  const int cv = d.c_s + d.c_i, ch = w.t & 31, r0 = 16 * (w.t >> 5);
+  const bool inst = ch >= d.c_s;
+  if (ch < cv && !(inst && branch == 0)) {
     const int C = inst ? d.c_i : d.c_s, q = inst ? ch - d.c_s : ch;
-    const int base = inst ? vt.o_ivox : 0;
-    const float* Dr = D + r * XCOLS;
-    float acc = 0.f;
-    if (base + q >= c0 && base + q < c0 + w) acc += Dr[base + q - c0];
-    const float x = vt.raw[(size_t)r * cv + ch];
-    for (int k = 0; k < d.n_fv; ++k) {
-      const int cs = base + C + 2 * C * k + q, cc = cs + C;
-      const bool hs = cs >= c0 && cs < c0 + w, hc = cc >= c0 && cc < c0 + w;
-      if (!hs && !hc) continue;
-      const float f = (float)(1 << k);
-      float sn, cs_;
-      sincosf(x * f, &sn, &cs_);  // full precision: x * f reaches 32 x 3.5
-      if (hs) acc += Dr[cs - c0] * (f * cs_);
-      if (hc) acc -= Dr[cc - c0] * (f * sn);
+    const int base = inst ? vc.o_ivox : 0;
+    const int id = base + q - c0;  // the raw value's own column in the chunk
+    // the octaves with a sine or a cosine column in the chunk: j0 + 2 C k in
+    // [c0 - C, c0 + SW_D), j0 the sine column of octave 0
+    const int j0 = base + C + q;
+    const int k_lo = max(0, (c0 - C - j0 + 2 * C - 1) / (2 * C));
+    const int k_hi = min(d.n_fv - 1, c0 + SW_D - 1 - j0 >= 0 ? (c0 + SW_D - 1 - j0) / (2 * C) : -1);
+    const int rows = min(16, w.real - r0);
+    // the raw values of the channel's rows, then every row's sum, then the
+    // d_vox updates: no store comes between two loads
+    float xs[16], acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xs[i] = i < rows ? in.vox[(w.g0 + r0 + i) * cv + ch] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = r0 + i, sw = (r & 7) << 3;
+      const float* Dr = D + r * SW_D;
+      acc[i] = id >= 0 && id < SW_D ? Dr[id ^ sw] : 0.f;
+      for (int k = k_lo; k <= k_hi; ++k) {
+        const int cs = j0 + 2 * C * k - c0, cc = cs + C;
+        const float f = (float)(1 << k);
+        float sn, cs_;
+        sincosf(xs[i] * f, &sn, &cs_);  // full precision: x * f reaches 32 x 3.5
+        if (cs >= 0 && cs < SW_D) acc[i] += Dr[cs ^ sw] * (f * cs_);
+        if (cc >= 0 && cc < SW_D) acc[i] -= Dr[cc ^ sw] * (f * sn);
+      }
     }
-    s.dv[r * MAX_VOX + ch] += acc;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < rows) dv[(r0 + i) * MAX_VOX + ch] += acc[i];
   }
-  if (branch == 1) {
-    for (int e = threadIdx.x; e < R * vt.code_len; e += THREADS) {
-      const int rho = e / vt.code_len, c = e % vt.code_len;
-      const int col = vt.o_code + c;
-      if (col < c0 || col >= c0 + w) continue;
+  if (branch == 1) {  // per 16-row group, as the classical sweep's code sums
+    for (int e = w.t; e < 4 * in.code_len; e += 128) {
+      const int grp = e / in.code_len, c = e % in.code_len;
+      const int col = vc.o_code + c;
+      if (col < c0 || col >= c0 + SW_D) continue;
       float acc = 0.f;
-      for (int r = rho * S; r < (rho + 1) * S; ++r) acc += D[r * XCOLS + col - c0];
-      s.P[rho * XCOLS + c] += acc;
+      for (int r = 16 * grp; r < 16 * grp + 16; ++r)
+        acc += D[r * SW_D + ((col - c0) ^ ((r & 7) << 3))];
+      float* pp = w.P + grp * XCOLS + c;
+      *pp = first ? acc : *pp + acc;
     }
   }
-  __syncthreads();
 }
 
 // The voxel input gradient of one trunk layer that reads the tile: the
 // columns with a consumer (the scene voxel piece of either branch; the
-// instance piece and the code of the object branch), 128 at a time through H.
-template <int N>
-__device__ void vox_input_grad(int branch, const CUtensorMap* map, int k0, const SmemB& s,
-                               const VoxTile& vt, int tile, int n_rays, int S) {
-  float* D = reinterpret_cast<float*>(s.H);  // layer i's activation is spent
-  const int hi = branch == 0 ? vt.d.c_s * (1 + 2 * vt.d.n_fv) : vt.o_code + vt.code_len;
-  for (int c0 = 0; c0 < hi && c0 < k0; c0 += XCOLS) {
-    const int w = min(XCOLS, k0 - c0);
-    if (w == XCOLS)
-      input_grad_chunk<N, XCOLS>(D, s, map, c0);
-    else
-      input_grad_chunk<N, 64>(D, s, map, c0);
-    reduce_input_grad(D, c0, w, branch, s, vt, tile, n_rays, S);
+// instance piece and the code of the object branch), SW_D at a time: D = G @
+// W[c0:c0 + SW_D, :]^T into the warpgroup's input tile (spent in the reverse
+// sweep), then its reduction.
+template <class C, int N>
+__device__ __forceinline__ void vox_input_grad(int branch, const SweepIn& in, const VoxCols& vc,
+                                               const SwWg& w, bool first, FwdPipe<C>& p,
+                                               FwdRegs& regs) {
+  constexpr int K0 = branch_k0<true, N>();
+  float* D = reinterpret_cast<float*>(w.xg);
+  float (&a)[SW_D / 2] = *reinterpret_cast<float(*)[SW_D / 2]>(&regs.acc);
+  const int r0 = acc_row0(), c0l = acc_col0();
+  const int hi = branch == 0 ? vc.o_ivox - 3 * (2 * in.n_freq + 1) : vc.o_code + in.code_len;
+  for (int c0 = 0; c0 < hi && c0 < K0; c0 += SW_D) {
+#pragma unroll
+    for (int r = 0; r < SW_D / 2; ++r) a[r] = 0.f;
+    bwd_gemm<C, N, SW_D / 2>(a, w.gs, p);
+    if (c0 == 0) wg_bar(w.bar);  // the column sums are read (a chunk's D is, at its end)
+#pragma unroll
+    for (int r = 0; r < SW_D / 2; ++r) {
+      const int row = r0 + 8 * ((r >> 1) & 1), col = 8 * (r >> 2) + c0l + (r & 1);
+      D[row * SW_D + (col ^ ((row & 7) << 3))] = a[r];
+    }
+    wg_bar(w.bar);
+    reduce_input_grad(D, w.dv, c0, branch, in, vc, w, first);
+    wg_bar(w.bar);  // D is read
   }
 }
 
-// One branch of one tile: recompute the forward, writing each activation
-// that a weight gradient reads into the tile's workspace rows `wsr`
-// (leading dimension ld, columns `o`), then the reverse sweep, writing each
-// rounded d_pre there too. `branch` is 0 (scene) or 1 (object); gp is this
-// block's compact partial of the bias and small-head gradients, at the
-// offsets of `gt`; `maps` are the branch's WM_PER_BRANCH weight maps. VOX:
-// the input tile is `vt`'s, and the input gradient goes to the d_vox tile
-// and the per-ray code sums (vox_input_grad). The forward's products take G
-// as the ring's second stage, the reverse sweep's X.
-template <int N, bool VOX>
-__device__ void branch_backward(int tile, int branch, const BranchTab& t, const BranchTab& gt,
-                                const CUtensorMap* maps,
-                                const bf16* __restrict__ w, const float* __restrict__ b,
-                                const float* __restrict__ dir_pe,
-                                const float* __restrict__ g, float* gp, bf16* wsr, int ld,
-                                const BranchWs o, const SmemB& s, const VoxTile& vt,
-                                int n_rays, int S, int c_dir, bool first) {
-  constexpr int ND = N / 2;
-  const int R = ROWS / S;
-  const int depth = t.v[T_DEPTH], k0 = t.v[T_K0];
-  const int tid = threadIdx.x;
-
-  // ---- forward recompute -------------------------------------------------
-  dir_bias(tile, t, w, b, ND, dir_pe, c_dir, n_rays, R, s.db);
-  // this branch's cotangent rows [g_sigma, g_rgb]; zero past n_rays
-  for (int e = tid; e < ROWS * 4; e += THREADS) {
-    const int r = e >> 2;
-    const int ray = tile * R + r / S;
-    s.gb[e] = ray < n_rays ? g[((size_t)tile * ROWS + r) * 8 + branch * 4 + (e & 3)] : 0.f;
+// One branch of the warpgroup's rows of one tile: recompute the forward,
+// writing each activation that a weight gradient reads into the workspace
+// rows (from registers: each layer's output, rounded to bf16, is the next
+// product's A operand as it stands), then the reverse sweep, writing each
+// rounded d_pre there too. `branch` is 0 (scene) or 1 (object); gp is the
+// warpgroup's compact partial of the bias and small-head gradients, at the
+// offsets of `gt`. VOX: the input gradient goes to the d_vox rows and the
+// per-ray code sums (vox_input_grad); classical: the object branch's code
+// columns to the 16-row group sums.
+template <int N, bool VOX, class C>
+__device__ __forceinline__ void branch_backward(int branch, const BranchTab& t,
+                                                const BranchTab& gt, const SweepIn& in,
+                                                const VoxCols& vc, const BranchWs o,
+                                                const SwWg& w, float* gp, bool first,
+                                                FwdPipe<C>& p, FwdRegs& regs) {
+  constexpr int L = N / 2, ND = N / 2;
+  const int lane = threadIdx.x & 31;
+  const int r0 = acc_row0(), c0 = acc_col0();
+  const int depth = t.v[T_DEPTH], ld = in.ld;
+  uint32_t (&h)[N / 4] = *reinterpret_cast<uint32_t(*)[N / 4]>(&regs.h);
+  float (&acc)[L] = *reinterpret_cast<float(*)[L]>(&regs.acc);
+  const int nr = in.S >= 64 ? 1 : 64 / in.S, rows = in.S >= 64 ? 64 : in.S;
+  const long long ray0 = w.g0 / in.S;
+  float gsig[2];  // rbf(g_sigma) of this thread's two rows
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long gr = w.g0 + r0 + 8 * u;
+    gsig[u] = r0 + 8 * u < w.real ? rbf(in.g[gr * 8 + branch * 4]) : 0.f;
   }
-  for (int i = 0; i < depth; ++i) {
-    WAcc<N> acc;
-    wacc_zero(acc);
-    if (i == 0) {
-      gemm_in<N, VOX>(acc, s, vt, maps + i, k0);
-    } else if ((t.v[T_SKIPS] >> i) & 1) {
-      gemm_in<N, VOX>(acc, s, vt, maps + i, k0);
-      wg_gemm<N>(acc, s.H, LDH, maps + i, k0, N, s.ring, s.ring.g);
-    } else {
-      wg_gemm<N>(acc, s.H, LDH, maps + i, 0, N, s.ring, s.ring.g);
+
+  // ---- forward recompute ---------------------------------------------------------
+  wg_dir_bias(in, t, ND, w);
+  for (int i = 0; i <= depth; ++i) {  // the trunk, then `final`
+    const bool fin = i == depth;
+#pragma unroll
+    for (int r = 0; r < L; ++r) acc[r] = 0.f;
+    if (i == 0 || (!fin && ((t.v[T_SKIPS] >> i) & 1))) x_product<C, VOX, N, L>(acc, w, ld, in.x0, p);
+    if (i > 0) fwd_gemm_rs<C, N, L>(acc, h, p);
+    const float* bl = in.b + (fin ? t.v[T_FINB] : t.v[T_TB + i]);
+#pragma unroll
+    for (int g = 0; g < N / 8; ++g) {
+      const float b0 = __ldg(bl + 8 * g + c0), b1 = __ldg(bl + 8 * g + c0 + 1);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float v0 = acc[4 * g + 2 * u] + b0, v1 = acc[4 * g + 2 * u + 1] + b1;
+        if (!fin) {
+          v0 = lrelu(v0);
+          v1 = lrelu(v1);
+        }
+        h[2 * g + u] = pack_bf16(v0, v1);
+      }
     }
-    const float* bl = b + t.v[T_TB + i];
-    wepilogue(acc, [&](int r, int c, float v) {
-      s.H[r * LDH + c] = __float2bfloat16(lrelu(v + bl[c]));
-    });
-    tile_store(s.H, LDH, wsr + o.act + i * N, ld, N);
+    // into the workspace through the warp's rows of the d_pre tile (free in
+    // the forward): stmatrix, then whole 128-byte pieces of each row
+    __syncwarp();  // the warp's previous copy is done reading them
+#pragma unroll
+    for (int n2 = 0; n2 < N / 16; ++n2)
+      store_pairs(w.gs, 2 * n2, *reinterpret_cast<const uint32_t(*)[4]>(&h[4 * n2]));
+    warp_rows_store(w, w.gg, ld, fin ? o.fin : o.act + i * N, N);
   }
+  wg_bar(w.bar);  // the direction biases are in
   {
-    WAcc<N> acc;
-    wacc_zero(acc);
-    wg_gemm<N>(acc, s.H, LDH, maps + WM_FIN, 0, N, s.ring, s.ring.g);
-    const float* bl = b + t.v[T_FINB];
-    wepilogue(acc, [&](int r, int c, float v) {
-      s.H[r * LDH + c] = __float2bfloat16(v + bl[c]);
-    });
-    tile_store(s.H, LDH, wsr + o.fin, ld, N);
+    // the direction layer from the per-ray biases; its rounded activation
+    // into the d_pre tile's columns [128, 128 + ND), and the rgb head
+    float (&accd)[ND / 2] = *reinterpret_cast<float(*)[ND / 2]>(&regs.acc);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float* dr = w.db + ((r0 + 8 * u) / rows) * ND;
+#pragma unroll
+      for (int n8 = 0; n8 < ND / 8; ++n8) {
+        accd[4 * n8 + 2 * u] = dr[8 * n8 + c0];
+        accd[4 * n8 + 2 * u + 1] = dr[8 * n8 + c0 + 1];
+      }
+    }
+    fwd_gemm_rs<C, N, ND / 2>(accd, h, p);
+    const bf16* wrgb = in.w + t.v[T_RGBW];
+    float q[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+    __syncwarp();  // the warp's copy of `final` is done reading its rows
+#pragma unroll
+    for (int n2 = 0; n2 < ND / 16; ++n2) {
+      uint32_t dp[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int n8 = 2 * n2 + hh, c = 8 * n8 + c0;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          dp[2 * hh + u] = pack_bf16(lrelu(accd[4 * n8 + 2 * u]), lrelu(accd[4 * n8 + 2 * u + 1]));
+          const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(&dp[2 * hh + u]);
+          const float d0 = __low2float(dv), d1 = __high2float(dv);
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            q[u][k] += d0 * __bfloat162float(wrgb[k * ND + c]) +
+                       d1 * __bfloat162float(wrgb[k * ND + c + 1]);
+        }
+      }
+      store_pairs(w.gs, 16 + 2 * n2, dp);
+    }
+    const float* br = in.b + t.v[T_RGBB];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long gr = w.g0 + r0 + 8 * u;
+      const bool real = r0 + 8 * u < w.real;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float v = q[u][k];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const float o_ = 1.f / (1.f + expf(-(v + __ldg(br + k))));
+        const float gk = real ? in.g[gr * 8 + branch * 4 + 1 + k] : 0.f;
+        if ((lane & 3) == 0) w.dpr[(r0 + 8 * u) * 3 + k] = gk * o_ * (1.f - o_);
+      }
+    }
   }
-  {
-    WAcc<ND> acc;
-    wacc_zero(acc);
-    wg_gemm<ND>(acc, s.H, LDH, maps + WM_DIR, 0, N, s.ring, s.ring.g);
-    wepilogue(acc, [&](int r, int c, float v) {
-      s.H[r * LDH + c] = __float2bfloat16(lrelu(v + s.db[(r / S) * ND + c]));
-    });
-  }
-  head_rgb(s.H, ND, w + t.v[T_RGBW], b + t.v[T_RGBB], s.rgb);
-  __syncthreads();
+  wg_bar(w.bar);  // the rgb head's d_pre and the direction activation are in
 
-  // ---- rgb head (H holds the direction-head activation) -------------------
-  for (int e = tid; e < ROWS * 3; e += THREADS) {
-    const float o_ = s.rgb[e];
-    s.dpr[e] = s.gb[(e / 3) * 4 + 1 + e % 3] * o_ * (1.f - o_);
-  }
-  __syncthreads();
+  // ---- rgb head, then the direction layer's d_pre into G[:, 0:ND] ------------------
+  auto denc = [&](int r, int k) {
+    return __bfloat162float(*reinterpret_cast<const bf16*>(w.gg + swz(r, 128 + k)));
+  };
   {
-    const bf16* wr_ = w + t.v[T_RGBW];
+    if (w.t < 3) {
+      float a = 0.f;
+      for (int r = 0; r < 64; ++r) a += w.dpr[r * 3 + w.t];
+      float* pb = gp + gt.v[T_RGBB] + w.t;
+      *pb = (first ? 0.f : *pb) + a;
+    }
+    if (w.t < 64) {  // sigma head's bias: rows summed in warps 0 and 1
+      float a = w.t < w.real ? in.g[(w.g0 + w.t) * 8 + branch * 4] : 0.f;
+      a = warp_sum(a);
+      if ((w.t & 31) == 0) w.col[w.t >> 5] = a;  // free until the reverse sweep
+    }
+    // per column k of the direction layer, one pass over the rows: the rgb
+    // head's weight gradient (denc^T rbf(d_pre_rgb)), the direction layer's
+    // d_pre -> G (bf16), its column sums, and the sums over each ray's rows
+    // of the rounded values (for the direction weights)
+    const bf16* wr_ = in.w + t.v[T_RGBW];
     float* gwr = gp + gt.v[T_RGBW];
-    for (int e = tid; e < 3 * ND; e += THREADS) {
-      const int c = e / ND, k = e % ND;
-      float acc = 0.f;
-      for (int r = 0; r < ROWS; ++r)
-        acc += __bfloat162float(s.H[r * LDH + k]) * rbf(s.dpr[r * 3 + c]);
-      gwr[e] = (first ? 0.f : gwr[e]) + acc;
-    }
-    if (tid < 3) {
-      float acc = 0.f;
-      for (int r = 0; r < ROWS; ++r) acc += s.dpr[r * 3 + tid];
-      float* p = gp + gt.v[T_RGBB] + tid;
-      *p = (first ? 0.f : *p) + acc;
-    }
-    if (tid == 32) {  // sigma head's bias
-      float acc = 0.f;
-      for (int r = 0; r < ROWS; ++r) acc += s.gb[r * 4];
-      float* p = gp + gt.v[T_SIGB];
-      *p = (first ? 0.f : *p) + acc;
-    }
-    // d_pre of the direction layer -> G (bf16), its column sums, and the sums
-    // over each ray's rows of the rounded values (for the direction weights)
-    for (int k = tid; k < ND; k += THREADS) {
+    for (int k = w.t; k < ND; k += 128) {
       const float w0 = __bfloat162float(wr_[k]), w1 = __bfloat162float(wr_[ND + k]),
                   w2 = __bfloat162float(wr_[2 * ND + k]);
-      float colsum = 0.f;
-      for (int rho = 0; rho < R; ++rho) {
+      float colsum = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+      for (int lr = 0; lr < nr; ++lr) {
         float raysum = 0.f;
-        for (int r = rho * S; r < (rho + 1) * S; ++r) {
-          float d = rbf(s.dpr[r * 3]) * w0 + rbf(s.dpr[r * 3 + 1]) * w1 +
-                    rbf(s.dpr[r * 3 + 2]) * w2;
-          if (!(__bfloat162float(s.H[r * LDH + k]) >= 0.f)) d *= LEAKY;
+#pragma unroll 4
+        for (int r = lr * rows; r < (lr + 1) * rows; ++r) {
+          const float p0 = rbf(w.dpr[r * 3]), p1 = rbf(w.dpr[r * 3 + 1]),
+                      p2 = rbf(w.dpr[r * 3 + 2]);
+          const float x = denc(r, k);
+          a0 += x * p0;
+          a1 += x * p1;
+          a2 += x * p2;
+          float d = p0 * w0 + p1 * w1 + p2 * w2;
+          if (!(x >= 0.f)) d *= LEAKY;
           const bf16 dr = __float2bfloat16(d);
-          s.G[r * LDH + k] = dr;
+          *reinterpret_cast<bf16*>(w.gg + swz(r, k)) = dr;
           colsum += d;
           raysum += __bfloat162float(dr);
         }
-        s.db[rho * ND + k] = raysum;  // the direction bias is spent
+        w.db[lr * ND + k] = raysum;  // the direction bias is spent
       }
-      float* p = gp + gt.v[T_DIRB] + k;
-      *p = (first ? 0.f : *p) + colsum;
+      gwr[k] = (first ? 0.f : gwr[k]) + a0;
+      gwr[ND + k] = (first ? 0.f : gwr[ND + k]) + a1;
+      gwr[2 * ND + k] = (first ? 0.f : gwr[2 * ND + k]) + a2;
+      float* pb = gp + gt.v[T_DIRB] + k;
+      *pb = (first ? 0.f : *pb) + colsum;
     }
   }
-  __syncthreads();
-  {  // direction part of the direction layer: (32, ND) rows, c_dir of them real
-    float* gwd = gp + gt.v[T_DIRWD];
-    for (int e = tid; e < 32 * ND; e += THREADS) {
-      const int c = e / ND, k = e % ND;
-      float acc = 0.f;
-      if (c < c_dir)
-        for (int rho = 0; rho < R; ++rho) {
-          const int ray = tile * R + rho;
-          if (ray < n_rays) acc += rbf(dir_pe[(size_t)ray * c_dir + c]) * s.db[rho * ND + k];
-        }
-      gwd[e] = (first ? 0.f : gwd[e]) + acc;
-    }
+  // the rays' direction encodings, rounded, staged for the direction weights
+  float* dirs = w.col + 8;  // the column sums' buffer is free here
+  for (int e = w.t; e < nr * MAX_DIR; e += 128) {
+    const int lr = e / MAX_DIR, c = e % MAX_DIR;
+    dirs[e] = c < in.c_dir && ray0 + lr < in.n_rays
+                  ? rbf(in.dir_pe[(ray0 + lr) * in.c_dir + c]) : 0.f;
   }
-  tile_store(s.G, LDH, wsr + o.gdir, ld, ND);
+  wg_bar(w.bar);
+  if (w.t == 0) {
+    float* pb = gp + gt.v[T_SIGB];
+    *pb = (first ? 0.f : *pb) + (w.col[0] + w.col[1]);
+  }
+  dir_weight_grad<ND>(gp + gt.v[T_DIRWD], dirs, w.db, nr, w.t, first);
+  tile_store(w, w.gg, ld, o.gdir, ND);
+  fence_proxy_async();  // G[:, 0:ND] is complete for the product's reads
+  wg_bar(w.bar);
 
-  // ---- `final` and the sigma head ---------------------------------------------
-  {
-    WAcc<N> acc;
-    wacc_zero(acc);
-    wg_gemm_nt<N>(acc, s.G, LDH, maps + WM_DIR, 0, ND, s.ring, s.ring.x);
-    wepilogue_colsum(acc, reinterpret_cast<float*>(s.wst), gp + gt.v[T_FINB], first,
-                     [&](int r, int c, float v) {
-                       s.G[r * LDH + c] = __float2bfloat16(v);
-                       return v;
-                     });
-  }
-  tile_store(s.G, LDH, wsr + o.gfin, ld, N);
-  tile_load(s.H, LDH, wsr + o.act + (depth - 1) * N, ld, N);
-  {
-    float* gws = gp + gt.v[T_SIGW];
-    for (int k = tid; k < N; k += THREADS) {
-      float acc = 0.f;
-      for (int r = 0; r < ROWS; ++r)
-        acc += __bfloat162float(s.H[r * LDH + k]) * rbf(s.gb[r * 4]);
-      gws[k] = (first ? 0.f : gws[k]) + acc;
+  // ---- `final` and the sigma head ------------------------------------------------------
+  const bf16* wsig = in.w + t.v[T_SIGW];
+  load_pairs<N>(h, w.ws + o.act + (depth - 1) * N, ld);  // the last trunk activation
+#pragma unroll
+  for (int r = 0; r < L; ++r) acc[r] = 0.f;
+  bwd_gemm<C, ND, L>(acc, w.gs, p);
+  dpre_epilogue<N, false, false>(acc, regs.h, gsig, wsig, w, ld, o.gfin, gp + gt.v[T_FINB],
+                                 first);
+#pragma unroll
+  for (int r = 0; r < L; ++r) acc[r] = 0.f;
+  bwd_gemm<C, N, L>(acc, w.gs, p);
+  // the sigma head's weight: column sums of act_last rbf(g_sigma)
+  wg_bar(w.bar);  // the column sums' buffer is read
+#pragma unroll
+  for (int g = 0; g < N / 8; ++g)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&h[2 * g + u]);
+        s += (e ? __high2float(a) : __low2float(a)) * gsig[u];
+      }
+      put_colsum(s, w.col, N, 8 * g + c0 + e);
     }
-  }
-  WAcc<N> acc;
-  wacc_zero(acc);
-  wg_gemm_nt<N>(acc, s.G, LDH, maps + WM_FIN, 0, N, s.ring, s.ring.x);
+  sum_colsum<N>(w, gp + gt.v[T_SIGW], first);
 
-  // ---- trunk, last layer first ----------------------------------------------
+  // ---- trunk, last layer first ----------------------------------------------------------
   // Entering step i: `acc` holds d_h of layer i (before the sigma head's
-  // part for the last layer) and H holds layer i's activation.
-  const bf16* wsig = w + t.v[T_SIGW];
-  bool have_dcat = false;
+  // part for the last layer) and h layer i's rounded activation.
+  bool first_code = true;
   for (int i = depth - 1; i >= 0; --i) {
-    const bool last = i == depth - 1;
-    wepilogue_colsum(acc, reinterpret_cast<float*>(s.wst), gp + gt.v[T_TB + i], first,
-                     [&](int r, int c, float v) {
-                       if (last) v += rbf(s.gb[r * 4]) * __bfloat162float(wsig[c]);
-                       if (!(__bfloat162float(s.H[r * LDH + c]) >= 0.f)) v *= LEAKY;
-                       s.G[r * LDH + c] = __float2bfloat16(v);
-                       return v;
-                     });
-    tile_store(s.G, LDH, wsr + o.g + i * N, ld, N);
+    if (i == depth - 1)
+      dpre_epilogue<N, true, true>(acc, regs.h, gsig, wsig, w, ld, o.g + i * N,
+                                   gp + gt.v[T_TB + i], first);
+    else
+      dpre_epilogue<N, true, false>(acc, regs.h, gsig, wsig, w, ld, o.g + i * N,
+                                    gp + gt.v[T_TB + i], first);
     const bool skip = i > 0 && ((t.v[T_SKIPS] >> i) & 1);
     if (i == 0 || skip) {
       if constexpr (VOX) {  // input gradient of both branches: voxel and code columns
-        vox_input_grad<N>(branch, maps + i, k0, s, vt, tile, n_rays, S);
+        vox_input_grad<C, N>(branch, in, vc, w, first_code, p, regs);
+        first_code = false;
       } else if (branch == 1) {  // input gradient, for the code columns
-        WAcc<XCOLS> dcat;
-        wacc_zero(dcat);
-        wg_gemm_nt<XCOLS>(dcat, s.G, LDH, maps + i, 0, N, s.ring, s.ring.x);
-        wepilogue_groupsum(dcat, s.P, have_dcat);
-        have_dcat = true;
+        float (&a)[XCOLS / 2] = *reinterpret_cast<float(*)[XCOLS / 2]>(&regs.acc);
+#pragma unroll
+        for (int r = 0; r < XCOLS / 2; ++r) a[r] = 0.f;
+        bwd_gemm<C, N, XCOLS / 2>(a, w.gs, p);
+        // summed over each 16-row group (one warp's rows)
+        float* P = w.P + ((threadIdx.x >> 5) & 3) * XCOLS;
+#pragma unroll
+        for (int g = 0; g < XCOLS / 8; ++g)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float cs = a[4 * g + e] + a[4 * g + 2 + e];
+            cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+            cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+            cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+            float* pp = P + 8 * g + c0 + e;
+            if (lane < 4) *pp = first_code ? cs : *pp + cs;
+          }
+        first_code = false;
       }
       if (i == 0) break;
     }
-    tile_load(s.H, LDH, wsr + o.act + (i - 1) * N, ld, N);
-    wacc_zero(acc);
+    load_pairs<N>(h, w.ws + o.act + (i - 1) * N, ld);  // layer i - 1's activation
+#pragma unroll
+    for (int r = 0; r < L; ++r) acc[r] = 0.f;
     // the hidden rows of layer i: after the input rows for a skip layer
-    wg_gemm_nt<N>(acc, s.G, LDH, maps + i, skip ? k0 : 0, N, s.ring, s.ring.x);
+    bwd_gemm<C, N, L>(acc, w.gs, p);
   }
-  __syncthreads();
 }
 
-// The tile sweep of the backward. `ws` is the workspace (rows of all tiles,
-// wt.v[W_COLS] bf16 columns each); `small` holds small_stride floats per
-// block: the block's bias and small-head gradients at the offsets of
-// gscene / gobj; `maps` the weight matrices' tensor maps.
+// The tile sweep of the backward: a persistent grid (one block per SM, each
+// walking tiles blockIdx.x, blockIdx.x + gridDim.x, ...), the producer
+// warpgroup streaming the chunk order `chunks` of every tile through the
+// ring, each consumer warpgroup sweeping its 64 rows of the tile. `ws` is the
+// workspace (rows of all tiles, wt.v[W_COLS] bf16 columns each); `small`
+// holds small_stride floats per warpgroup (block b's at 2 b and 2 b + 1): its
+// bias and small-head gradients at the offsets of gscene / gobj.
 template <bool VOX>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_kernel(const __grid_constant__ SweepMaps maps, const float* __restrict__ xyz,
-               const float* __restrict__ dir_pe,
+__global__ void __launch_bounds__(SW_THREADS, 1)
+mlp_bwd_kernel(const __grid_constant__ SweepPlan plan, const unsigned* __restrict__ chunks,
+               int n_chunks, const float* __restrict__ xyz, const float* __restrict__ dir_pe,
                const float* __restrict__ codes, const float* __restrict__ vox, VoxDims vd,
                const float* __restrict__ g, const bf16* __restrict__ w,
                const float* __restrict__ b, BranchTab scene, BranchTab obj, BranchTab gscene,
                BranchTab gobj, WsTab wt, bf16* __restrict__ ws, float* __restrict__ small,
                int small_stride, float* __restrict__ d_codes, float* __restrict__ d_vox,
                int n_rays, int S, int n_freq, int c_dir, int code_len, int forward_instance) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  SmemB s;
-  if (VOX) {
-    s.X = reinterpret_cast<bf16*>(smem + SBV_X);
-    s.H = reinterpret_cast<bf16*>(smem + SBV_H);
-    s.G = reinterpret_cast<bf16*>(smem + SBV_G);
-    s.wst = reinterpret_cast<bf16*>(smem + SBV_W);
-    s.rgb = reinterpret_cast<float*>(smem + SBV_RGB);
-    s.gb = reinterpret_cast<float*>(smem + SBV_GB);
-    s.dpr = reinterpret_cast<float*>(smem + SBV_DPR);
-    s.db = reinterpret_cast<float*>(smem + SBV_DB);
-    s.P = reinterpret_cast<float*>(smem + SBV_P);
-    s.dv = reinterpret_cast<float*>(smem + SBV_DV);
-    s.ring.bar = smem_u32(smem + SBV_RING);
-  } else {
-    s.X = reinterpret_cast<bf16*>(smem + SB_X);
-    s.H = reinterpret_cast<bf16*>(smem + SB_H);
-    s.G = reinterpret_cast<bf16*>(smem + SB_G);
-    s.wst = reinterpret_cast<bf16*>(smem + SB_W);
-    s.rgb = reinterpret_cast<float*>(smem + SB_RGB);
-    s.gb = reinterpret_cast<float*>(smem + SB_GB);
-    s.dpr = reinterpret_cast<float*>(smem + SB_DPR);
-    s.db = reinterpret_cast<float*>(smem + SB_DB);
-    s.P = reinterpret_cast<float*>(smem + SB_P);
-    s.dv = nullptr;
-    s.ring.bar = smem_u32(smem + SB_RING);
-  }
-  s.ring.w = smem_u32(s.wst);
-  s.ring.x = smem_u32(s.X);
-  s.ring.g = smem_u32(s.G);
-  s.ring.phase = reinterpret_cast<uint32_t*>(smem + (VOX ? SBV_RING : SB_RING) + 16);
-
+  using C = SweepCfg<VOX>;
+  extern __shared__ __align__(1024) unsigned char sw_smem[];
+  const uint32_t raw = smem_u32(sw_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle needs 1 KB alignment
+  unsigned char* sm = sw_smem + (base - raw);
+  const uint32_t full = base + C::BAR, empty = full + 8 * C::STAGES;
+  int* ct = reinterpret_cast<int*>(sm + C::CT);
   if (threadIdx.x == 0) {
-    if ((smem_u32(smem) & 1023u) != 0) __trap();  // the stages' swizzle needs 1 KB alignment
-    mbar_init(s.ring.bar, 1);
-    mbar_init(s.ring.bar + 8, 1);
-    *s.ring.phase = 0;
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if (VOX)
+    for (int c = threadIdx.x; c < XCOLS_V; c += SW_THREADS)
+      ct[c] = vox_item(c, vd, n_freq, forward_instance != 0, code_len);
   __syncthreads();
   const int R = ROWS / S;
   const int n_tiles = (n_rays + R - 1) / R;
-  const int ld = wt.v[W_COLS];
-  const BranchWs o_scene = branch_ws(wt, 0), o_obj = branch_ws(wt, 1);
-  float* gp = small + (size_t)blockIdx.x * small_stride;
+
+  if (threadIdx.x < 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    sweep_produce<C>(plan, chunks, n_chunks, n_tiles, base + C::RING, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = (threadIdx.x >> 7) - 1;
+  SwWg wk;
+  wk.t = threadIdx.x & 127;
+  wk.bar = 1 + wg;
+  wk.xs = base + C::X + wg * SW_XT;
+  wk.gs = base + C::G + wg * SW_GT;
+  wk.xg = sm + C::X + wg * SW_XT;
+  wk.gg = sm + C::G + wg * SW_GT;
+  // voxel: the column sums in the input tile, spent in the reverse sweep
+  wk.col = VOX ? reinterpret_cast<float*>(wk.xg)
+               : reinterpret_cast<float*>(sm + C::COL) + wg * C::NCOL;
+  wk.dpr = reinterpret_cast<float*>(sm + C::DPR) + wg * C::NDPR;
+  wk.db = reinterpret_cast<float*>(sm + C::DB) + wg * C::NDB;
+  wk.P = reinterpret_cast<float*>(sm + C::P) + wg * C::NP;
+  wk.dv = reinterpret_cast<float*>(sm + C::DV) + wg * C::NDV;
+  SweepIn in{xyz, dir_pe, codes, vox, g, w, b, ct, vd, n_rays, S, n_freq, c_dir, code_len,
+             wt.v[W_COLS], wt.v[W_X]};
   const int pe = 3 * (2 * n_freq + 1);
+  VoxCols vc;
+  vc.o_ivox = vd.c_s * (1 + 2 * vd.n_fv) + pe;
+  vc.o_code = vc.o_ivox + vd.c_i * (1 + 2 * vd.n_fv);
+  const BranchWs o_scene = branch_ws(wt, 0), o_obj = branch_ws(wt, 1);
   const int cv = vd.c_s + vd.c_i;
-  VoxTile vt;
-  vt.xg = nullptr;
-  vt.ld = ld;
-  vt.raw = nullptr;
-  vt.d = vd;
-  vt.o_ivox = vd.c_s * (1 + 2 * vd.n_fv) + pe;
-  vt.o_code = vt.o_ivox + vd.c_i * (1 + 2 * vd.n_fv);
-  vt.code_len = code_len;
+  float* gp = small + (size_t)(2 * blockIdx.x + wg) * small_stride;
+  FwdPipe<C> p{base + C::RING, full, empty, 0, 0};
+  FwdRegs regs;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = tile == (int)blockIdx.x;
-    bf16* wsr = ws + (size_t)tile * ROWS * ld;
-    __syncthreads();  // the previous tile is done with X, H and its sums
+    wk.g0 = (long long)tile * ROWS + 64 * wg;
+    wk.real = (int)max(0LL, min(64LL, (long long)n_rays * S - wk.g0));
+    wk.ws = ws + (size_t)wk.g0 * in.ld;
+    wg_bar(wk.bar);  // the warpgroup's previous tile is done with its buffers
     if (VOX) {
-      // the tile into the workspace (staged through H, free until the first
-      // epilogue); the object branch reads the scene's columns too
-      vt.xg = wsr + wt.v[W_X];
-      load_inputs_vox(tile, xyz, vox, codes, (long long)n_rays * S, S, n_freq, vd, code_len,
-                      forward_instance != 0, wt.v[W_XC], wsr + wt.v[W_X],
-                      reinterpret_cast<float*>(s.H), ld);
-      vt.raw = vox + (size_t)tile * ROWS * cv;
-      for (int e = threadIdx.x; e < ROWS * MAX_VOX; e += THREADS) s.dv[e] = 0.f;
-      for (int e = threadIdx.x; e < MAX_R * XCOLS; e += THREADS) s.P[e] = 0.f;
+      build_vox(in, wk, wt.v[W_XC], forward_instance != 0);
+      for (int e = wk.t; e < 64 * cv; e += 128) wk.dv[(e / cv) * MAX_VOX + e % cv] = 0.f;
     } else {
-      // xyz staged through H, free until the first epilogue
-      load_inputs(tile, xyz, forward_instance ? codes : nullptr, n_rays, S, n_freq, code_len,
-                  s.X, reinterpret_cast<float*>(s.H));
-      tile_store(s.X, LDX, wsr + wt.v[W_X], ld, wt.v[W_XC]);
+      build_classical(in, wk, wt.v[W_XC], forward_instance != 0);
     }
-    branch_backward<WS, VOX>(tile, 0, scene, gscene, &maps.m[0], w, b, dir_pe, g, gp, wsr, ld,
-                             o_scene, s, vt, n_rays, S, c_dir, first);
+    branch_backward<WS, VOX, C>(0, scene, gscene, in, vc, o_scene, wk, gp, first, p, regs);
     if (forward_instance) {
-      // the scene's reverse sweep staged weights in X: the tile again
-      if (!VOX) tile_load(s.X, LDX, wsr + wt.v[W_X], ld, wt.v[W_XC]);
-      branch_backward<WO, VOX>(tile, 1, obj, gobj, &maps.m[WM_PER_BRANCH], w, b, dir_pe, g, gp,
-                               wsr, ld, o_obj, s, vt, n_rays, S, c_dir, first);
+      branch_backward<WO, VOX, C>(1, obj, gobj, in, vc, o_obj, wk, gp, first, p, regs);
       // d_codes[ray] = the code columns of the input gradient, summed over the
-      // ray's rows (in 16-row groups in order, or per ray for VOX)
+      // ray's rows (in 16-row groups in order, or per ray and warpgroup): the
+      // other warpgroup's sums too. The ring keeps the warpgroups within
+      // C::STAGES chunks of each other, far less than a tile's before the
+      // next write of the sums.
+      asm volatile("bar.sync 3, 256;" ::: "memory");
+      const float* P = reinterpret_cast<const float*>(sm + C::P);
       const int gpr = S / 16;
-      for (int e = threadIdx.x; e < R * code_len; e += THREADS) {
+      for (int e = threadIdx.x - 128; e < R * code_len; e += 256) {
         const int rho = e / code_len, c = e % code_len;
         const int ray = tile * R + rho;
         if (ray >= n_rays) continue;
         float acc = 0.f;
-        if (VOX)
-          acc = s.P[rho * XCOLS + c];
-        else
-          for (int q = rho * gpr; q < (rho + 1) * gpr; ++q) acc += s.P[q * XCOLS + pe + c];
+        for (int q = rho * gpr; q < (rho + 1) * gpr; ++q) acc += P[q * XCOLS + (VOX ? 0 : pe) + c];
         d_codes[(size_t)ray * code_len + c] = acc;
       }
     }
     if (VOX) {  // each row of d_vox written once
-      for (int e = threadIdx.x; e < ROWS * cv; e += THREADS) {
+      wg_bar(wk.bar);  // every thread's sums are in
+      for (int e = wk.t; e < 64 * cv; e += 128) {
         const int r = e / cv, ch = e % cv;
-        if (tile * R + r / S >= n_rays) continue;
-        d_vox[((size_t)tile * ROWS + r) * cv + ch] = s.dv[r * MAX_VOX + ch];
+        if (r < wk.real) d_vox[(wk.g0 + r) * cv + ch] = wk.dv[r * MAX_VOX + ch];
       }
     }
   }
@@ -1014,23 +1259,33 @@ int launch_mlp_bwd(const float* xyz, const float* dir_pe, const float* codes,
                    const float* vox, VoxDims vd, const float* g, const void* w,
                    const float* b, const int* scene_tab, const int* obj_tab,
                    const int* gscene_tab, const int* gobj_tab, const int* ws_tab,
-                   const int* wmap_tab, void* ws, int ws_rows, float* small, int small_stride,
-                   const int* items, int n_items, float* parts, const int* segs, int n_segs,
-                   float* grads, float* d_codes, float* d_vox, int n_blocks, int n_rays, int S,
-                   int n_freq, int c_dir, int code_len, int forward_instance, void* stream) {
+                   const int* wmap_tab, const unsigned* chunks, int n_chunks, void* ws,
+                   int ws_rows, float* small, int small_stride, const int* items, int n_items,
+                   float* parts, const int* segs, int n_segs, float* grads, float* d_codes,
+                   float* d_vox, int n_blocks, int n_rays, int S, int n_freq, int c_dir,
+                   int code_len, int forward_instance, void* stream) {
+  using C = SweepCfg<VOX>;
   const cudaStream_t st = (cudaStream_t)stream;
   const WsTab wt = to_ws(ws_tab);
-  SweepMaps maps;
-  cudaError_t e = (cudaError_t)encode_sweep_maps(w, wmap_tab, &maps);
+  // the products' input widths are compiled in; a warpgroup's 64 rows hold
+  // whole rays or whole halves of one (S in {32, 64, 128})
+  if (scene_tab[T_K0] != branch_k0<VOX, WS>() ||
+      (forward_instance && (obj_tab == nullptr || obj_tab[T_K0] != branch_k0<VOX, WO>())) ||
+      S < 32 || ROWS % S != 0 || n_chunks <= 0 || chunks == nullptr ||
+      (VOX && vd.c_s + vd.c_i > MAX_VOX))
+    return (int)cudaErrorInvalidValue;
+  SweepPlan plan;
+  cudaError_t e = (cudaError_t)encode_sweep_maps(w, wmap_tab, &plan.maps, FWD_STAGE);
   if (e != cudaSuccess) return (int)e;
-  constexpr int BYTES = VOX ? SMEM_BWD_V : SMEM_BWD;
+  for (int i = 0; i < WM_LEN; ++i) plan.cols[i] = (unsigned short)wmap_tab[3 * i + 2];
   e = cudaFuncSetAttribute(mlp_bwd_kernel<VOX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           BYTES);
+                           C::BYTES);
   if (e != cudaSuccess) return (int)e;
-  mlp_bwd_kernel<VOX><<<n_blocks, THREADS, BYTES, st>>>(
-      maps, xyz, dir_pe, codes, vox, vd, g, static_cast<const bf16*>(w), b, to_tab(scene_tab),
-      to_tab(obj_tab), to_tab(gscene_tab), to_tab(gobj_tab), wt, static_cast<bf16*>(ws), small,
-      small_stride, d_codes, d_vox, n_rays, S, n_freq, c_dir, code_len, forward_instance);
+  mlp_bwd_kernel<VOX><<<n_blocks, SW_THREADS, C::BYTES, st>>>(
+      plan, chunks, n_chunks, xyz, dir_pe, codes, vox, vd, g, static_cast<const bf16*>(w), b,
+      to_tab(scene_tab), to_tab(obj_tab), to_tab(gscene_tab), to_tab(gobj_tab), wt,
+      static_cast<bf16*>(ws), small, small_stride, d_codes, d_vox, n_rays, S, n_freq, c_dir,
+      code_len, forward_instance);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   e = (cudaError_t)launch_wgrad(ws, ws_rows, wt.v[W_COLS], items, n_items, parts, st);
@@ -1051,20 +1306,22 @@ extern "C" {
 
 // The backward in three launches (fused_mlp_bwd in fused_mlp_vjp.py builds
 // every table): the sweep on n_blocks blocks, reading the weights through
-// the tensor maps of wmap_tab (WM_LEN x 3 ints), writing the workspace `ws`
-// (ws_rows rows, ws_tab's layout) and each block's small partial (`small`,
-// small_stride floats per block, at the offsets of gscene_tab / gobj_tab);
-// the weight-gradient GEMM, one block per item of `items` (n_items x 8
-// ints), writing its partial into `parts`; the reduction of the segments of
-// `segs` (n_segs x 5 ints) from `parts` (which holds `small` too) into
-// `grads` (the packed weight layout, then the biases). d_codes (n_rays,
-// code_len); d_vox (n_rays * S, c_svox + c_ivox) when `vox` is given.
+// the tensor maps of wmap_tab (WM_LEN x 3 ints) in the chunk order `chunks`
+// (n_chunks per tile, device memory; sweep_chunks), writing the workspace
+// `ws` (ws_rows rows, ws_tab's layout) and each warpgroup's small partial
+// (`small`, small_stride floats per warpgroup, two per block, at the offsets
+// of gscene_tab / gobj_tab); the weight-gradient GEMM, one block per item of
+// `items` (n_items x 8 ints), writing its partial into `parts`; the
+// reduction of the segments of `segs` (n_segs x 5 ints) from `parts` (which
+// holds `small` too) into `grads` (the packed weight layout, then the
+// biases). d_codes (n_rays, code_len); d_vox (n_rays * S, c_svox + c_ivox)
+// when `vox` is given.
 int onerf_mlp_bwd(const float* xyz, const float* dir_pe, const float* codes,
                   const float* vox, const float* g, const void* w, const float* b,
                   const int* scene_tab, const int* obj_tab, const int* gscene_tab,
-                  const int* gobj_tab, const int* ws_tab, const int* wmap_tab, void* ws,
-                  int ws_rows, float* small, int small_stride, const int* items, int n_items,
-                  float* parts,
+                  const int* gobj_tab, const int* ws_tab, const int* wmap_tab,
+                  const unsigned* chunks, int n_chunks, void* ws, int ws_rows, float* small,
+                  int small_stride, const int* items, int n_items, float* parts,
                   const int* segs, int n_segs, float* grads, float* d_codes, float* d_vox,
                   int n_blocks, int n_rays, int S, int n_freq, int c_dir, int code_len,
                   int forward_instance, int c_svox, int c_ivox, int n_freq_vox,
@@ -1072,15 +1329,23 @@ int onerf_mlp_bwd(const float* xyz, const float* dir_pe, const float* codes,
   const VoxDims vd = {c_svox, c_ivox, n_freq_vox};
   if (vox != nullptr)
     return launch_mlp_bwd<true>(xyz, dir_pe, codes, vox, vd, g, w, b, scene_tab, obj_tab,
-                                gscene_tab, gobj_tab, ws_tab, wmap_tab, ws, ws_rows, small,
-                                small_stride, items, n_items, parts, segs, n_segs, grads,
-                                d_codes, d_vox, n_blocks, n_rays, S, n_freq, c_dir, code_len,
-                                forward_instance, stream);
+                                gscene_tab, gobj_tab, ws_tab, wmap_tab, chunks, n_chunks, ws,
+                                ws_rows, small, small_stride, items, n_items, parts, segs,
+                                n_segs, grads, d_codes, d_vox, n_blocks, n_rays, S, n_freq,
+                                c_dir, code_len, forward_instance, stream);
   return launch_mlp_bwd<false>(xyz, dir_pe, codes, vox, vd, g, w, b, scene_tab, obj_tab,
-                               gscene_tab, gobj_tab, ws_tab, wmap_tab, ws, ws_rows, small,
-                               small_stride, items, n_items, parts, segs, n_segs, grads,
-                               d_codes, d_vox, n_blocks, n_rays, S, n_freq, c_dir, code_len,
-                               forward_instance, stream);
+                               gscene_tab, gobj_tab, ws_tab, wmap_tab, chunks, n_chunks, ws,
+                               ws_rows, small, small_stride, items, n_items, parts, segs,
+                               n_segs, grads, d_codes, d_vox, n_blocks, n_rays, S, n_freq,
+                               c_dir, code_len, forward_instance, stream);
+}
+
+// The sweep's layout (SweepCfg) in mlp_bwd_kernel<vox>: its weight-ring
+// stages (FWD_STAGE bytes each) and its dynamic shared memory.
+int onerf_bwd_sweep_layout(int vox, int* stages, int* smem_bytes) {
+  *stages = vox ? SweepCfg<true>::STAGES : SweepCfg<false>::STAGES;
+  *smem_bytes = vox ? SweepCfg<true>::BYTES : SweepCfg<false>::BYTES;
+  return 0;
 }
 
 // The weight-gradient kernel alone (fused_mlp_bwd's second launch): for each

@@ -94,8 +94,9 @@ namespace {
 // (sweep_weight_maps in fwd_chain.py gives each one's element offset in
 // the packed weights, rows and columns): per branch, trunk layer i at slot
 // i, `final` at WM_FIN, the direction layer's hidden part at WM_DIR; each a
-// row-major bf16 view read in boxes of 64 columns in the 128-byte swizzle
-// (64 rows for the sweep and the classical forward, 32 for the voxel forward).
+// row-major bf16 view read in boxes of 64 columns in the 128-byte swizzle,
+// as many rows as make a row of boxes across the matrix one ring stage
+// (FWD_STAGE bytes: 32 rows of a 256-column matrix, 64 of a 128-column one).
 enum { WM_FIN = 8, WM_DIR = 9, WM_PER_BRANCH = 10, WM_LEN = 2 * WM_PER_BRANCH };
 struct SweepMaps {
   CUtensorMap m[WM_LEN];
@@ -219,18 +220,6 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_
                : "l"(da), "l"(db), "r"(1));
 }
 
-// d[64 x 64] += A B on one warpgroup: A (64 x 16, K-major) in registers as
-// ldmatrix gives it, B (16 x 64) in shared memory, MN-major when TB is 1
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-               ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-               : WG_ACC32(d)
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
-}
-
-
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -257,10 +246,9 @@ EncodeTiled encode_tiled() {
 
 // The sweep's weight maps over the packed weights `w`: `tab` holds WM_LEN
 // (element offset, rows, columns) triples, rows 0 for a slot no matrix
-// takes (its map stays zero and is never read); boxes of 64 columns x 64
-// rows, or, given `row_bytes`, as many rows as make a row of boxes across the
-// matrix that many bytes.
-int encode_sweep_maps(const void* w, const int* tab, SweepMaps* maps, int row_bytes = 0) {
+// takes (its map stays zero and is never read); boxes of 64 columns x as
+// many rows as make a row of boxes across the matrix `row_bytes` bytes.
+int encode_sweep_maps(const void* w, const int* tab, SweepMaps* maps, int row_bytes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   memset(maps, 0, sizeof(*maps));
@@ -269,7 +257,7 @@ int encode_sweep_maps(const void* w, const int* tab, SweepMaps* maps, int row_by
     if (rows == 0) continue;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-    const int box_rows = row_bytes > 0 ? row_bytes / 2 / cols : 64;
+    const int box_rows = row_bytes / 2 / cols;
     const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, unit[2] = {1, 1};
     if (encode(&maps->m[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                const_cast<bf16*>(static_cast<const bf16*>(w)) + off, dims, strides, box, unit,
@@ -440,29 +428,33 @@ __device__ __forceinline__ uint64_t desc_mn_wide(uint32_t addr, uint32_t nblock)
   "%123, %124, %125, %126, %127}"
 
 // d[64 x N] += A B on one warpgroup: A (64 x 16) K-major and B (16 x N)
-// MN-major, both in shared memory; N = 2 x the accumulator registers
+// MN-major (TB 1) or K-major (TB 0: N rows of 16 K values, the backward's
+// products by W^T), both in shared memory; N = 2 x the accumulator registers
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_kn(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_REGS128
-               ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+               ", %128, %129, p, 1, 1, 0, %131;\n}\n"
                : WG_ACC128(d)
-               : "l"(da), "l"(db), "r"(1));
+               : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_kn(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
-               ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+               ", %64, %65, p, 1, 1, 0, %67;\n}\n"
                : WG_ACC64(d)
-               : "l"(da), "l"(db), "r"(1));
+               : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_kn(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-               ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+               ", %32, %33, p, 1, 1, 0, %35;\n}\n"
                : WG_ACC32(d)
-               : "l"(da), "l"(db), "r"(1));
+               : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
 // d[64 x N] += A B on one warpgroup: A (64 x 16) in registers, the bf16

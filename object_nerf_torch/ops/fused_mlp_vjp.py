@@ -32,9 +32,11 @@ every product input and rounded d_pre of the weight gradients into a
 row-major workspace (`bwd_workspace_layout`), a split-K GEMM over a work list
 (`wgrad_work_list`) that contracts them over all rows, and a reduction that
 adds the partial sums in a fixed order (`bwd_plan` puts the three together).
-The layout and the work list are built here, where the CPU tests reach them,
-and passed to the kernels as small tables; the sweep reads the weights
-through the forward chain's tensor maps (`fwd_chain.sweep_weight_maps`).
+The layout, the work list and the sweep's chunk order (`sweep_chunks`) are
+built here, where the CPU tests reach them, and passed to the kernels as
+small tables; the sweep's producer streams the weights through the forward
+chain's tensor maps (`fwd_chain.sweep_weight_maps`) in that order, and
+`sweep_layout` reads its ring's depth from the built library.
 
 A voxel-conditioned model takes `voxel_raw` (n, S, 16 + 8), the raw trilinear
 features of its samples, as the eval kernels do: the input row is
@@ -56,10 +58,11 @@ from ..models.mlp import LEAKY_SLOPE, ObjectNeRF, ObjectNeRFConfig, embed_inputs
 from . import fwd_chain
 from .fused_mlp import launch_counts
 from .fwd_chain import (
-    BRANCH_WIDTHS, MAX_DIR, SWEEP_MAPS_PER_BRANCH, T_DEPTH, T_DIRB, T_DIRWD, T_DIRWH,
-    T_FINB, T_FINW, T_K0, T_LEN, T_RGBB, T_RGBW, T_SIGB, T_SIGW, T_SKIPS, T_TB, T_TW,
-    PackedWeights, _check_launch, _check_tensor, _check_voxel_raw, _ptr, _run_branches, _tab,
-    check_voxel_operand, input_tile_columns, pack_kernel_weights, sweep_weight_maps,
+    BRANCH_WIDTHS, MAX_DIR, SWEEP_BOX, SWEEP_MAPS_PER_BRANCH, T_DEPTH, T_DIRB, T_DIRWD,
+    T_DIRWH, T_FINB, T_FINW, T_K0, T_LEN, T_RGBB, T_RGBW, T_SIGB, T_SIGW, T_SKIPS, T_TB,
+    T_TW, PackedWeights, _check_launch, _check_tensor, _check_voxel_raw, _ptr, _run_branches,
+    _tab, check_voxel_operand, forward_chunk_rows, input_tile_columns, pack_kernel_weights,
+    sweep_weight_maps,
 )
 
 MLPOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -406,17 +409,127 @@ def sweep_partials(packed: PackedWeights, forward_instance: bool = True):
     return gtabs, off + (-off) % 4, entries
 
 
+def _input_grad_columns(cfg: ObjectNeRFConfig) -> Tuple[int, int]:
+    """The voxel sweep's input-gradient columns with a consumer, per branch:
+    the scene voxel piece [svox | PE(svox)], and for the object branch every
+    column up to the code's last (the scene's voxel piece, the instance
+    piece, the code)."""
+    c_s, c_i, nf = cfg.N_scn_voxel_size, cfg.N_obj_voxel_size, cfg.N_freq_voxel
+    scene = c_s * (1 + 2 * nf)
+    obj = scene + 3 * (2 * cfg.N_freq_xyz + 1) + c_i * (1 + 2 * nf) + cfg.N_obj_code_length
+    return scene, obj
+
+
+SWEEP_D = 64  # output columns of one voxel input-gradient product (SW_D in the source)
+
+
+def sweep_chunks(packed: PackedWeights, cfg: ObjectNeRFConfig,
+                 forward_instance: bool = True) -> List[Tuple[int, int, int, int, int]]:
+    """The weight chunks of one tile of the backward's sweep, in the order its
+    producer loads them and each consumer warpgroup reads them: `(slot, x, y,
+    nx, ny)`, nx x ny TMA boxes of the `sweep_weight_maps` matrix in slot
+    `slot` (64 columns by `forward_chunk_rows(cols)` rows each, as the forward
+    chain reads it), box (bx, by) from column x + 64 bx, row y + by rows;
+    every chunk is FWD_STAGE_BYTES. Per branch that runs: the forward
+    recompute's products by W, as the forward chain's chunks (rows of W with
+    all their columns: trunk layer 0, each later layer with a skip layer's
+    input rows first, `final`, the direction layer), then the reverse
+    sweep's products by W^T, K-major (per 64 columns of W, 128 of its rows;
+    for 64 output columns, 64 rows by 128 columns): `final`'s d_pre by the
+    direction layer, the last layer's d_h by `final`, then from the last
+    trunk layer down, for layer 0 and a skip layer the input gradient
+    (voxel: both branches, SWEEP_D input columns at a time, up to the last
+    column that has a consumer; classical: the object branch's 128, for the
+    codes), and for every layer but 0 the d_h of the layer below by its
+    hidden rows. The order does not depend on the data, so the
+    producer runs ahead across products, layers, branches and tiles."""
+    maps = sweep_weight_maps(packed, forward_instance)
+    voxel = cfg.use_voxel_embedding
+    hi = _input_grad_columns(cfg)
+    out: List[Tuple[int, int, int, int, int]] = []
+
+    def by_w(slot: int, r0: int, k: int) -> None:  # rows [r0, r0 + k) of W
+        cols = maps[slot][2]
+        out.extend((slot, 0, r, cols // SWEEP_BOX[0], 1)
+                   for r in range(r0, r0 + k, forward_chunk_rows(cols)))
+
+    def by_wt(slot: int, r0: int, k: int, nout: int) -> None:  # W[r0:r0 + nout, 0:k]^T
+        box_rows = forward_chunk_rows(maps[slot][2])
+        if nout >= 128:
+            out.extend((slot, kb, r0 + 128 * h, 1, 128 // box_rows)
+                       for kb in range(0, k, 64) for h in range(nout // 128))
+        else:
+            out.extend((slot, kb, r0, 2, nout // box_rows) for kb in range(0, k, 128))
+
+    for bi, tab in enumerate(_run_branches(packed, forward_instance)):
+        base, width, k0, depth = (bi * SWEEP_MAPS_PER_BRANCH, BRANCH_WIDTHS[bi], tab[T_K0],
+                                  tab[T_DEPTH])
+
+        def skip(i: int) -> bool:
+            return i > 0 and bool((tab[T_SKIPS] >> i) & 1)
+
+        for i in range(depth):
+            if i == 0 or skip(i):
+                by_w(base + i, 0, k0)
+            if i > 0:
+                by_w(base + i, k0 if skip(i) else 0, width)
+        by_w(base + 8, 0, width)
+        by_w(base + 9, 0, width)
+        by_wt(base + 9, 0, width // 2, width)
+        by_wt(base + 8, 0, width, width)
+        for i in reversed(range(depth)):
+            if i == 0 or skip(i):
+                if voxel:
+                    for c0 in range(0, min(hi[bi], k0), SWEEP_D):
+                        by_wt(base + i, c0, width, SWEEP_D)
+                elif bi == 1:
+                    by_wt(base + i, 0, width, 128)
+                if i == 0:
+                    break
+            by_wt(base + i, k0 if skip(i) else 0, width, width)
+    return out
+
+
+def pack_sweep_chunks(chunks: List[Tuple[int, int, int, int, int]]) -> List[int]:
+    """The kernel's words of `sweep_chunks`: slot | x / 64 << 5 | y / 16 << 8 |
+    (nx - 1) << 19 | (ny - 1) << 21."""
+    words = []
+    for slot, x, y, nx, ny in chunks:
+        if not (0 <= slot < 32 and x % 64 == 0 and 0 <= x < 512 and y % 16 == 0
+                and 0 <= y < 32768 and 1 <= nx <= 4 and 1 <= ny <= 4):
+            raise ValueError(f"chunk {(slot, x, y, nx, ny)} does not fit the kernel's word")
+        words.append(slot | (x // 64) << 5 | (y // 16) << 8 | (nx - 1) << 19 | (ny - 1) << 21)
+    return words
+
+
+def sweep_layout(voxel: bool) -> Tuple[int, int]:
+    """(weight-ring stages, dynamic shared memory bytes) of the backward's
+    sweep for the voxel-conditioned or the classical model, as the built
+    library lays it out (FWD_STAGE_BYTES a stage). Builds the library on
+    first use; launches nothing."""
+    from ._build import check, load_library
+
+    lib = load_library()
+    stages, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.onerf_bwd_sweep_layout(int(voxel), ctypes.addressof(stages),
+                                    ctypes.addressof(smem))
+    check(lib, rc, "sweep_layout")
+    return stages.value, smem.value
+
+
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """Everything one backward launch needs besides its inputs: the
-    workspace layout, the weight-gradient work list, the sweep's weight maps
-    and gradient tables and partial stride, and the reduction segments
-    `[dst, len, src, stride, n_parts]` over `parts` (the work list's
-    partials, then `n_blocks` sweep partials from `small_base`)."""
+    workspace layout, the weight-gradient work list, the sweep's weight maps,
+    chunk order (`pack_sweep_chunks` words) and gradient tables and partial
+    stride, and the reduction segments `[dst, len, src, stride, n_parts]`
+    over `parts` (the work list's partials, then two sweep partials per block,
+    one per consumer warpgroup, from `small_base`)."""
 
     layout: BwdLayout
     work: WgradWork
     weight_maps: List[Tuple[int, int, int]]
+    chunks: List[int]
     gtabs: List[List[int]]
     small_base: int
     small_stride: int
@@ -425,7 +538,7 @@ class BwdPlan:
 
     @property
     def n_parts(self) -> int:
-        return self.small_base + self.n_blocks * self.small_stride
+        return self.small_base + 2 * self.n_blocks * self.small_stride
 
 
 def bwd_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: int,
@@ -436,9 +549,10 @@ def bwd_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: in
     work = wgrad_work_list(packed, layout, n_sm, forward_instance)
     gtabs, stride, entries = sweep_partials(packed, forward_instance)
     small_base = work.n_floats + (-work.n_floats) % 4
-    segments = list(work.segments) + [[dst, length, small_base + off, stride, n_blocks]
+    segments = list(work.segments) + [[dst, length, small_base + off, stride, 2 * n_blocks]
                                       for dst, off, length in entries]
-    return BwdPlan(layout, work, sweep_weight_maps(packed, forward_instance), gtabs,
+    return BwdPlan(layout, work, sweep_weight_maps(packed, forward_instance),
+                   pack_sweep_chunks(sweep_chunks(packed, cfg, forward_instance)), gtabs,
                    small_base, stride, n_blocks, segments)
 
 
@@ -483,17 +597,19 @@ _plans: Dict[tuple, tuple] = {}
 
 def _device_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: int,
                  n_blocks: int, forward_instance: bool, device):
-    """`bwd_plan` with its work list and segments as int32 tensors on the
-    card, made once per shape (a training run has two)."""
+    """`bwd_plan` with its work list, segments and sweep chunks as int32
+    tensors on the card, made once per shape (a training run has two)."""
     key = (tuple(packed.scene), tuple(packed.obj or ()), packed.w.numel(),
-           input_tile_columns(cfg), n_rows, n_sm, n_blocks, forward_instance, str(device))
+           input_tile_columns(cfg), _input_grad_columns(cfg), n_rows, n_sm, n_blocks,
+           forward_instance, str(device))
     if key not in _plans:
         if len(_plans) >= 16:
             _plans.clear()
         plan = bwd_plan(packed, cfg, n_rows, n_sm, n_blocks, forward_instance)
         _plans[key] = (plan,
                        torch.tensor(plan.work.items, dtype=torch.int32, device=device),
-                       torch.tensor(plan.segments, dtype=torch.int32, device=device))
+                       torch.tensor(plan.segments, dtype=torch.int32, device=device),
+                       torch.tensor(plan.chunks, dtype=torch.int32, device=device))
     return _plans[key]
 
 
@@ -603,8 +719,8 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
     n_rows = -(-n // (TILE_ROWS // s)) * TILE_ROWS
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_blocks = min(n_rows // TILE_ROWS, n_sm)
-    plan, items, segs = _device_plan(packed, cfg, n_rows, n_sm, n_blocks, forward_instance,
-                                     device)
+    plan, items, segs, chunks = _device_plan(packed, cfg, n_rows, n_sm, n_blocks,
+                                             forward_instance, device)
     layout = plan.layout
     nw, nb = packed.w.numel(), packed.b.numel()
     ws = torch.empty((layout.rows, layout.cols), dtype=torch.bfloat16, device=device)
@@ -618,7 +734,8 @@ def fused_mlp_bwd(model: ObjectNeRF, cfg: ObjectNeRFConfig, xyz: torch.Tensor,
             _tab(packed.scene), _tab(packed.obj) if forward_instance else None,
             _tab(plan.gtabs[0]), gobj, (ctypes.c_int * WS_TAB_LEN)(*layout.tab()),
             (ctypes.c_int * (6 * SWEEP_MAPS_PER_BRANCH))(*sum(plan.weight_maps, ())),
-            ws.data_ptr(), layout.rows, parts[plan.small_base:].data_ptr(), plan.small_stride,
+            chunks.data_ptr(), chunks.shape[0], ws.data_ptr(), layout.rows,
+            parts[plan.small_base:].data_ptr(), plan.small_stride,
             items.data_ptr(), items.shape[0], parts.data_ptr(), segs.data_ptr(),
             segs.shape[0], flat.data_ptr(), d_codes.data_ptr(), _ptr(d_vox), n_blocks, n, s,
             cfg.N_freq_xyz, cfg.in_channels_dir, cfg.N_obj_code_length, int(forward_instance),

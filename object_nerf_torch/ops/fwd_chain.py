@@ -209,7 +209,7 @@ def pack_kernel_weights(model: ObjectNeRF, cfg: ObjectNeRFConfig,
 
 BRANCH_WIDTHS = (SCENE_W, OBJ_W)
 SWEEP_MAPS_PER_BRANCH = 10  # enum WM_*: trunk layers 0-7, `final`, the direction layer
-SWEEP_BOX = (64, 64)  # the backward sweep's weight boxes: (columns, rows), bf16
+SWEEP_BOX = (64, 64)  # a weight box's columns; every map's rows are multiples of the second
 
 # the chain's modes (FWD_* in csrc/fused_mlp_wg.cuh), in their order
 CHAIN_MODES = ("eval", "render", "weights", "sigma_scene", "sigma_obj")

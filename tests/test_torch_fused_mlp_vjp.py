@@ -36,6 +36,8 @@ from object_nerf_torch.ops import fused_mlp_vjp as fv
 from object_nerf_torch.ops import fwd_chain as fc
 from object_nerf_torch.train.convert import from_jax_grads, from_jax_params
 
+from test_torch_fwd_chain import SMEM, SWEEP_STAGES, SWEEP_STAGES_BEFORE, sweep_smem
+
 torch.set_num_threads(2)
 
 SMALL = dict(D=3, W=32, skips=(1,), inst_D=2, inst_W=16, inst_skips=(1,),
@@ -261,12 +263,18 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
     zero-padded past the last ray, block b taking tiles b, b + n_blocks, ...:
     it writes the input tile, every activation and every rounded d_pre into
     the workspace at the layout's columns, and adds the bias and small-head
-    gradients into its block's compact partial. Then every item of the work
+    gradients of each 64 rows into their consumer warpgroup's compact partial
+    (2 b for rows 0-63 of a tile, 2 b + 1 for rows 64-127). Every product
+    takes its weight operand from the sweep's chunk order (`plan.chunks`),
+    chunk by chunk as the producer loads it, the boxes of each chunk cut
+    out of the packed weights by its tensor map, and each tile uses up the
+    order exactly. Then every item of the work
     list writes act^T @ d_pre over its slice of rows into its own partial,
     and each reduction segment adds its partials in order. Returns
     (gradients by name, d_codes, d_voxel_raw or None)."""
     n, s, _ = xyz.shape
     rays_per_tile = 128 // s
+    ray_of = torch.arange(128) // s  # a tile row's ray
     n_tiles = -(-n // rays_per_tile)
     plan = fv.bwd_plan(packed, cfg, n_tiles * 128, n_sm, n_blocks, True)
     lay = plan.layout
@@ -290,78 +298,123 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
     def slope(act, d):
         return torch.where(act >= 0, d, 0.01 * d)
 
-    def branch(bi, tab, gt, width, X, dirs, gs, gr, wsr, part, want_dcat):
+    def mat(off, rows, cols):
+        return w[off:off + rows * cols].reshape(rows, cols)
+
+    def chunk_boxes():
+        """The next chunk of the tile's order: (slot, its boxes stacked as
+        the stage holds them, (x, y, nx, ny, box rows))."""
+        word = chunks.pop(0)
+        slot, x, y = word & 31, 64 * ((word >> 5) & 7), 16 * ((word >> 8) & 2047)
+        nx, ny = ((word >> 19) & 3) + 1, ((word >> 21) & 3) + 1
+        off, rows, cols = plan.weight_maps[slot]
+        box_rows = fc.forward_chunk_rows(cols)
+        assert rows > 0 and nx * ny * box_rows * 128 == fc.FWD_STAGE_BYTES
+        assert x + 64 * nx <= cols and y + ny * box_rows <= rows
+        return slot, mat(off, rows, cols), (x, y, nx, ny, box_rows)
+
+    def take_w(slot, r0, k):
+        """W[r0:r0 + k, :] of map `slot`, row chunks (all columns) at a time."""
+        got = []
+        while sum(c.shape[0] for c in got) < k:
+            sl, m, (x, y, nx, ny, br) = chunk_boxes()
+            assert sl == slot and x == 0 and nx * 64 == m.shape[1] and ny == 1
+            assert y == r0 + sum(c.shape[0] for c in got)
+            got.append(m[y:y + br])
+        return torch.cat(got)
+
+    def take_wt(slot, r0, nout, k):
+        """W[r0:r0 + nout, 0:k] of map `slot`, K-major chunks: per 64 columns
+        128 rows, or for 64 rows two blocks of 64 columns."""
+        out = torch.full((nout, k), float("nan"))
+        for k0 in range(0, k, 64 if nout >= 128 else 128):
+            for h in range(max(1, nout // 128)):
+                sl, m, (x, y, nx, ny, br) = chunk_boxes()
+                assert sl == slot and x == k0 and y == r0 + 128 * h
+                assert ny * br == min(nout, 128) and nx == (1 if nout >= 128 else 2)
+                out[128 * h:128 * h + ny * br, x:x + 64 * nx] = m[y:y + ny * br, x:x + 64 * nx]
+        assert not out.isnan().any()
+        return out
+
+    hi_cols = fv._input_grad_columns(cfg)
+
+    def branch(bi, tab, gt, width, X, dirs, gs, gr, wsr, part_wg, want_dcat):
         act, fin, gcol, gfin, gdir = lay.branches[bi]
+        base = bi * fc.SWEEP_MAPS_PER_BRANCH
 
-        def mat(off, rows, cols):
-            return w[off:off + rows * cols].reshape(rows, cols)
-
-        def wmap(slot):  # a matrix the sweep multiplies by, as its tensor map views it
-            off, rows, cols = plan.weight_maps[bi * fc.SWEEP_MAPS_PER_BRANCH + slot]
-            return mat(off, rows, cols)
-
-        def add(key, val):
-            part[gt[key]:gt[key] + val.numel()] += val.reshape(-1)
+        def add(key, f):  # f(rows) over each warpgroup's 64 rows, into its partial
+            for h, part in enumerate(part_wg):
+                val = f(slice(64 * h, 64 * h + 64))
+                part[gt[key]:gt[key] + val.numel()] += val.reshape(-1)
 
         k0, depth, nd = tab[fc.T_K0], tab[fc.T_DEPTH], width // 2
         skips = [i for i in range(depth) if (tab[fc.T_SKIPS] >> i) & 1]
         hs, h = [], None
         for i in range(depth):
             if i == 0:
-                acc = X[:, :k0] @ wmap(i)
+                acc = X[:, :k0] @ take_w(base + i, 0, k0)
             elif i in skips:
-                acc = X[:, :k0] @ wmap(i)[:k0] + h @ wmap(i)[k0:]
+                acc = X[:, :k0] @ take_w(base + i, 0, k0) + h @ take_w(base + i, k0, width)
             else:
-                acc = h @ wmap(i)
+                acc = h @ take_w(base + i, 0, width)
             h = bf(lrelu(acc + b[tab[fc.T_TB + i]:tab[fc.T_TB + i] + width]))
             hs.append(h)
             wsr[:, act + i * width:act + (i + 1) * width] = h
-        hf = bf(h @ wmap(8) + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width])
+        hf = bf(h @ take_w(base + 8, 0, width) + b[tab[fc.T_FINB]:tab[fc.T_FINB] + width])
         wsr[:, fin:fin + width] = hf
         wdd = mat(tab[fc.T_DIRWD], fc.MAX_DIR, nd)
         dbias = bf(dirs) @ wdd[:dirs.shape[1]] + b[tab[fc.T_DIRB]:tab[fc.T_DIRB] + nd]
-        denc = bf(lrelu(hf @ wmap(9) + dbias.repeat_interleave(s, 0)))
+        denc = bf(lrelu(hf @ take_w(base + 9, 0, width) + dbias.repeat_interleave(s, 0)))
         w_rgb = mat(tab[fc.T_RGBW], 3, nd)
         rgb = torch.sigmoid(denc @ w_rgb.t() + b[tab[fc.T_RGBB]:tab[fc.T_RGBB] + 3])
         # reverse sweep: small heads and bias sums into the block's partial
         dpr = gr * rgb * (1 - rgb)
-        add(fc.T_RGBW, bf(dpr).t() @ denc)
-        add(fc.T_RGBB, dpr.sum(0))
-        add(fc.T_SIGB, gs.sum(0))
+        add(fc.T_RGBW, lambda r: bf(dpr[r]).t() @ denc[r])
+        add(fc.T_RGBB, lambda r: dpr[r].sum(0))
+        add(fc.T_SIGB, lambda r: gs[r].sum(0))
         d_pre_d = slope(denc, bf(dpr) @ w_rgb)
         G = bf(d_pre_d)
-        add(fc.T_DIRB, d_pre_d.sum(0))
-        raysum = G.reshape(-1, s, nd).sum(1)  # per ray, then the direction product
-        gdd = torch.zeros(fc.MAX_DIR, nd)
-        gdd[:dirs.shape[1]] = bf(dirs).t() @ raysum
+        add(fc.T_DIRB, lambda r: d_pre_d[r].sum(0))
+
+        def gdd(r):  # per ray over the warpgroup's rows, then the direction product
+            raysum = torch.zeros(dirs.shape[0], nd).index_add_(0, ray_of[r], G[r])
+            out = torch.zeros(fc.MAX_DIR, nd)
+            out[:dirs.shape[1]] = bf(dirs).t() @ raysum
+            return out
+
         add(fc.T_DIRWD, gdd)
         wsr[:, gdir:gdir + nd] = G
-        d_hf = G @ wmap(9).t()
-        add(fc.T_FINB, d_hf.sum(0))
+        d_hf = G @ take_wt(base + 9, 0, width, nd).t()
+        add(fc.T_FINB, lambda r: d_hf[r].sum(0))
         G = bf(d_hf)
         wsr[:, gfin:gfin + width] = G
         w_sig = w[tab[fc.T_SIGW]:tab[fc.T_SIGW] + width]
-        add(fc.T_SIGW, hs[-1].t() @ bf(gs))
-        d_h = G @ wmap(8).t() + bf(gs) * w_sig[None, :]
+        add(fc.T_SIGW, lambda r: hs[-1][r].t() @ bf(gs[r]))
+        d_h = G @ take_wt(base + 8, 0, width, width).t() + bf(gs) * w_sig[None, :]
         dcat = torch.zeros(X.shape[0], lay.x_cols)
         for i in reversed(range(depth)):
             d_pre = slope(hs[i], d_h)
-            add(fc.T_TB + i, d_pre.sum(0))
+            add(fc.T_TB + i, lambda r: d_pre[r].sum(0))
             G = bf(d_pre)
             wsr[:, gcol + i * width:gcol + (i + 1) * width] = G
             rows = 0  # the hidden rows of a skip layer follow its input rows
             if i == 0 or i in skips:
-                if want_dcat:
-                    dcat[:, :k0] += G @ wmap(i)[:k0].t()
+                if voxel_raw is not None:  # SWEEP_D input columns at a time, up to the last used
+                    for c0 in range(0, min(hi_cols[bi], k0), fv.SWEEP_D):
+                        dcat[:, c0:c0 + fv.SWEEP_D] += G @ take_wt(base + i, c0, fv.SWEEP_D,
+                                                                    width).t()
+                elif want_dcat:
+                    dcat[:, :k0] += G @ take_wt(base + i, 0, k0, width).t()
                 if i == 0:
                     break
                 rows = k0
-            d_h = G @ wmap(i)[rows:].t()
+            d_h = G @ take_wt(base + i, rows, width, width).t()
         return dcat
 
     for tile in range(n_tiles):
         blk = tile % n_blocks
-        part = parts[plan.small_base + blk * plan.small_stride:][:plan.small_stride]
+        part = [parts[plan.small_base + (2 * blk + h) * plan.small_stride:][:plan.small_stride]
+                for h in range(2)]
         lo, hi = tile * rays_per_tile, min((tile + 1) * rays_per_tile, n)
         real = (hi - lo) * s
         wsr = ws[tile * 128:(tile + 1) * 128]
@@ -373,12 +426,14 @@ def _emulate_bwd(packed, cfg, model, xyz, dir_pe, codes, g, n_sm, n_blocks, voxe
         dirs[:hi - lo] = dir_pe[lo:hi]
         gt = torch.zeros(128, 8)
         gt[:real] = g[lo * s:hi * s]
+        chunks = list(plan.chunks)  # the tile's chunk order, from its start
         for bi, (tab, gtab, width) in enumerate(((packed.scene, plan.gtabs[0], fc.SCENE_W),
                                                   (packed.obj, plan.gtabs[1], fc.OBJ_W))):
             want = bi == 1 or voxel_raw is not None
             dcat = branch(bi, tab, gtab, width, X, dirs, gt[:, 4 * bi:4 * bi + 1],
                           gt[:, 4 * bi + 1:4 * bi + 4], wsr, part, want)
             dcats[bi][lo * s:hi * s] = dcat[:real]
+        assert not chunks  # the tile took every chunk of the order
         dc = dcats[1][lo * s:hi * s, o_code:o_code + codes.shape[1]]
         d_codes[lo:hi] = dc.reshape(hi - lo, s, -1).sum(1)
     wg = fv.wgrad_gemm(ws.bfloat16(), torch.tensor(plan.work.items, dtype=torch.int32),
@@ -498,8 +553,9 @@ def test_work_list_partitions_rows_and_covers_every_weight_once(voxel, forward_i
     """The slices partition the workspace's rows in order; in every slice the
     items write each weight element of each matrix exactly once, each into a
     partial of its own; the reduction then writes every gradient the
-    backward returns exactly once, adding one partial per slice (per sweep
-    block for the sweep's gradients)."""
+    backward returns exactly once, adding one partial per slice (per
+    consumer warpgroup of each sweep block, two a block, for the sweep's
+    gradients)."""
     for packed, plan in _plans(voxel, forward_instance):
         work, rows = plan.work, plan.layout.rows
         assert work.slices[0][0] == 0 and work.slices[-1][1] == rows
@@ -530,9 +586,9 @@ def test_work_list_partitions_rows_and_covers_every_weight_once(voxel, forward_i
         hits = _cover([(dst, length) for dst, length, _, _, _ in plan.segments], size)
         np.testing.assert_array_equal(hits, _cover(big + small, size))
         for dst, length, src, stride, n_parts in plan.segments[len(work.segments):]:
-            assert n_parts == plan.n_blocks and stride == plan.small_stride
+            assert n_parts == 2 * plan.n_blocks and stride == plan.small_stride
             assert plan.small_base <= src and src - plan.small_base + length <= stride
-        assert plan.n_parts == plan.small_base + plan.n_blocks * plan.small_stride
+        assert plan.n_parts == plan.small_base + 2 * plan.n_blocks * plan.small_stride
 
 
 @pytest.mark.parametrize("forward_instance", [True, False])
@@ -599,3 +655,58 @@ def test_sweep_weight_maps_meet_the_hardware_rules(voxel, forward_instance):
             assert maps[base + slot] == (0, 0, 0)
     if not forward_instance:
         assert all(m == (0, 0, 0) for m in maps[fc.SWEEP_MAPS_PER_BRANCH:])
+
+
+# -- the sweep's weight ring ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_sweep_ring_fits_a_block_and_is_deeper(voxel):
+    """Each sweep instantiation's shared memory, laid out as SweepCfg does
+    (`sweep_smem` of tests/test_torch_fwd_chain.py; the card test holds the
+    built library's `fused_mlp_vjp.sweep_layout` to it), fits a block's
+    232,448 bytes with the stage count the source derives, and one stage
+    more would not: at least 4 stages, twice the old sweep's 2 (a 32 KB stage
+    and a borrowed buffer), holding more bytes than those two. Every chunk of
+    a tile's order fills one stage, and a tile has more chunks than the ring
+    has stages (the producer wraps around it within a tile)."""
+    stages = SWEEP_STAGES[int(voxel)]
+    assert sweep_smem(voxel, stages) <= SMEM < sweep_smem(voxel, stages + 1)
+    assert stages >= 2 * SWEEP_STAGES_BEFORE >= 4
+    assert stages * fc.FWD_STAGE_BYTES > SWEEP_STAGES_BEFORE * 32768
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    packed = fc.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    maps = fc.sweep_weight_maps(packed, True)
+    for fi in (True, False):
+        chunks = fv.sweep_chunks(packed, cfg, fi)
+        assert len(chunks) > stages
+        for slot, x, y, nx, ny in chunks:
+            off, rows, cols = maps[slot]
+            box_rows = fc.forward_chunk_rows(cols)
+            assert nx * ny * box_rows * 128 == fc.FWD_STAGE_BYTES
+            assert x + 64 * nx <= cols and y + ny * box_rows <= rows
+        assert fv.pack_sweep_chunks(chunks) == fv.bwd_plan(
+            packed, cfg, 128, 132, 1, fi).chunks
+
+
+@pytest.mark.parametrize("forward_instance", [True, False])
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_sweep_recompute_reads_the_forward_chains_chunks(voxel, forward_instance):
+    """Each branch's run of the sweep's chunk order starts with the forward
+    chain's own chunks of that branch in its eval mode, in that order (the
+    recompute); the reverse sweep's chunks follow, and the branches follow
+    one another."""
+    cfg = ObjectNeRFConfig(use_voxel_embedding=voxel)
+    packed = fc.pack_kernel_weights(ObjectNeRF(cfg), cfg, True)
+    chain = fc.forward_chunks(packed, "eval", forward_instance)
+    sweep = fv.sweep_chunks(packed, cfg, forward_instance)
+    per_branch = fc.SWEEP_MAPS_PER_BRANCH
+    branches = [slot // per_branch for slot, *_ in sweep]
+    assert branches == sorted(branches) and set(branches) == ({0, 1} if forward_instance else {0})
+    for b in set(branches):
+        run = [c for c in sweep if c[0] // per_branch == b]
+        fwd = [(slot, y, nx) for slot, x, y, nx, ny in run[:len(chain)]]
+        own = [c for c in chain if c[0] // per_branch == b]
+        assert fwd[:len(own)] == own
+        assert all(x == 0 and ny == 1 for _, x, _, _, ny in run[:len(own)])
+        assert len(run) > len(own)

@@ -230,6 +230,30 @@ RING_STAGES = {"eval": (11, 6), "render": (11, 6), "weights": (12, 8), "sigma_sc
 # memory: no mode may have fewer stages than then
 RING_STAGES_WITH_H = {"eval": (7, 2), "render": (7, 2), "weights": (8, 4),
                       "sigma_scene": (9, 5), "sigma_obj": (8, 3)}
+# the backward sweep's weight-ring stages of FWD_STAGE_BYTES (SweepCfg in
+# csrc/fused_mlp_train.cu), (classical, voxel); before the sweep took the
+# chain's pipeline its ring had 2 stages of 32 KB, one of them the input
+# tile or the d_pre buffer, borrowed while it was free
+SWEEP_STAGES = (7, 6)
+SWEEP_STAGES_BEFORE = 2
+
+
+def sweep_smem(voxel, stages):
+    """Shared memory of one block of the backward sweep with `stages` ring
+    stages, as SweepCfg lays it out: the stages; per consumer warpgroup its
+    input tile (64 x 128) and d_pre tile (64 x 256) in bf16, then in floats
+    its 4 warps' column sums (classical; the voxel sweep keeps them in its
+    input tile), the rgb head's d_pre (64 x 3), the direction biases (2 rays
+    x 128), the code sums (4 row groups x 128) and the d_vox rows (voxel, 64
+    x MAX_VOX); the voxel tile's column table (448 ints); two barriers a
+    stage and the 1 KB alignment slack."""
+    floats = ((0 if voxel else 4 * fc.SCENE_W) + 64 * 3 + 2 * 128 + 4 * 128
+              + (64 * fc.MAX_VOX if voxel else 0))
+    per_wg = 2 * (64 * 128 + 64 * fc.SCENE_W) + 4 * floats
+    return (stages * (fc.FWD_STAGE_BYTES + 16) + 2 * per_wg + (4 * 448 if voxel else 0)
+            + 1024)
+
+
 # each mode's chunk orders: (mode, forward_instance, compute_scene), None
 # where the mode fixes the branch
 CHUNK_MODES = [pytest.param("eval", fi, cs, id=f"eval-{fi}-{cs}") for fi, cs in FLAGS] + [

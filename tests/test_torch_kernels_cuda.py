@@ -156,6 +156,47 @@ def test_backward_kernel_is_deterministic_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+def test_backward_sweep_layout_on_card(cuda_device, voxel):
+    """The built library's sweep layout (`fused_mlp_vjp.sweep_layout`) is the
+    mirror's of tests/test_torch_fwd_chain.py (SWEEP_STAGES, `sweep_smem`):
+    a ring of at least 4 stages, within a block's shared memory."""
+    from test_torch_fwd_chain import SWEEP_STAGES, sweep_smem  # tests/ on sys.path
+
+    stages, smem = fv.sweep_layout(voxel)
+    assert (stages, smem) == (SWEEP_STAGES[int(voxel)], sweep_smem(voxel, stages))
+    assert stages >= 4 and smem <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel", [False, True], ids=["classical", "voxel"])
+@pytest.mark.parametrize("s,n", [(32, 9), (128, 19)])
+def test_backward_sweep_is_deterministic_on_card(cuda_device, voxel, s, n):
+    """Two launches of the backward on the same inputs give the same bits,
+    with the object branch and without, at 32 and 128 samples with a ragged
+    last tile: every sum of the sweep (per warpgroup partials, code sums,
+    d_vox rows) runs in a fixed order whatever the warpgroups' timing."""
+    if voxel:
+        cfg, models, xyz, _, dir_pe, codes, raw = _voxel_setup(cuda_device, n, s)
+        model = models.nerf_fine
+        g = torch.Generator().manual_seed(9)
+        cot = (torch.randn(n * s, 8, generator=g).abs() * 1e-4).to(cuda_device)
+    else:
+        cfg, model, xyz, dir_pe, codes, cot = _train_inputs(cuda_device, n, s)
+        raw = None
+    with torch.no_grad():
+        for fi in (True, False):
+            a = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, fi, voxel_raw=raw)
+            b = fv.fused_mlp_bwd(model, cfg, xyz, dir_pe, codes, cot, fi, voxel_raw=raw)
+            torch.cuda.synchronize()
+            assert torch.equal(a[1], b[1]), fi
+            if voxel:
+                assert torch.equal(a[2], b[2]), fi
+            for k in a[0]:
+                assert torch.equal(a[0][k], b[0][k]), (fi, k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n", [(64, 64), (128, 256), (64, 128), (128, 64)])
 def test_weight_gradient_kernel_matches_torch_on_card(cuda_device, m, n):
     """The wgmma / TMA GEMM alone on a random workspace: each item's partial

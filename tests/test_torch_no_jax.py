@@ -266,7 +266,7 @@ def test_probe_scripts_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         return  # with a card they measure it
     for name in ("profile_dma_gather", "profile_pe_micro", "profile_voxel_split", "profile_mlp",
-                 "profile_fwd_chain", "profile_route_step"):
+                 "profile_fwd_chain", "profile_bwd_sweep", "profile_route_step"):
         run = subprocess.run([sys.executable, "-m", f"object_nerf_torch.scripts.{name}"],
                              cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
         assert run.returncode != 0 and "CUDA is not available" in run.stderr, name
