@@ -17,8 +17,10 @@ Counterpart of `object_nerf_tpu/edit/editable_renderer.py` (reference
 
 Pose math and the ray-box intersections stay on the host (numpy, once per
 frame). A frame is the span `edit.frame` of `utils/trace.py`, its host steps
-the spans `edit.rays`, `edit.compact`, `edit.upload` and `edit.fetch`, and its
-chunks the counters `edit.chunks` and `edit.chunks_mixed`. A frame's rays are
+the spans `edit.rays`, `edit.compact`, `edit.upload` and `edit.fetch`, its
+ray sets the counter `edit.sets`, the object sets' rays with near < far the
+counter `edit.object_hits` (both on the host, from the numpy ray sets), and
+its chunks the counters `edit.chunks` and `edit.chunks_mixed`. A frame's rays are
 uploaded once, the kernel weights are packed once, every chunk goes through
 `render_multi_fused_eval` (the CUDA kernels on `device=cuda`, their plain
 versions on `device=cpu`), the chunks' maps stay on the device and come back
@@ -217,6 +219,9 @@ class EditableRenderer:
         maps as host arrays, in pixel order."""
         n = rays_list[0].shape[0]
         dev = self.device
+        trace.count("edit.sets", len(rays_list))
+        trace.count("edit.object_hits", sum(int(np.count_nonzero(r[:, 6] < r[:, 7]))
+                                            for r, oid in zip(rays_list, obj_ids) if oid != 0))
         settings = dataclasses.replace(self.settings, white_back=white_back, perturb=0.0,
                                        noise_std=0.0, is_eval=True)
 

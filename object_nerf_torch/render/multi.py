@@ -53,6 +53,7 @@ from ..ops.fused_mlp_vjp import fused_mlp_eval, mlp_eval_plain
 from ..ops.fused_sigma import fused_sigma_eval
 from ..ops.fwd_chain import PackedWeights, pack_kernel_weights
 from ..ops.sampling import sample_pdf, stratified_sample
+from ..utils import trace
 from .renderer import RenderSettings, VoxelCtx, lookup_voxel_raw
 
 MUTE_SIGMA = -1e5
@@ -328,7 +329,10 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
     ray set (scene branch for id 0, object branch with that id's code
     otherwise), the joint coarse weights, `sample_pdf` per object; then
     `fused_mlp_eval` per ray set on the fine model with one branch on, muting
-    and the joint composite. `packed`: `pack_multi_weights(...)`, packed here
+    and the joint composite. The cross-set glue is the stream span
+    `render.multi_joint` of `utils/trace.py`, twice with a fine pass (the
+    joint coarse weights, their unsort and the K importance draws; the final
+    composite), once without. `packed`: `pack_multi_weights(...)`, packed here
     (per call) when not given. `voxel_ctx`: a voxel-conditioned model's grid
     with its frame's corner table, which every ray set's lookups of both
     passes read. Raises unless perturb == 0 and noise_std == 0;
@@ -363,12 +367,13 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
                 dtype=settings.matmul_dtype, packed=packed.get("coarse"))
             sigma_list.append(_mute_sigma(sigma.reshape(n, n_samples), z_list[i],
                                           _removal_mask(xyz, ids[i], skip_boxes)))
-        weights, _, idx = _joint_weights(z_list, sigma_list)
-        w_orig = torch.gather(weights, 1, torch.argsort(idx, dim=-1))
-        z_list = [
-            _fine_z(rays_list[i], z_list[i], w_orig[:, i * n_samples:(i + 1) * n_samples],
-                    settings.N_importance, det=True)
-            for i in range(n_obj)]
+        with trace.span("render.multi_joint", stream=True):
+            weights, _, idx = _joint_weights(z_list, sigma_list)
+            w_orig = torch.gather(weights, 1, torch.argsort(idx, dim=-1))
+            z_list = [
+                _fine_z(rays_list[i], z_list[i], w_orig[:, i * n_samples:(i + 1) * n_samples],
+                        settings.N_importance, det=True)
+                for i in range(n_obj)]
 
     rgb_list, sigma_list = [], []
     for i in range(n_obj):
@@ -379,7 +384,8 @@ def render_multi_fused_eval(models: nn.Module, rays_list: Sequence[torch.Tensor]
         rgb_list.append(rgb)
         sigma_list.append(sigma)
     results: Dict[str, torch.Tensor] = {}
-    _composite_multi(results, typ_final, z_list, rgb_list, sigma_list, 0.0,
-                     settings.white_back, keep_sort_idx=False)
+    with trace.span("render.multi_joint", stream=True):
+        _composite_multi(results, typ_final, z_list, rgb_list, sigma_list, 0.0,
+                         settings.white_back, keep_sort_idx=False)
     return {k: results[k] for k in (f"rgb_{typ_final}", f"depth_{typ_final}",
                                     f"opacity_{typ_final}")}

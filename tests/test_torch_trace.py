@@ -8,6 +8,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -182,12 +183,20 @@ PER_UNIT = {
     "pe-train": {"train.step": 1, "train.backward": 1, "train.optim": 2},
     "voxel-render": {"render.frame": 1, "voxel.table": 1, "voxel.lookup": 6},
     "pe-edit": {"edit.frame": 1, "edit.rays": 1, "edit.compact": 1, "edit.upload": 1,
-                "edit.fetch": 1},
+                "edit.fetch": 1, "render.multi_joint": 6},
     "voxel-route-render": {"render.frame": 1, "voxel.table": 1, "voxel.lookup": 6,
                            "render.route_coarse": 3},
+    "pe-render": {"render.frame": 1},
+    # and 2 lookups a set and chunk: their count follows the mixed chunks (below)
+    "voxel-edit": {"edit.frame": 1, "edit.rays": 1, "edit.compact": 1, "edit.upload": 1,
+                   "edit.fetch": 1, "render.multi_joint": 6, "voxel.table": 1},
 }
 UNIT = {"voxel-train": "train.step", "pe-train": "train.step", "voxel-render": "render.frame",
-        "pe-edit": "edit.frame", "voxel-route-render": "render.frame"}
+        "pe-edit": "edit.frame", "voxel-route-render": "render.frame",
+        "pe-render": "render.frame", "voxel-edit": "edit.frame"}
+# a CPU run has no CUDA events: the stream readers stay silent there
+STREAM_READERS = {"voxel_stream_ms.render", "route_coarse_ms.route", "voxel_stream_ms.edit",
+                  "multi_joint_ms.edit"}
 RUN = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -222,8 +231,7 @@ def test_a_traced_cpu_run_gives_every_new_host_metric(traced_runs, cell):
     assert run["rc"] == 0 and run["line"]["correct"]
     got = run["line"]["metrics"]
     want = {m["name"] for m in harness.cell_metrics(BENCH, cell, traced=True)} & NEW_METRICS
-    # a CPU run has no CUDA events: the stream readers stay silent there
-    silent = want & {"voxel_stream_ms.render", "route_coarse_ms.route"}
+    silent = want & STREAM_READERS
     want -= silent
     assert want <= set(got), sorted(want - set(got))
     assert not silent & set(got)
@@ -236,18 +244,97 @@ def test_a_traced_cpu_run_gives_every_new_host_metric(traced_runs, cell):
 def test_each_span_opens_its_count_a_unit(traced_runs, cell):
     """Over the window outside the traced slices ("off"), each of the cell's
     spans opened its count a unit, and no other program span opened."""
-    counts = traced_runs[cell]["counts"]["off"]
+    counts = dict(traced_runs[cell]["counts"]["off"])
     units = counts[UNIT[cell]]
     assert units >= 1
-    assert {n: c / units for n, c in counts.items()} == PER_UNIT[cell]
-    assert traced_runs[cell]["counts"]["on"][UNIT[cell]] >= 2  # both slices
     c = traced_runs[cell]["counters"]
     frames = units + traced_runs[cell]["counts"]["on"][UNIT[cell]]
-    if cell == "pe-edit":  # 3 chunks a frame, the object's hits in the first
+    if cell == "voxel-edit":  # 5 ray sets in a mixed chunk, the background's alone in another
+        lookups = counts.pop("voxel.lookup") + traced_runs[cell]["counts"]["on"]["voxel.lookup"]
+        assert lookups == 2 * (c["edit.chunks"] + 4 * c["edit.chunks_mixed"])
+    assert {n: k / units for n, k in counts.items()} == PER_UNIT[cell]
+    assert traced_runs[cell]["counts"]["on"][UNIT[cell]] >= 2  # both slices
+    if cell in ("pe-edit", "voxel-edit"):  # 3 chunks a frame, the objects' hits first
         assert c["edit.chunks"] == 3 * frames
         assert 0 < c["edit.chunks_mixed"] < c["edit.chunks"]
+        sets = 2 if cell == "pe-edit" else 5
+        assert c["edit.sets"] == sets * frames
+        assert 0 < c["edit.object_hits"] < (sets - 1) * frames * 32 * 24
     # the route's chunks, 3 a frame; the plain route opens neither its span nor its counter
     assert c.get("render.route_chunks", 0) == (3 * frames if cell == "voxel-route-render" else 0)
     for bucket in ("off", "on"):
         assert ("render.route_coarse" in traced_runs[cell]["counts"][bucket]) == \
             (cell == "voxel-route-render")
+
+
+# -- the edit path's new span and counters ------------------------------------------
+
+
+@pytest.mark.parametrize("n_importance", [0, 8])
+def test_multi_joint_opens_twice_a_chunk_with_a_fine_pass(n_importance):
+    """`render.multi_joint` wraps the cross-set glue of one
+    `render_multi_fused_eval` call: the joint coarse weights and the
+    importance draws, then the final composite; the composite alone without
+    a fine pass."""
+    from object_nerf_torch.models.mlp import ObjectNeRFConfig
+    from object_nerf_torch.render.multi import render_multi_fused_eval
+    from object_nerf_torch.render.renderer import RenderSettings
+    from object_nerf_torch.train.system import init_params
+
+    cfg = ObjectNeRFConfig(D=2, W=32, skips=(1,), inst_D=2, inst_W=16, inst_skips=(1,),
+                           use_voxel_embedding=False, N_obj_code_length=8)
+    st = RenderSettings(mlp=cfg, N_samples=8, N_importance=n_importance, perturb=0.0,
+                        noise_std=0.0, is_eval=True)
+    models = init_params(torch.Generator().manual_seed(0), st, {"N_max_objs": 4}, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    d = torch.nn.functional.normalize(torch.randn(16, 3, generator=g), dim=-1)
+    rays = torch.cat([torch.zeros(16, 3), d, torch.full((16, 1), 0.5),
+                      torch.full((16, 1), 2.0)], -1)
+    obj = rays.clone()
+    obj[:8, 6:8] = 0.0  # half the object's rays miss its box
+    trace.reset()
+    for _ in range(3):
+        render_multi_fused_eval(models, [rays, obj], [0, 1], st)
+    assert _spans()["render.multi_joint"]["count"] == 3 * (2 if n_importance else 1)
+
+
+def test_the_new_edit_span_and_counters_change_no_map(monkeypatch):
+    """`pe-edit`'s frames at the benchmark tests' small size, bit for bit the
+    same with `render.multi_joint`, `edit.sets` and `edit.object_hits` as
+    without them."""
+    import contextlib
+    import types
+
+    from benchmark.drivers import edit as edit_driver
+    from benchmark.tests.conftest import SMALL
+    from object_nerf_torch.edit import editable_renderer
+    from object_nerf_torch.render import multi
+
+    w = harness.cell("pe-edit", BENCH)
+    cfg, tr = harness.config(w["config"]), harness.traffic(w["traffic"])
+    for target, extra in ((cfg, SMALL["config"]), (tr, SMALL["traffic"])):
+        for k, v in extra.items():
+            target[k] = {**target.get(k, {}), **v} if isinstance(v, dict) else v
+    drv = edit_driver.Driver(cfg, tr, 2 ** 31 + 3, torch.device("cpu"))
+    drv.setup()
+    trace.reset()
+    for i in range(2):
+        drv._frame(i)
+    assert trace.totals()["counters"]["edit.sets"] == 2 * 2
+    assert _spans()["render.multi_joint"]["count"] == 2 * 3 * 2  # 3 chunks a frame
+    without = types.SimpleNamespace(
+        span=lambda name, stream=False: (contextlib.nullcontext() if name == "render.multi_joint"
+                                         else trace.span(name, stream)),
+        count=lambda name, n=1: (None if name in ("edit.sets", "edit.object_hits")
+                                 else trace.count(name, n)))
+    monkeypatch.setattr(multi, "trace", without)
+    monkeypatch.setattr(editable_renderer, "trace", without)
+    trace.reset()
+    for i in range(2):
+        drv._frame(i)
+    assert "edit.sets" not in trace.totals()["counters"]
+    assert "render.multi_joint" not in _spans()
+    for (v, p, with_), (v2, p2, without_) in zip(drv.done[:2], drv.done[2:]):
+        assert (v, p) == (v2, p2) and set(with_) == set(without_)
+        for k in with_:
+            assert np.array_equal(with_[k], without_[k]), k
