@@ -863,7 +863,7 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
     from object_nerf_torch.render.renderer import RenderDraws
     from object_nerf_torch.scripts import profile_mlp as pm
     from object_nerf_torch.train.optim import make_optimizer
-    from object_nerf_torch.train.system import make_train_step
+    from object_nerf_torch.train.system import graph_counts, make_train_step
 
     system = _train_system(torch, dev)
     config = system.config
@@ -1113,8 +1113,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
                                                       twin.parameters())}
     worst = max(e, key=e.get)
     lr = m_k["lr"]
-    moved = torch.cat([(p - q).abs().reshape(-1) for p, q in zip(models.parameters(),
-                                                                 twin.parameters())])
+    with torch.no_grad():  # no autograd graph over the parameters outlives this
+        moved = torch.cat([(p - q).abs().reshape(-1) for p, q in zip(models.parameters(),
+                                                                     twin.parameters())])
     print(f"step 1, kernels vs plain bf16 path: loss {loss_k:.6f} vs {loss_p:.6f} "
           f"(rel {abs(loss_k - loss_p) / abs(loss_p):.2e}, tol {LOSS_TOL:g}); gradients: worst "
           f"{e[worst]:.2e} at {worst} (tol {STEP_GRAD_TOL:g}), median "
@@ -1160,20 +1161,9 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
 
-    # step time: host clock around steps that end in a synchronise; the
-    # optimizer alone by CUDA events
-    times, opt_events = [], []
-    optimizer_step = system.optimizer.step
-
-    def timed_optimizer_step(*a, **k):
-        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev[0].record()
-        out = optimizer_step(*a, **k)
-        ev[1].record()
-        opt_events.append(ev)
-        return out
-
-    system.optimizer.step = timed_optimizer_step
+    # step time: host clock around steps that end in a synchronise (each
+    # replays the step's CUDA graph: forward, backward and Adam)
+    times = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(STEPS_TIMED):
@@ -1183,19 +1173,18 @@ def _train_phases(torch, dev, peak_flops, peak_bytes):
         system.training_step(np_batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    system.optimizer.step = optimizer_step
     step_peak = torch.cuda.max_memory_allocated(dev)
     print(f"train step: peak device memory {step_peak / 1e9:.3f} GB (max_memory_allocated "
           f"over the timed steps)")
-    opt_ms = statistics.median(a.elapsed_time(b) for a, b in opt_events)
     step_ms = statistics.median(times) * 1e3
     k_fwd, k_bwd = sum(ms["fused_mlp_eval"].values()), sum(ms["fused_mlp_bwd"].values())
-    rest = step_ms - k_fwd - k_bwd - 2 * pack_ms - opt_ms
+    rest = step_ms - k_fwd - k_bwd - 2 * pack_ms
     print(f"train step: {step_ms:.2f} ms median of {STEPS_TIMED} (all: "
-          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (step_ms / 1e3):.0f} rays/s; "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / (step_ms / 1e3):.0f} rays/s, "
+          f"{graph_counts['train.graph_replays']} graph replays so far; "
           f"forward kernels {k_fwd:.2f} ms, backward kernels with their reduction "
-          f"{k_bwd:.2f} ms, packing {2 * pack_ms:.2f} ms, optimizer {opt_ms:.2f} ms, glue + "
-          f"loss + autograd + batch upload (by subtraction) {rest:.2f} ms; kernel bound "
+          f"{k_bwd:.2f} ms, packing {2 * pack_ms:.2f} ms, Adam + glue + loss + batch upload "
+          f"(by subtraction) {rest:.2f} ms; kernel bound "
           f"{sum(x['bound_ms'] for x in entries):.2f} ms")
 
     metrics, _ = system.validation(chunk=4800)

@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.gather import corner_lookup, corner_lookup_plain, trilinear_weights
+from ..ops.gather import constant, corner_lookup, corner_lookup_plain, trilinear_weights
 from ..utils import trace
 from .embedding import freq_encode
 
@@ -256,6 +256,7 @@ _CORNERS = np.array(
      [1, 0, 0], [1, 0, 1], [1, 1, 0], [1, 1, 1]],
     dtype=np.int64,
 )  # binary order matches the reference's itertools.product weights
+_CORNER_TUPLES = tuple(map(tuple, _CORNERS.tolist()))
 
 
 def _flat_index(q: torch.Tensor, shape) -> torch.Tensor:
@@ -263,7 +264,7 @@ def _flat_index(q: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _shape_tensor(static: VoxelStatic, device) -> torch.Tensor:
-    return torch.tensor(static.shape, dtype=torch.int64, device=device)
+    return constant(tuple(static.shape), torch.int64, device)
 
 
 def _gather_rows(features: torch.Tensor, topo: VoxelTopology, static: VoxelStatic,
@@ -502,7 +503,7 @@ def voxel_lookup_raw(features: Optional[torch.Tensor], topo: VoxelTopology,
         return voxel_lookup_dense(features, topo, static, xyz, lowp=lowp, ct=ct)
 
     base = torch.floor(xyz_scaled)
-    q = base.long()[:, None, :] + torch.from_numpy(_CORNERS).to(xyz.device)[None]
+    q = base.long()[:, None, :] + constant(_CORNER_TUPLES, torch.int64, xyz.device)[None]
     ftr, invalid = _gather_rows(features, topo, static, q)  # (N, 8, C), (N, 8)
     wts = trilinear_weights(xyz_scaled - base)
     out = (ftr * wts[..., None]).sum(dim=1)

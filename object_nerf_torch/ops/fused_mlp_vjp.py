@@ -598,13 +598,12 @@ _plans: Dict[tuple, tuple] = {}
 def _device_plan(packed: PackedWeights, cfg: ObjectNeRFConfig, n_rows: int, n_sm: int,
                  n_blocks: int, forward_instance: bool, device):
     """`bwd_plan` with its work list, segments and sweep chunks as int32
-    tensors on the card, made once per shape (a training run has two)."""
+    tensors on the card, made once per shape (a training run has two) and
+    kept: a CUDA graph of a train step replays the launch on these tensors."""
     key = (tuple(packed.scene), tuple(packed.obj or ()), packed.w.numel(),
            input_tile_columns(cfg), _input_grad_columns(cfg), n_rows, n_sm, n_blocks,
            forward_instance, str(device))
     if key not in _plans:
-        if len(_plans) >= 16:
-            _plans.clear()
         plan = bwd_plan(packed, cfg, n_rows, n_sm, n_blocks, forward_instance)
         _plans[key] = (plan,
                        torch.tensor(plan.work.items, dtype=torch.int32, device=device),

@@ -32,6 +32,20 @@ reset_launch_counts = trace.reset  # every counter and span total of the registr
 
 ROW_DTYPES = (torch.bfloat16, torch.float32)
 
+_constants: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)` of a (nested)
+    tuple, made once per (values, dtype, device) and kept; callers never
+    write it. A later call copies nothing from the host, so a CUDA graph can
+    capture its caller."""
+    key = (values, dtype, torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of `gather_rows`: `table.index_select(0, idx)`."""
@@ -118,7 +132,7 @@ def corner_index_weights(topo, static, xyz: torch.Tensor):
     xyz_scaled = (xyz + topo.voxel_offset) / topo.voxel_size
     base = torch.floor(xyz_scaled)
     q0 = base.to(torch.int32)
-    shape = torch.tensor(static.shape, dtype=torch.int32, device=xyz.device)
+    shape = constant(tuple(static.shape), torch.int32, xyz.device)
     sample_valid = ((q0 >= -1) & (q0 <= shape - 1)).all(dim=-1)
     pb = torch.minimum((q0 + 1).clamp(min=0), shape)  # padded-frame base cell
     flat = (pb[:, 0] * (Y + 1) + pb[:, 1]) * (Z + 1) + pb[:, 2]

@@ -14,6 +14,12 @@ gradient, eps outside the square root of the bias-corrected second moment).
 `torch.optim.RAdam` does not (it scales eps by the bias correction and
 rectifies from rho > 5 instead of >= 5), so `RAdam` below is written out,
 with the Lookahead of `ranger` (period 6, slow step 0.5) as an option.
+
+Over CUDA parameters Adam keeps every per-step quantity on the device: its
+step counts (`capturable=True`) and its learning rate, a 0-d tensor that
+`set_lr` writes in place. Its update is the same; a CUDA graph of the train
+step can then replay it (`keeps_step_on_device`). RAdam, ranger and SGD
+count their steps on the host.
 """
 
 from __future__ import annotations
@@ -125,15 +131,22 @@ class RAdam(torch.optim.Optimizer):
 
 def make_optimizer(train_cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
     """The configured optimizer over `params`. Its `lr` is a placeholder:
-    `set_lr` installs the schedule's value before every step."""
+    `set_lr` installs the schedule's value before every step. Adam over CUDA
+    parameters is capturable, with its `lr` a 0-d f32 tensor on their device."""
     kind = train_cfg.get("optimizer", "adam")
     wd = float(train_cfg.get("weight_decay", 0))
     lr = float(train_cfg["lr"])
     eps = 1e-8
+    params = list(params)
     if kind == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=float(train_cfg.get("momentum", 0.9)),
                                weight_decay=wd)
     if kind == "adam":
+        if params and all(p.device.type == "cuda" for p in params):
+            opt = torch.optim.Adam(params, lr=torch.tensor(lr, device=params[0].device),
+                                   eps=eps, weight_decay=wd, capturable=True)
+            opt.register_load_state_dict_post_hook(_steps_on_device)
+            return opt
         return torch.optim.Adam(params, lr=lr, eps=eps, weight_decay=wd)
     if kind in ("radam", "ranger"):
         return RAdam(params, lr=lr, eps=eps, weight_decay=wd,
@@ -141,6 +154,34 @@ def make_optimizer(train_cfg, params: Iterable[torch.nn.Parameter]) -> torch.opt
     raise ValueError(f"optimizer {kind!r} not recognized")
 
 
-def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+def _steps_on_device(optimizer: torch.optim.Optimizer) -> None:
+    """`load_state_dict`'s post hook of a capturable Adam: the saved groups
+    replace the live ones whole, and a checkpoint is read onto the host. Put
+    the learning rate and the step counts back on the parameters' device, and
+    the group back to capturable (a checkpoint may predate both)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        device = group["params"][0].device
+        group["capturable"] = True
+        group["lr"] = torch.as_tensor(group["lr"], dtype=torch.float32, device=device)
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(device=device, dtype=torch.float32)
+
+
+def keeps_step_on_device(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether every per-step quantity of `optimizer` lives on the device:
+    every group capturable with a tensor learning rate. A CUDA graph can
+    replay such an optimizer's step."""
+    return all(g.get("capturable") and torch.is_tensor(g["lr"])
+               for g in optimizer.param_groups)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Install `lr` in every group: written in place into a tensor learning
+    rate (where a replayed graph reads it), assigned otherwise."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr

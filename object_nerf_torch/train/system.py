@@ -5,11 +5,13 @@ Counterpart of `object_nerf_tpu/train/system.py`: `init_params` (:46-60),
 `make_train_step` (:69-118, the monolithic step; the split-program
 schedule of the TPU is not ported), `make_render_fn` (:121-245) and
 `ObjectNeRFSystem` (:248-667: `training_step`, `render_image`,
-`validation`, `on_epoch_start`, `fit`). One train step is one eager PyTorch
-step: the stochastic `render_rays` (two launches of the fused forward
-kernel), the reference TotalLoss, autograd (two launches of the fused
-backward kernel), and the optimizer with its learning rate set from the
-schedule.
+`validation`, `on_epoch_start`, `fit`). One train step is the stochastic
+`render_rays` (two launches of the fused forward kernel), the reference
+TotalLoss, autograd (two launches of the fused backward kernel), and the
+optimizer with its learning rate set from the schedule. On one card with
+Adam the step runs as one CUDA graph, captured on the second call of an
+input signature and replayed on every later one (`TrainStep`); elsewhere it
+is an eager PyTorch step.
 
 Randomness: initial weights and batch sampling come from CPU generators, so
 a seed means the same on every device; the perturbation and the density
@@ -37,7 +39,9 @@ eval render packs the coarse model in full for its coarse `fused_mlp_eval`.
 
 Spans (`utils/trace.py`): a train step is `train.step`, its backward
 `train.backward`, its optimizer work (learning rate, gradients cleared,
-Adam's step) `train.optim`; a frame of `make_render_fn` is `render.frame`.
+Adam's step) `train.optim` (a replayed step opens neither); a frame of
+`make_render_fn` is `render.frame`. The counters `train.graph_captures`
+and `train.graph_replays` count the step's graph.
 
 Data parallel (JAX `:251-278`, `:331-337`, `:440-444`, `:470-486`): under a
 `torch.distributed` process group (`parallel/mesh.py`) the models are
@@ -54,6 +58,7 @@ Without a group nothing of this runs.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -67,6 +72,7 @@ from ..device import resolve_device
 from ..models.code_library import CodeLibrary
 from ..models import voxel_grid as vg
 from ..models.mlp import ObjectNeRF, ObjectNeRFConfig
+from ..ops import fused_mlp, gather
 from ..ops.fused_sigma import fused_sigma_eval
 from ..ops.fwd_chain import pack_kernel_weights
 from ..parallel import mesh
@@ -76,7 +82,7 @@ from ..render.renderer import (
 from ..utils import trace
 from .losses import term_counts, total_loss
 from .metrics import mse, psnr, ssim
-from .optim import make_lr_schedule, make_optimizer, set_lr
+from .optim import keeps_step_on_device, make_lr_schedule, make_optimizer, set_lr
 
 
 class VoxelEmbedding(nn.Module):
@@ -225,6 +231,87 @@ def render_image(models: ObjectNeRFModels, settings: RenderSettings, np_batch,
 # ---------------------------------------------------------------------------
 
 
+# the train steps captured into a CUDA graph and replayed (`TrainStep`), counters
+# of `utils/trace.py`: kept at 0 where no step replays
+graph_counts = trace.counter_dict(("train.graph_captures", "train.graph_replays"))
+
+
+def graph_engages(device: torch.device, distributed: bool, plain: bool,
+                  optimizer: torch.optim.Optimizer) -> bool:
+    """Whether a train step replays a CUDA graph of itself: its batch is on a
+    CUDA device, it is neither data parallel nor `plain`, and the optimizer
+    keeps every per-step quantity on the device (`optim.keeps_step_on_device`:
+    Adam over CUDA parameters; RAdam, ranger and SGD count their steps on the
+    host)."""
+    return (device.type == "cuda" and not distributed and not plain
+            and keeps_step_on_device(optimizer))
+
+
+def _launch_counters():
+    """The kernel modules' launch counter dicts a step adds to."""
+    return (fused_mlp.launch_counts, gather.launch_counts, vg.build_counts)
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph: the forward (the corner
+    table's build and lookups included), the loss, `loss.backward()` (the
+    table gradient on autograd's thread and the backward kernels) and the
+    optimizer's update, over static input buffers, with the step's scalar
+    metrics stacked into one static vector. `key` is the input signature it
+    was captured for; `pinned` holds the objects whose identity the key
+    records, so that no id is reused while the graph lives."""
+
+    def __init__(self, key, pinned, work: Callable, batch: Mapping[str, torch.Tensor],
+                 draws: RenderDraws):
+        self.key, self.pinned = key, pinned
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.draws = RenderDraws(*(torch.empty_like(t) for t in _draw_tensors(draws)))
+        self.load(batch, draws)
+        before = [dict(d) for d in _launch_counters()]
+        stream = torch.cuda.current_stream()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                out = work(self.batch, self.draws)
+                self.names = list(out)
+                self.out = torch.stack([out[k] for k in self.names])
+        except RuntimeError as err:
+            # a failed capture leaves its own stream current, and launched nothing
+            torch.cuda.set_stream(stream)
+            for d, b in zip(_launch_counters(), before):
+                d.update(b)
+            raise RuntimeError(
+                "the train step could not be captured into a CUDA graph; an autograd graph "
+                "over the model's parameters kept alive between steps prevents it (compute "
+                "such values under torch.no_grad())") from err
+        # the kernel launches the capture recorded, which every replay repeats
+        self.launches = [{k: d[k] - b.get(k, 0) for k in d}
+                         for d, b in zip(_launch_counters(), before)]
+        graph_counts["train.graph_captures"] += 1
+
+    def load(self, batch: Mapping[str, torch.Tensor], draws: RenderDraws) -> None:
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        for dst, src in zip(_draw_tensors(self.draws), _draw_tensors(draws)):
+            dst.copy_(src)
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """Run the step; its metrics as views of a fresh copy of the static
+        vector (a caller keeps them across later replays)."""
+        self.graph.replay()
+        graph_counts["train.graph_replays"] += 1
+        return dict(zip(self.names, self.out.clone().unbind(0)))
+
+    def count_launches(self) -> None:
+        for d, n in zip(_launch_counters(), self.launches):
+            for k, v in n.items():
+                d[k] += v
+
+
+def _draw_tensors(draws: RenderDraws):
+    return [getattr(draws, f.name) for f in dataclasses.fields(draws)]
+
+
 class TrainStep:
     """One optimisation step: `step(models, batch, generator=None,
     draws=None, voxel_topo=None, voxel_static=None) -> metrics`. `batch` is a
@@ -233,7 +320,28 @@ class TrainStep:
     learning-rate schedule (set it when resuming). A voxel-conditioned
     model's step takes its grid (`voxel_topo`, `voxel_static`) at call time:
     pruning changes the topology, subdivision both. Metrics stay on the
-    device: nothing here synchronises.
+    device: nothing here synchronises but a capture (below), once per input
+    signature.
+
+    Where `graph_engages` holds (and the step has its draws, given or from
+    `generator`), the step runs as one CUDA graph. Its input signature is
+    the batch's keys, shapes and dtypes, the draws' shapes, and the identity
+    of the models, the grid, the parameters and the learning-rate tensors (a
+    `load_state_dict` of the optimizer brings new ones). The first call of a
+    signature runs eagerly: a real step, which makes the optimizer's state,
+    the gradients and the kernels' cached plans. The second captures the
+    step (capture runs nothing) and replays it at once; every later call
+    copies its batch and draws into the graph's buffers, writes the
+    schedule's rate into the optimizer's rate tensor, and replays. A new
+    signature drops the graph and starts over. A replay opens no
+    `train.backward`, `train.optim`, `voxel.*` or `mlp.pack` span (the host
+    does no such work); it adds the captured step's kernel launches to their
+    counters and one to `train.graph_replays`, and a capture one to
+    `train.graph_captures`. The metrics are views of a fresh copy of the
+    graph's output, and `metrics["lr"]` a host float, as on the eager path.
+    A capture fails, with a `RuntimeError` that says so, where the caller
+    keeps an autograd graph over the parameters alive between steps (its
+    gradient accumulators sit on the stream that made it).
 
     Under a process group (found when the step is built) `batch` is this
     rank's rows of the global batch, `draws` are the global batch's (every
@@ -254,6 +362,8 @@ class TrainStep:
         self.global_step = 0
         self.distributed = mesh.is_distributed()
         self.rank, self.world = mesh.rank(), mesh.world_size()
+        self._graph: Optional[_StepGraph] = None
+        self._seen = None  # (signature, pinned objects) of the last eager call that could capture
 
     def __call__(self, models: ObjectNeRFModels, batch, generator=None,
                  draws: Optional[RenderDraws] = None,
@@ -265,61 +375,104 @@ class TrainStep:
                 raise ValueError("a voxel-conditioned model needs its voxel_static, and no "
                                  "other model takes one")
             metrics: Dict[str, object] = {}
+            lr = None
             if self.lr_schedule is not None:
-                metrics["lr"] = self.lr_schedule(self.global_step)
-            counts = None
-            if self.distributed:
-                n = batch["rays"].shape[0]
-                if draws is None and generator is not None:
-                    draws = RenderDraws.sample(st, n * self.world, batch["rays"].device,
-                                               generator)
-                if draws is not None:
-                    if draws.perturb.shape[0] != n * self.world:
-                        raise ValueError(f"draws for {draws.perturb.shape[0]} rays; the global "
-                                         f"batch has {n * self.world}")
-                    draws = draws.rows(slice(self.rank * n, (self.rank + 1) * n))
-                counts = mesh.all_reduce_sum(term_counts(batch, st.forward_instance))
-            codes = None
-            if st.forward_instance:
-                codes = models.code_library(batch["instance_ids"])
-            voxel_ctx = None
-            if voxel_static is not None:
-                voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
-            results = render_rays(models, batch["rays"], st, embedding_instance=codes,
-                                  pass_through_mask=batch.get("pass_through_mask"),
-                                  generator=generator, draws=draws, plain=self.plain,
-                                  voxel_ctx=voxel_ctx)
-            loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance,
-                                    counts)
-            typ = "fine" if st.N_importance > 0 else "coarse"
-            with torch.no_grad():
-                if self.distributed:  # the colour term's count is psnr's too
-                    err = mse(results[f"rgb_{typ}"], batch["rgbs"], batch["valid_mask"][:, None],
-                              counts[0])
-                else:
-                    train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
-                                      batch["valid_mask"][:, None])
-            with trace.span("train.optim"):
-                if self.lr_schedule is not None:
-                    set_lr(self.optimizer, metrics["lr"])
-                self.optimizer.zero_grad(set_to_none=True)
-            with trace.span("train.backward"):
-                loss.backward()
-            if self.distributed:
-                mesh.all_reduce_grads(
-                    p for g in self.optimizer.param_groups for p in g["params"])
-            with trace.span("train.optim"):
-                self.optimizer.step()
+                lr = metrics["lr"] = self.lr_schedule(self.global_step)
+            if (draws is not None or generator is not None) and graph_engages(
+                    batch["rays"].device, self.distributed, self.plain, self.optimizer):
+                out = self._graphed(models, batch, generator, draws, voxel_topo, voxel_static,
+                                    lr)
+            else:
+                out = self._work(models, batch, generator, draws, voxel_topo, voxel_static, lr)
             self.global_step += 1
-            loss = loss.detach()
-            if self.distributed:  # the global batch's loss, terms and psnr
-                names = list(logs)
-                glob = mesh.all_reduce_sum(torch.stack([loss, err] + [logs[k] for k in names]))
-                loss, train_psnr = glob[0], -10.0 * torch.log10(glob[1])
-                logs = dict(zip(names, glob[2:]))
-            metrics.update({"train/loss": loss, "train/psnr": train_psnr})
-            metrics.update({f"train/{k}": v for k, v in logs.items()})
+            metrics.update(out)
             return metrics
+
+    def _graphed(self, models, batch, generator, draws, voxel_topo, voxel_static,
+                 lr) -> Dict[str, torch.Tensor]:
+        """The step through its CUDA graph (class docstring)."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        pinned = (models, voxel_topo, voxel_static, *params,
+                  *(g["lr"] for g in self.optimizer.param_groups))
+        key = (tuple((k, v.shape, v.dtype, v.device) for k, v in batch.items()),
+               None if draws is None else tuple(t.shape for t in _draw_tensors(draws)),
+               tuple(map(id, pinned)))
+        graph = self._graph
+        if graph is not None and graph.key != key:
+            self._graph = graph = None
+        if graph is None and (self._seen is None or self._seen[0] != key):
+            self._seen = (key, pinned)  # the signature's first call runs eagerly
+            return self._work(models, batch, generator, draws, voxel_topo, voxel_static, lr)
+        if draws is None:  # the draws the eager path makes in `render_rays`
+            draws = RenderDraws.sample(self.settings, batch["rays"].shape[0],
+                                       batch["rays"].device, generator)
+        if lr is not None:
+            set_lr(self.optimizer, lr)
+        if graph is None:
+            self._seen = None
+            self._graph = graph = _StepGraph(key, pinned, lambda b, d: self._work(
+                models, b, None, d, voxel_topo, voxel_static, None), batch, draws)
+        else:
+            graph.load(batch, draws)
+            graph.count_launches()
+        return graph.replay()
+
+    def _work(self, models, batch, generator, draws, voxel_topo, voxel_static,
+              lr) -> Dict[str, torch.Tensor]:
+        """The step's work: the forward, the loss, the backward and the
+        optimizer's update with the learning rate `lr` (None: as set).
+        Returns the loss, psnr and loss terms under their metric names."""
+        st = self.settings
+        counts = None
+        if self.distributed:
+            n = batch["rays"].shape[0]
+            if draws is None and generator is not None:
+                draws = RenderDraws.sample(st, n * self.world, batch["rays"].device, generator)
+            if draws is not None:
+                if draws.perturb.shape[0] != n * self.world:
+                    raise ValueError(f"draws for {draws.perturb.shape[0]} rays; the global "
+                                     f"batch has {n * self.world}")
+                draws = draws.rows(slice(self.rank * n, (self.rank + 1) * n))
+            counts = mesh.all_reduce_sum(term_counts(batch, st.forward_instance))
+        codes = None
+        if st.forward_instance:
+            codes = models.code_library(batch["instance_ids"])
+        voxel_ctx = None
+        if voxel_static is not None:
+            voxel_ctx = (models.voxel_features, voxel_topo, voxel_static)
+        results = render_rays(models, batch["rays"], st, embedding_instance=codes,
+                              pass_through_mask=batch.get("pass_through_mask"),
+                              generator=generator, draws=draws, plain=self.plain,
+                              voxel_ctx=voxel_ctx)
+        loss, logs = total_loss(results, batch, self.loss_weights, st.forward_instance,
+                                counts)
+        typ = "fine" if st.N_importance > 0 else "coarse"
+        with torch.no_grad():
+            if self.distributed:  # the colour term's count is psnr's too
+                err = mse(results[f"rgb_{typ}"], batch["rgbs"], batch["valid_mask"][:, None],
+                          counts[0])
+            else:
+                train_psnr = psnr(results[f"rgb_{typ}"], batch["rgbs"],
+                                  batch["valid_mask"][:, None])
+        with trace.span("train.optim"):
+            if lr is not None:
+                set_lr(self.optimizer, lr)
+            self.optimizer.zero_grad(set_to_none=True)
+        with trace.span("train.backward"):
+            loss.backward()
+        if self.distributed:
+            mesh.all_reduce_grads(p for g in self.optimizer.param_groups for p in g["params"])
+        with trace.span("train.optim"):
+            self.optimizer.step()
+        loss = loss.detach()
+        if self.distributed:  # the global batch's loss, terms and psnr
+            names = list(logs)
+            glob = mesh.all_reduce_sum(torch.stack([loss, err] + [logs[k] for k in names]))
+            loss, train_psnr = glob[0], -10.0 * torch.log10(glob[1])
+            logs = dict(zip(names, glob[2:]))
+        out = {"train/loss": loss, "train/psnr": train_psnr}
+        out.update({f"train/{k}": v for k, v in logs.items()})
+        return out
 
 
 def make_train_step(settings: RenderSettings, loss_weights: Mapping[str, float],
@@ -539,7 +692,8 @@ class ObjectNeRFSystem:
         `train.nan_guard` (default on) raises when the loss is not finite; it
         looks every `train.nan_check_every` steps (default 50), and that
         host fetch is the only synchronisation of the loop besides
-        validation. `on_epoch_start` runs before the first step of each epoch
+        validation and the step's capture (once per input signature: after
+        a prune or subdivision, a resume, and at the start). `on_epoch_start` runs before the first step of each epoch
         that the loop begins from its step 0; a run resumed in the middle of
         an epoch skips it for that epoch, since the checkpoint already holds
         the grid as that epoch's hook left it (pruned or subdivided). With

@@ -2,9 +2,10 @@
 
 Counters. The kernel wrappers' launch counters (`ops/fused_mlp.py`'s,
 shared with `fused_mlp_vjp.py` and `fused_sigma.py`; `ops/gather.py`'s;
-`ops/probes.py`'s) and `models/voxel_grid.py`'s corner-table builds are
-plain dicts that the registry owns (`counter_dict`); every other counter
-lives here under its own name (`count`).
+`ops/probes.py`'s), `models/voxel_grid.py`'s corner-table builds and
+`train/system.py`'s graph captures and replays are plain dicts that the
+registry owns (`counter_dict`); every other counter lives here under its
+own name (`count`).
 
 Spans. `with span(name):` adds one to the name's count and its host
 seconds to the name's host and self totals (self: less the spans opened
@@ -18,8 +19,8 @@ one of two buckets, fixed when the span opens:
   range, which puts the span on the profiler's timeline on the clock of
   the device's kernels (the benchmark's traced slices, `fit`'s
   `tpu.profile_dir` trace). A `stream=True` span also records a CUDA event
-  pair on the current stream; `totals()` reads their elapsed times after a
-  synchronise.
+  pair on the current stream, unless that stream is being captured into a
+  CUDA graph; `totals()` reads their elapsed times after a synchronise.
 
 `reset()` zeroes every counter and span total (each kernel module's
 `reset_launch_counts` is this function), `totals()` reads them. The
@@ -104,7 +105,8 @@ class span:
         if _profiler_on():
             self._rf = torch.profiler.record_function(self.name)
             self._rf.__enter__()
-            if self.stream and torch.cuda.is_initialized():
+            if (self.stream and torch.cuda.is_initialized()
+                    and not torch.cuda.is_current_stream_capturing()):
                 self._ev = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
                 self._ev[0].record()

@@ -624,24 +624,27 @@ def test_corner_lookup_matches_plain_on_card(cuda_device, dtype, n):
 
 @pytest.mark.cuda
 def test_corner_lookup_makes_no_host_sync_on_card(cuda_device):
-    """A frame's lookups and a step's (under autograd, with the addressing)
-    under `torch.cuda.set_sync_debug_mode("error")`: none synchronises the
-    host with the card. The plain chain's shape tensor does, which shows that
-    the mode catches it."""
+    """A frame's lookups, a step's (under autograd, with the addressing) and
+    the plain chain's, once its grid's shape tensor is made, under
+    `torch.cuda.set_sync_debug_mode("error")`: none synchronises the host
+    with the card. Uploading that shape does, which shows that the mode
+    catches it (the plain chain made it on every call before it was kept)."""
     feats, topo, static = _small_grid(cuda_device)
     xyz = (torch.rand(4096, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1).to(
         cuda_device)
     frame = vg.CornerTable(feats, topo, static, lowp=True)
     step = vg.CornerTable(feats.clone().requires_grad_(), topo, static, lowp=True)
     frame.lookup(xyz)  # the build of the kernel library, outside the checked region
+    gather.corner_lookup_plain(frame.ct, xyz, topo, static)  # its shape tensor, made once
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
             out, _ = frame.lookup(xyz)
         out_t, _, flat, wts = step.lookup(xyz, with_addressing=True)
+        gather.corner_lookup_plain(frame.ct, xyz, topo, static)
         with pytest.raises(RuntimeError):
-            gather.corner_lookup_plain(frame.ct, xyz, topo, static)
+            torch.tensor(static.shape, dtype=torch.int32, device=cuda_device)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(out, out_t.detach()) and out_t.requires_grad

@@ -171,3 +171,64 @@ def test_lr_schedule_matches_jax(scheduler, warmup):
         to.make_lr_schedule(_train_cfg("adam", "linear"), 3)
     with pytest.raises(ValueError, match="optimizer"):
         to.make_optimizer(_train_cfg("lamb", "poly"), [torch.nn.Parameter(torch.zeros(1))])
+
+
+@pytest.mark.parametrize("tensor_lr", [False, True])
+def test_set_lr_writes_a_tensor_rate_in_place_and_assigns_a_float(tensor_lr):
+    """A capturable Adam's rate is a 0-d tensor that a replayed CUDA graph
+    reads: `set_lr` writes it in place. A float rate (the CPU path, SGD,
+    RAdam, ranger) is assigned."""
+    params = [torch.nn.Parameter(torch.zeros(2))]
+    if tensor_lr:  # what `make_optimizer` builds over CUDA parameters
+        opt = torch.optim.Adam(params, lr=torch.tensor(1e-3), capturable=True)
+    else:
+        opt = to.make_optimizer(_train_cfg("adam", "poly"), params)
+    before = opt.param_groups[0]["lr"]
+    to.set_lr(opt, 0.25)
+    lr = opt.param_groups[0]["lr"]
+    if tensor_lr:
+        assert lr is before and lr.dtype == torch.float32 and float(lr) == 0.25
+    else:
+        assert isinstance(lr, float) and lr == 0.25
+    assert to.keeps_step_on_device(opt) == tensor_lr
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam", "radam", "ranger"])
+def test_make_optimizer_keeps_host_rates_on_cpu_parameters(optimizer):
+    """Over CPU parameters every optimizer keeps a float rate and its step
+    count on the host, so the JAX-parity arithmetic above is unchanged and
+    no step is graphed."""
+    opt = to.make_optimizer(_train_cfg(optimizer, "poly"), [torch.nn.Parameter(torch.zeros(2))])
+    assert all(isinstance(g["lr"], float) and not g.get("capturable") for g in opt.param_groups)
+    assert not to.keeps_step_on_device(opt)
+
+
+@pytest.mark.parametrize("saved", ["float_rate", "tensor_rate"])
+def test_a_restored_capturable_adam_gets_its_rate_tensor_back(saved):
+    """`load_state_dict` replaces the groups whole: the post hook of a
+    capturable Adam gives it back a tensor rate on the parameters' device, a
+    capturable group and f32 step counts, from a checkpoint saved before the
+    rate was a tensor or one whose tensor rate was read onto the host."""
+    def adam(params, tensor):
+        if not tensor:
+            return torch.optim.Adam(params, lr=1e-3)
+        opt = torch.optim.Adam(params, lr=torch.tensor(1e-3), capturable=True)
+        opt.register_load_state_dict_post_hook(to._steps_on_device)
+        return opt
+
+    src = [torch.nn.Parameter(torch.ones(3))]
+    old = adam(src, False)
+    src[0].grad = torch.ones(3)
+    old.step()
+    state = old.state_dict()
+    if saved == "tensor_rate":
+        state["param_groups"][0]["lr"] = torch.tensor(4e-4, dtype=torch.float64)
+    dst = [torch.nn.Parameter(torch.ones(3))]
+    opt = adam(dst, True)
+    opt.load_state_dict(state)
+    g = opt.param_groups[0]
+    assert g["capturable"] and torch.is_tensor(g["lr"]) and g["lr"].dtype == torch.float32
+    assert float(g["lr"]) == pytest.approx(1e-3 if saved == "float_rate" else 4e-4)
+    step = opt.state[dst[0]]["step"]
+    assert torch.is_tensor(step) and step.dtype == torch.float32 and float(step) == 1.0
+    assert to.keeps_step_on_device(opt)

@@ -338,3 +338,33 @@ def test_the_new_edit_span_and_counters_change_no_map(monkeypatch):
         assert (v, p) == (v2, p2) and set(with_) == set(without_)
         for k in with_:
             assert np.array_equal(with_[k], without_[k]), k
+
+
+# -- the graph's counter and its reader ----------------------------------------------
+
+
+@pytest.mark.parametrize("replays", [None, 0, 5])
+def test_graph_step_share_reads_the_replays_over_the_steps(monkeypatch, replays):
+    """`graph_step_share`: None where the program keeps no replay counter (a
+    program without the graph), else 100 x replays over the steps of both
+    buckets (a traced run's slices replay too)."""
+    from benchmark.metrics import graph_step_share
+
+    counters = {} if replays is None else {"train.graph_replays": replays}
+    stub = {"counters": counters, "spans": {"off": {"train.step": {"count": 4}},
+                                            "on": {"train.step": {"count": 1}}}}
+    monkeypatch.setattr(graph_step_share, "totals", lambda: stub)
+    assert graph_step_share.read(None) == (None if replays is None else 20.0 * replays)
+    monkeypatch.setattr(graph_step_share, "totals", lambda: None)
+    assert graph_step_share.read(None) is None
+
+
+def test_the_graph_counters_are_kept_at_zero_where_no_step_replays():
+    """The program declares both graph counters, so a CPU run (which never
+    replays) reads a share of 0, and a reset keeps them."""
+    from object_nerf_torch.train import system
+
+    system.graph_counts["train.graph_replays"] += 2
+    trace.reset()
+    counters = trace.totals()["counters"]
+    assert counters["train.graph_replays"] == 0 and counters["train.graph_captures"] == 0

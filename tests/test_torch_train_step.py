@@ -21,7 +21,7 @@ from object_nerf_tpu.train.system import make_train_step as jax_make_train_step
 from object_nerf_torch.data import dataset_dict
 from object_nerf_torch.train import optim as to
 from object_nerf_torch.train.convert import from_jax_grads, from_jax_params
-from object_nerf_torch.train.system import make_train_step
+from object_nerf_torch.train.system import graph_engages, make_train_step
 
 from _torch_port import CFG_JAX, jax_params, port_models, settings, to_numpy
 from test_torch_train_render import jax_draws, port_draws
@@ -174,3 +174,22 @@ def test_loss_curve_tracks_jax():
     np.testing.assert_allclose(got, want, rtol=2e-3)
     assert np.mean(got[-5:]) == pytest.approx(np.mean(want[-5:]), rel=1e-3)
     assert np.mean(want[-5:]) < np.mean(want[:5])  # and it trains
+
+
+@pytest.mark.parametrize("case", ["cuda_adam", "cpu", "plain", "distributed", "float_rate",
+                                  "radam", "ranger", "sgd"])
+def test_the_graph_engages_only_where_the_step_keeps_everything_on_the_device(case):
+    """The rule, a pure function of what a step observes: a CUDA batch, no
+    process group, the kernel route and an optimizer whose step count and
+    rate live on the device (Adam as `make_optimizer` builds it over CUDA
+    parameters: capturable, a tensor rate). RAdam, ranger and SGD count
+    their steps on the host, and so does Adam with a float rate."""
+    params = [torch.nn.Parameter(torch.zeros(3))]
+    if case in ("radam", "ranger", "sgd", "float_rate"):
+        opt = to.make_optimizer({**TRAIN, "optimizer": "adam" if case == "float_rate" else case},
+                                params)
+    else:
+        opt = torch.optim.Adam(params, lr=torch.tensor(1e-3), capturable=True)
+    device = torch.device("cpu" if case == "cpu" else "cuda")
+    assert graph_engages(device, case == "distributed", case == "plain", opt) == (
+        case == "cuda_adam")
