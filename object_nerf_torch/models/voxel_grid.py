@@ -56,6 +56,9 @@ INSTANCE_FTR_C = 8  # instance channels at the tail of the table (embedding_help
 # counter dict of `utils/trace.py`; the build, the lookups of `CornerTable` and
 # its table gradient are the spans `voxel.table`, `voxel.lookup`, `voxel.table_grad`
 build_counts = trace.counter_dict(("corner_table",))
+# the cells, (X+1)(Y+1)(Z+1), of the corner tables built since the last reset:
+# a counter dict of its own, out of the launch counts that `build_counts` joins
+table_counts = trace.counter_dict(("voxel.table_cells",))
 
 
 class VoxelTopology(NamedTuple):
@@ -321,6 +324,7 @@ def make_corner_table(features: torch.Tensor, topo: VoxelTopology, static: Voxel
     X, Y, Z = static.shape
     C = static.channels
     build_counts["corner_table"] += 1
+    table_counts["voxel.table_cells"] += (X + 1) * (Y + 1) * (Z + 1)
     with trace.span("voxel.table", stream=True):
         if lowp:
             features = features.to(torch.bfloat16)

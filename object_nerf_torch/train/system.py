@@ -41,7 +41,9 @@ Spans (`utils/trace.py`): a train step is `train.step`, its backward
 `train.backward`, its optimizer work (learning rate, gradients cleared,
 Adam's step) `train.optim` (a replayed step opens neither); a frame of
 `make_render_fn` is `render.frame`. The counters `train.graph_captures`
-and `train.graph_replays` count the step's graph.
+and `train.graph_replays` count the step's graph. The epoch hooks' prune
+and subdivision are `voxel.prune` and `voxel.subdivide`, and the counter
+`voxel.pruned` counts the voxels a prune dropped.
 
 Data parallel (JAX `:251-278`, `:331-337`, `:440-444`, `:470-486`): under a
 `torch.distributed` process group (`parallel/mesh.py`) the models are
@@ -248,8 +250,9 @@ def graph_engages(device: torch.device, distributed: bool, plain: bool,
 
 
 def _launch_counters():
-    """The kernel modules' launch counter dicts a step adds to."""
-    return (fused_mlp.launch_counts, gather.launch_counts, vg.build_counts)
+    """The counter dicts a step adds to: the kernel modules' launches, the
+    corner-table builds and their cells."""
+    return (fused_mlp.launch_counts, gather.launch_counts, vg.build_counts, vg.table_counts)
 
 
 class _StepGraph:
@@ -631,16 +634,20 @@ class ObjectNeRFSystem:
                                         voxel_raw=voxel_raw, dtype=self.settings.matmul_dtype,
                                         packed=packed)
 
-            self.voxel_topo = vg.prune_empty_voxels(
-                features.detach(), self.voxel_topo, self.voxel_static, sigma_fn,
-                generator=self.generator, samples_per_voxel=spv,
-                voxel_batch=int(cfg.get("prune_voxel_batch", 256)))
-            mesh.broadcast_tensors(self.voxel_topo)
+            with trace.span("voxel.prune"):
+                before = int(self.voxel_topo.n_occupied)
+                self.voxel_topo = vg.prune_empty_voxels(
+                    features.detach(), self.voxel_topo, self.voxel_static, sigma_fn,
+                    generator=self.generator, samples_per_voxel=spv,
+                    voxel_batch=int(cfg.get("prune_voxel_batch", 256)))
+                mesh.broadcast_tensors(self.voxel_topo)
+            trace.count("voxel.pruned", before - int(self.voxel_topo.n_occupied))
         if epoch == 5:
-            feats, self.voxel_topo, self.voxel_static = vg.subdivide_voxels(
-                features.detach(), self.voxel_topo, self.voxel_static)
-            with torch.no_grad():
-                features.copy_(feats)
+            with trace.span("voxel.subdivide"):
+                feats, self.voxel_topo, self.voxel_static = vg.subdivide_voxels(
+                    features.detach(), self.voxel_topo, self.voxel_static)
+                with torch.no_grad():
+                    features.copy_(feats)
 
     def render_image(self, np_batch, chunk: int = 4096) -> Dict[str, np.ndarray]:
         """Render a whole-image batch at eval settings; returns host arrays."""

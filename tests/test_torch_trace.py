@@ -19,7 +19,7 @@ from object_nerf_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COUNTER_DICTS = (fused_mlp.launch_counts, gather.launch_counts, probes.launch_counts,
-                 vg.build_counts)
+                 vg.build_counts, vg.table_counts)
 
 
 def _spans(bucket="off"):
@@ -190,13 +190,22 @@ PER_UNIT = {
     # and 2 lookups a set and chunk: their count follows the mixed chunks (below)
     "voxel-edit": {"edit.frame": 1, "edit.rays": 1, "edit.compact": 1, "edit.upload": 1,
                    "edit.fetch": 1, "render.multi_joint": 6, "voxel.table": 1},
+    # the epoch hooks ran in set-up, before the window's reset
+    "voxel-train-subdivided": {"train.step": 1, "train.backward": 1, "train.optim": 2,
+                               "voxel.table": 1, "voxel.lookup": 2, "voxel.table_grad": 1},
 }
 UNIT = {"voxel-train": "train.step", "pe-train": "train.step", "voxel-render": "render.frame",
         "pe-edit": "edit.frame", "voxel-route-render": "render.frame",
-        "pe-render": "render.frame", "voxel-edit": "edit.frame"}
+        "pe-render": "render.frame", "voxel-edit": "edit.frame",
+        "voxel-train-subdivided": "train.step"}
 # a CPU run has no CUDA events: the stream readers stay silent there
 STREAM_READERS = {"voxel_stream_ms.render", "route_coarse_ms.route", "voxel_stream_ms.edit",
                   "multi_joint_ms.edit"}
+# the subdivided room's 887,095-cell table and three prunes cost the CPU several
+# times a `voxel-train` run: its traced run takes a room of 0.2 m voxels (the
+# spans a step opens are the same) and 8 prune samples a voxel
+COARSE = {"voxel-train-subdivided": {"scene": {"voxel_size": 0.2},
+                                     "train": {"prune_samples_per_voxel": 8}}}
 RUN = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -204,9 +213,11 @@ from benchmark import run
 from benchmark.tests.conftest import SMALL
 from object_nerf_torch.utils import trace
 run.TRACE_SECONDS = 0.25
+coarse = json.loads(sys.argv[2])
 out = {}
-for cell in sys.argv[2:]:
-    rc, line = run.run_cell(cell, 2**31 + 7, 0.3, True, device="cpu", overrides=SMALL)
+for cell in sys.argv[3:]:
+    over = {"config": {**SMALL["config"], **coarse.get(cell, {})}, "traffic": SMALL["traffic"]}
+    rc, line = run.run_cell(cell, 2**31 + 7, 0.3, True, device="cpu", overrides=over)
     t = trace.totals()
     out[cell] = {"rc": rc, "line": json.loads(line), "counters": t["counters"],
                  "counts": {b: {n: s["count"] for n, s in v.items()}
@@ -218,9 +229,12 @@ print("RESULT " + json.dumps(out))
 @pytest.fixture(scope="module")
 def traced_runs():
     """A traced run of every cell at the benchmark tests' small size, in a
-    fresh process (the benchmark refuses to run beside JAX)."""
-    out = subprocess.run([sys.executable, "-c", RUN, ROOT] + CELLS, capture_output=True,
-                         text=True, timeout=600, cwd=ROOT)
+    fresh process (the benchmark refuses to run beside JAX) on one thread:
+    beside the suite's other workers, threads that wait on each other's
+    barriers made the runs several times slower."""
+    out = subprocess.run([sys.executable, "-c", RUN, ROOT, json.dumps(COARSE)] + CELLS,
+                         capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.split("RESULT ", 1)[1])
 
@@ -368,3 +382,111 @@ def test_the_graph_counters_are_kept_at_zero_where_no_step_replays():
     trace.reset()
     counters = trace.totals()["counters"]
     assert counters["train.graph_replays"] == 0 and counters["train.graph_captures"] == 0
+
+
+# -- the epoch hooks' spans and the corner table's cells ------------------------------
+
+
+def _voxel_system(tmp_path):
+    """A small voxel system on the CPU under the progressive schedule: a
+    seeded cloud of 400 points at 0.4 m voxels, narrow MLPs, 8 prune samples,
+    the fine sigma bias raised so that a prune keeps some voxels and drops
+    most."""
+    from object_nerf_torch.config import load_config
+    from object_nerf_torch.data import dataset_dict
+    from object_nerf_torch.data.ply_io import write_ply
+    from object_nerf_torch.train.system import ObjectNeRFSystem
+
+    write_ply(str(tmp_path / "pcd.ply"),
+              np.random.RandomState(0).rand(400, 3) * [2.4, 2.4, 1.2] - [1.2, 1.2, 0.2])
+    cfg = load_config(cli_args=[
+        f"dataset_config={os.path.join(ROOT, 'config/synthetic.yml')}", "img_wh=[8,6]",
+        "device=cpu", "model.use_voxel_embedding=true", "model.N_freq_voxel=2",
+        "model.N_max_voxels=20000", f"dataset_extra.pcd_path={tmp_path / 'pcd.ply'}",
+        "dataset_extra.voxel_size=0.4", "dataset_extra.neighbor_marks=3", "model.D=2",
+        "model.W=32", "model.skips=[1]", "model.inst_D=2", "model.inst_W=16",
+        "model.inst_skips=[1]", "model.N_max_objs=8", "model.N_obj_code_length=8",
+        "model.N_samples=8", "model.N_importance=4", "train.batch_size=32",
+        "train.progressive_train=true", "train.prune_samples_per_voxel=8",
+        "train.prune_voxel_batch=64"])
+    system = ObjectNeRFSystem(cfg, dataset=dataset_dict["synthetic"](
+        "train", n_frames=2, img_wh=(8, 6), dataset_extra=cfg.dataset_extra), device="cpu")
+    with torch.no_grad():
+        system.models.nerf_fine.sigma.bias += 0.5
+    return system
+
+
+def test_the_epoch_hooks_open_their_spans_and_count_the_pruned(tmp_path):
+    """`voxel.prune` at every epoch > 2, `voxel.subdivide` at epoch 5, and
+    `voxel.pruned` the voxels the prunes dropped."""
+    system = _voxel_system(tmp_path)
+    n0 = int(system.voxel_topo.n_occupied)
+    trace.reset()
+    for epoch in range(3):
+        system.on_epoch_start(epoch)
+    assert _spans() == {} and "voxel.pruned" not in trace.totals()["counters"]
+    for epoch in (3, 4):
+        system.on_epoch_start(epoch)
+    n1 = int(system.voxel_topo.n_occupied)
+    assert 0 < n1 < n0
+    assert trace.totals()["counters"]["voxel.pruned"] == n0 - n1
+    system.on_epoch_start(5)
+    spans = _spans()
+    assert spans["voxel.prune"]["count"] == 3 and spans["voxel.subdivide"]["count"] == 1
+    dropped = n0 - n1 + (n1 - int(system.voxel_topo.n_occupied) // 8)
+    assert trace.totals()["counters"]["voxel.pruned"] == dropped
+    assert spans["voxel.subdivide"]["host_s"] > 0
+
+
+def test_a_step_counts_its_corner_tables_cells_before_and_after_a_subdivision(tmp_path):
+    """`voxel.table_cells` adds (X+1)(Y+1)(Z+1) for each eager step's table,
+    on the coarse grid and on the subdivided one, and stays out of the
+    launch counters that `launches_per_step.train` sums."""
+    from benchmark import common
+    from benchmark.metrics import launches_per_step
+
+    system = _voxel_system(tmp_path)
+    X, Y, Z = system.voxel_static.shape
+    sums = []
+    for epoch, cells in ((None, (X + 1) * (Y + 1) * (Z + 1)),
+                         (5, (2 * X + 1) * (2 * Y + 1) * (2 * Z + 1))):
+        if epoch is not None:
+            system.on_epoch_start(epoch)
+        trace.reset()
+        for _ in range(2):
+            system.training_step(system.train_dataset.sample_batch(32, system.batch_rng))
+        assert trace.totals()["counters"]["voxel.table_cells"] == 2 * cells
+        counters = common.program_counters()
+        assert "voxel.table_cells" not in counters
+        sums.append(launches_per_step.read(harness.Reading(
+            "train", None, {}, 2, 1.0, 1.0, 1.0, 1.0, counters)))
+    # on the CPU the kernels' plain versions launch nothing: one table build a step
+    assert sums == [1.0, 1.0]
+
+
+@pytest.mark.parametrize("cells", [None, 0, 887095])
+def test_table_cells_reads_the_counter_over_the_steps(monkeypatch, cells):
+    """`table_cells`: None where the program keeps no such counter, else the
+    counter over the steps of both buckets."""
+    from benchmark.metrics import table_cells
+
+    counters = {} if cells is None else {"voxel.table_cells": 5 * cells}
+    stub = {"counters": counters, "spans": {"off": {"train.step": {"count": 4}},
+                                            "on": {"train.step": {"count": 1}}}}
+    monkeypatch.setattr(table_cells, "totals", lambda: stub)
+    assert table_cells.read(None) == (None if cells is None else cells)
+
+
+def test_voxel_table_ms_reads_the_table_kernels_a_step():
+    """`voxel_table_ms`: the device seconds of the listed kernels and of any
+    kernel named for the table, in ms a step of the traced slice; None
+    without a trace."""
+    from benchmark.metrics import voxel_table_ms
+
+    listed = voxel_table_ms.KERNELS[0] if voxel_table_ms.KERNELS else "corner_table_kernel"
+    kernel_s = {listed: 0.004, "my_table_scatter": 0.002, "mlp_bwd_kernel": 0.5}
+    tr = harness.Trace(window_s=2.0, busy_s=1.5, units=4, kernel_s=kernel_s, idle={})
+    r = harness.Reading("train", None, {}, 4, 2.0, 1.0, 1.0, 1.0, {}, trace=tr)
+    assert voxel_table_ms.read(r) == pytest.approx(1e3 * 0.006 / 4)
+    r.trace = None
+    assert voxel_table_ms.read(r) is None

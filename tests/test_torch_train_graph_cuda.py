@@ -267,6 +267,33 @@ def test_launches_per_step_are_the_same_on_both_paths(cuda_device, kind):
 
 
 @pytest.mark.cuda
+def test_a_replay_adds_the_captures_table_cells(cuda_device):
+    """`voxel.table_cells` over four replays is four times the captured
+    table's (X+1)(Y+1)(Z+1) cells, before and after a subdivision (whose new
+    grid captures anew)."""
+    settings, models, topo, static = _model("voxel", cuda_device)
+    step = system.make_train_step(settings, LOSS_W,
+                                  optim.make_optimizer(TRAIN, models.parameters()))
+    inputs = _inputs(settings, cuda_device, (N,) * 6)
+    for subdivide in (False, True):
+        if subdivide:
+            feats, topo, static = vg.subdivide_voxels(models.voxel_features.detach(), topo,
+                                                      static)
+            with torch.no_grad():
+                models.voxel_features.copy_(feats)
+        X, Y, Z = static.shape
+        for batch, draws in inputs[:2]:  # eager, then the capture
+            step(models, batch, draws=draws, voxel_topo=topo, voxel_static=static)
+        trace.reset()
+        for batch, draws in inputs[2:]:
+            step(models, batch, draws=draws, voxel_topo=topo, voxel_static=static)
+        assert system.graph_counts["train.graph_replays"] == 4
+        assert vg.table_counts["voxel.table_cells"] == 4 * (X + 1) * (Y + 1) * (Z + 1)
+        assert vg.build_counts["corner_table"] == 4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_adam_on_the_card_keeps_its_step_there_and_a_restore_round_trips(cuda_device):
     """`make_optimizer` over CUDA parameters: capturable Adam with a 0-d
     rate tensor on the card. Its state dict, saved and read onto the host as
